@@ -1,0 +1,73 @@
+"""Carry state between the JAX package and the port, through numpy.
+
+The JAX package's arrays arrive as numpy arrays (``np.asarray(x)``), its
+``_FlatState`` as a dict of arrays (``state._asdict()``), its ``Params`` as
+a field dict (``dataclasses.asdict(params)``). These functions turn them
+into the port's tensors and back, so both packages can be fed the same
+storage and lane states. bfloat16 arrays (ml_dtypes) pass through float32.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict
+
+import numpy as np
+import torch
+
+from clipper_tpu_torch.solvers.msrc_flat import _FlatState
+from clipper_tpu_torch.types import Params, Rounding
+
+_INT_FIELDS = ("lsk", "j", "i", "stall", "ticks", "nback")
+
+
+def to_torch(a, device="cpu") -> torch.Tensor:
+    """A numpy (or JAX-as-numpy) array as a tensor of the same dtype."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.astype(np.float32)).to(
+            device=device, dtype=torch.bfloat16)
+    return torch.from_numpy(np.array(a, copy=True)).to(device)
+
+
+def to_numpy(x: torch.Tensor) -> np.ndarray:
+    """A tensor as numpy; bfloat16 comes back as float32."""
+    x = x.detach().cpu()
+    if x.dtype == torch.bfloat16:
+        x = x.float()
+    return x.numpy()
+
+
+def tri_to_torch(tri, device="cpu") -> torch.Tensor:
+    """(W, 2t, S) flat-triangle storage."""
+    return to_torch(tri, device).contiguous()
+
+
+def state_to_torch(state: Dict[str, np.ndarray], device="cpu") -> _FlatState:
+    """A batched _FlatState given as a dict of (B, ...) arrays."""
+    fields = {}
+    for name in _FlatState._fields:
+        x = to_torch(state[name], device)
+        if name in _INT_FIELDS:
+            x = x.to(torch.int32)
+        elif name == "done":
+            x = x.to(torch.bool)
+        fields[name] = x
+    return _FlatState(**fields)
+
+
+def state_to_numpy(state: _FlatState) -> Dict[str, np.ndarray]:
+    return {name: to_numpy(getattr(state, name))
+            for name in _FlatState._fields}
+
+
+def params_from_dict(d: Dict) -> Params:
+    d = dict(d)
+    d["rounding"] = Rounding(int(d["rounding"]))
+    return Params(**d)
+
+
+def params_to_dict(p: Params) -> Dict:
+    d = dataclasses.asdict(p)
+    d["rounding"] = int(p.rounding)
+    return d

@@ -1,0 +1,304 @@
+"""Flat row-major triangle storage: the pool engine's half-traffic layout.
+
+Counterpart of ``clipper_tpu/ops/flattri.py`` (:51-149, :152-245,
+:428-460, :463-564, :658-680). M and C are symmetric, so only the upper
+triangle TILES of [M; C] are stored, packed per problem as one (2t, S)
+array with S = t * nt (nt + 1) / 2:
+
+    row-block r's tiles (r, r), (r, r+1), ..., (r, nt-1) occupy the
+    contiguous column span [off_r * t, (off_r + nt - r) * t) with
+    off_r = r * nt - r (r - 1) / 2.
+
+Rows 0:t hold the M tiles, rows t:2t the C tiles.
+
+Two functions carry the main path, each a wrapper around a hand-written
+CUDA kernel (csrc/) with a plain PyTorch version beside it:
+
+- :func:`make_tri_pool_matvec` -> csrc/tri_matvec.cu, every solver tick;
+- :func:`build_tri` -> csrc/tri_build.cu, once per problem.
+
+A wrapper launches its kernel for CUDA tensors and takes the plain version
+only for CPU tensors; a failed build or launch raises.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from clipper_tpu_torch import _kernels
+from clipper_tpu_torch.invariants.base import PairwiseInvariant
+from clipper_tpu_torch.invariants.euclidean import EuclideanDistance
+from clipper_tpu_torch.ops.affinity import (pairwise_from_endpoints,
+                                            stored_from_endpoints)
+from clipper_tpu_torch.solvers.msrc_flat import _INT8_SCALE
+
+# candidate rows one kernel launch takes (the mma A-tile height)
+_KERNEL_ROWS = 16
+
+
+def tri_tile_offsets(nt: int) -> list:
+    """off_r (in tiles) of row-block r's segment in the flat layout."""
+    return [r * nt - r * (r - 1) // 2 for r in range(nt)]
+
+
+def tri_ncols(nt: int, t: int) -> int:
+    """S: total flat columns = t * (number of upper-triangle tiles)."""
+    return t * (nt * (nt + 1) // 2)
+
+
+def tri_coords(nt: int) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Per-tile (r, c, off) arrays in flat storage order (row-major)."""
+    rs, cs, offs = [], [], []
+    off = 0
+    for r in range(nt):
+        for c in range(r, nt):
+            rs.append(r)
+            cs.append(c)
+            offs.append(off)
+            off += 1
+    return (np.asarray(rs, np.int32), np.asarray(cs, np.int32),
+            np.asarray(offs, np.int32))
+
+
+def repack_stacked(MC: torch.Tensor, t: int) -> torch.Tensor:
+    """Dense stacked (..., 2m, m) [M; C] -> flat triangle (..., 2t, S)."""
+    two_m, m = MC.shape[-2:]
+    if two_m != 2 * m or m % t:
+        raise ValueError(f"need stacked (..., 2m, m) with t | m; got "
+                         f"{tuple(MC.shape)}, t={t}")
+    nt = m // t
+    segs = []
+    for r in range(nt):
+        Mseg = MC[..., r * t:(r + 1) * t, r * t:]
+        Cseg = MC[..., m + r * t:m + (r + 1) * t, r * t:]
+        segs.append(torch.cat([Mseg, Cseg], dim=-2))
+    return torch.cat(segs, dim=-1).contiguous()
+
+
+def _dtypes(storage: torch.dtype):
+    """(compute dtype of u, accumulation dtype, output scale) for a
+    storage dtype: int8 and bf16 contract in bf16 and accumulate in f32,
+    f64 accumulates in f64."""
+    is_int8 = storage == torch.int8
+    cdt = torch.bfloat16 if is_int8 else storage
+    acc = torch.float64 if storage == torch.float64 else torch.float32
+    return cdt, acc, (1.0 / _INT8_SCALE if is_int8 else 1.0)
+
+
+def _seg_matvec_lane(rows: torch.Tensor, U: torch.Tensor, nt: int, t: int):
+    """Every lane's (M u, C u) from its gathered (B, 2t, S) triangle, as
+    segment products: forward over tiles r..nt-1 of each row block, plus
+    the transposed product of every strictly-upper tile. rows and U
+    (B, K, m) are in the accumulation dtype. Returns (accM, accC), each
+    (B, K, m)."""
+    B, K, m = U.shape
+    offs = tri_tile_offsets(nt)
+    accM = torch.zeros(B, K, m, dtype=U.dtype, device=U.device)
+    accC = torch.zeros_like(accM)
+    for r in range(nt):
+        L = nt - r
+        c0 = offs[r] * t
+        seg = rows[:, :, c0:c0 + L * t]                     # (B, 2t, L t)
+        P = torch.bmm(U[:, :, r * t:], seg.transpose(1, 2))  # (B, K, 2t)
+        accM[:, :, r * t:(r + 1) * t] += P[:, :, :t]
+        accC[:, :, r * t:(r + 1) * t] += P[:, :, t:]
+        if L > 1:
+            u_r = U[:, :, r * t:(r + 1) * t]
+            accM[:, :, (r + 1) * t:] += torch.bmm(u_r, seg[:, :t, t:])
+            accC[:, :, (r + 1) * t:] += torch.bmm(u_r, seg[:, t:, t:])
+    return accM, accC
+
+
+def tri_pool_matvec_plain(tri: torch.Tensor, nt: int, idx: torch.Tensor,
+                          U: torch.Tensor, out_dtype: torch.dtype):
+    """Plain PyTorch version of the tri matvec (counterpart of the JAX
+    package's make_tri_pool_matvec_xla): gathers each lane's triangle and
+    contracts. U (B, K, m) -> (MU, CU) each (B, K, m) in out_dtype.
+
+    int8 and bf16 codes and bf16 u are exact in TF32, so on the card only
+    f32 storage depends on torch.backends.cuda.matmul.allow_tf32; it
+    raises there when TF32 is on rather than change the flag."""
+    t = tri.shape[1] // 2
+    cdt, acc, scale = _dtypes(tri.dtype)
+    if (tri.is_cuda and tri.dtype == torch.float32
+            and torch.backends.cuda.matmul.allow_tf32):
+        raise RuntimeError(
+            "tri_pool_matvec_plain: f32 storage on the card needs "
+            "torch.backends.cuda.matmul.allow_tf32 = False")
+    rows = tri[idx.long()].to(acc)
+    Uc = U.to(cdt).to(acc)
+    accM, accC = _seg_matvec_lane(rows, Uc, nt, t)
+    s = torch.tensor(scale, dtype=acc)
+    return (accM * s).to(out_dtype), (accC * s).to(out_dtype)
+
+
+def tri_pool_matvec_cuda(tri: torch.Tensor, nt: int, idx: torch.Tensor,
+                         U: torch.Tensor, out_dtype: torch.dtype):
+    """Launch csrc/tri_matvec.cu: U (B, K, m) on the card -> (MU, CU)."""
+    P, two_t, S = tri.shape
+    t = two_t // 2
+    m = nt * t
+    B, K, _ = U.shape
+    cdt, acc, scale = _dtypes(tri.dtype)
+    if tri.dtype not in (torch.int8, torch.float32, torch.float64):
+        raise NotImplementedError(
+            f"tri matvec kernel takes int8/f32/f64 storage, not {tri.dtype}")
+    if tri.dtype == torch.int8 and t not in (128, 256):
+        raise NotImplementedError(f"int8 tri matvec kernel needs t in "
+                                  f"(128, 256), got {t}")
+    if not (tri.is_cuda and idx.is_cuda and U.is_cuda
+            and tri.is_contiguous()):
+        raise ValueError("tri matvec kernel: storage, idx and U must lie on "
+                         "the card, the storage contiguous")
+    lib = _kernels.lib("tri_matvec")
+    idx32 = idx.to(torch.int32).contiguous()
+    Uc = U.to(cdt).contiguous()
+    out = torch.empty(B, K, 2 * m, dtype=acc, device=tri.device)
+    stream = _kernels.stream_ptr(tri.device)
+    for k0 in range(0, K, _KERNEL_ROWS):
+        k1 = min(K, k0 + _KERNEL_ROWS)
+        Uk = Uc[:, k0:k1].contiguous()
+        ok = out[:, k0:k1] if (k0, k1) == (0, K) else torch.empty(
+            B, k1 - k0, 2 * m, dtype=acc, device=tri.device)
+        args = (tri.data_ptr(), idx32.data_ptr(), Uk.data_ptr(),
+                ok.data_ptr(), B, k1 - k0, nt, t, S)
+        if tri.dtype == torch.int8:
+            code = lib.tri_matvec_int8(*args, scale, stream)
+        elif tri.dtype == torch.float32:
+            code = lib.tri_matvec_f32(*args, stream)
+        else:
+            code = lib.tri_matvec_f64(*args, stream)
+        _kernels.check(code, "tri_matvec")
+        _kernels.LAUNCHES["tri_matvec"] += 1
+        if ok.data_ptr() != out.data_ptr():
+            out[:, k0:k1] = ok
+    out = out.to(out_dtype)
+    return out[:, :, :m], out[:, :, m:]
+
+
+def make_tri_pool_matvec(tri: torch.Tensor, nt: int, out_dtype: torch.dtype):
+    """Batched per-lane dual matvec over (P, 2t, S) flat-triangle storage.
+
+    Returns ``bmv(idx, U) -> (MU, CU)`` with idx (B,) lane -> pool row and
+    U (B, m) (one row per lane) or (B, K, m) (K multiprobe candidates per
+    lane); outputs match U's shape. CUDA storage launches the kernel, CPU
+    storage takes the plain version.
+    """
+    P, two_t, S = tri.shape
+    t = two_t // 2
+    if S != tri_ncols(nt, t):
+        raise ValueError(f"storage has {S} columns; nt={nt}, t={t} needs "
+                         f"{tri_ncols(nt, t)}")
+    fn = tri_pool_matvec_cuda if tri.is_cuda else tri_pool_matvec_plain
+
+    def bmv(idx, U):
+        mp = U.dim() == 3
+        MU, CU = fn(tri, nt, idx, U if mp else U[:, None, :], out_dtype)
+        return (MU, CU) if mp else (MU[:, 0], CU[:, 0])
+
+    return bmv
+
+
+def build_tri_plain(invariant: PairwiseInvariant, P1s, P2s, As, m_trues, *,
+                    t: int = 256, affinityeps: float = 1e-4,
+                    storage_dtype=torch.int8, chunk: int = 64):
+    """Plain PyTorch version of the build (counterpart of the JAX package's
+    build_tri_xla): dense direct-to-storage [M; C] per problem, repacked to
+    (W, 2t, S). P1s/P2s (W, m, d) gathered endpoints, As (W, m, 2),
+    m_trues (W,). storage_dtype=None keeps the working precision. Problems
+    go ``chunk`` at a time to bound the dense intermediates."""
+    W = P1s.shape[0]
+    mts = torch.as_tensor(m_trues, device=As.device)
+    parts = []
+    for s in range(0, W, chunk):
+        sl = slice(s, s + chunk)
+        if storage_dtype is None:
+            M, C = pairwise_from_endpoints(
+                invariant, P1s[sl], P2s[sl], As[sl],
+                affinityeps=affinityeps, m_true=mts[sl])
+            MC = torch.cat([M, C], dim=-2)
+        else:
+            MC = stored_from_endpoints(
+                invariant, P1s[sl], P2s[sl], As[sl],
+                affinityeps=affinityeps, m_true=mts[sl],
+                storage_dtype=storage_dtype)
+        parts.append(repack_stacked(MC, t))
+    return torch.cat(parts) if len(parts) > 1 else parts[0]
+
+
+def build_tri_cuda(invariant: PairwiseInvariant, P1s, P2s, As, m_trues, *,
+                   t: int = 256, affinityeps: float = 1e-4,
+                   storage_dtype=torch.int8):
+    """Launch csrc/tri_build.cu: (W, 2t, S) int8 storage on the card."""
+    if not isinstance(invariant, EuclideanDistance):
+        raise NotImplementedError(
+            "the CUDA tri build is specific to EuclideanDistance; build "
+            f"{type(invariant).__name__} on the CPU (ROADMAP.md Queue 2)")
+    if storage_dtype != torch.int8:
+        raise NotImplementedError(
+            f"the CUDA tri build writes int8 storage, not {storage_dtype}")
+    W, m, d = P1s.shape
+    if not (P1s.is_cuda and P2s.is_cuda and As.is_cuda):
+        raise ValueError("tri build kernel: inputs must lie on the card")
+    if d != 3 or P1s.dtype != torch.float32 or P2s.dtype != torch.float32:
+        raise ValueError("tri build kernel takes (W, m, 3) float32 endpoints")
+    if m % t or t > 256:
+        raise ValueError(f"tri build kernel needs t <= 256 dividing m; "
+                         f"got m={m}, t={t}")
+    nt = m // t
+    S = tri_ncols(nt, t)
+    p = invariant.params
+    P1c = P1s.contiguous()
+    P2c = P2s.contiguous()
+    Ac = As.to(torch.int32).contiguous()
+    mts = torch.as_tensor(m_trues, device=P1s.device).to(
+        torch.int32).contiguous()
+    out = torch.empty(W, 2 * t, S, dtype=torch.int8, device=P1s.device)
+    code = _kernels.lib("tri_build").tri_build_int8(
+        P1c.data_ptr(), P2c.data_ptr(), Ac.data_ptr(), mts.data_ptr(),
+        out.data_ptr(), W, m, t, S, float(p.sigma * p.sigma),
+        float(p.epsilon), float(affinityeps), float(p.mindist),
+        _kernels.stream_ptr(P1s.device))
+    _kernels.check(code, "tri_build")
+    _kernels.LAUNCHES["tri_build"] += 1
+    return out
+
+
+def build_tri(invariant: PairwiseInvariant, P1s, P2s, As, m_trues, *,
+              t: int = 256, affinityeps: float = 1e-4,
+              storage_dtype=torch.int8):
+    """Batched fused build into flat-triangle storage (counterpart of the
+    JAX package's build_tri_pallas): one upper tile's scores, masks and
+    quantization per kernel block. CUDA inputs launch the kernel, CPU
+    inputs take the plain version."""
+    fn = build_tri_cuda if P1s.is_cuda else build_tri_plain
+    return fn(invariant, P1s, P2s, As, m_trues, t=t,
+              affinityeps=affinityeps, storage_dtype=storage_dtype)
+
+
+def dense_stacked(tri: torch.Tensor, nt: int) -> torch.Tensor:
+    """Flat triangle (..., 2t, S) -> dense stacked (..., 2m, m) [M; C]:
+    the inverse of :func:`repack_stacked` (both triangles filled)."""
+    t = tri.shape[-2] // 2
+    m = nt * t
+    out = torch.zeros(tri.shape[:-2] + (2 * m, m), dtype=tri.dtype,
+                      device=tri.device)
+    rs, cs, offs = tri_coords(nt)
+    for r, c, off in zip(rs.tolist(), cs.tolist(), offs.tolist()):
+        blk = tri[..., :, off * t:(off + 1) * t]
+        for h in range(2):
+            tile = blk[..., h * t:(h + 1) * t, :]
+            out[..., h * m + r * t:h * m + (r + 1) * t, c * t:(c + 1) * t] = tile
+            if r != c:
+                out[..., h * m + c * t:h * m + (c + 1) * t,
+                    r * t:(r + 1) * t] = tile.transpose(-1, -2)
+    return out
+
+
+__all__ = ["tri_tile_offsets", "tri_ncols", "tri_coords", "repack_stacked",
+           "tri_pool_matvec_plain", "tri_pool_matvec_cuda",
+           "make_tri_pool_matvec", "build_tri_plain", "build_tri_cuda",
+           "build_tri", "dense_stacked"]

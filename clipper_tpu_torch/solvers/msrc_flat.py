@@ -1,0 +1,298 @@
+"""Flattened MSRC solver: a per-lane state machine for batched solves.
+
+Counterpart of the main-path subset of ``clipper_tpu/solvers/msrc_flat.py``
+(:44-336, :389-530, :748). One tick is one line-search probe (one dual
+matvec M u, C u); every lane carries its own (outer i, inner j, line-search
+k, alpha, d) state and transitions independently (reference:
+src/clipper.cpp:218-281). Where the JAX package vmapped a per-lane
+function, every function here takes the lanes as a leading (B, ...)
+dimension: u is (B, m), scalars are (B,), multiprobe candidates (B, K, m).
+
+``batch_dual(idx, U)`` is any batched dual matvec returning (M U, C U) of
+U's shape for lanes reading pool problems ``idx`` (ops/flattri.py).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from clipper_tpu_torch.solvers import msrc
+from clipper_tpu_torch.types import Params
+
+# int8 affinity quantization scale: M in [0, 1] and C in {0, 1} are stored
+# as round(127 * [M; C]); one 1/127 output scale dequantizes both halves.
+_INT8_SCALE = 127.0
+
+
+class _FlatState(NamedTuple):
+    u: torch.Tensor        # (B, m) accepted iterate
+    gradF: torch.Tensor    # (B, m) gradient at u for current d
+    F: torch.Tensor        # (B,) objective at u
+    d: torch.Tensor        # (B,) homotopy penalty
+    alpha: torch.Tensor    # (B,) line-search step size
+    lsk: torch.Tensor      # (B,) int32 line-search iteration k
+    j: torch.Tensor        # (B,) int32 inner iteration count
+    i: torch.Tensor        # (B,) int32 outer iteration count
+    done: torch.Tensor     # (B,) bool lane finished
+    stall: torch.Tensor    # (B,) int32 consecutive frozen-u outers
+    ticks: torch.Tensor    # (B,) int32 diagnostic probe count
+    nback: torch.Tensor    # (B,) int32 diagnostic rejected-probe count
+
+
+def _norm(x: torch.Tensor) -> torch.Tensor:
+    return torch.linalg.vector_norm(x, dim=-1, keepdim=True)
+
+
+def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return (a * b).sum(-1)
+
+
+def _grad_from_mv(u, d, Mu, Cu):
+    """gradF = (M + I) u - d Cb u with Cb u = 1 sum(u) - C u - u: the
+    cancellation-free form of the reference's gradient (clipper.cpp:219).
+    d has one entry per row of u (shape u.shape[:-1])."""
+    return (Mu + u) - d[..., None] * (u.sum(-1, keepdim=True) - Cu - u)
+
+
+def _d_terms(u, Mu, Cu, params: Params, dtype):
+    """Activity mask and d-update ratios (reference: clipper.cpp:202-209)."""
+    su = u.sum(-1, keepdim=True)
+    Cbu = su - Cu - u
+    eps_d = msrc._eps_active(params.eps, su, dtype)
+    idxD = (Cbu > eps_d) & (u > params.eps)
+    ratio = (Mu + u) / torch.where(idxD, Cbu, 1.0)
+    return idxD, ratio
+
+
+def _init_rescale(u0, Mu0, params: Params):
+    """The init's one power step (reference: clipper.cpp:193-198)."""
+    u = Mu0 + u0 if params.rescale_u0 else u0
+    return u / _norm(u)
+
+
+def _init_from_mv(u, Mu, Cu, params: Params, dtype) -> _FlatState:
+    """Initial (B, ...) state from the rescaled iterates' matvec."""
+    idxD, ratio = _d_terms(u, Mu, Cu, params, dtype)
+    d0 = torch.where(idxD.any(-1), msrc._masked_mean(ratio, idxD),
+                     0.0).to(dtype)
+    gradF0 = _grad_from_mv(u, d0, Mu, Cu)
+    F0 = _dot(u, gradF0)
+    B = u.shape[0]
+    dev = u.device
+
+    def zi():
+        return torch.zeros(B, dtype=torch.int32, device=dev)
+
+    return _FlatState(u=u, gradF=gradF0, F=F0, d=d0,
+                      alpha=torch.ones(B, dtype=dtype, device=dev),
+                      lsk=zi(), j=zi(), i=zi(),
+                      done=torch.zeros(B, dtype=torch.bool, device=dev),
+                      stall=zi(), ticks=zi(), nback=zi())
+
+
+def power_init_batched(batch_dual, idx, U0, steps: int):
+    """``steps`` power iterations v <- normalize((M + I) v) on every lane,
+    one batched matvec each (an init strategy; steps=0 is the reference)."""
+    V = U0
+    for _ in range(steps):
+        MV, _ = batch_dual(idx, V)
+        W = MV + V
+        V = W / _norm(W)
+    return V
+
+
+def flat_init_batched(batch_dual, idx, U0,
+                      params: Params = Params()) -> _FlatState:
+    """Initial lane states (reference: clipper.cpp:193-209)."""
+    dtype = U0.dtype
+    MU0, _ = batch_dual(idx, U0)
+    U = _init_rescale(U0, MU0, params)
+    MU, CU = batch_dual(idx, U)
+    return _init_from_mv(U, MU, CU, params, dtype)
+
+
+def _tick_probe(s: _FlatState) -> torch.Tensor:
+    """The tick's projected candidate (reference: clipper.cpp:235-237)."""
+    unew = torch.clamp(s.u + s.alpha[:, None] * s.gradF, min=0.0)
+    return unew / _norm(unew)
+
+
+def _where(c, a, b):
+    """Lane-wise select: c (B,) against (B, ...) operands."""
+    return torch.where(c.reshape(c.shape + (1,) * (a.dim() - 1)), a, b)
+
+
+def _outer_and_freeze(s: _FlatState, unew, Mu, Cu, gradFnew, Fnew, deltaF,
+                      accept, alpha_out, lsk_out, nback_add, params: Params,
+                      dtype, d_scale: float) -> _FlatState:
+    """The accept / inner / outer transitions shared by the single-probe
+    and multiprobe ticks (reference: clipper.cpp:253-280), then the freeze
+    of lanes that were already done."""
+    stall_guard = msrc._stall_guard_enabled(dtype)
+
+    deltau = torch.linalg.vector_norm(unew - s.u, dim=-1)
+    tol_u = msrc._eps_like(params.tol_u, 1.0, dtype)
+    tol_F = msrc._eps_like(params.tol_F, torch.abs(Fnew), dtype)
+    inner_conv = (deltau < tol_u) | (torch.abs(deltaF) < tol_F)
+    j_next = s.j + 1
+    inner_done = accept & (inner_conv | (j_next >= params.maxiniters))
+
+    idxD, ratio = _d_terms(unew, Mu, Cu, params, dtype)
+    active = idxD.any(-1)
+    deltad = msrc._masked_mean(torch.abs(ratio), idxD)
+    if d_scale != 1.0:
+        deltad = deltad * torch.tensor(d_scale, dtype=dtype)
+    d_new = s.d + deltad
+    i_next = torch.where(active, s.i + 1, s.i)
+    outer_exhausted = i_next >= params.maxoliters
+    lane_done = inner_done & (~active | outer_exhausted)
+
+    frozen = inner_done & (s.j == 0) & (deltau < tol_u)
+    stall_next = torch.where(inner_done,
+                             torch.where(frozen, s.stall + 1, 0), s.stall)
+    if stall_guard:
+        lane_done = lane_done | (inner_done & (stall_next >= msrc._STALL_OUTERS))
+
+    grad_refresh = _grad_from_mv(unew, d_new, Mu, Cu)
+    F_refresh = _dot(unew, grad_refresh)
+
+    take_outer = inner_done & active & ~outer_exhausted & ~lane_done
+
+    u_out = _where(accept, unew, s.u)
+    gradF_out = _where(take_outer, grad_refresh,
+                       _where(accept, gradFnew, s.gradF))
+    F_out = torch.where(take_outer, F_refresh,
+                        torch.where(accept, Fnew, s.F))
+    d_out = torch.where(take_outer, d_new, s.d)
+    j_out = torch.where(inner_done, 0, torch.where(accept, j_next, s.j))
+    i_out = torch.where(inner_done, i_next, s.i)
+
+    frz = s.done
+    i32 = torch.int32
+    return _FlatState(
+        u=_where(frz, s.u, u_out),
+        gradF=_where(frz, s.gradF, gradF_out),
+        F=torch.where(frz, s.F, F_out),
+        d=torch.where(frz, s.d, d_out),
+        alpha=torch.where(frz, s.alpha, alpha_out),
+        lsk=torch.where(frz, s.lsk, lsk_out).to(i32),
+        j=torch.where(frz, s.j, j_out).to(i32),
+        i=torch.where(frz, s.i, i_out).to(i32),
+        done=s.done | lane_done,
+        stall=torch.where(frz, s.stall, stall_next).to(i32),
+        ticks=torch.where(frz, s.ticks, s.ticks + 1).to(i32),
+        nback=torch.where(frz, s.nback, s.nback + nback_add).to(i32),
+    )
+
+
+def _tick_update(s: _FlatState, unew, Mu, Cu, params: Params, dtype,
+                 warm_alpha: bool = False,
+                 d_scale: float = 1.0) -> _FlatState:
+    """Everything after a single-probe tick's matvec (see the JAX module for
+    warm_alpha and d_scale; the defaults are the reference)."""
+    gradFnew = _grad_from_mv(unew, s.d, Mu, Cu)
+    Fnew = _dot(unew, gradFnew)
+    deltaF = Fnew - s.F
+
+    eps_ls = msrc._eps_like(params.eps, torch.abs(s.F), dtype)
+    backtrack = (deltaF < -eps_ls) & (s.lsk + 1 < params.maxlsiters)
+    accept = ~backtrack
+
+    if warm_alpha:
+        alpha_up = torch.clamp(s.alpha / params.beta, max=1.0)
+    else:
+        alpha_up = torch.ones_like(s.alpha)
+    alpha_out = torch.where(accept, alpha_up, s.alpha * params.beta)
+    lsk_out = torch.where(accept, 0, s.lsk + 1)
+    nback_add = torch.where(accept, 0, 1)
+    return _outer_and_freeze(s, unew, Mu, Cu, gradFnew, Fnew, deltaF,
+                             accept, alpha_out, lsk_out, nback_add, params,
+                             dtype, d_scale)
+
+
+def make_flat_tick_batched(batch_dual, params: Params, dtype,
+                           warm_alpha: bool = False, d_scale: float = 1.0):
+    """Batched single-probe tick: (idx, states) -> states, one batched
+    dual matvec over all lanes' candidates."""
+    def body(idx, ls: _FlatState) -> _FlatState:
+        U = _tick_probe(ls)
+        MU, CU = batch_dual(idx, U)
+        return _tick_update(ls, U, MU, CU, params, dtype, warm_alpha,
+                            d_scale)
+
+    return body
+
+
+def _mp_probe(s: _FlatState, K: int, beta: torch.Tensor):
+    """K backtracking candidates (B, K, m) and their alphas (B, K), built
+    by the reference's repeated alpha * beta (clipper.cpp:246-248)."""
+    a = s.alpha
+    alist = [a]
+    for _ in range(K - 1):
+        a = a * beta
+        alist.append(a)
+    alphas = torch.stack(alist, dim=-1)
+    U = torch.clamp(s.u[:, None, :] + alphas[..., None] * s.gradF[:, None, :],
+                    min=0.0)
+    return U / _norm(U), alphas
+
+
+def _mp_update(s: _FlatState, U, MU, CU, alphas, params: Params, dtype,
+               warm_alpha: bool = False,
+               d_scale: float = 1.0) -> _FlatState:
+    """Multiprobe tick tail: the first acceptable candidate of each lane
+    (reference: clipper.cpp:246-251), then the standard transitions."""
+    B, K, _ = U.shape
+    beta = torch.tensor(params.beta, dtype=dtype, device=U.device)
+    sU = U.sum(-1)
+    gradFnewK = (MU + U) - s.d[:, None, None] * (sU[..., None] - CU - U)
+    FnewK = (U * gradFnewK).sum(-1)
+    deltaFK = FnewK - s.F[:, None]
+
+    eps_ls = msrc._eps_like(params.eps, torch.abs(s.F), dtype)
+    pos = s.lsk[:, None] + torch.arange(K, dtype=s.lsk.dtype,
+                                        device=U.device)
+    ok = (deltaFK >= -eps_ls[:, None]) | (pos + 1 >= params.maxlsiters)
+    accept = ok.any(-1)
+    # torch.argmax refuses bool; on int it returns the FIRST maximal index,
+    # the candidate the JAX package picks
+    q = torch.argmax(ok.to(torch.int32), dim=-1)
+    lane = torch.arange(B, device=U.device)
+    unew = U[lane, q]
+    Mu_q = MU[lane, q]
+    Cu_q = CU[lane, q]
+    gradFnew = gradFnewK[lane, q]
+    Fnew = FnewK[lane, q]
+    deltaF = deltaFK[lane, q]
+
+    if warm_alpha:
+        alpha_up = torch.clamp(alphas[lane, q] / params.beta, max=1.0)
+    else:
+        alpha_up = torch.ones_like(s.alpha)
+    alpha_out = torch.where(accept, alpha_up, alphas[:, -1] * beta)
+    lsk_out = torch.where(accept, 0, s.lsk + K)
+    nback_add = torch.where(accept, q.to(torch.int32), K)
+    return _outer_and_freeze(s, unew, Mu_q, Cu_q, gradFnew, Fnew, deltaF,
+                             accept, alpha_out, lsk_out, nback_add, params,
+                             dtype, d_scale)
+
+
+def make_flat_tick_multiprobe_batched(batch_dual, params: Params, dtype,
+                                      probes: int, warm_alpha: bool = False,
+                                      d_scale: float = 1.0):
+    """Batched K-wide multiprobe tick: (idx, states) -> states. Each tick
+    evaluates K backtracking candidates per lane in ONE batched matvec
+    over (B, K, m) rows; the semantics are the sequential reference line
+    search evaluated K probes at a time."""
+    K = int(probes)
+
+    def body(idx, ls: _FlatState) -> _FlatState:
+        beta = torch.tensor(params.beta, dtype=dtype, device=ls.u.device)
+        U, alphas = _mp_probe(ls, K, beta)
+        MU, CU = batch_dual(idx, U)
+        return _mp_update(ls, U, MU, CU, alphas, params, dtype, warm_alpha,
+                          d_scale)
+
+    return body

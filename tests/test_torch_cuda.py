@@ -1,0 +1,123 @@
+"""The port's CUDA kernels: build plumbing, and kernel-vs-plain on a GPU.
+
+This file imports no JAX, so on a machine with a GPU and no JAX it runs
+without the suite's conftest:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+
+Tests marked ``cuda`` skip where torch.cuda.is_available() is false.
+"""
+
+import shutil
+
+import numpy as np
+import pytest
+import torch
+
+from clipper_tpu_torch import _kernels
+from clipper_tpu_torch.bench import harness
+from clipper_tpu_torch.ops import flattri
+from clipper_tpu_torch.ops.affinity import gather_endpoints
+from clipper_tpu_torch.parallel import pool
+from clipper_tpu_torch.types import Params
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _problems(W, m, seed):
+    rng = np.random.default_rng(seed)
+    pcd0 = harness.load_bunny().astype(np.float32)
+    probs = [harness.make_problem(pcd0, m, 0.9, rng) for _ in range(W)]
+    return (pcd0, np.stack([p[0] for p in probs]).astype(np.float32),
+            np.stack([p[1] for p in probs]).astype(np.int32),
+            [p[2] for p in probs])
+
+
+def test_every_source_is_built():
+    on_disk = {p.stem for p in _kernels.CSRC.glob("*.cu")}
+    assert on_disk == set(_kernels.SOURCES) == set(_kernels.LAUNCHES)
+    # the build kernel is compiled without FMA contraction
+    assert "--fmad=false" in _kernels.SOURCES["tri_build"]
+    names = {_kernels._target(n).name for n in _kernels.SOURCES}
+    assert len(names) == len(_kernels.SOURCES)
+    assert all(_kernels._target(n).parent == _kernels.BUILD_DIR
+               for n in _kernels.SOURCES)
+
+
+def test_wrappers_reject_cpu_tensors():
+    tri = torch.zeros(1, 256, 128, dtype=torch.int8)
+    with pytest.raises(ValueError, match="on the card"):
+        flattri.tri_pool_matvec_cuda(tri, 1, torch.zeros(1, dtype=torch.int32),
+                                     torch.zeros(1, 1, 128), torch.float32)
+    P = torch.zeros(1, 128, 3)
+    with pytest.raises(ValueError, match="on the card"):
+        flattri.build_tri_cuda(harness.default_invariant(), P, P,
+                               torch.zeros(1, 128, 2, dtype=torch.int32),
+                               torch.tensor([128]), t=128)
+    with pytest.raises(NotImplementedError, match="EuclideanDistance"):
+        flattri.build_tri_cuda(object(), P, P, None, None)
+
+
+def test_build_without_nvcc_raises(monkeypatch, tmp_path):
+    if shutil.which("nvcc"):
+        pytest.skip("nvcc is installed here")
+    monkeypatch.setattr(_kernels, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_kernels, "CUDA_BIN", str(tmp_path))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _kernels.build_all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,t", [(512, 256), (384, 128)])
+def test_kernels_match_plain(cuda, m, t):
+    W = 4
+    pcd0, D2s, As, _ = _problems(W, m, seed=4)
+    P1, P2 = gather_endpoints(torch.from_numpy(pcd0).to(cuda),
+                              torch.from_numpy(D2s).to(cuda),
+                              torch.from_numpy(As).to(cuda))
+    A = torch.from_numpy(As).to(cuda)
+    mts = torch.tensor([m, m, 300, m], device=cuda)
+    inv = harness.default_invariant()
+    launches = dict(_kernels.LAUNCHES)
+    tk = flattri.build_tri(inv, P1, P2, A, mts, t=t)
+    tp = flattri.build_tri_plain(inv, P1, P2, A, mts, t=t)
+    assert torch.equal(tk[:, t:], tp[:, t:])
+    # the kernel takes the plain build's IEEE f32 steps (no FMA
+    # contraction, round half to even): no M code may differ
+    assert int((tk[:, :t].int() != tp[:, :t].int()).sum()) == 0
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    for K in (1, 16, 20):
+        U = torch.rand(8, K, m, generator=gen, device=cuda)
+        U /= torch.linalg.vector_norm(U, dim=-1, keepdim=True)
+        idx = torch.randint(0, W, (8,), generator=gen, device=cuda,
+                            dtype=torch.int32)
+        a = flattri.make_tri_pool_matvec(tk, m // t, torch.float32)(idx, U)
+        b = flattri.tri_pool_matvec_plain(tk, m // t, idx, U, torch.float32)
+        for x, y in zip(a, b):
+            assert float((x - y).abs().max()) <= 1e-4
+        # a rerun reproduces the output bit for bit (no atomics)
+        again = flattri.make_tri_pool_matvec(tk, m // t, torch.float32)(idx,
+                                                                        U)
+        assert all(torch.equal(x, y) for x, y in zip(a, again))
+    assert _kernels.LAUNCHES["tri_build"] == launches["tri_build"] + 1
+    assert _kernels.LAUNCHES["tri_matvec"] > launches["tri_matvec"]
+
+
+@pytest.mark.cuda
+def test_pipeline_cuda_matches_cpu(cuda):
+    W, m = 8, 512
+    pcd0, D2s, As, _ = _problems(W, m, seed=5)
+    u0 = np.random.default_rng(6).random((W, m)).astype(np.float32)
+    out = {}
+    for dev in (cuda, "cpu"):
+        pipe = pool.make_pool_pipeline(
+            harness.default_invariant(), Params(), lanes=4, window=2,
+            power_steps=4, tri_probes=16, d_scale=0.15, device=dev)
+        out[str(dev)] = pipe(pcd0, D2s, As, u0).mask.cpu().numpy()
+    masks = list(out.values())
+    assert (masks[0] == masks[1]).all(1).sum() >= W - 1

@@ -1,0 +1,81 @@
+"""Guards of the port: no JAX inside it, no silent CPU fallback.
+
+clipper_tpu_torch and chip_smoke.py must import neither jax nor anything of
+clipper_tpu (only the tests import both), and an entry point that defaults
+to the GPU must raise where there is none.
+"""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT = ROOT / "clipper_tpu_torch"
+
+
+def _port_sources():
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+@pytest.mark.parametrize("path", _port_sources(),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_source_imports_no_jax(path):
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        else:
+            continue
+        for n in names:
+            top = n.split(".")[0]
+            assert top not in ("jax", "jaxlib", "clipper_tpu"), (path, n)
+
+
+def test_import_pulls_in_no_jax():
+    code = (
+        "import sys\n"
+        "import clipper_tpu_torch, clipper_tpu_torch.interop\n"
+        "import clipper_tpu_torch.bench.harness, clipper_tpu_torch._kernels\n"
+        "import chip_smoke\n"
+        "bad = [k for k in sys.modules if k.split('.')[0] in "
+        "('jax', 'jaxlib', 'clipper_tpu')]\n"
+        "assert not bad, bad\n"
+        "print('clean')\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "clean"
+
+
+def test_default_device_raises_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from clipper_tpu_torch import make_pool_pipeline
+    from clipper_tpu_torch.bench.harness import default_invariant
+    from clipper_tpu_torch.types import resolve_device
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make_pool_pipeline(default_invariant(), layout="tri")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        resolve_device("cuda")
+    assert resolve_device("cpu").type == "cpu"
+
+
+def test_chip_smoke_refuses_without_cuda():
+    """chip_smoke.py exits non-zero and prints no result line where
+    torch.cuda.is_available() is false."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")],
+                         cwd=ROOT, env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode != 0
+    assert '"ok": true' not in out.stdout
