@@ -3,33 +3,49 @@
 
 Phases, each of which must pass (any failure exits non-zero):
 
-1. build   — compile the hand-written kernels from clipper_tpu_torch/csrc.
-2. kernels — each kernel against its plain PyTorch version on the card, on
-             real bunny storage (W=16 problems, m=1024): the tri matvec for
-             K=16 and K=1 (max abs error <= 1e-4 on unit-norm u, and against
-             an f64 oracle on the same int8 content and bf16-rounded u), its
-             f32/f64 storage kinds, and the tri build (C half exact, no M
-             code differing: both run the same IEEE f32 steps).
-3. main    — the bench protocol through make_pool_pipeline: W=512 problems,
-             m=1024, 90% outliers, bench.py's settings (1 warm-up call and 3
-             timed calls). Prints P/R, problems/s, per-stage times and the
-             kernels' launch counts; requires P >= 0.995, R >= 0.88 and every
-             kernel launched.
-4. parity  — W=16 problems through the pipeline on cuda and on cpu: masks
-             equal on >= 15 of 16 problems, mean P/R within 1 point.
-5. timing  — each kernel at the main path's shapes (the build at W=512,
-             the matvec at B=128, K=16 and B=512, K=1) held against its plain
-             version as in phase 2, then timed beside its bound, its plain
-             version and, where one exists, one PyTorch call computing the
-             same function.
+1. build    — compile the hand-written kernels from clipper_tpu_torch/csrc.
+2. kernels  — each kernel against its plain PyTorch version on the card, on
+              real bunny storage: the tri matvec (W=16 problems, m=1024) for
+              K=16 and K=1 (max abs error <= 1e-4 on unit-norm u, and against
+              an f64 oracle on the same int8 content and bf16-rounded u), its
+              f32/f64 storage kinds, the tri build (C half exact, no M code
+              differing: both run the same IEEE f32 steps), and the rows
+              matvec on one m=1024 problem's row-chunked storage (t=128,
+              G=8) for K=1 and K=16, int8 (<= 1e-4) and f32/f64.
+3. pool     — the bench protocol through make_pool_pipeline: W=512
+              problems, m=1024, 90% outliers, bench.py's settings (1 warm-up
+              call and 3 timed calls). Prints P/R, problems/s, per-stage times
+              and the kernels' launch counts; requires P >= 0.995, R >= 0.88
+              and both pool kernels launched.
+4. capacity — one problem through the Clipper facade, engine="auto", f32:
+              m=65,536, 95% outliers, the bunny (seed 0), u0 from numpy
+              default_rng(0). Requires the triangle engine, the rows matvec
+              launched, P >= 0.995 and R >= 0.88; prints the stage times of
+              one warm call, its ticks, ifinal, F, storage GB and wall time.
+5. parity   — W=16 pool problems on cuda and on cpu: masks equal on >= 15
+              of 16, mean P/R within 1 point; the facade's triangle engine at
+              m=8192 on cuda and on cpu: mask IoU >= 0.95 and P >= 0.995,
+              R >= 0.88 on both, with the f32 solve's own spread printed
+              beside the bar (each device's IoU under +-1 ulp of noise on
+              the matvec outputs, 4 trials on cuda, 2 on cpu); its dense
+              engine in f64 at
+              m=1024, 90% outliers: masks equal, P >= 0.995 and R >= 0.85 on
+              cuda.
+6. timing   — each kernel at its path's shapes (the build at W=512, the tri
+              matvec at B=128, K=16 and B=512, K=1, the rows matvec on the
+              m=65,536 storage at K=16 and K=1) held against its plain
+              version as in phase 2, then timed beside its bound, its plain
+              version and, where one exists, one PyTorch call computing the
+              same function.
 
 The line before the last is a JSON object of the kernels' numbers; the last
 line is {"ok": true, "device": {...}}.
 
 Usage: python3 chip_smoke.py [--quick] [--profile]
   --quick    phases 1-2 only
-  --profile  also run the main path once under torch.profiler and print the
-             device's busy share and the kernels that take its time
+  --profile  also run the pool path and the capacity path once each under
+             torch.profiler and print the device's busy share and the
+             kernels that take its time
 """
 
 from __future__ import annotations
@@ -49,7 +65,15 @@ HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 BF16_FLOPS = 989e12           # dense bf16 tensor-core peak
 F32_FLOPS = 67e12             # f32 outside the tensor cores
 BUILD_OPS_PER_ENTRY = 30      # f32 operations per stored entry (tri_build.cu)
-MATVEC_TOL = 1e-4             # max |kernel - plain| of the tri matvec
+MATVEC_TOL = 1e-4             # max |kernel - plain| of the tri and rows matvecs
+CAP_M = 65536       # the capacity path: one problem at m=65,536 ...
+CAP_RHO = 0.95      # ... with 95% outliers
+CAP_PARITY_M = 8192           # facade cuda/cpu comparison, triangle engine
+CAP_PARITY_IOU = 0.95         # ... its mask IoU bar
+SPREAD_TRIALS_CUDA = 4        # ... and its spread: u0 moved by +-1 ulp
+SPREAD_TRIALS_CPU = 2
+DENSE_M = 1024                # facade cuda/cpu comparison, dense engine
+ROWS_T = 128                  # the capacity engine's tile
 
 
 def fail(msg: str) -> None:
@@ -112,9 +136,9 @@ def endpoints(D1, D2s, As, dev):
                             torch.as_tensor(As, device=dev))
 
 
-def unit_rows(gen, B, K, dev):
+def unit_rows(gen, B, K, dev, m=None):
     import torch
-    U = torch.rand(B, K, M, generator=gen, device=dev)
+    U = torch.rand(B, K, m or M, generator=gen, device=dev)
     return U / torch.linalg.vector_norm(U, dim=-1, keepdim=True)
 
 
@@ -205,7 +229,80 @@ def phase_kernels(inv, check, dev):
         print(f"tri_matvec {dtype} storage: max|kernel - plain|={e:.3e}",
               flush=True)
         require(e <= tol, f"tri_matvec {dtype} disagrees with plain")
-    return max(errs.values()), build_err
+
+    # the rows matvec on one m=1024 problem's row-chunked storage
+    prob = one_problem(M, RHO, seed=1)
+    nt = M // ROWS_T
+    chunks = rows_storage(inv, prob, dev, G=8)
+    rows_err = max(check_rows(chunks, nt, unit_rows(gen, 1, K, dev)[0],
+                              f"int8, m={M}, G=8, K={K}") for K in (16, 1))
+    for dtype in (torch.float32, torch.float64):
+        cf = rows_storage(inv, prob, dev, G=8, storage=dtype)
+        check_rows(cf, nt, unit_rows(gen, 1, 4, dev)[0].to(dtype),
+                   f"{dtype} storage, m={M}, G=8, K=4")
+    return max(errs.values()), build_err, rows_err
+
+
+def one_problem(m: int, rho: float, seed: int):
+    """(pcd0, pcd1, A, Agt, u0) of one bunny problem; u0 from numpy
+    default_rng(seed)."""
+    from clipper_tpu_torch.bench import harness
+    pcd0 = harness.load_bunny()
+    pcd1, A, Agt = harness.make_problem(pcd0, m, rho,
+                                        np.random.default_rng(seed))
+    u0 = np.random.default_rng(seed).random(m).astype(np.float32)
+    return (pcd0.astype(np.float32), pcd1.astype(np.float32),
+            A.astype(np.int32), Agt, u0)
+
+
+def ulp_noise(seed: int, dev):
+    """A wrap_matvec for the capacity engine: every output of the rows
+    matvec moved by -1, 0 or +1 ulp at random, drawn on dev."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def nudge(y):
+        step = torch.randint(-1, 2, y.shape, generator=gen, device=y.device)
+        toward = torch.where(step > 0, torch.inf, -torch.inf).to(y.dtype)
+        return torch.where(step == 0, y, torch.nextafter(y, toward))
+
+    def wrap(mv):
+        return lambda u: tuple(nudge(y) for y in mv(u))
+    return wrap
+
+
+def mask_iou(a, b) -> float:
+    return float((a & b).sum() / max(1, (a | b).sum()))
+
+
+def rows_storage(inv, prob, dev, G, storage=None):
+    """The capacity engine's row-chunked storage of one problem (int8 by
+    default, else the raw scores in the float dtype ``storage``)."""
+    import torch
+    from clipper_tpu_torch.ops import symstore
+    pcd0, pcd1, A, _, _ = prob
+    dtype = storage or torch.float32
+    At = torch.as_tensor(A, device=dev)
+    P1 = torch.as_tensor(pcd0, dtype=dtype, device=dev)[At[:, 0].long()]
+    P2 = torch.as_tensor(pcd1, dtype=dtype, device=dev)[At[:, 1].long()]
+    return symstore.build_symchunks(inv, P1, P2, At, len(A), tile=ROWS_T, G=G,
+                                    storage_dtype=storage or torch.int8)
+
+
+def check_rows(chunks, nt, U, label):
+    """sym_rows_matvec against the plain version on U (K, m); returns the
+    max abs error."""
+    import torch
+    from clipper_tpu_torch.ops import symstore
+    a = symstore.sym_rows_matvec_cuda(chunks, nt, U)
+    b = symstore.sym_rows_matvec_plain(chunks, nt, U)
+    require(bool(torch.isfinite(a).all()), f"sym_rows_matvec {label}: "
+            "non-finite output")
+    err = float((a - b).abs().max())
+    print(f"sym_rows_matvec vs plain ({label}): max|kernel - plain|="
+          f"{err:.3e}", flush=True)
+    require(err <= MATVEC_TOL, f"sym_rows_matvec {label} disagrees with plain")
+    return err
 
 
 def run_pipeline(inv, data_, dev, W, timings=None):
@@ -252,11 +349,11 @@ def phase_main(inv, main, dev):
           f" mean of {reps} after 1 warm-up)", flush=True)
     print("main path stage ms (last timed call, CUDA events): "
           + ", ".join(f"{k}={v:.3f}" for k, v in timings.items()), flush=True)
-    print(f"main path kernel launches (one call): {launches}", flush=True)
+    print(f"pool path kernel launches (one call): {launches}", flush=True)
     print(f"main path ifinal: mean={float(sol.ifinal.float().mean()):.2f} "
           f"max={int(sol.ifinal.max())}", flush=True)
-    require(all(v > 0 for v in launches.values()),
-            f"a kernel of the main path was never launched: {launches}")
+    require(launches["tri_matvec"] > 0 and launches["tri_build"] > 0,
+            f"a kernel of the pool path was never launched: {launches}")
     require(P.mean() >= 0.995, f"precision {P.mean():.4f} < 0.995")
     require(R.mean() >= 0.88, f"recall {R.mean():.4f} < 0.88")
     return launches
@@ -357,22 +454,207 @@ def phase_timing(inv, main, dev):
     return rows, build_err, mv_err
 
 
-def phase_profile(inv, main, dev):
-    """One main-path call under torch.profiler: the union of the device's
-    kernel and copy intervals over the wall time of the call (profiler
-    overhead included, so the busy share is a lower bound), and the device
-    items by time. Only device-side events count: a CPU op's own
-    device-time column repeats its kernels' time."""
+def phase_capacity(inv, prob, dev):
+    """The capacity path: one m=65,536 problem through the facade. The
+    counted call is also the warm-up; the second call is timed."""
+    import torch
+    from clipper_tpu_torch import Clipper, _kernels
+    from clipper_tpu_torch.bench import data
+    from clipper_tpu_torch.types import Params
+
+    pcd0, pcd1, A, Agt, u0 = prob
+    m = len(A)
+    stats = {}
+    c = Clipper(inv, Params(), engine="auto", dtype=torch.float32,
+                device=dev, engine_opts={"stats": stats})
+    c.score_pairwise_consistency(pcd0.T, pcd1.T, A)
+    engine = c._resolve_engine(m)
+    require(engine == "triangle" and c._cap is not None,
+            f"m={m} resolved to engine {engine!r}, not the triangle engine")
+    _kernels.reset_launches()
+    sol = c.solve(u0=u0)
+    torch.cuda.synchronize()
+    launches = dict(_kernels.LAUNCHES)
+    cold = sol.t
+    t0 = time.perf_counter()
+    sol = c.solve(u0=u0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+
+    mask = sol.mask.cpu().numpy()
+    F = float(sol.score)
+    require(mask.shape == (m,) and bool(torch.isfinite(sol.u).all())
+            and np.isfinite(F), "capacity path: bad shape or non-finite u/F")
+    require(F <= m, "capacity path: objective F > m")
+    P, R = data.get_precision_recall(c.get_selected_associations(), Agt)
+    print(f"capacity path: m={m} rho={CAP_RHO} engine={engine}: precision="
+          f"{P * 100:.2f}% recall={R * 100:.2f}% |mask|={int(mask.sum())} "
+          f"(|Agt|={len(Agt)}); ifinal={int(sol.ifinal)} F={F:.4f} "
+          f"ticks={stats['ticks']} rejected probes={stats['nback']}; "
+          f"storage {stats['storage_bytes'] / 1e9:.3f} GB", flush=True)
+    print(f"capacity path wall: warm call {wall:.4f} s (first call "
+          f"{cold:.4f} s); stage ms of the warm call (CUDA events): "
+          + ", ".join(f"{k}={stats[k]:.3f}" for k in
+                      ("build", "init", "solve", "polish")), flush=True)
+    print(f"capacity path kernel launches (one call): {launches}",
+          flush=True)
+    require(launches["sym_rows_matvec"] > 0,
+            f"the rows matvec was never launched: {launches}")
+    require(P >= 0.995, f"capacity path precision {P:.4f} < 0.995")
+    require(R >= 0.88, f"capacity path recall {R:.4f} < 0.88")
+    return launches
+
+
+def phase_facade_parity(inv, dev):
+    """The facade on cuda and on cpu: the triangle engine at m=8192 (f32)
+    and the dense engine at m=1024 (f64)."""
+    import torch
+    from clipper_tpu_torch import Clipper
+    from clipper_tpu_torch.bench import data
+    from clipper_tpu_torch.types import Params
+
+    def run(prob, d, engine, dtype, opts=None):
+        pcd0, pcd1, A, Agt, u0 = prob
+        c = Clipper(inv, Params(), engine=engine, dtype=dtype, device=d,
+                    engine_opts=opts)
+        c.score_pairwise_consistency(pcd0.T, pcd1.T, A)
+        sol = c.solve(u0=u0)
+        return c, sol.mask.cpu().numpy(), int(sol.ifinal)
+
+    # The kernel's and the plain version's matvecs are about an ulp apart,
+    # and the f32 solve's accept and stall decisions amplify that. The
+    # spread printed beside the bar: on each device, the same solve with
+    # +-1 ulp of noise on every matvec output, against that device's
+    # noiseless run.
+    prob = one_problem(CAP_PARITY_M, CAP_RHO, seed=2)
+    cg, mg, ig = run(prob, dev, "auto", torch.float32)
+    require(cg._resolve_engine(CAP_PARITY_M) == "triangle",
+            f"m={CAP_PARITY_M} did not take the triangle engine")
+    cc, mc, ic = run(prob, "cpu", "auto", torch.float32)
+    iou = mask_iou(mg, mc)
+    pr = [data.get_precision_recall(c.get_selected_associations(), prob[3])
+          for c in (cg, cc)]
+    print(f"facade cuda vs cpu, triangle engine m={CAP_PARITY_M}: mask IoU="
+          f"{iou:.4f}, |mask| cuda {int(mg.sum())} cpu {int(mc.sum())}, "
+          f"{int((mg != mc).sum())} vertices differ; ifinal cuda {ig} cpu "
+          f"{ic}; P/R cuda {pr[0][0] * 100:.2f}/{pr[0][1] * 100:.2f}% cpu "
+          f"{pr[1][0] * 100:.2f}/{pr[1][1] * 100:.2f}%", flush=True)
+    spread = []
+    for d, mref, trials in ((dev, mg, SPREAD_TRIALS_CUDA),
+                            ("cpu", mc, SPREAD_TRIALS_CPU)):
+        for s in range(1, trials + 1):
+            cn, mn, i_n = run(prob, d, "auto", torch.float32,
+                              {"wrap_matvec": ulp_noise(s, d)})
+            P, R = data.get_precision_recall(cn.get_selected_associations(),
+                                             prob[3])
+            spread.append(mask_iou(mn, mref))
+            print(f"  matvec +-1 ulp ({d}, trial {s}): IoU vs noiseless "
+                  f"{spread[-1]:.4f}, |mask| {int(mn.sum())}, ifinal {i_n}, "
+                  f"P/R {P * 100:.2f}/{R * 100:.2f}%", flush=True)
+    print(f"facade triangle engine m={CAP_PARITY_M}: cuda vs cpu IoU "
+          f"{iou:.4f}; lowest IoU under 1-ulp matvec noise "
+          f"{min(spread):.4f} (bar {CAP_PARITY_IOU})", flush=True)
+    require(iou >= CAP_PARITY_IOU, "facade triangle engine: cuda and cpu "
+            f"masks differ past IoU {CAP_PARITY_IOU}")
+    require(all(p >= 0.995 and r >= 0.88 for p, r in pr),
+            "facade triangle engine: P/R below 0.995/0.88")
+
+    prob = one_problem(DENSE_M, RHO, seed=3)
+    prob = prob[:4] + (prob[4].astype(np.float64),)
+    cg, mg, ig = run(prob, dev, "dense", torch.float64)
+    _, mc, ic = run(prob, "cpu", "dense", torch.float64)
+    P, R = data.get_precision_recall(cg.get_selected_associations(), prob[3])
+    print(f"facade dense engine f64 m={DENSE_M} rho={RHO}: cuda precision="
+          f"{P * 100:.2f}% recall={R * 100:.2f}%; masks equal to cpu: "
+          f"{bool((mg == mc).all())} ({int((mg != mc).sum())} differ); "
+          f"ifinal cuda {ig} cpu {ic}", flush=True)
+    require(bool((mg == mc).all()), "facade dense engine: cuda and cpu "
+            "masks differ")
+    require(P >= 0.995 and R >= 0.85, f"facade dense engine P/R {P:.4f}/"
+            f"{R:.4f} below 0.995/0.85")
+
+
+def dense_from_chunks(chunks, nt):
+    """Row-chunked storage -> the dense stacked (2m, m) [M; C] in bf16
+    (both triangles): the library call's operand."""
+    import torch
+    from clipper_tpu_torch.ops import symstore
+    NC, two_t, Gt = chunks.shape
+    t = two_t // 2
+    m = nt * t
+    first = symstore.row_first_chunk(nt, Gt // t)
+    D = torch.zeros(2 * m, m, dtype=torch.bfloat16, device=chunks.device)
+    for r in range(nt):
+        seg = chunks[int(first[r]):int(first[r + 1])].permute(1, 0, 2)
+        seg = seg.reshape(two_t, -1)[:, :(nt - r) * t].to(torch.bfloat16)
+        for h in range(2):
+            half = seg[h * t:(h + 1) * t]
+            D[h * m + r * t:h * m + (r + 1) * t, r * t:] = half
+            D[h * m + (r + 1) * t:h * m + m, r * t:(r + 1) * t] = \
+                half[:, t:].T
+    return D
+
+
+def time_rows(inv, prob, dev):
+    """The rows matvec on the capacity path's m=65,536 storage: held
+    against its plain version at K=16 and K=1, then timed. Returns the
+    K=16 row of the kernels' JSON line and the max abs error."""
+    import torch
+    from clipper_tpu_torch.ops import symstore
+
+    m = len(prob[2])
+    t, G = ROWS_T, 32
+    nt = m // t
+    T = nt * (nt + 1) // 2
+    chunks = rows_storage(inv, prob, dev, G=G)
+    print(f"rows storage m={m}: {tuple(chunks.shape)} int8, "
+          f"{chunks.numel() / 1e9:.3f} GB ({T} tiles, "
+          f"{T * 2 * t * t / 1e9:.3f} GB of them stored)", flush=True)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    Us = {K: unit_rows(gen, 1, K, dev, m)[0] for K in (16, 1)}
+    err = max(check_rows(chunks, nt, U, f"int8, m={m}, K={K}")
+              for K, U in Us.items())
+    dense = dense_from_chunks(chunks, nt)
+    rows = {}
+    for K, U in Us.items():
+        mv_bytes = T * 2 * t * t + K * m * 2 + K * 2 * m * 4
+        mv_ops = 2 * K * 2 * t * t * (2 * T - nt)
+        Ut = U.to(torch.bfloat16).T.contiguous()
+        r = dict(ms=cuda_ms(lambda: symstore.sym_rows_matvec_cuda(
+                     chunks, nt, U), 10),
+                 plain_ms=cuda_ms(lambda: symstore.sym_rows_matvec_plain(
+                     chunks, nt, U), 2),
+                 bound_ms=max(mv_bytes / HBM_BYTES_PER_S,
+                              mv_ops / BF16_FLOPS) * 1e3,
+                 bound_by=("bytes" if mv_bytes / HBM_BYTES_PER_S
+                           > mv_ops / BF16_FLOPS else "operations"),
+                 library_ms=cuda_ms(lambda: torch.matmul(dense, Ut), 5))
+        rows[K] = r
+        print(f"timing sym_rows_matvec m={m} K={K}: kernel {r['ms']:.4f} ms, "
+              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), plain "
+              f"{r['plain_ms']:.4f} ms, matmul over dense bf16 [M; C] "
+              f"{r['library_ms']:.4f} ms", flush=True)
+    del dense
+    torch.cuda.empty_cache()
+    return rows[16], err
+
+
+def profile_call(label, fn):
+    """One call of fn under torch.profiler (after one warm-up call): the
+    union of the device's kernel and copy intervals over the wall time of
+    the call (profiler overhead included, so the busy share is a lower
+    bound), and the device items by time. Only device-side events count:
+    a CPU op's own device-time column repeats its kernels' time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    run_pipeline(inv, main, dev, W_MAIN)
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        run_pipeline(inv, main, dev, W_MAIN)
+        fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
 
@@ -385,7 +667,7 @@ def phase_profile(inv, main, dev):
             end = b
     print(f"profile: device busy {busy / 1e3:.3f} ms of {wall_us / 1e3:.3f} "
           f"ms wall = {busy / wall_us * 100:.1f}% busy, {len(spans)} device "
-          f"items (one main-path call under the profiler)", flush=True)
+          f"items (one {label} call under the profiler)", flush=True)
     by_name = {}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
@@ -393,6 +675,20 @@ def phase_profile(inv, main, dev):
             by_name[e.name] = (us + e.time_range.elapsed_us(), n + 1)
     for name, (us, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]:
         print(f"  {us / 1e3:9.3f} ms  x{n:<6d} {name[:90]}", flush=True)
+
+
+def phase_profile(inv, main, cap, dev):
+    """The pool path (W=512) and the capacity path (m=65,536) under the
+    profiler, one call each."""
+    import torch
+    from clipper_tpu_torch import Clipper
+    from clipper_tpu_torch.types import Params
+
+    profile_call("pool-path", lambda: run_pipeline(inv, main, dev, W_MAIN))
+    pcd0, pcd1, A, _, u0 = cap
+    c = Clipper(inv, Params(), engine="auto", dtype=torch.float32, device=dev)
+    c.score_pairwise_consistency(pcd0.T, pcd1.T, A)
+    profile_call("capacity-path", lambda: c.solve(u0=u0))
 
 
 def main() -> None:
@@ -421,22 +717,31 @@ def main() -> None:
     check = make_problems(W_CHECK, seed=1)
     print(f"check data: {W_CHECK} problems in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    mv_err, build_err = phase_kernels(inv, check, dev)
+    mv_err, build_err, rows_err = phase_kernels(inv, check, dev)
     if quick:
         print("quick: build and kernel checks passed", flush=True)
         return
 
     t0 = time.perf_counter()
     main_data = make_problems(W_MAIN, seed=0)
-    print(f"main data: {W_MAIN} problems in "
+    print(f"pool data: {W_MAIN} problems in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     launches = phase_main(inv, main_data, dev)
+    t0 = time.perf_counter()
+    cap = one_problem(CAP_M, CAP_RHO, seed=0)
+    print(f"capacity data: m={CAP_M} in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    launches.update(sym_rows_matvec=phase_capacity(inv, cap, dev)[
+        "sym_rows_matvec"])
     phase_parity(inv, check, dev)
+    phase_facade_parity(inv, dev)
     rows, build_err_main, mv_err_main = phase_timing(inv, main_data, dev)
     build_err = max(build_err, build_err_main)
     mv_err = max(mv_err, mv_err_main)
+    rows["sym_rows_matvec"], rows_err_cap = time_rows(inv, cap, dev)
+    rows_err = max(rows_err, rows_err_cap)
     if "--profile" in sys.argv[1:]:
-        phase_profile(inv, main_data, dev)
+        phase_profile(inv, main_data, cap, dev)
 
     src = "clipper_tpu_torch/csrc/"
     kernels = [
@@ -448,6 +753,11 @@ def main() -> None:
              replaces="clipper_tpu/ops/flattri.py:463",
              launches=launches["tri_build"], max_abs_err=build_err,
              **rows["tri_build"]),
+        dict(name="sym_rows_matvec", route="cuda",
+             source=src + "sym_rows_matvec.cu",
+             replaces="clipper_tpu/ops/symstore.py:653",
+             launches=launches["sym_rows_matvec"], max_abs_err=rows_err,
+             **rows["sym_rows_matvec"]),
     ]
     for k in kernels:
         for key in ("ms", "plain_ms", "bound_ms", "library_ms"):

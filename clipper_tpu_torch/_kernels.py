@@ -34,6 +34,7 @@ _COMMON = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 SOURCES: Dict[str, list] = {
     "tri_matvec": [],
     "tri_build": ["--fmad=false"],
+    "sym_rows_matvec": [],
 }
 
 _P = ctypes.c_void_p
@@ -46,9 +47,13 @@ _SIGNATURES = {
     "tri_matvec_f64": [_P, _P, _P, _P, _I, _I, _I, _I, _LL, _P],
     "tri_build_int8": [_P, _P, _P, _P, _P, _I, _I, _I, _LL, _F, _F, _F, _F,
                        _P],
+    "sym_rows_matvec_int8": [_P, _P, _P, _I, _I, _I, _I, _F, _P],
+    "sym_rows_matvec_f32": [_P, _P, _P, _I, _I, _I, _I, _P],
+    "sym_rows_matvec_f64": [_P, _P, _P, _I, _I, _I, _I, _P],
 }
 
-LAUNCHES: Dict[str, int] = {"tri_matvec": 0, "tri_build": 0}
+LAUNCHES: Dict[str, int] = {"tri_matvec": 0, "tri_build": 0,
+                            "sym_rows_matvec": 0}
 BUILD_LOG: Dict[str, str] = {}
 _LIBS: Dict[str, ctypes.CDLL] = {}
 

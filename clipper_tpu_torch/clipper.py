@@ -1,0 +1,262 @@
+"""Clipper facade: the user-facing class.
+
+Counterpart of ``clipper_tpu/clipper.py:50-571`` (reference:
+include/clipper/clipper.h:78-183, Python surface
+bindings/python/py_clipper.cpp:197-232), with the same snake_case method
+names. ``D1`` is (d, n1) with the data as columns, as in the reference.
+
+Engines: ``"dense"`` builds the (m, m) M and C in the working dtype and
+runs the nested solver (solvers/msrc.py); ``"triangle"`` keeps the
+row-major datasets and solves through the row-chunked symmetric-triangle
+capacity engine (ops/symstore.solve_single, the CUDA rows matvec on the
+card); ``"auto"`` takes dense below m = 8192 and the triangle from there.
+
+Not ported yet, and raising NotImplementedError with their ROADMAP.md
+Queue 1 item: ``engine="sharded"`` (13), ``multistart > 1`` (10),
+``set_sparse_matrix_data`` (12), ``Rounding.DSD`` and
+``solve_as_maximum_clique`` (15, the host solvers), and
+``solve_as_msrc_sdr*`` (14).
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from clipper_tpu_torch import utils
+from clipper_tpu_torch.invariants.base import PairwiseInvariant
+from clipper_tpu_torch.ops import symstore
+from clipper_tpu_torch.ops.affinity import build_affinity, create_all_to_all
+from clipper_tpu_torch.solvers import msrc
+from clipper_tpu_torch.types import (Params, Rounding, Solution,
+                                     as_association, resolve_device)
+
+_CAPACITY_M = 8192      # 'auto' switches to the triangle engine at this m
+_DENSIFY_CAP = 16384    # largest m the capacity path densifies on demand
+
+
+def _not_ported(what: str, item: int):
+    return NotImplementedError(
+        f"{what} is not ported yet (ROADMAP.md Queue 1 item {item})")
+
+
+class Clipper:
+    def __init__(self, invariant: Optional[PairwiseInvariant],
+                 params: Params = Params(), *, dtype=None,
+                 seed: Optional[int] = 0, engine: str = "auto",
+                 engine_opts: Optional[dict] = None, device="cuda"):
+        """dtype: the working dtype (default torch's default float, the
+        counterpart of the JAX package's x64 switch).
+
+        seed: when :meth:`solve` gets no ``u0``, call k of this instance
+        draws u0 from a CPU ``torch.Generator`` seeded from (seed, k), so
+        runs are reproducible and equal on every device; seed=None seeds
+        from the clock, as the reference does (src/utils.cpp:22-29). The
+        draws differ from the JAX package's ``jax.random`` stream.
+
+        engine: 'auto' | 'dense' | 'triangle' (see the module docstring).
+        engine_opts are forwarded to the capacity engine (probes,
+        power_steps, storage_dtype, support, tile, stats, ...).
+
+        device: where matrices live and the solvers run, "cuda" by
+        default; raises when CUDA is asked for and missing.
+        """
+        if engine == "sharded":
+            raise _not_ported("engine='sharded'", 13)
+        if engine not in ("auto", "dense", "triangle"):
+            raise ValueError(f"unknown engine {engine!r}")
+        self.invariant = invariant
+        self.params = params
+        self.dtype = dtype or torch.get_default_dtype()
+        self.seed = seed
+        self.engine = engine
+        self.engine_opts = dict(engine_opts or {})
+        self.device = resolve_device(device)
+        self._nsolves = 0
+        self._A: Optional[torch.Tensor] = None   # (m, 2) associations
+        self._M: Optional[torch.Tensor] = None   # (m, m) zero-diag symmetric
+        self._C: Optional[torch.Tensor] = None   # (m, m) zero-diag 0/1
+        self._soln: Optional[Solution] = None
+        # capacity path: row-major datasets kept for the on-device build;
+        # no dense (m, m)
+        self._cap: Optional[dict] = None
+
+    # ------------------------------------------------------------------
+    # scoring
+    # ------------------------------------------------------------------
+
+    def _tensor(self, x) -> torch.Tensor:
+        return torch.as_tensor(x, dtype=self.dtype, device=self.device)
+
+    def score_pairwise_consistency(self, D1, D2, A=None) -> None:
+        """Build affinity/constraint matrices from (d, n) column-major data
+        (reference: src/clipper.cpp:21-65). Under the triangle engine no
+        dense (m, m) is made here: the datasets are kept and :meth:`solve`
+        builds triangle storage on the device."""
+        D1 = self._tensor(D1).T     # -> (n1, d) rows
+        D2 = self._tensor(D2).T
+        if A is not None and np.size(A) == 0:
+            A = None
+        m = len(A) if A is not None else D1.shape[0] * D2.shape[0]
+        if self._resolve_engine(m) == "triangle":
+            if A is None:
+                A = create_all_to_all(D1.shape[0], D2.shape[0])
+            self._A = as_association(A, device=self.device)
+            self._cap = {"D1": D1, "D2": D2}
+            self._M = self._C = None
+            return
+        self._M, self._C, self._A = build_affinity(
+            self.invariant, D1, D2, A, affinityeps=self.params.affinityeps,
+            dtype=self.dtype)
+        self._cap = None
+
+    def _resolve_engine(self, m: int) -> str:
+        if self.engine == "auto":
+            return "dense" if m < _CAPACITY_M else "triangle"
+        return self.engine
+
+    # ------------------------------------------------------------------
+    # solvers
+    # ------------------------------------------------------------------
+
+    def solve(self, u0=None, *, generator: Optional[torch.Generator] = None,
+              multistart: int = 1) -> Solution:
+        """Solve MSRC by graduated projected gradient ascent
+        (reference: src/clipper.cpp:69-78). Without u0, a U[0, 1) vector is
+        drawn from ``generator`` if given, else from the instance's seeded
+        stream (see ``seed``)."""
+        self._require_matrices()
+        if multistart > 1:
+            raise _not_ported("multistart > 1", 10)
+        if self.params.rounding == Rounding.DSD:
+            raise _not_ported("Rounding.DSD (the host max-flow)", 15)
+        if generator is None:
+            generator = torch.Generator()
+            if self.seed is None:
+                generator.seed()
+            else:
+                generator.manual_seed(int(np.random.SeedSequence(
+                    [self.seed, self._nsolves]).generate_state(1)[0]))
+        self._nsolves += 1
+        m = self._A.shape[0] if self._cap is not None else self._M.shape[0]
+        t0 = time.perf_counter()
+        if u0 is None:
+            u0 = utils.randvec(generator, m, dtype=self.dtype,
+                               device=self.device)
+        u0 = self._tensor(u0)
+        if self._cap is not None:
+            soln = self._solve_capacity(u0)
+        else:
+            soln = msrc.solve_msrc(self._M, self._C, u0, self.params)
+        soln.mask.cpu()     # synchronize before reading the clock
+        soln.t = time.perf_counter() - t0
+        self._soln = soln
+        return soln
+
+    def _solve_capacity(self, u0: torch.Tensor) -> Solution:
+        """Solve through the row-chunked triangle engine
+        (ops/symstore.solve_single): storage built on the device in int8
+        (f64 working precision stores f64), no dense (m, m) anywhere."""
+        opts = dict(affinityeps=self.params.affinityeps)
+        if self.dtype == torch.float64:
+            # reference-parity working precision stores full f64 tiles
+            opts["storage_dtype"] = torch.float64
+        else:
+            opts.update(storage_dtype=torch.int8, probes=16, power_steps=4)
+        opts.update(self.engine_opts)
+        u, F, ifinal = symstore.solve_single(
+            self.invariant, self._cap["D1"], self._cap["D2"], self._A, u0,
+            self.params, **opts)
+        mask = msrc.round_solution(u, F, self.params.rounding)
+        return Solution(ifinal=ifinal, mask=mask, u0=u0, u=u, score=F)
+
+    def solve_as_maximum_clique(self, params=None) -> Solution:
+        raise _not_ported("solve_as_maximum_clique (the host max-clique "
+                          "solver)", 15)
+
+    def solve_as_msrc_sdr(self, params=None) -> Solution:
+        raise _not_ported("solve_as_msrc_sdr (the SDP solver)", 14)
+
+    @staticmethod
+    def solve_as_msrc_sdr_batched(Ms, Cs, params=None) -> list:
+        raise _not_ported("solve_as_msrc_sdr_batched (the SDP solver)", 14)
+
+    # ------------------------------------------------------------------
+    # accessors (reference: src/clipper.cpp:117-166)
+    # ------------------------------------------------------------------
+
+    def get_solution(self) -> Solution:
+        return self._soln
+
+    def get_initial_associations(self) -> np.ndarray:
+        return self._A.cpu().numpy()
+
+    def get_selected_associations(self) -> np.ndarray:
+        """reference: src/clipper.cpp:124-127."""
+        return utils.select_inlier_associations(self._soln, self._A)
+
+    def get_affinity_matrix(self) -> torch.Tensor:
+        """Symmetric M with identity diagonal (reference:
+        src/clipper.cpp:131-136); the capacity path densifies on demand."""
+        self._require_matrices()
+        M = self._densify_cap()[0] if self._cap is not None else self._M
+        return M + torch.eye(M.shape[0], dtype=M.dtype, device=M.device)
+
+    def get_constraint_matrix(self) -> torch.Tensor:
+        """Symmetric C with identity diagonal (reference:
+        src/clipper.cpp:140-145)."""
+        self._require_matrices()
+        C = self._densify_cap()[1] if self._cap is not None else self._C
+        return C + torch.eye(C.shape[0], dtype=C.dtype, device=C.device)
+
+    def set_matrix_data(self, M, C, A=None) -> None:
+        """Inject dense affinity/constraint matrices. The reference keeps
+        the strict upper triangle (src/clipper.cpp:149-158); the full
+        symmetric zero-diagonal form is stored here."""
+        Mu = torch.triu(self._tensor(M), diagonal=1)
+        Cu = torch.triu(self._tensor(C), diagonal=1)
+        self._M = Mu + Mu.T
+        self._C = Cu + Cu.T
+        self._cap = None
+        if A is not None:
+            self._A = as_association(A, device=self.device)
+
+    def set_sparse_matrix_data(self, M, C, A=None, **kwargs) -> None:
+        raise _not_ported("set_sparse_matrix_data (the block-sparse path)",
+                          12)
+
+    def set_parallelize(self, parallelize: bool) -> None:
+        """No-op, kept for API parity (reference:
+        include/clipper/clipper.h:148): the build is data-parallel on the
+        device."""
+
+    # ------------------------------------------------------------------
+
+    def _densify_cap(self):
+        """Dense (M, C) rebuilt on demand for the matrix accessors on the
+        capacity path, refused past m = 16384: the capacity engine exists
+        to avoid a dense (m, m)."""
+        m = self._A.shape[0]
+        if m > _DENSIFY_CAP:
+            raise RuntimeError(
+                f"get_*_matrix would materialize a dense ({m}, {m}); the "
+                "capacity engine exists to avoid exactly that; use "
+                "get_selected_associations / the Solution instead")
+        M, C, _ = build_affinity(self.invariant, self._cap["D1"],
+                                 self._cap["D2"], self._A,
+                                 affinityeps=self.params.affinityeps,
+                                 dtype=self.dtype)
+        return M, C
+
+    def _require_matrices(self):
+        if (self._M is None or self._C is None) and self._cap is None:
+            raise RuntimeError(
+                "no affinity/constraint matrices; call "
+                "score_pairwise_consistency or set_matrix_data first")
+
+
+# API-parity alias matching the reference class name.
+CLIPPER = Clipper

@@ -43,6 +43,14 @@ def tri_to_torch(tri, device="cpu") -> torch.Tensor:
     return to_torch(tri, device).contiguous()
 
 
+def chunks_to_torch(chunks, device="cpu") -> torch.Tensor:
+    """(NC, 2t, G t) row-chunked triangle storage (ops/symstore.py)."""
+    if np.ndim(chunks) != 3:
+        raise ValueError(f"chunks must be (NC, 2t, G t); got shape "
+                         f"{np.shape(chunks)}")
+    return to_torch(chunks, device).contiguous()
+
+
 def state_to_torch(state: Dict[str, np.ndarray], device="cpu") -> _FlatState:
     """A batched _FlatState given as a dict of (B, ...) arrays."""
     fields = {}

@@ -10,12 +10,37 @@ Every function broadcasts over a leading problem dimension.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from clipper_tpu_torch.invariants.base import PairwiseInvariant
 from clipper_tpu_torch.solvers.msrc_flat import _INT8_SCALE
+from clipper_tpu_torch.types import as_association
+
+
+def create_all_to_all(n1: int, n2: int, device=None) -> torch.Tensor:
+    """All-to-all association hypothesis, row-major over (i, j): A[k] =
+    (k // n2, k % n2) (reference: include/clipper/utils.h:61-71)."""
+    i = torch.arange(n1, dtype=torch.int32, device=device).repeat_interleave(n2)
+    j = torch.arange(n2, dtype=torch.int32, device=device).repeat(n1)
+    return torch.stack([i, j], dim=1)
+
+
+def build_affinity(invariant: PairwiseInvariant, D1: torch.Tensor,
+                   D2: torch.Tensor, A: Optional[torch.Tensor] = None, *,
+                   affinityeps: float = 1e-4, dtype=None):
+    """Dense symmetric (M, C) from (n, d) row-major data and (m, 2)
+    associations (all-to-all when A is None): the facade's dense build.
+    Returns (M, C, A) with zero-diagonal M, its 0/1 pattern C, and the
+    int32 association tensor used. Computed in ``dtype`` (default D1's)."""
+    if A is None:
+        A = create_all_to_all(D1.shape[0], D2.shape[0], device=D1.device)
+    A = as_association(A, device=D1.device)
+    dtype = dtype or D1.dtype
+    M, C = score_pairwise_consistency(invariant, D1.to(dtype), D2.to(dtype),
+                                      A, affinityeps=affinityeps)
+    return M, C, A
 
 
 def distinctness_mask(A: torch.Tensor) -> torch.Tensor:

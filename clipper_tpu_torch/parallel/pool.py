@@ -176,7 +176,7 @@ def _divisor_at_most(n: int, k: int) -> int:
     return k
 
 
-class _StageClock:
+class StageClock:
     """Per-stage times: CUDA events on the card, the host clock on the CPU
     (where the times are host times, not device times)."""
 
@@ -266,7 +266,7 @@ def make_pool_pipeline(invariant: PairwiseInvariant,
         if m_trues is None:
             m_trues = torch.full((W,), m, dtype=torch.int32, device=dev)
         m_trues = as_tensor(m_trues, torch.int32)
-        clock = _StageClock(dev, timings)
+        clock = StageClock(dev, timings)
 
         clock.mark("start")
         P1s, P2s = gather_endpoints(D1, D2s, As)

@@ -1,20 +1,27 @@
 """Flattened MSRC solver: a per-lane state machine for batched solves.
 
-Counterpart of the main-path subset of ``clipper_tpu/solvers/msrc_flat.py``
-(:44-336, :389-530, :748). One tick is one line-search probe (one dual
-matvec M u, C u); every lane carries its own (outer i, inner j, line-search
-k, alpha, d) state and transitions independently (reference:
+Counterpart of ``clipper_tpu/solvers/msrc_flat.py`` (:44-530, :558-749)
+without the stacked and batched engines. One tick is one line-search probe
+(one dual matvec M u, C u); every lane carries its own (outer i, inner j,
+line-search k, alpha, d) state and transitions independently (reference:
 src/clipper.cpp:218-281). Where the JAX package vmapped a per-lane
 function, every function here takes the lanes as a leading (B, ...)
 dimension: u is (B, m), scalars are (B,), multiprobe candidates (B, K, m).
 
 ``batch_dual(idx, U)`` is any batched dual matvec returning (M U, C U) of
 U's shape for lanes reading pool problems ``idx`` (ops/flattri.py).
+
+The single-problem forms (:func:`power_init`, :func:`flat_init`,
+:func:`flat_solve_single`, :func:`flat_solve_single_multiprobe`,
+:func:`recompute_objective`) keep the JAX package's surface: u is (m,),
+and ``dual_matvec(u)`` takes (m,) or (m, K) candidate columns and returns
+(M u, C u) of the same shape. They run the batched ticks at B=1, and the
+JAX ``while_loop`` becomes a host loop.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Callable, NamedTuple, Tuple
 
 import torch
 
@@ -296,3 +303,112 @@ def make_flat_tick_multiprobe_batched(batch_dual, params: Params, dtype,
                           d_scale)
 
     return body
+
+
+# ----------------------------------------------------------------------
+# single-problem forms (one lane, the JAX package's (m,) / (m, K) surface)
+# ----------------------------------------------------------------------
+
+# the host loop reads ``done`` once per this many ticks; a done lane is
+# frozen, so the extra ticks change nothing (as in the pool's window)
+_DONE_EVERY = 4
+
+
+def _one_lane(dual_matvec):
+    """A B=1 batched dual matvec over a single-problem ``dual_matvec``:
+    (1, m) rows -> (m,) vector, (1, K, m) rows -> (m, K) columns."""
+    def bd(idx, U):
+        if U.dim() == 2:
+            Mu, Cu = dual_matvec(U[0])
+            return Mu[None], Cu[None]
+        MU, CU = dual_matvec(U[0].T)
+        return MU.T[None], CU.T[None]
+
+    return bd
+
+
+def _unbatch(s: _FlatState) -> _FlatState:
+    return _FlatState(*(x[0] for x in s))
+
+
+def power_init(dual_matvec, u0: torch.Tensor, steps: int) -> torch.Tensor:
+    """``steps`` power iterations v <- normalize((M + I) v) on u0 (m,),
+    one matvec each (an init strategy; steps=0 is the reference)."""
+    return power_init_batched(_one_lane(dual_matvec), None, u0[None],
+                              steps)[0]
+
+
+def flat_init(dual_matvec, u0: torch.Tensor,
+              params: Params = Params()) -> _FlatState:
+    """Initial single-lane state, scalars 0-d (reference: clipper.cpp:193-209)."""
+    return _unbatch(flat_init_batched(_one_lane(dual_matvec), None, u0[None],
+                                      params))
+
+
+def flat_solve_state(dual_matvec, state: _FlatState,
+                     params: Params = Params(), *, probes: int = 1,
+                     d_scale: float = 1.0) -> _FlatState:
+    """Drive a single-lane state (from :func:`flat_init`) until it is done:
+    the single-probe tick at probes=1, else the K-wide multiprobe tick at
+    warm_alpha=False, whose transitions are those of the JAX package's
+    flat_solve_single_multiprobe (the alpha after a rejected tick is
+    alist[-1] * beta, and nback grows by q or K). The host reads ``done``
+    once per _DONE_EVERY ticks."""
+    K = int(probes)
+    if K < 1:
+        raise ValueError(f"probes must be >= 1, got {probes}")
+    bd = _one_lane(dual_matvec)
+    dtype = state.u.dtype
+    if K > 1:
+        tick = make_flat_tick_multiprobe_batched(bd, params, dtype, K,
+                                                 d_scale=d_scale)
+    else:
+        tick = make_flat_tick_batched(bd, params, dtype, d_scale=d_scale)
+    s = _FlatState(*(x[None] for x in state))
+    while not bool(s.done.all()):
+        for _ in range(_DONE_EVERY):
+            s = tick(None, s)
+    return _unbatch(s)
+
+
+def _result(s: _FlatState, return_ticks: bool):
+    if return_ticks:
+        return s.u, s.F, s.i, s.ticks, s.nback
+    return s.u, s.F, s.i
+
+
+def flat_solve_single(
+        dual_matvec: Callable[[torch.Tensor], Tuple[torch.Tensor,
+                                                    torch.Tensor]],
+        u0: torch.Tensor, params: Params = Params(), *,
+        d_scale: float = 1.0, return_ticks: bool = False):
+    """One problem through the flat solver, one probe per tick.
+
+    dual_matvec(u) must return (M u, C u) for u (m,). Returns (u, F,
+    ifinal) with reference semantics, and with ``return_ticks=True`` also
+    the probe-tick and rejected-probe counts. d_scale: the homotopy schedule
+    refinement (1.0 = reference schedule)."""
+    s = flat_init(dual_matvec, u0, params)
+    return _result(flat_solve_state(dual_matvec, s, params,
+                                    d_scale=d_scale), return_ticks)
+
+
+def flat_solve_single_multiprobe(
+        dual_matvec: Callable[[torch.Tensor], Tuple[torch.Tensor,
+                                                    torch.Tensor]],
+        u0: torch.Tensor, params: Params = Params(), *, probes: int = 8,
+        d_scale: float = 1.0, return_ticks: bool = False):
+    """Flat solver with a K-wide line search: K = ``probes`` backtracking
+    candidates per matvec tick, with the semantics of the sequential
+    reference line search (reference: src/clipper.cpp:234-251).
+    dual_matvec must take (m,) vectors and (m, K) candidate columns."""
+    s = flat_init(dual_matvec, u0, params)
+    return _result(flat_solve_state(dual_matvec, s, params, probes=probes,
+                                    d_scale=d_scale), return_ticks)
+
+
+def recompute_objective(dual_matvec, u: torch.Tensor) -> torch.Tensor:
+    """u'(M + I)u in the matvec's precision: the converged objective,
+    independent of d once u's support is a clique."""
+    Mu, _ = dual_matvec(u)
+    return torch.dot(u, Mu + u)

@@ -64,6 +64,14 @@ class Solution:
         return np.flatnonzero(self.mask.cpu().numpy())
 
 
+def as_association(A, device=None) -> torch.Tensor:
+    """Coerce to an (m, 2) int32 association tensor."""
+    A = torch.as_tensor(A, device=device).to(torch.int32)
+    if A.dim() != 2 or A.shape[1] != 2:
+        raise ValueError(f"Association must be (m, 2); got {tuple(A.shape)}")
+    return A
+
+
 def resolve_device(device) -> torch.device:
     """The device an entry point runs on; raises when CUDA is asked for
     and missing (the port never carries on quietly on the CPU)."""

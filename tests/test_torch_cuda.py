@@ -16,7 +16,7 @@ import torch
 
 from clipper_tpu_torch import _kernels
 from clipper_tpu_torch.bench import harness
-from clipper_tpu_torch.ops import flattri
+from clipper_tpu_torch.ops import flattri, symstore
 from clipper_tpu_torch.ops.affinity import gather_endpoints
 from clipper_tpu_torch.parallel import pool
 from clipper_tpu_torch.types import Params
@@ -121,3 +121,38 @@ def test_pipeline_cuda_matches_cpu(cuda):
         out[str(dev)] = pipe(pcd0, D2s, As, u0).mask.cpu().numpy()
     masks = list(out.values())
     assert (masks[0] == masks[1]).all(1).sum() >= W - 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,G", [(1024, 8), (640, 2)])
+def test_sym_rows_kernel_matches_plain(cuda, m, G):
+    """Kernel 3 against its plain version on bunny storage at K=1 and 16
+    (and 20, two launches), within 1e-4; a rerun is bit-identical."""
+    t = 128
+    pcd0, D2s, As, _ = _problems(1, m, seed=7)
+    P1, P2 = gather_endpoints(torch.from_numpy(pcd0).to(cuda),
+                              torch.from_numpy(D2s[0]).to(cuda),
+                              torch.from_numpy(As[0]).to(cuda))
+    A = torch.from_numpy(As[0]).to(cuda)
+    chunks = symstore.build_symchunks(harness.default_invariant(), P1, P2, A,
+                                      m, tile=t, G=G)
+    nt = m // t
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    before = _kernels.LAUNCHES["sym_rows_matvec"]
+    for K in (1, 16, 20):
+        U = torch.rand(K, m, generator=gen, device=cuda)
+        U /= torch.linalg.vector_norm(U, dim=-1, keepdim=True)
+        a = symstore.sym_rows_matvec_cuda(chunks, nt, U)
+        b = symstore.sym_rows_matvec_plain(chunks, nt, U)
+        assert float((a - b).abs().max()) <= 1e-4
+        assert torch.equal(a, symstore.sym_rows_matvec_cuda(chunks, nt, U))
+    assert _kernels.LAUNCHES["sym_rows_matvec"] == before + 2 * (1 + 1 + 2)
+    for dtype in (torch.float32, torch.float64):
+        cf = symstore.build_symchunks(harness.default_invariant(),
+                                      P1.to(dtype), P2.to(dtype), A, m,
+                                      tile=t, G=G, storage_dtype=dtype)
+        U = torch.rand(4, m, generator=gen, device=cuda, dtype=dtype)
+        U /= torch.linalg.vector_norm(U, dim=-1, keepdim=True)
+        a = symstore.sym_rows_matvec_cuda(cf, nt, U)
+        b = symstore.sym_rows_matvec_plain(cf, nt, U)
+        assert float((a - b).abs().max()) <= 1e-4

@@ -43,6 +43,8 @@ def test_import_pulls_in_no_jax():
         "import sys\n"
         "import clipper_tpu_torch, clipper_tpu_torch.interop\n"
         "import clipper_tpu_torch.bench.harness, clipper_tpu_torch._kernels\n"
+        "import clipper_tpu_torch.clipper, clipper_tpu_torch.ops.symstore\n"
+        "import clipper_tpu_torch.utils\n"
         "import chip_smoke\n"
         "bad = [k for k in sys.modules if k.split('.')[0] in "
         "('jax', 'jaxlib', 'clipper_tpu')]\n"
