@@ -9,43 +9,69 @@ Phases, each of which must pass (any failure exits non-zero):
               K=16 and K=1 (max abs error <= 1e-4 on unit-norm u, and against
               an f64 oracle on the same int8 content and bf16-rounded u), its
               f32/f64 storage kinds, the tri build (C half exact, no M code
-              differing: both run the same IEEE f32 steps), and the rows
+              differing: both run the same IEEE f32 steps), the rows
               matvec on one m=1024 problem's row-chunked storage (t=128,
-              G=8) for K=1 and K=16, int8 (<= 1e-4) and f32/f64.
+              G=8) for K=1 and K=16, int8 (<= 1e-4) and f32/f64, the
+              stacked build (the 16 problems in int8 and bf16, and their
+              first 1000 associations with m_true < m on four: C half
+              exact, no M code differing, output equal to its transpose),
+              the stacked int8 matvec (plain, cuBLAS) against an f64 oracle
+              (<= 1.1e-5), and the pattern matvec on the 16 problems' dense
+              f32 M and its bf16 cast (<= 1e-4 against the plain version
+              and an f64 oracle).
 3. pool     — the bench protocol through make_pool_pipeline: W=512
               problems, m=1024, 90% outliers, bench.py's settings (1 warm-up
               call and 3 timed calls). Prints P/R, problems/s, per-stage times
               and the kernels' launch counts; requires P >= 0.995, R >= 0.88
               and both pool kernels launched.
+3b. stacked — the same 512 problems through make_pool_pipeline(
+              layout="stacked", int8, power_steps=4, window=12, lanes=128),
+              bench/pool_ab.py's settings, same protocol: the P/R bars and
+              the stacked build launched once a call; prints problems/s,
+              stage times, windows, ticks and the stacked matvec's time a
+              tick.
+3c. multistart — the first 128 problems with K=4 restarts through
+              make_pool_multistart_pipeline (bench/multistart_bench.py's
+              settings), u0 (128, 4, m) from numpy default_rng(0): the P/R
+              bars; prints ms a problem against the single-start stacked
+              pool on the same 128 problems.
+3d. batched — the 512 problems through make_batched_pipeline(
+              matvec="fused") in f32 (bench/harness.py's call): the P/R bars
+              and the pattern matvec launched; prints problems/s and the
+              lock-step tick count.
 4. capacity — one problem through the Clipper facade, engine="auto", f32:
               m=65,536, 95% outliers, the bunny (seed 0), u0 from numpy
               default_rng(0). Requires the triangle engine, the rows matvec
               launched, P >= 0.995 and R >= 0.88; prints the stage times of
               one warm call, its ticks, ifinal, F, storage GB and wall time.
 5. parity   — W=16 pool problems on cuda and on cpu: masks equal on >= 15
-              of 16, mean P/R within 1 point; the facade's triangle engine at
+              of 16, mean P/R within 1 point; the same for the stacked pool
+              and the fused batched engine at W=16, and for multistart at
+              W=8, K=4 (the chosen restart and the mask equal on >= 7 of
+              8); the facade's triangle engine at
               m=8192 on cuda and on cpu: mask IoU >= 0.95 and P >= 0.995,
               R >= 0.88 on both, with the f32 solve's own spread printed
               beside the bar (each device's IoU under +-1 ulp of noise on
               the matvec outputs, 4 trials on cuda, 2 on cpu); its dense
               engine in f64 at
               m=1024, 90% outliers: masks equal, P >= 0.995 and R >= 0.85 on
-              cuda.
-6. timing   — each kernel at its path's shapes (the build at W=512, the tri
+              cuda, and with solve(multistart=4): masks equal.
+6. timing   — each kernel at its path's shapes (the builds at W=512, the tri
               matvec at B=128, K=16 and B=512, K=1, the rows matvec on the
-              m=65,536 storage at K=16 and K=1) held against its plain
-              version as in phase 2, then timed beside its bound, its plain
-              version and, where one exists, one PyTorch call computing the
-              same function.
+              m=65,536 storage at K=16 and K=1, the pattern matvec at B=512
+              in f32 and bf16) held against its plain version as in phase
+              2, then timed beside its bound, its plain version and, where
+              one exists, one PyTorch call computing the same function.
 
 The line before the last is a JSON object of the kernels' numbers; the last
 line is {"ok": true, "device": {...}}.
 
 Usage: python3 chip_smoke.py [--quick] [--profile]
   --quick    phases 1-2 only
-  --profile  also run the pool path and the capacity path once each under
-             torch.profiler and print the device's busy share and the
-             kernels that take its time
+  --profile  also run the pool path, the stacked pool, the fused batched
+             engine and the capacity path once each under torch.profiler
+             and print the device's busy share and the kernels that take
+             its time
 """
 
 from __future__ import annotations
@@ -74,6 +100,12 @@ SPREAD_TRIALS_CUDA = 4        # ... and its spread: u0 moved by +-1 ulp
 SPREAD_TRIALS_CPU = 2
 DENSE_M = 1024                # facade cuda/cpu comparison, dense engine
 ROWS_T = 128                  # the capacity engine's tile
+# the stacked pool: bench/pool_ab.py:26, 78-80
+STACKED = dict(layout="stacked", lanes=128, window=12, power_steps=4)
+W_MULTI, K_MULTI = 128, 4     # multistart: bench/multistart_bench.py:63-65
+W_PARITY_MULTI = 8            # multistart problems in the cuda/cpu check
+M_EDGE = 1000                 # the stacked build where no tile divides m
+STACKED_MV_TOL = 1.1e-5       # stacked int8 matvec vs f64 (BENCH.md:591-595)
 
 
 def fail(msg: str) -> None:
@@ -179,10 +211,87 @@ def check_matvec(tri, nt, idx, U, label):
     return err
 
 
+def check_stored(inv, P1s, P2s, At, mts, storage, label):
+    """stored_build against the plain build on the card: C half exact, no
+    M code differing (the same IEEE f32 steps) and the output equal to its
+    transpose. Returns (storage, max |kernel - plain|)."""
+    import torch
+    from clipper_tpu_torch.ops import affinity_pallas
+    from clipper_tpu_torch.ops.affinity import stored_from_endpoints
+    W, m = At.shape[:2]
+    k = affinity_pallas.stored_build_cuda(inv, P1s, P2s, At, mts,
+                                          storage_dtype=storage)
+    p = stored_from_endpoints(inv, P1s, P2s, At, m_true=mts,
+                              storage_dtype=storage)
+    require(k.shape == p.shape == (W, 2 * m, m) and k.dtype == storage,
+            f"stored_build {label}: shape {tuple(k.shape)} {k.dtype}")
+    c_equal = bool(torch.equal(k[:, m:], p[:, m:]))
+    n_diff = int((k[:, :m] != p[:, :m]).sum())
+    err = float((k[:, :m].float() - p[:, :m].float()).abs().max())
+    sym = all(bool(torch.equal(h, h.transpose(1, 2)))
+              for h in (k[:, :m], k[:, m:]))
+    nnz = int((p[:, m:] > 0).sum())
+    del p
+    print(f"stored_build vs plain ({label}): C exact={c_equal}, M codes "
+          f"differing={n_diff} of {nnz} stored edges, max |diff|={err}, "
+          f"equal to its transpose={sym}", flush=True)
+    require(c_equal, f"stored_build {label}: C half differs from the plain "
+            "build")
+    require(n_diff == 0, f"stored_build {label}: {n_diff} M codes differ")
+    require(sym, f"stored_build {label}: output is not symmetric")
+    return k, err
+
+
+def check_pattern(M, u, label, oracle=True):
+    """pattern_matvec against the plain version (and an f64 oracle) on the
+    same M (B, m, m) and u (B, m); returns the max abs error."""
+    import torch
+    from clipper_tpu_torch.ops import fused_matvec
+    Mu, Cu = fused_matvec.pattern_dual_matvec_cuda(M, u)
+    require(bool(torch.isfinite(Mu).all() & torch.isfinite(Cu).all()),
+            f"pattern_matvec {label}: non-finite output")
+    Mp, Cp = fused_matvec.pattern_dual_matvec_plain(M, u)
+    err = max(float((Mu - Mp).abs().max()), float((Cu - Cp).abs().max()))
+    msg = f"pattern_matvec vs plain ({label}): max|kernel - plain|={err:.3e}"
+    if oracle:
+        M64, u64 = M.double(), u.double()[..., None]
+        e_o = max(float((Mu.double() - (M64 @ u64)[..., 0]).abs().max()),
+                  float((Cu.double() - ((M64 > 0).double() @ u64)[..., 0])
+                        .abs().max()))
+        msg += f", max|kernel - f64 oracle|={e_o:.3e}"
+        require(e_o <= MATVEC_TOL, f"pattern_matvec {label} disagrees with "
+                "the f64 oracle")
+    print(msg, flush=True)
+    require(err <= MATVEC_TOL, f"pattern_matvec {label} disagrees with plain")
+    return err
+
+
+def check_stacked_matvec(store, gen, dev, label):
+    """The stacked int8 matvec (plain PyTorch, cuBLAS in f32) against an
+    f64 oracle on the same int8 content and bf16-rounded u."""
+    import torch
+    from clipper_tpu_torch.solvers import msrc_flat
+    P, two_m, m = store.shape
+    idx = torch.randint(0, P, (32,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    U = unit_rows(gen, 32, 1, dev)[:, 0]
+    MU, CU = msrc_flat.make_stacked_pool_matvec(store, torch.float32)(idx, U)
+    Y = (store[idx.long()].double()
+         @ U.bfloat16().double()[..., None])[..., 0] / 127
+    err = max(float((MU.double() - Y[:, :m]).abs().max()),
+              float((CU.double() - Y[:, m:]).abs().max()))
+    print(f"stacked int8 matvec ({label}): max|plain - f64 oracle|="
+          f"{err:.3e}", flush=True)
+    require(err <= STACKED_MV_TOL, f"stacked matvec {label} exceeds "
+            f"{STACKED_MV_TOL} against the f64 oracle")
+
+
 def phase_kernels(inv, check, dev):
-    """Kernel-vs-plain checks on W_CHECK problems. Returns max errors."""
+    """Kernel-vs-plain checks on W_CHECK problems. Returns the max errors
+    by kernel."""
     import torch
     from clipper_tpu_torch.ops import flattri
+    from clipper_tpu_torch.ops.affinity import pairwise_from_endpoints
 
     D1, D2s, As, _, _ = check
     P1s, P2s = endpoints(D1, D2s, As, dev)
@@ -240,7 +349,36 @@ def phase_kernels(inv, check, dev):
         cf = rows_storage(inv, prob, dev, G=8, storage=dtype)
         check_rows(cf, nt, unit_rows(gen, 1, 4, dev)[0].to(dtype),
                    f"{dtype} storage, m={M}, G=8, K=4")
-    return max(errs.values()), build_err, rows_err
+
+    # the stacked build: int8 and bf16 at m=1024, then the first M_EDGE
+    # associations (no tile divides M_EDGE) with m_true < m on four
+    stored_err = 0.0
+    for storage in (torch.int8, torch.bfloat16):
+        store, e = check_stored(inv, P1s, P2s, At, mts, storage,
+                                f"{storage}, W={W_CHECK}, m={M}")
+        stored_err = max(stored_err, e)
+        if storage == torch.int8:
+            check_stacked_matvec(store, gen, dev, f"W={W_CHECK}, m={M}")
+        del store
+    me = M_EDGE
+    mts_e = torch.full((W_CHECK,), me, dtype=torch.int32, device=dev)
+    mts_e[:4] = torch.tensor([me - 1, me - 24, 700, 513], device=dev)
+    for storage in (torch.int8, torch.bfloat16):
+        _, e = check_stored(inv, P1s[:, :me], P2s[:, :me], At[:, :me], mts_e,
+                            storage, f"{storage}, W={W_CHECK}, m={me}, "
+                            "m_true < m on 4")
+        stored_err = max(stored_err, e)
+
+    # the pattern matvec on the problems' dense f32 M and its bf16 cast
+    Md, _ = pairwise_from_endpoints(inv, P1s, P2s, At)
+    u = unit_rows(gen, W_CHECK, 1, dev)[:, 0]
+    pattern_err = max(check_pattern(Md, u, f"f32, B={W_CHECK}, m={M}"),
+                      check_pattern(Md.bfloat16(), u,
+                                    f"bf16, B={W_CHECK}, m={M}"))
+    del Md
+    return {"tri_matvec": max(errs.values()), "tri_build": build_err,
+            "sym_rows_matvec": rows_err, "stored_build": stored_err,
+            "pattern_matvec": pattern_err}
 
 
 def one_problem(m: int, rho: float, seed: int):
@@ -359,26 +497,228 @@ def phase_main(inv, main, dev):
     return launches
 
 
-def phase_parity(inv, check, dev):
-    _, _, As, Agts, _ = check
-    sg = run_pipeline(inv, check, dev, W_CHECK)
-    sc = run_pipeline(inv, check, "cpu", W_CHECK)
+def counted_call(run):
+    """One call of run() with every launch count set to 0 just before it
+    and read just after it (the call is also the warm-up)."""
+    import torch
+    from clipper_tpu_torch import _kernels
+    _kernels.reset_launches()
+    out = run()
+    torch.cuda.synchronize()
+    return out, dict(_kernels.LAUNCHES)
+
+
+def timed_calls(run, reps: int):
+    """(last result, mean wall seconds) of reps calls of run(), each ending
+    in a synchronise."""
+    import torch
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        out = run()
+        torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) / reps
+
+
+def check_quality(label, As, sol, Agts, W):
+    """Shapes, finite values, F <= m and the bench protocol's P/R bars.
+    Returns mean (P, R)."""
+    import torch
+    masks = sol.mask.cpu().numpy()
+    score = sol.score.cpu().numpy()
+    require(masks.shape == (W, M) and score.shape == (W,),
+            f"{label}: shapes {masks.shape} {score.shape}")
+    require(bool(np.isfinite(score).all()) and bool(
+        torch.isfinite(sol.u).all()), f"{label}: non-finite u or score")
+    require(float(score.max()) <= M, f"{label}: objective F > m")
+    P, R = precision_recall(As[:W], masks, Agts[:W])
+    require(P.mean() >= 0.995, f"{label}: precision {P.mean():.4f} < 0.995")
+    require(R.mean() >= 0.88, f"{label}: recall {R.mean():.4f} < 0.88")
+    return P.mean(), R.mean()
+
+
+def run_stacked(inv, data_, dev, W, timings=None, stats=None):
+    import torch
+    from clipper_tpu_torch.parallel import pool
+    from clipper_tpu_torch.types import Params
+    D1, D2s, As, _, u0s = data_
+    pipe = pool.make_pool_pipeline(inv, Params(), storage_dtype=torch.int8,
+                                   device=dev, **STACKED)
+    return pipe(D1, D2s[:W], As[:W], u0s[:W], timings=timings, stats=stats)
+
+
+def multistart_u0(W):
+    return np.random.default_rng(0).random((W, K_MULTI, M)).astype(
+        np.float32)
+
+
+def run_multistart(inv, data_, dev, W, u0K, timings=None, stats=None):
+    import torch
+    from clipper_tpu_torch.parallel import pool
+    from clipper_tpu_torch.types import Params
+    D1, D2s, As, _, _ = data_
+    pipe = pool.make_pool_multistart_pipeline(
+        inv, Params(), restarts=K_MULTI, storage_dtype=torch.int8,
+        power_steps=STACKED["power_steps"], window=STACKED["window"],
+        lanes=STACKED["lanes"], device=dev)
+    return pipe(D1, D2s[:W], As[:W], u0K[:W], timings=timings, stats=stats)
+
+
+def run_batched(inv, data_, dev, W, stats=None):
+    from clipper_tpu_torch.parallel import batched
+    from clipper_tpu_torch.types import Params
+    D1, D2s, As, _, u0s = data_
+    pipe = batched.make_batched_pipeline(inv, Params(), matvec="fused",
+                                         device=dev)
+    return pipe(D1, D2s[:W], As[:W], u0s[:W], stats=stats)
+
+
+def phase_stacked(inv, main, dev):
+    """3b: the stacked pool on the main data. Returns its launches."""
+    import torch
+    from clipper_tpu_torch.ops import affinity_pallas
+    from clipper_tpu_torch.solvers import msrc_flat
+
+    D1, D2s, As, Agts, _ = main
+    sol, launches = counted_call(lambda: run_stacked(inv, main, dev, W_MAIN))
+    timings, stats = {}, {}
+    reps = 3
+    sol, wall = timed_calls(lambda: run_stacked(
+        inv, main, dev, W_MAIN, timings=timings, stats=stats), reps)
+    P, R = check_quality("stacked pool", As, sol, Agts, W_MAIN)
+    ticks = stats["ticks"].float()
+    nwin = stats["windows"]
+    lockstep = nwin * STACKED["window"]
+    print(f"stacked pool: W={W_MAIN} m={M} rho={RHO}: precision="
+          f"{P * 100:.2f}% recall={R * 100:.2f}%  {W_MAIN / wall:.1f} "
+          f"problems/s ({wall * 1e3:.1f} ms/batch, mean of {reps} after 1 "
+          f"warm-up)", flush=True)
+    print("stacked pool stage ms (last timed call, CUDA events): "
+          + ", ".join(f"{k}={v:.3f}" for k, v in timings.items()), flush=True)
+    print(f"stacked pool: {nwin} windows of {STACKED['window']} ticks "
+          f"({lockstep} ticks on the lanes, {timings['solve'] / lockstep:.4f}"
+          f" ms a tick in the solve stage); ticks a problem mean="
+          f"{float(ticks.mean()):.1f} max={int(ticks.max())}; ifinal mean="
+          f"{float(sol.ifinal.float().mean()):.2f} max="
+          f"{int(sol.ifinal.max())}", flush=True)
+    print(f"stacked pool kernel launches (one call): {launches}", flush=True)
+    require(launches["stored_build"] == 1,
+            f"stacked pool: stored_build launched "
+            f"{launches['stored_build']} times in one call, not once")
+
+    # the stacked matvec of one tick: every lane's gather and f32 matmul
+    P1s, P2s = endpoints(D1, D2s, As, dev)
+    At = torch.as_tensor(As, device=dev)
+    mts = torch.full((W_MAIN,), M, dtype=torch.int32, device=dev)
+    store = affinity_pallas.stored_build_cuda(inv, P1s, P2s, At, mts)
+    bmv = msrc_flat.make_stacked_pool_matvec(store, torch.float32)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    B = STACKED["lanes"]
+    idx = torch.randperm(W_MAIN, generator=gen, device=dev)[:B].to(
+        torch.int32)
+    U = unit_rows(gen, B, 1, dev)[:, 0]
+    mv_ms = cuda_ms(lambda: bmv(idx, U), 20)
+    print(f"stacked matvec a tick (B={B} lanes, int8 storage: gather + f32 "
+          f"matmul, plain PyTorch): {mv_ms:.4f} ms", flush=True)
+    return launches
+
+
+def phase_multistart(inv, main, dev):
+    """3c: K restarts of the first W_MULTI problems, against the
+    single-start stacked pool on the same problems."""
+    _, _, As, Agts, _ = main
+    u0K = multistart_u0(W_MULTI)
+    sol, launches = counted_call(lambda: run_multistart(inv, main, dev,
+                                                        W_MULTI, u0K))
+    timings, stats = {}, {}
+    reps = 2
+    sol, wall = timed_calls(lambda: run_multistart(
+        inv, main, dev, W_MULTI, u0K, timings=timings, stats=stats), reps)
+    P, R = check_quality("multistart", As, sol, Agts, W_MULTI)
+    counted_call(lambda: run_stacked(inv, main, dev, W_MULTI))
+    _, wall1 = timed_calls(lambda: run_stacked(inv, main, dev, W_MULTI), reps)
+    chosen = np.bincount(sol.ifinal.cpu().numpy(), minlength=K_MULTI)
+    print(f"multistart: W={W_MULTI} K={K_MULTI} m={M}: precision="
+          f"{P * 100:.2f}% recall={R * 100:.2f}%  {wall / W_MULTI * 1e3:.3f} "
+          f"ms/problem against {wall1 / W_MULTI * 1e3:.3f} ms/problem single "
+          f"start (ratio {wall / wall1:.2f}, mean of {reps} after 1 warm-up); "
+          f"restart chosen {chosen.tolist()}; {stats['windows']} windows",
+          flush=True)
+    print("multistart stage ms (last timed call, CUDA events): "
+          + ", ".join(f"{k}={v:.3f}" for k, v in timings.items()), flush=True)
+    print(f"multistart kernel launches (one call): {launches}", flush=True)
+    require(launches["stored_build"] == 1,
+            f"multistart: stored_build launched {launches['stored_build']} "
+            "times in one call, not once")
+
+
+def phase_batched(inv, main, dev):
+    """3d: the fused batched engine on the main data. Returns its
+    launches."""
+    _, _, As, Agts, _ = main
+    stats = {}
+    sol, launches = counted_call(lambda: run_batched(inv, main, dev, W_MAIN,
+                                                     stats=stats))
+    sol, wall = timed_calls(lambda: run_batched(inv, main, dev, W_MAIN,
+                                                stats=stats), 1)
+    P, R = check_quality("fused batched", As, sol, Agts, W_MAIN)
+    print(f"fused batched: W={W_MAIN} m={M} rho={RHO} f32: precision="
+          f"{P * 100:.2f}% recall={R * 100:.2f}%  {W_MAIN / wall:.1f} "
+          f"problems/s ({wall * 1e3:.1f} ms/batch, 1 call after 1 warm-up); "
+          f"{stats['ticks']} lock-step ticks; ifinal mean="
+          f"{float(sol.ifinal.float().mean()):.2f} max="
+          f"{int(sol.ifinal.max())}", flush=True)
+    print(f"fused batched kernel launches (one call): {launches}", flush=True)
+    require(launches["pattern_matvec"] > 0,
+            f"the pattern matvec was never launched: {launches}")
+    return launches
+
+
+def compare_devices(label, sg, sc, As, Agts, W, need, restarts=False):
+    """Masks of a cuda and a cpu run: equal on >= need of W problems, mean
+    P/R within 1 point. With restarts, the chosen restart must agree too:
+    its index, or, where restarts that reach the same clique tie, its
+    polished F within 1e-5 relative (an ulp-level difference picks another
+    index among equals)."""
     mg = sg.mask.cpu().numpy()
-    mc = sc.mask.numpy()
-    same = int((mg == mc).all(1).sum())
-    Pg, Rg = precision_recall(As, mg, Agts)
-    Pc, Rc = precision_recall(As, mc, Agts)
-    print(f"cuda vs cpu (W={W_CHECK}): masks equal on {same}/{W_CHECK}; "
-          f"P {Pg.mean() * 100:.2f}/{Pc.mean() * 100:.2f}%  "
+    mc = sc.mask.cpu().numpy()
+    same = (mg == mc).all(1)
+    ig, ic = sg.ifinal.cpu().numpy(), sc.ifinal.cpu().numpy()
+    Fg, Fc = sg.score.cpu().double().numpy(), sc.score.cpu().double().numpy()
+    if restarts:
+        same &= (ig == ic) | (np.abs(Fg - Fc) <= 1e-5 * np.abs(Fc))
+    Pg, Rg = precision_recall(As[:W], mg, Agts[:W])
+    Pc, Rc = precision_recall(As[:W], mc, Agts[:W])
+    what = (f"restart and mask (same index on {int((ig == ic).sum())})"
+            if restarts else "masks")
+    print(f"cuda vs cpu, {label} (W={W}): {what} equal on {int(same.sum())}"
+          f"/{W}; P {Pg.mean() * 100:.2f}/{Pc.mean() * 100:.2f}%  "
           f"R {Rg.mean() * 100:.2f}/{Rc.mean() * 100:.2f}%", flush=True)
-    for w in np.flatnonzero(~(mg == mc).all(1)):
+    for w in np.flatnonzero(~same | (ig != ic)):
         print(f"  problem {w}: {int((mg[w] != mc[w]).sum())} vertices differ;"
               f" |mask| cuda {int(mg[w].sum())} cpu {int(mc[w].sum())}; "
-              f"ifinal cuda {int(sg.ifinal[w])} cpu {int(sc.ifinal[w])}",
-              flush=True)
-    require(same >= W_CHECK - 1, "cuda/cpu masks differ on > 1 problem")
+              f"ifinal cuda {ig[w]} cpu {ic[w]}; F cuda {Fg[w]:.6f} cpu "
+              f"{Fc[w]:.6f}", flush=True)
+    require(int(same.sum()) >= need,
+            f"{label}: cuda/cpu differ on {W - int(same.sum())} problems")
     require(abs(Pg.mean() - Pc.mean()) <= 0.01 and
-            abs(Rg.mean() - Rc.mean()) <= 0.01, "cuda/cpu P/R differ > 1pt")
+            abs(Rg.mean() - Rc.mean()) <= 0.01,
+            f"{label}: cuda/cpu P/R differ > 1pt")
+
+
+def phase_parity(inv, check, dev):
+    _, _, As, Agts, _ = check
+    for label, run in (("tri pool", run_pipeline),
+                       ("stacked pool", run_stacked),
+                       ("fused batched", run_batched)):
+        compare_devices(label, run(inv, check, dev, W_CHECK),
+                        run(inv, check, "cpu", W_CHECK), As, Agts, W_CHECK,
+                        W_CHECK - 1)
+    W = W_PARITY_MULTI
+    u0K = multistart_u0(W)
+    compare_devices(f"multistart K={K_MULTI}",
+                    run_multistart(inv, check, dev, W, u0K),
+                    run_multistart(inv, check, "cpu", W, u0K), As, Agts, W,
+                    W - 1, restarts=True)
 
 
 def phase_timing(inv, main, dev):
@@ -452,6 +792,76 @@ def phase_timing(inv, main, dev):
               f"bmm over dense bf16 [M; C] {r['library_ms']:.4f} ms",
               flush=True)
     return rows, build_err, mv_err
+
+
+def time_stacked_and_pattern(inv, main, dev):
+    """The stacked build at W=512 int8 and the pattern matvec at B=512
+    (f32 and bf16 M), held against their plain versions, then timed.
+    Returns their rows of the kernels' JSON line and max errors."""
+    import torch
+    from clipper_tpu_torch.ops import affinity_pallas, fused_matvec
+    from clipper_tpu_torch.ops.affinity import (pairwise_from_endpoints,
+                                                stored_from_endpoints)
+
+    D1, D2s, As, _, _ = main
+    W = W_MAIN
+    P1s, P2s = endpoints(D1, D2s, As, dev)
+    At = torch.as_tensor(As, device=dev)
+    mts = torch.full((W,), M, dtype=torch.int32, device=dev)
+    rows, errs = {}, {}
+    store, errs["stored_build"] = check_stored(
+        inv, P1s, P2s, At, mts, torch.int8, f"int8, W={W}, m={M}")
+    del store
+    b_bytes = W * 2 * M * M + 2 * W * M * 3 * 4 + W * M * 2 * 4 + W * 4
+    b_ops = W * M * M * BUILD_OPS_PER_ENTRY
+    rows["stored_build"] = dict(
+        ms=cuda_ms(lambda: affinity_pallas.stored_build_cuda(
+            inv, P1s, P2s, At, mts), 10),
+        plain_ms=cuda_ms(lambda: stored_from_endpoints(
+            inv, P1s, P2s, At, m_true=mts), 2),
+        bound_ms=max(b_bytes / HBM_BYTES_PER_S, b_ops / F32_FLOPS) * 1e3,
+        bound_by=("bytes" if b_bytes / HBM_BYTES_PER_S > b_ops / F32_FLOPS
+                  else "operations"),
+        library_ms=None)
+    torch.cuda.empty_cache()
+
+    Md, _ = pairwise_from_endpoints(inv, P1s, P2s, At)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    u = unit_rows(gen, W, 1, dev)[:, 0]
+    errs["pattern_matvec"] = 0.0
+    for Mx in (Md, Md.bfloat16()):
+        label = f"{str(Mx.dtype).split('.')[-1]}, B={W}, m={M}"
+        errs["pattern_matvec"] = max(errs["pattern_matvec"], check_pattern(
+            Mx, u, label, oracle=False))
+        p_bytes = Mx.numel() * Mx.element_size() + W * M * 4 + 2 * W * M * 4
+        p_ops = 4 * W * M * M
+        r = dict(ms=cuda_ms(lambda: fused_matvec.pattern_dual_matvec_cuda(
+                     Mx, u), 20),
+                 plain_ms=cuda_ms(
+                     lambda: fused_matvec.pattern_dual_matvec_plain(Mx, u), 3),
+                 bound_ms=max(p_bytes / HBM_BYTES_PER_S,
+                              p_ops / F32_FLOPS) * 1e3,
+                 bound_by=("bytes" if p_bytes / HBM_BYTES_PER_S
+                           > p_ops / F32_FLOPS else "operations"),
+                 library_ms=None)
+        if Mx.dtype == torch.float32:
+            # the yardstick: one bmm over the dense f32 [M; C], TF32 off
+            MC = torch.cat([Md, (Md > 0).float()], dim=1)
+            r["library_ms"] = cuda_ms(lambda: torch.bmm(MC, u[..., None]),
+                                      10)
+            del MC
+            rows["pattern_matvec"] = r
+        print(f"timing pattern_matvec {label}: kernel {r['ms']:.4f} ms, "
+              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), plain "
+              f"{r['plain_ms']:.4f} ms, bmm over dense f32 [M; C] "
+              f"{r['library_ms']}", flush=True)
+    r = rows["stored_build"]
+    print(f"timing stored_build W={W} m={M} int8: kernel {r['ms']:.4f} ms, "
+          f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), plain "
+          f"{r['plain_ms']:.4f} ms, library None", flush=True)
+    del Md
+    torch.cuda.empty_cache()
+    return rows, errs
 
 
 def phase_capacity(inv, prob, dev):
@@ -573,6 +983,31 @@ def phase_facade_parity(inv, dev):
     require(P >= 0.995 and R >= 0.85, f"facade dense engine P/R {P:.4f}/"
             f"{R:.4f} below 0.995/0.85")
 
+    # solve(multistart=4): the four u0 come from the instance's seeded CPU
+    # generator, so both devices start from the same vectors
+    def run_multi(d):
+        pcd0, pcd1, A, _, _ = prob
+        c = Clipper(inv, Params(), engine="dense", dtype=torch.float64,
+                    device=d)
+        c.score_pairwise_consistency(pcd0.T, pcd1.T, A)
+        sol = c.solve(multistart=K_MULTI)
+        return c, sol.mask.cpu().numpy(), int(sol.ifinal)
+
+    cg, mg, ig = run_multi(dev)
+    cc, mc, ic = run_multi("cpu")
+    pr = [data.get_precision_recall(c.get_selected_associations(), prob[3])
+          for c in (cg, cc)]
+    print(f"facade dense engine f64 m={DENSE_M} solve(multistart="
+          f"{K_MULTI}): masks equal to cpu: {bool((mg == mc).all())} "
+          f"({int((mg != mc).sum())} differ); ifinal cuda {ig} cpu {ic}; "
+          f"P/R cuda {pr[0][0] * 100:.2f}/{pr[0][1] * 100:.2f}% cpu "
+          f"{pr[1][0] * 100:.2f}/{pr[1][1] * 100:.2f}%", flush=True)
+    require(bool((mg == mc).all()), "facade dense multistart: cuda and cpu "
+            "masks differ")
+    require(abs(pr[0][0] - pr[1][0]) <= 0.01 and
+            abs(pr[0][1] - pr[1][1]) <= 0.01,
+            "facade dense multistart: cuda/cpu P/R differ > 1pt")
+
 
 def dense_from_chunks(chunks, nt):
     """Row-chunked storage -> the dense stacked (2m, m) [M; C] in bf16
@@ -678,13 +1113,17 @@ def profile_call(label, fn):
 
 
 def phase_profile(inv, main, cap, dev):
-    """The pool path (W=512) and the capacity path (m=65,536) under the
-    profiler, one call each."""
+    """The pool path, the stacked pool and the fused batched engine
+    (W=512), and the capacity path (m=65,536) under the profiler, one call
+    each."""
     import torch
     from clipper_tpu_torch import Clipper
     from clipper_tpu_torch.types import Params
 
     profile_call("pool-path", lambda: run_pipeline(inv, main, dev, W_MAIN))
+    profile_call("stacked-pool", lambda: run_stacked(inv, main, dev, W_MAIN))
+    profile_call("fused-batched", lambda: run_batched(inv, main, dev,
+                                                      W_MAIN))
     pcd0, pcd1, A, _, u0 = cap
     c = Clipper(inv, Params(), engine="auto", dtype=torch.float32, device=dev)
     c.score_pairwise_consistency(pcd0.T, pcd1.T, A)
@@ -717,7 +1156,7 @@ def main() -> None:
     check = make_problems(W_CHECK, seed=1)
     print(f"check data: {W_CHECK} problems in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    mv_err, build_err, rows_err = phase_kernels(inv, check, dev)
+    errs = phase_kernels(inv, check, dev)
     if quick:
         print("quick: build and kernel checks passed", flush=True)
         return
@@ -727,38 +1166,43 @@ def main() -> None:
     print(f"pool data: {W_MAIN} problems in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     launches = phase_main(inv, main_data, dev)
+    launches["stored_build"] = phase_stacked(inv, main_data,
+                                             dev)["stored_build"]
+    phase_multistart(inv, main_data, dev)
+    launches["pattern_matvec"] = phase_batched(inv, main_data,
+                                               dev)["pattern_matvec"]
     t0 = time.perf_counter()
     cap = one_problem(CAP_M, CAP_RHO, seed=0)
     print(f"capacity data: m={CAP_M} in {time.perf_counter() - t0:.1f} s",
           flush=True)
-    launches.update(sym_rows_matvec=phase_capacity(inv, cap, dev)[
-        "sym_rows_matvec"])
+    launches["sym_rows_matvec"] = phase_capacity(inv, cap, dev)[
+        "sym_rows_matvec"]
     phase_parity(inv, check, dev)
     phase_facade_parity(inv, dev)
     rows, build_err_main, mv_err_main = phase_timing(inv, main_data, dev)
-    build_err = max(build_err, build_err_main)
-    mv_err = max(mv_err, mv_err_main)
+    errs["tri_build"] = max(errs["tri_build"], build_err_main)
+    errs["tri_matvec"] = max(errs["tri_matvec"], mv_err_main)
     rows["sym_rows_matvec"], rows_err_cap = time_rows(inv, cap, dev)
-    rows_err = max(rows_err, rows_err_cap)
+    errs["sym_rows_matvec"] = max(errs["sym_rows_matvec"], rows_err_cap)
+    rows_sp, errs_sp = time_stacked_and_pattern(inv, main_data, dev)
+    rows.update(rows_sp)
+    for name, e in errs_sp.items():
+        errs[name] = max(errs[name], e)
     if "--profile" in sys.argv[1:]:
         phase_profile(inv, main_data, cap, dev)
 
     src = "clipper_tpu_torch/csrc/"
-    kernels = [
-        dict(name="tri_matvec", route="cuda", source=src + "tri_matvec.cu",
-             replaces="clipper_tpu/ops/flattri.py:152",
-             launches=launches["tri_matvec"], max_abs_err=mv_err,
-             **rows["tri_matvec"]),
-        dict(name="tri_build", route="cuda", source=src + "tri_build.cu",
-             replaces="clipper_tpu/ops/flattri.py:463",
-             launches=launches["tri_build"], max_abs_err=build_err,
-             **rows["tri_build"]),
-        dict(name="sym_rows_matvec", route="cuda",
-             source=src + "sym_rows_matvec.cu",
-             replaces="clipper_tpu/ops/symstore.py:653",
-             launches=launches["sym_rows_matvec"], max_abs_err=rows_err,
-             **rows["sym_rows_matvec"]),
-    ]
+    replaces = {
+        "tri_matvec": "clipper_tpu/ops/flattri.py:152",
+        "tri_build": "clipper_tpu/ops/flattri.py:463",
+        "sym_rows_matvec": "clipper_tpu/ops/symstore.py:653",
+        "stored_build": "clipper_tpu/ops/affinity_pallas.py:107",
+        "pattern_matvec": "clipper_tpu/ops/fused_matvec.py:55",
+    }
+    kernels = [dict(name=name, route="cuda", source=f"{src}{name}.cu",
+                    replaces=where, launches=launches[name],
+                    max_abs_err=errs[name], **rows[name])
+               for name, where in replaces.items()]
     for k in kernels:
         for key in ("ms", "plain_ms", "bound_ms", "library_ms"):
             if k[key] is not None:

@@ -1,7 +1,8 @@
 """Build and load the port's hand-written CUDA kernels.
 
-Each ``csrc/*.cu`` file is compiled at first use by its own ``nvcc`` into a
-shared library with a plain C interface under ``build/clipper_tpu_torch/``
+Each ``csrc/*.cu`` file (with the ``csrc/*.cuh`` headers it includes) is
+compiled at first use by its own ``nvcc`` into a shared library with a
+plain C interface under ``build/clipper_tpu_torch/``
 (listed in .gitignore) and loaded with ``ctypes``. Every C entry point
 launches on the caller's stream and returns ``cudaGetLastError()``;
 :func:`check` raises on a non-zero code. ``LAUNCHES`` counts kernel launches
@@ -29,12 +30,14 @@ CUDA_BIN = "/usr/local/cuda/bin"     # the toolkit's default install
 _ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 _COMMON = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
            "-Xptxas", "-v"]
-# per-source extra flags: the build kernel must not contract a*b+c into
-# FMAs, which would change the roundings that decide its int8 codes
+# per-source extra flags: the build kernels must not contract a*b+c into
+# FMAs, which would change the roundings that decide their int8 codes
 SOURCES: Dict[str, list] = {
     "tri_matvec": [],
     "tri_build": ["--fmad=false"],
     "sym_rows_matvec": [],
+    "stored_build": ["--fmad=false"],
+    "pattern_matvec": [],
 }
 
 _P = ctypes.c_void_p
@@ -50,10 +53,13 @@ _SIGNATURES = {
     "sym_rows_matvec_int8": [_P, _P, _P, _I, _I, _I, _I, _F, _P],
     "sym_rows_matvec_f32": [_P, _P, _P, _I, _I, _I, _I, _P],
     "sym_rows_matvec_f64": [_P, _P, _P, _I, _I, _I, _I, _P],
+    "stored_build_int8": [_P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _P],
+    "stored_build_bf16": [_P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _P],
+    "pattern_matvec_f32": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "pattern_matvec_bf16": [_P, _P, _P, _P, _I, _I, _I, _P],
 }
 
-LAUNCHES: Dict[str, int] = {"tri_matvec": 0, "tri_build": 0,
-                            "sym_rows_matvec": 0}
+LAUNCHES: Dict[str, int] = {name: 0 for name in SOURCES}
 BUILD_LOG: Dict[str, str] = {}
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -73,8 +79,9 @@ def _nvcc() -> str:
 
 def _target(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     flags = " ".join(_ARCH + _COMMON + SOURCES[name]).encode()
-    digest = hashlib.sha1(src + flags).hexdigest()[:12]
+    digest = hashlib.sha1(src + headers + flags).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

@@ -11,8 +11,13 @@ row-major datasets and solves through the row-chunked symmetric-triangle
 capacity engine (ops/symstore.solve_single, the CUDA rows matvec on the
 card); ``"auto"`` takes dense below m = 8192 and the triangle from there.
 
+``solve(multistart=K)`` runs K inits of the dense engine's problem in
+lock-step through the flat solver (solvers/msrc_flat.solve_multistart)
+and keeps the densest cluster; the triangle engine raises for it, as the
+JAX package's capacity engines do.
+
 Not ported yet, and raising NotImplementedError with their ROADMAP.md
-Queue 1 item: ``engine="sharded"`` (13), ``multistart > 1`` (10),
+Queue 1 item: ``engine="sharded"`` (13),
 ``set_sparse_matrix_data`` (12), ``Rounding.DSD`` and
 ``solve_as_maximum_clique`` (15, the host solvers), and
 ``solve_as_msrc_sdr*`` (14).
@@ -30,7 +35,7 @@ from clipper_tpu_torch import utils
 from clipper_tpu_torch.invariants.base import PairwiseInvariant
 from clipper_tpu_torch.ops import symstore
 from clipper_tpu_torch.ops.affinity import build_affinity, create_all_to_all
-from clipper_tpu_torch.solvers import msrc
+from clipper_tpu_torch.solvers import msrc, msrc_flat
 from clipper_tpu_torch.types import (Params, Rounding, Solution,
                                      as_association, resolve_device)
 
@@ -127,12 +132,28 @@ class Clipper:
         """Solve MSRC by graduated projected gradient ascent
         (reference: src/clipper.cpp:69-78). Without u0, a U[0, 1) vector is
         drawn from ``generator`` if given, else from the instance's seeded
-        stream (see ``seed``)."""
+        stream (see ``seed``).
+
+        multistart > 1 draws that many u0 vectors from the same stream,
+        one after another, solves them in parallel through the flat solver
+        over the full-precision [M; C] and keeps the solution with the
+        highest F (an extension; the reference solves from one init). An
+        explicit u0 with multistart > 1 is contradictory and raises
+        ValueError; the triangle engine raises NotImplementedError for
+        multistart."""
         self._require_matrices()
-        if multistart > 1:
-            raise _not_ported("multistart > 1", 10)
+        if multistart > 1 and u0 is not None:
+            raise ValueError(
+                "solve(u0=..., multistart>1) is contradictory: an explicit "
+                "u0 fixes the single init. Pass generator=... to seed the "
+                "multistart draws instead")
         if self.params.rounding == Rounding.DSD:
             raise _not_ported("Rounding.DSD (the host max-flow)", 15)
+        if multistart > 1 and self._cap is not None:
+            raise NotImplementedError(
+                "multistart on the capacity engines is not supported; run "
+                "separate solves with explicit generators (each solve "
+                "rebuilds tile storage, so restarts are not near-free here)")
         if generator is None:
             generator = torch.Generator()
             if self.seed is None:
@@ -143,14 +164,21 @@ class Clipper:
         self._nsolves += 1
         m = self._A.shape[0] if self._cap is not None else self._M.shape[0]
         t0 = time.perf_counter()
-        if u0 is None:
-            u0 = utils.randvec(generator, m, dtype=self.dtype,
-                               device=self.device)
-        u0 = self._tensor(u0)
-        if self._cap is not None:
-            soln = self._solve_capacity(u0)
+        if multistart > 1:
+            u0s = torch.stack([utils.randvec(generator, m, dtype=self.dtype,
+                                             device=self.device)
+                               for _ in range(multistart)])
+            soln = msrc_flat.solve_multistart(self._M, self._C, u0s,
+                                              self.params)
         else:
-            soln = msrc.solve_msrc(self._M, self._C, u0, self.params)
+            if u0 is None:
+                u0 = utils.randvec(generator, m, dtype=self.dtype,
+                                   device=self.device)
+            u0 = self._tensor(u0)
+            if self._cap is not None:
+                soln = self._solve_capacity(u0)
+            else:
+                soln = msrc.solve_msrc(self._M, self._C, u0, self.params)
         soln.mask.cpu()     # synchronize before reading the clock
         soln.t = time.perf_counter() - t0
         self._soln = soln

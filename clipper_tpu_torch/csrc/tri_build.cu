@@ -13,17 +13,12 @@
 // the CPU and raise on CUDA.
 //
 // Numerics follow the JAX arithmetic step by step, because they decide the
-// +-1 int8 codes and the 0/127 C codes:
-//   sq = ((0 + dx^2) + dy^2) + dz^2 in coordinate order, l = sqrtf(sq);
-//   c = |l1 - l2|; s = expf(((-0.5 c) c) / s2), s2 = (float)(sigma sigma)
-//   formed in double on the host; gated on c < (float)epsilon;
+// +-1 int8 codes and the 0/127 C codes: the score of euclid_score.cuh, then
 //   keep = distinct & off-diagonal & row, col < m_true & s > (float)affeps;
 //   M = clip(rint(127 s), 0, 127) (round half to even, as jnp.round);
 //   C = 127.
-// The explicit __fmul_rn / __fadd_rn and the file's --fmad=false flag keep
-// FMA contraction from changing the roundings. expf may differ from XLA's
-// exp by an ulp, which can move an M code by one at a rounding tie; the
-// C half is exact.
+// expf may differ from XLA's exp by an ulp, which can move an M code by one
+// at a rounding tie; the C half is exact.
 //
 // What bounds it on this card: the 671 MB of int8 output at W=512, m=1024
 // (0.2 ms at 3.35 TB/s) against ~30 f32 operations per entry (~10 GFLOP,
@@ -35,18 +30,9 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-namespace {
+#include "euclid_score.cuh"
 
-__device__ __forceinline__ float dist3(float ax, float ay, float az, float bx,
-                                       float by, float bz) {
-  const float dx = __fsub_rn(ax, bx);
-  const float dy = __fsub_rn(ay, by);
-  const float dz = __fsub_rn(az, bz);
-  float sq = __fmul_rn(dx, dx);
-  sq = __fadd_rn(sq, __fmul_rn(dy, dy));
-  sq = __fadd_rn(sq, __fmul_rn(dz, dz));
-  return sqrtf(sq);
-}
+namespace {
 
 constexpr int kMaxTile = 256;
 
@@ -93,10 +79,7 @@ __global__ void __launch_bounds__(256) tri_build_int8_kernel(
           dist3(r1[i * 3], r1[i * 3 + 1], r1[i * 3 + 2], cx1, cy1, cz1);
       const float l2 =
           dist3(r2[i * 3], r2[i * 3 + 1], r2[i * 3 + 2], cx2, cy2, cz2);
-      const float cc = fabsf(__fsub_rn(l1, l2));
-      float s = 0.f;
-      if (cc < eps) s = expf(__fdiv_rn(__fmul_rn(__fmul_rn(-0.5f, cc), cc), s2));
-      if (mindist > 0.f && (l1 < mindist || l2 < mindist)) s = 0.f;
+      const float s = euclid_score(l1, l2, s2, eps, mindist);
       const bool distinct = !(ra[i * 2] == ca0 || ra[i * 2 + 1] == ca1);
       const bool keep = distinct && gr != gc && gr < lim && gc < lim &&
                         s > affeps;

@@ -53,11 +53,13 @@ def distinctness_mask(A: torch.Tensor) -> torch.Tensor:
 
 def gather_endpoints(D1, D2, A) -> Tuple[torch.Tensor, torch.Tensor]:
     """P1 = D1[A[..., 0]], P2 = D2[A[..., 1]]; D1/D2 may be shared (n, d)
-    or per problem (W, n, d) when A is (W, m, 2)."""
+    or per problem (W, n, d) when A is (W, m, 2). A negative index counts
+    from the end, as in indexing (pad rows carry A = -1)."""
     A = A.long()
 
     def take(D, a):
         if D.dim() == a.dim() + 1:        # one dataset per problem
+            a = torch.where(a < 0, a + D.shape[-2], a)
             return torch.gather(D, -2, a[..., None].expand(
                 *a.shape, D.shape[-1]))
         return D[a]

@@ -182,10 +182,10 @@ def tri_pool_matvec_cuda(tri: torch.Tensor, nt: int, idx: torch.Tensor,
 def make_tri_pool_matvec(tri: torch.Tensor, nt: int, out_dtype: torch.dtype):
     """Batched per-lane dual matvec over (P, 2t, S) flat-triangle storage.
 
-    Returns ``bmv(idx, U) -> (MU, CU)`` with idx (B,) lane -> pool row and
-    U (B, m) (one row per lane) or (B, K, m) (K multiprobe candidates per
-    lane); outputs match U's shape. CUDA storage launches the kernel, CPU
-    storage takes the plain version.
+    Returns ``bmv(idx, U) -> (MU, CU)`` with idx (B,) lane -> pool row (or
+    None: lane b reads row b) and U (B, m) (one row per lane) or (B, K, m)
+    (K multiprobe candidates per lane); outputs match U's shape. CUDA
+    storage launches the kernel, CPU storage takes the plain version.
     """
     P, two_t, S = tri.shape
     t = two_t // 2
@@ -195,6 +195,9 @@ def make_tri_pool_matvec(tri: torch.Tensor, nt: int, out_dtype: torch.dtype):
     fn = tri_pool_matvec_cuda if tri.is_cuda else tri_pool_matvec_plain
 
     def bmv(idx, U):
+        if idx is None:
+            idx = torch.arange(U.shape[0], dtype=torch.int32,
+                               device=tri.device)
         mp = U.dim() == 3
         MU, CU = fn(tri, nt, idx, U if mp else U[:, None, :], out_dtype)
         return (MU, CU) if mp else (MU[:, 0], CU[:, 0])

@@ -1,7 +1,6 @@
-"""Pool scheduler: lane compaction over flat-triangle storage.
+"""Pool scheduler: lane compaction over stacked or flat-triangle storage.
 
-Counterpart of the main-path subset of ``clipper_tpu/parallel/pool.py``
-(:95-238, :241-336, :387-718) for ``layout="tri"``. A device-resident pool
+Counterpart of ``clipper_tpu/parallel/pool.py``. A device-resident pool
 of W prepared problems feeds B active lanes; the schedule alternates
 
   * ``window`` solver ticks on the B lanes (converged lanes freeze), and
@@ -12,6 +11,13 @@ The JAX package runs this as one on-device ``while_loop``. Here it is a
 host loop over windows: the ticks of a window and the compaction are
 enqueued without host reads, and reading ``any(active)`` costs one host
 synchronisation per window.
+
+Two storage layouts, as in the JAX package: ``"stacked"`` keeps each
+problem's dense (2m, m) [M; C] (any m; the build kernel
+csrc/stored_build.cu on the card), and ``"tri"`` its flat upper triangle
+(m divisible by 128; the kernels csrc/tri_build.cu and csrc/tri_matvec.cu).
+:func:`make_pool_multistart_pipeline` runs K restarts of each problem as
+extra lanes over the stacked storage.
 """
 
 from __future__ import annotations
@@ -23,14 +29,14 @@ from typing import Dict, Optional
 import torch
 
 from clipper_tpu_torch.invariants.base import PairwiseInvariant
-from clipper_tpu_torch.ops import flattri
-from clipper_tpu_torch.ops.affinity import distinctness_mask, gather_endpoints
+from clipper_tpu_torch.invariants.euclidean import EuclideanDistance
+from clipper_tpu_torch.ops import affinity_pallas, flattri
+from clipper_tpu_torch.ops.affinity import (distinctness_mask,
+                                            gather_endpoints,
+                                            pairwise_from_endpoints,
+                                            stored_from_endpoints)
 from clipper_tpu_torch.solvers import msrc, msrc_flat
 from clipper_tpu_torch.types import Params, Rounding, Solution, resolve_device
-
-
-# the polish rebuilds F on the top-_SUPPORT entries of each u
-_SUPPORT = 256
 
 
 def _take(state: msrc_flat._FlatState, k: torch.Tensor) -> msrc_flat._FlatState:
@@ -38,10 +44,12 @@ def _take(state: msrc_flat._FlatState, k: torch.Tensor) -> msrc_flat._FlatState:
 
 
 def _pool_schedule(vtick, inits: msrc_flat._FlatState, m: int, *,
-                   lanes: int, window: int, return_windows: bool = False):
+                   lanes: int, window: int, return_windows: bool = False,
+                   stats: Optional[Dict] = None):
     """The lane-compaction loop. vtick(idx, lane_states) advances every
     lane one probe tick (done lanes freeze themselves). Returns
-    (u, F, ifinal) of shapes (W, m), (W,), (W,)."""
+    (u, F, ifinal) of shapes (W, m), (W,), (W,). stats, when given, gets
+    "windows" and "ticks" (each problem's probe ticks, (W,))."""
     W = inits.u.shape[0]
     B = min(lanes, W)
     dtype = inits.u.dtype
@@ -55,6 +63,7 @@ def _pool_schedule(vtick, inits: msrc_flat._FlatState, m: int, *,
     u_out = torch.zeros(W + 1, m, dtype=dtype, device=dev)
     F_out = torch.zeros(W + 1, dtype=dtype, device=dev)
     i_out = torch.zeros(W + 1, dtype=torch.int32, device=dev)
+    t_out = torch.zeros(W + 1, dtype=torch.int32, device=dev)
     nwin = 0
 
     while bool(active.any()):
@@ -67,6 +76,7 @@ def _pool_schedule(vtick, inits: msrc_flat._FlatState, m: int, *,
         u_out[widx] = ls.u
         F_out[widx] = ls.F
         i_out[widx] = ls.i
+        t_out[widx] = ls.ticks
 
         rank = torch.cumsum(finished.to(torch.int32), 0) - 1
         new_idx = next_ptr + rank.to(torch.int32)
@@ -81,15 +91,51 @@ def _pool_schedule(vtick, inits: msrc_flat._FlatState, m: int, *,
         ls = ls._replace(done=torch.where(has_work, False, ls.done))
         nwin += 1
 
+    if stats is not None:
+        stats.update(windows=nwin, ticks=t_out[:W])
     out = (u_out[:W], F_out[:W], i_out[:W])
     return out + (nwin,) if return_windows else out
+
+
+def solve_pool(MCs: torch.Tensor, inits: msrc_flat._FlatState,
+               params: Params = Params(), *, lanes: int = 128,
+               window: int = 8, problem_of: Optional[torch.Tensor] = None,
+               return_windows: bool = False, stats: Optional[Dict] = None):
+    """Solve W prepared lane instances over (P, 2m, m) stacked [M; C]
+    storage (any storage dtype) with B=lanes compacted lanes, one
+    single-probe tick at a time.
+
+    problem_of: optional (W,) mapping of each init to its storage row, so
+    several inits (multistart restarts) share one stored matrix; each tick
+    gathers MCs[problem_of[idx]] for its lanes. Omitted, init w reads row
+    w, and P must equal W. Returns (u, F, ifinal) of shapes (W, m), (W,),
+    (W,)."""
+    P, _, m = MCs.shape
+    W = inits.u.shape[0]
+    if problem_of is None and P != W:
+        raise ValueError(
+            f"solve_pool: {W} inits over {P} stored matrices requires an "
+            f"explicit problem_of mapping (P == W only when omitted)")
+    dtype = inits.u.dtype
+    bmv = msrc_flat.make_stacked_pool_matvec(MCs, dtype)
+    if problem_of is not None:
+        rows = torch.as_tensor(problem_of, device=MCs.device).long()
+        base = bmv
+
+        def bmv(idx, U):
+            return base(rows[idx.long()], U)
+
+    btick = msrc_flat.make_flat_tick_batched(bmv, params, dtype)
+    return _pool_schedule(btick, inits, m, lanes=lanes, window=window,
+                          return_windows=return_windows, stats=stats)
 
 
 def solve_pool_tri(tri: torch.Tensor, nt: int, inits: msrc_flat._FlatState,
                    params: Params = Params(), *, lanes: int = 128,
                    window: int = 8, warm_alpha: bool = False,
                    probes: int = 1, d_scale: float = 1.0,
-                   return_windows: bool = False):
+                   return_windows: bool = False,
+                   stats: Optional[Dict] = None):
     """Solve W prepared lane instances over (P, 2t, S) flat-triangle
     storage with B=lanes compacted lanes; one batched tri matvec per tick
     (the CUDA kernel for storage on the card); lane instance w reads
@@ -98,15 +144,10 @@ def solve_pool_tri(tri: torch.Tensor, nt: int, inits: msrc_flat._FlatState,
     t = tri.shape[1] // 2
     m = nt * t
     bmv = flattri.make_tri_pool_matvec(tri, nt, dtype)
-    if probes > 1:
-        btick = msrc_flat.make_flat_tick_multiprobe_batched(
-            bmv, params, dtype, probes, warm_alpha=warm_alpha,
-            d_scale=d_scale)
-    else:
-        btick = msrc_flat.make_flat_tick_batched(
-            bmv, params, dtype, warm_alpha=warm_alpha, d_scale=d_scale)
+    btick = msrc_flat.make_tick(bmv, params, dtype, probes=probes,
+                                warm_alpha=warm_alpha, d_scale=d_scale)
     return _pool_schedule(btick, inits, m, lanes=lanes, window=window,
-                          return_windows=return_windows)
+                          return_windows=return_windows, stats=stats)
 
 
 def _pool_rounding(params: Params) -> Rounding:
@@ -176,6 +217,65 @@ def _divisor_at_most(n: int, k: int) -> int:
     return k
 
 
+def support_polish(invariant: PairwiseInvariant, D1, D2, A, u,
+                   affinityeps: float = 1e-4, k: int = 256):
+    """u'(M + I)u restricted to u's top-k support, from the datasets D1
+    (n1, d), D2 (n2, d) and A (m, 2) (see :func:`support_objective`)."""
+    P1, P2 = gather_endpoints(D1, D2, A)
+    return support_objective(invariant, P1, P2, A, u,
+                             affinityeps=affinityeps, k=k)
+
+
+def _polish_batch(invariant: PairwiseInvariant, P1s, P2s, As, U,
+                  support: Optional[int], affinityeps: float):
+    """F = u'(M + I)u of every row of U, rebuilt from the endpoints in the
+    working precision, for the pipelines' rounding (omega = round(F) needs
+    F accurate to well under 0.5). U is (W, m), or (W, K, m) for K
+    restarts of each of the W problems. The top-``support`` polish is
+    exact only when every support fits, so a wider one (one host read of
+    the widest) takes the exact row-chunked rebuild for the whole batch,
+    as the JAX pipelines' in-graph branch does (pool.py:605-630);
+    support=None rebuilds the full (m, m) M."""
+    if U.dim() == 3:
+        K = U.shape[1]
+        P1s, P2s, As = (x[:, None].expand(-1, K, *x.shape[1:])
+                        for x in (P1s, P2s, As))
+    m = U.shape[-1]
+    if support is None:
+        M, _ = pairwise_from_endpoints(invariant, P1s, P2s, As,
+                                       affinityeps=affinityeps)
+        # elementwise products and sums: independent of the TF32 flag
+        Fp = (U * ((M * U[..., None, :]).sum(-1) + U)).sum(-1)
+    elif support < m and int((U > 0).sum(-1).max()) > support:
+        Fp = exact_objective_rows(invariant, P1s, P2s, As, U,
+                                  affinityeps=affinityeps)
+    else:
+        Fp = support_objective(invariant, P1s, P2s, As, U,
+                               affinityeps=affinityeps, k=support)
+    return Fp.to(U.dtype)
+
+
+def _resolve_build(build: str, storage_dtype, invariant, dev: torch.device,
+                   kernel_dtypes) -> str:
+    """'auto' -> 'pallas' (the build kernel) on the card for a storage
+    dtype in ``kernel_dtypes`` and the Euclidean invariant, else 'xla' (the
+    plain build), mirroring the JAX package's pool.py:346-370. 'pallas'
+    takes the kernel on the card and its plain version on the CPU."""
+    if build not in ("auto", "pallas", "xla"):
+        raise ValueError(f"unknown build {build!r}")
+    if build == "pallas" and storage_dtype is None:
+        raise ValueError(
+            "build='pallas' requires a direct-to-storage dtype "
+            "(storage_dtype=torch.int8/torch.bfloat16); the fused kernel "
+            "quantizes as it builds and has no dense full-precision output")
+    if build == "auto":
+        if (dev.type == "cuda" and storage_dtype in kernel_dtypes
+                and isinstance(invariant, EuclideanDistance)):
+            return "pallas"
+        return "xla"
+    return build
+
+
 class StageClock:
     """Per-stage times: CUDA events on the card, the host clock on the CPU
     (where the times are host times, not device times)."""
@@ -203,14 +303,41 @@ class StageClock:
                               else (b - a) * 1e3)
 
 
+def _as_tensor(dev):
+    def conv(x, dtype=None):
+        return torch.as_tensor(x, dtype=dtype, device=dev)
+    return conv
+
+
+def _build_stacked(invariant, P1s, P2s, As, m_trues, storage_dtype, build,
+                   affinityeps):
+    """(W, 2m, m) stacked [M; C] storage: full precision when
+    storage_dtype is None, else int8 codes or a float storage dtype, by
+    the build kernel ('pallas') or the plain build ('xla')."""
+    if storage_dtype is None:
+        M, C = pairwise_from_endpoints(invariant, P1s, P2s, As,
+                                       affinityeps=affinityeps,
+                                       m_true=m_trues)
+        return torch.cat([M, C], dim=-2)
+    if build == "pallas":
+        return affinity_pallas.stored_build(
+            invariant, P1s, P2s, As, m_trues, affinityeps=affinityeps,
+            storage_dtype=storage_dtype)
+    return stored_from_endpoints(invariant, P1s, P2s, As,
+                                 affinityeps=affinityeps, m_true=m_trues,
+                                 storage_dtype=storage_dtype)
+
+
 def make_pool_pipeline(invariant: PairwiseInvariant,
                        params: Params = Params(),
                        affinityeps: float = 1e-4,
                        storage_dtype=torch.int8,
                        lanes: int = 128,
                        window: int = 8,
+                       support: Optional[int] = 256,
                        power_steps: int = 0,
                        mesh=None,
+                       build: str = "auto",
                        layout: str = "tri",
                        tri_probes: int = 1,
                        warm_alpha: bool = False,
@@ -218,51 +345,77 @@ def make_pool_pipeline(invariant: PairwiseInvariant,
                        device="cuda"):
     """(D1, D2s, As, u0s) -> batched Solution through the pool engine.
 
-    End to end: the flat-triangle [M; C] build (the CUDA build kernel for
-    int8 storage on the card), power-init and flat-init through the
-    batched tri matvec, the compacted pool solve, a polish of F = u'(M+I)u
-    on the top-256 entries of u in the working dtype (the exact
-    row-chunked rebuild when a support overflows), and rounding.
+    End to end: the [M; C] build into the pool's storage, power-init and
+    flat-init through the same batched matvec the solve uses, the
+    compacted pool solve, a polish of F = u'(M+I)u on the top-``support``
+    entries of u in the working dtype (the exact row-chunked rebuild when
+    a support is wider; support=None rebuilds the full (m, m) M), and
+    rounding.
+
+    layout: ``"tri"`` (the default here; the JAX package defaults to
+    ``"stacked"``) stores the flat upper triangle, m divisible by the tile
+    (256 when it divides m, else 128), with the K=tri_probes multiprobe
+    tick and the warm_alpha and d_scale options. ``"stacked"`` stores the
+    dense (2m, m) [M; C] of each problem, for any m, and runs the
+    single-probe reference tick; the tri-only options raise there (the
+    JAX package ignores them).
+
+    storage_dtype: int8 (the default here; the JAX package's is bfloat16),
+    bfloat16 (stacked only on the card), or None for full precision (the
+    plain build). build: 'auto' | 'pallas' | 'xla' (see
+    :func:`_resolve_build`): 'auto' takes the build kernel on the card
+    (csrc/tri_build.cu for int8 triangles, csrc/stored_build.cu for int8
+    or bf16 stacked storage) for the Euclidean invariant.
 
     Shapes: D1 (n1, d) shared by all problems or (W, n1, d), D2s
     (W, n2, d), As (W, m, 2), u0s (W, m); numpy arrays or tensors. The
     pipeline runs on ``device`` ("cuda" by default; raises if missing).
-    ``layout="tri"`` only: m must divide by the tile (256 when it does,
-    else 128). storage_dtype=None keeps full precision (plain build); on
-    the card the kernels take int8 storage (and f32/f64 for the matvec),
-    so bfloat16 storage raises there.
     """
-    if layout != "tri":
-        raise NotImplementedError(
-            "layout='stacked' is not ported yet (ROADMAP.md Queue 1 item 10)")
+    if layout not in ("tri", "stacked"):
+        raise ValueError(f"unknown layout {layout!r}")
     if mesh is not None:
         raise NotImplementedError(
             "mesh= is not ported yet (ROADMAP.md Queue 1 item 13)")
+    if layout == "stacked" and (tri_probes != 1 or warm_alpha
+                                or d_scale != 1.0):
+        raise ValueError("tri_probes, warm_alpha and d_scale apply to "
+                         "layout='tri' only")
     dev = resolve_device(device)
     rounding = _pool_rounding(params)
+    kernel_dtypes = ((torch.int8,) if layout == "tri"
+                     else (torch.int8, torch.bfloat16))
+    build = _resolve_build(build, storage_dtype, invariant, dev,
+                           kernel_dtypes)
+    as_tensor = _as_tensor(dev)
 
     def tri_meta(m: int):
         t = 256 if m % 256 == 0 else 128
         if m % t:
             raise ValueError(
-                f"pool layout='tri' needs m divisible by {t}; got m={m}")
+                f"pool layout='tri' needs m divisible by {t}; got m={m} "
+                "(use layout='stacked')")
         return t, m // t
 
-    def as_tensor(x, dtype=None):
-        return torch.as_tensor(x, dtype=dtype, device=dev)
+    def build_tri(P1s, P2s, As, m_trues, m):
+        t, nt = tri_meta(m)
+        fn = flattri.build_tri if build == "pallas" else \
+            flattri.build_tri_plain
+        return fn(invariant, P1s, P2s, As, m_trues, t=t,
+                  affinityeps=affinityeps, storage_dtype=storage_dtype), nt
 
     def pipeline(D1, D2s, As, u0s, m_trues=None,
-                 timings: Optional[Dict[str, float]] = None) -> Solution:
+                 timings: Optional[Dict[str, float]] = None,
+                 stats: Optional[Dict] = None) -> Solution:
         """m_trues: optional (W,) per-problem true sizes (rows/cols >=
         m_true are inert). timings: optional dict filled with per-stage
-        milliseconds (build, init, solve, polish)."""
+        milliseconds (build, init, solve, polish). stats: optional dict
+        filled with the pool's windows and per-problem ticks."""
         u0s = as_tensor(u0s)
         dtype = u0s.dtype
         D1 = as_tensor(D1, dtype)
         D2s = as_tensor(D2s, dtype)
         As = as_tensor(As, torch.int32)
         W, m, _ = As.shape
-        t, nt = tri_meta(m)
         if m_trues is None:
             m_trues = torch.full((W,), m, dtype=torch.int32, device=dev)
         m_trues = as_tensor(m_trues, torch.int32)
@@ -270,40 +423,122 @@ def make_pool_pipeline(invariant: PairwiseInvariant,
 
         clock.mark("start")
         P1s, P2s = gather_endpoints(D1, D2s, As)
-        if storage_dtype is None:
-            tri = flattri.build_tri_plain(
-                invariant, P1s, P2s, As, m_trues, t=t,
-                affinityeps=affinityeps, storage_dtype=None)
+        if layout == "tri":
+            store, nt = build_tri(P1s, P2s, As, m_trues, m)
+            bmv = flattri.make_tri_pool_matvec(store, nt, dtype)
         else:
-            tri = flattri.build_tri(
-                invariant, P1s, P2s, As, m_trues, t=t,
-                affinityeps=affinityeps, storage_dtype=storage_dtype)
+            store = _build_stacked(invariant, P1s, P2s, As, m_trues,
+                                   storage_dtype, build, affinityeps)
+            bmv = msrc_flat.make_stacked_pool_matvec(store, dtype)
         clock.mark("build")
 
-        bmv = flattri.make_tri_pool_matvec(tri, nt, dtype)
-        idx = torch.arange(W, dtype=torch.int32, device=dev)
         u = u0s
         if power_steps:
-            u = msrc_flat.power_init_batched(bmv, idx, u, power_steps)
-        inits = msrc_flat.flat_init_batched(bmv, idx, u, params)
+            u = msrc_flat.power_init_batched(bmv, None, u, power_steps)
+        inits = msrc_flat.flat_init_batched(bmv, None, u, params)
         clock.mark("init")
 
-        u, F, ifinal = solve_pool_tri(
-            tri, nt, inits, params, lanes=lanes, window=window,
-            probes=tri_probes, warm_alpha=warm_alpha, d_scale=d_scale)
+        if layout == "tri":
+            u, F, ifinal = solve_pool_tri(
+                store, nt, inits, params, lanes=lanes, window=window,
+                probes=tri_probes, warm_alpha=warm_alpha, d_scale=d_scale,
+                stats=stats)
+        else:
+            u, F, ifinal = solve_pool(store, inits, params, lanes=lanes,
+                                      window=window, stats=stats)
         clock.mark("solve")
 
-        nnz_widest = int((u > 0).sum(-1).max())
-        if nnz_widest > _SUPPORT:
-            Fp = exact_objective_rows(invariant, P1s, P2s, As, u,
-                                      affinityeps=affinityeps)
-        else:
-            Fp = support_objective(invariant, P1s, P2s, As, u,
-                                   affinityeps=affinityeps, k=_SUPPORT)
-        Fp = Fp.to(dtype)
+        Fp = _polish_batch(invariant, P1s, P2s, As, u, support,
+                               affinityeps)
         mask = msrc.round_solution(u, Fp, rounding)
         clock.mark("polish")
         clock.finish()
         return Solution(ifinal=ifinal, mask=mask, u0=u0s, u=u, score=Fp)
+
+    return pipeline
+
+
+def make_pool_multistart_pipeline(invariant: PairwiseInvariant,
+                                  params: Params = Params(),
+                                  restarts: int = 4,
+                                  affinityeps: float = 1e-4,
+                                  storage_dtype=torch.bfloat16,
+                                  lanes: int = 128,
+                                  window: int = 8,
+                                  support: Optional[int] = 256,
+                                  power_steps: int = 0,
+                                  build: str = "auto",
+                                  device="cuda"):
+    """Pool pipeline with K = ``restarts`` inits per problem; keeps the
+    densest cluster (reference: the local solver's init sensitivity,
+    examples/matlab/ex3_planecloud.m:95-98, clipper.h:44-47).
+
+    Each problem's stacked [M; C] is built once (``build`` and
+    ``storage_dtype`` as in :func:`make_pool_pipeline`'s stacked layout);
+    the W K restarts are pool lanes that share it through ``problem_of``.
+    Each restart's F is polished as in :func:`make_pool_pipeline` and the
+    restart with the highest polished F wins (the first on a tie).
+
+    Call: pipeline(D1, D2s, As, u0s) with u0s (W, K, m); returns a
+    Solution over the W problems, each the best restart's, with ``ifinal``
+    the index of that restart (as the JAX package returns it) and ``u0``
+    its init. Rounding.DSD downgrades to NONZERO with a warning. Runs on
+    ``device`` ("cuda" by default; raises if missing).
+    """
+    K = int(restarts)
+    dev = resolve_device(device)
+    rounding = _pool_rounding(params)
+    build = _resolve_build(build, storage_dtype, invariant, dev,
+                           (torch.int8, torch.bfloat16))
+    as_tensor = _as_tensor(dev)
+
+    def pipeline(D1, D2s, As, u0s,
+                 timings: Optional[Dict[str, float]] = None,
+                 stats: Optional[Dict] = None) -> Solution:
+        """timings / stats: as in :func:`make_pool_pipeline`'s pipeline
+        (the ticks per restart lane, (W K,))."""
+        u0s = as_tensor(u0s)
+        dtype = u0s.dtype
+        As = as_tensor(As, torch.int32)
+        W, m, _ = As.shape
+        if tuple(u0s.shape) != (W, K, m):
+            raise ValueError(f"u0s must be (W={W}, K={K}, m={m}); got "
+                             f"{tuple(u0s.shape)}")
+        D1 = as_tensor(D1, dtype)
+        D2s = as_tensor(D2s, dtype)
+        m_trues = torch.full((W,), m, dtype=torch.int32, device=dev)
+        clock = StageClock(dev, timings)
+
+        clock.mark("start")
+        P1s, P2s = gather_endpoints(D1, D2s, As)
+        MCs = _build_stacked(invariant, P1s, P2s, As, m_trues,
+                             storage_dtype, build, affinityeps)
+        clock.mark("build")
+
+        # (W, K, m) -> W K lane instances over the W stored matrices
+        problem_of = torch.arange(W, device=dev).repeat_interleave(K)
+        bmv = msrc_flat.make_stacked_pool_matvec(MCs, dtype)
+        u = u0s.reshape(W * K, m)
+        if power_steps:
+            u = msrc_flat.power_init_batched(bmv, problem_of, u,
+                                             power_steps)
+        inits = msrc_flat.flat_init_batched(bmv, problem_of, u, params)
+        clock.mark("init")
+
+        u, _, _ = solve_pool(MCs, inits, params, lanes=lanes, window=window,
+                             problem_of=problem_of, stats=stats)
+        clock.mark("solve")
+
+        Us = u.reshape(W, K, m)
+        Fp = _polish_batch(invariant, P1s, P2s, As, Us, support,
+                               affinityeps)
+        best = torch.argmax(Fp, dim=-1)
+        w = torch.arange(W, device=dev)
+        u, F = Us[w, best], Fp[w, best]
+        mask = msrc.round_solution(u, F, rounding)
+        clock.mark("polish")
+        clock.finish()
+        return Solution(ifinal=best.to(torch.int32), mask=mask,
+                        u0=u0s[w, best], u=u, score=F)
 
     return pipeline

@@ -16,7 +16,8 @@ import torch
 
 from clipper_tpu_torch import _kernels
 from clipper_tpu_torch.bench import harness
-from clipper_tpu_torch.ops import flattri, symstore
+from clipper_tpu_torch.ops import (affinity_pallas, flattri, fused_matvec,
+                                   symstore)
 from clipper_tpu_torch.ops.affinity import gather_endpoints
 from clipper_tpu_torch.parallel import pool
 from clipper_tpu_torch.types import Params
@@ -41,8 +42,9 @@ def _problems(W, m, seed):
 def test_every_source_is_built():
     on_disk = {p.stem for p in _kernels.CSRC.glob("*.cu")}
     assert on_disk == set(_kernels.SOURCES) == set(_kernels.LAUNCHES)
-    # the build kernel is compiled without FMA contraction
+    # the build kernels are compiled without FMA contraction
     assert "--fmad=false" in _kernels.SOURCES["tri_build"]
+    assert "--fmad=false" in _kernels.SOURCES["stored_build"]
     names = {_kernels._target(n).name for n in _kernels.SOURCES}
     assert len(names) == len(_kernels.SOURCES)
     assert all(_kernels._target(n).parent == _kernels.BUILD_DIR
@@ -156,3 +158,64 @@ def test_sym_rows_kernel_matches_plain(cuda, m, G):
         a = symstore.sym_rows_matvec_cuda(cf, nt, U)
         b = symstore.sym_rows_matvec_plain(cf, nt, U)
         assert float((a - b).abs().max()) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [256, 200])
+@pytest.mark.parametrize("storage", [torch.int8, torch.bfloat16])
+def test_stored_build_kernel_matches_plain(cuda, m, storage):
+    """Kernel 4 against its plain version, m_true < m on one problem:
+    every code equal (the same IEEE f32 steps), the output equal to its
+    transpose, one launch."""
+    W = 3
+    pcd0, D2s, As, _ = _problems(W, m, seed=8)
+    P1, P2 = gather_endpoints(torch.from_numpy(pcd0).to(cuda),
+                              torch.from_numpy(D2s).to(cuda),
+                              torch.from_numpy(As).to(cuda))
+    A = torch.from_numpy(As).to(cuda)
+    mts = torch.tensor([m, m - 37, m], device=cuda)
+    inv = harness.default_invariant()
+    before = _kernels.LAUNCHES["stored_build"]
+    got = affinity_pallas.stored_build(inv, P1, P2, A, mts,
+                                       storage_dtype=storage)
+    assert _kernels.LAUNCHES["stored_build"] == before + 1
+    ref = affinity_pallas.stored_build(inv, P1.cpu(), P2.cpu(), A.cpu(),
+                                       mts.cpu(), storage_dtype=storage)
+    assert got.shape == (W, 2 * m, m) and got.dtype == storage
+    assert torch.equal(got[:, m:].cpu(), ref[:, m:])
+    assert int((got[:, :m].cpu() != ref[:, :m]).sum()) == 0
+    for half in (got[:, :m], got[:, m:]):
+        assert torch.equal(half, half.transpose(1, 2))
+    # sliced (non-contiguous) inputs build as their contiguous copies do
+    k = m - 8
+    mk = torch.full((W,), k, device=cuda)
+    a = affinity_pallas.stored_build(inv, P1[:, :k], P2[:, :k], A[:, :k], mk,
+                                     storage_dtype=storage)
+    b = affinity_pallas.stored_build(inv, P1[:, :k].contiguous(),
+                                     P2[:, :k].contiguous(),
+                                     A[:, :k].contiguous(), mk,
+                                     storage_dtype=storage)
+    assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [256, 203])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pattern_matvec_kernel_matches_plain(cuda, m, dtype):
+    """Kernel 5 against its plain version within 1e-4 (f32 sums in another
+    fixed order), on aligned rows and on m = 203, whose rows are not
+    16-byte aligned; a rerun is bit-identical."""
+    B = 4
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    M = torch.rand(B, m, m, generator=gen, device=cuda)
+    M = torch.where(M > 0.8, M, 0.0).to(dtype)
+    u = torch.rand(B, m, generator=gen, device=cuda)
+    before = _kernels.LAUNCHES["pattern_matvec"]
+    a = fused_matvec.pattern_dual_matvec(M, u)
+    assert _kernels.LAUNCHES["pattern_matvec"] == before + 1
+    b = fused_matvec.pattern_dual_matvec_plain(M, u)
+    for x, y in zip(a, b):
+        assert x.dtype == torch.float32
+        assert float((x - y).abs().max()) <= 1e-4
+    again = fused_matvec.pattern_dual_matvec(M, u)
+    assert all(torch.equal(x, y) for x, y in zip(a, again))

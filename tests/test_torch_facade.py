@@ -156,8 +156,16 @@ def test_unported_options_raise():
     with pytest.raises(NotImplementedError, match="item 12"):
         c.set_sparse_matrix_data(np.eye(3), np.eye(3))
     c.score_pairwise_consistency(model, scene)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        c.solve(multistart=4)
+    # multistart is ported on the dense engine; an explicit u0 with it is
+    # contradictory, and the capacity engine refuses it, as in the JAX
+    # package (clipper.py:171-175, 224-228)
+    with pytest.raises(ValueError, match="contradictory"):
+        c.solve(u0=np.ones(c.get_initial_associations().shape[0]),
+                multistart=4)
+    tri = Clipper(EuclideanDistance(), engine="triangle", device="cpu")
+    tri.score_pairwise_consistency(model, scene)
+    with pytest.raises(NotImplementedError, match="capacity engines"):
+        tri.solve(multistart=4)
     with pytest.raises(NotImplementedError, match="item 15"):
         c.solve_as_maximum_clique()
     with pytest.raises(NotImplementedError, match="item 14"):

@@ -45,6 +45,10 @@ def test_import_pulls_in_no_jax():
         "import clipper_tpu_torch.bench.harness, clipper_tpu_torch._kernels\n"
         "import clipper_tpu_torch.clipper, clipper_tpu_torch.ops.symstore\n"
         "import clipper_tpu_torch.utils\n"
+        "import clipper_tpu_torch.ops.fused_matvec\n"
+        "import clipper_tpu_torch.ops.affinity_pallas\n"
+        "import clipper_tpu_torch.parallel.batched\n"
+        "import clipper_tpu_torch.parallel.buckets\n"
         "import chip_smoke\n"
         "bad = [k for k in sys.modules if k.split('.')[0] in "
         "('jax', 'jaxlib', 'clipper_tpu')]\n"
@@ -60,11 +64,19 @@ def test_import_pulls_in_no_jax():
 def test_default_device_raises_without_cuda():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
-    from clipper_tpu_torch import make_pool_pipeline
+    from clipper_tpu_torch import (BucketedPipeline, make_batched_pipeline,
+                                   make_pool_multistart_pipeline,
+                                   make_pool_pipeline)
     from clipper_tpu_torch.bench.harness import default_invariant
     from clipper_tpu_torch.types import resolve_device
-    with pytest.raises(RuntimeError, match="CUDA is not available"):
-        make_pool_pipeline(default_invariant(), layout="tri")
+    inv = default_invariant()
+    for make in (lambda: make_pool_pipeline(inv, layout="tri"),
+                 lambda: make_pool_pipeline(inv, layout="stacked"),
+                 lambda: make_pool_multistart_pipeline(inv),
+                 lambda: make_batched_pipeline(inv, matvec="fused"),
+                 lambda: BucketedPipeline(inv)):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            make()
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         resolve_device("cuda")
     assert resolve_device("cpu").type == "cpu"

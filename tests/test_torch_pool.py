@@ -136,8 +136,9 @@ def test_pool_schedule_covers_every_problem(problems):
 
 def test_pipeline_rejects_unported_and_bad_shapes():
     inv = harness.default_invariant()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        pool.make_pool_pipeline(inv, layout="stacked", device="cpu")
+    # the stacked layout is ported: it builds, for any m
+    assert callable(pool.make_pool_pipeline(inv, layout="stacked",
+                                            device="cpu"))
     with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
         pool.make_pool_pipeline(inv, layout="tri", mesh=object(),
                                 device="cpu")
