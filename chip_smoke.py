@@ -11,7 +11,12 @@ Phases, each of which must pass (any failure exits non-zero):
               f32/f64 storage kinds, the tri build (C half exact, no M code
               differing: both run the same IEEE f32 steps), the rows
               matvec on one m=1024 problem's row-chunked storage (t=128,
-              G=8) for K=1 and K=16, int8 (<= 1e-4) and f32/f64, the
+              G=8) for K=1 and K=16, int8 (<= 1e-4) and f32/f64, and
+              over the D=3 chunk slices of the sharded engine (int8, f64),
+              the tile-list matvec on the same problem (int8, f32, f64;
+              K=16 and K=1; whole list, D=3 slices summed, a rerun
+              bit-identical; <= 1e-4 against the plain version, <= 1.1e-5
+              against an f64 oracle, <= 1e-4 against the rows matvec), the
               stacked build (the 16 problems in int8 and bf16, and their
               first 1000 associations with m_true < m on four: C half
               exact, no M code differing, output equal to its transpose),
@@ -39,29 +44,38 @@ Phases, each of which must pass (any failure exits non-zero):
               matvec="fused") in f32 (bench/harness.py's call): the P/R bars
               and the pattern matvec launched; prints problems/s and the
               lock-step tick count.
-4. capacity — one problem through the Clipper facade, engine="auto", f32:
-              m=65,536, 95% outliers, the bunny (seed 0), u0 from numpy
-              default_rng(0). Requires the triangle engine, the rows matvec
-              launched, P >= 0.995 and R >= 0.88; prints the stage times of
-              one warm call, its ticks, ifinal, F, storage GB and wall time.
+4. capacity — one problem through the Clipper facade in f32: m=65,536,
+              95% outliers, the bunny (seed 0), u0 from numpy
+              default_rng(0), four ways: engine="auto" (the triangle
+              engine, row-chunked, the rows matvec launched); the triangle
+              engine's tile list (matvec="xla", the tile-list matvec
+              launched); the sharded engine on a 1-rank NCCL group in its
+              "xla" and "pallas" modes (the tile-list and the rows matvec
+              launched), the "xla" mode with masks equal to the tile-list
+              solve's and F within 1e-6 relative. Each requires P >= 0.995
+              and R >= 0.88 and prints the stage times and shares of one
+              warm call, its ticks, ifinal, F, storage GB and wall time.
 5. parity   — W=16 pool problems on cuda and on cpu: masks equal on >= 15
               of 16, mean P/R within 1 point; the same for the stacked pool
               and the fused batched engine at W=16, and for multistart at
               W=8, K=4 (the chosen restart and the mask equal on >= 7 of
-              8); the facade's triangle engine at
-              m=8192 on cuda and on cpu: mask IoU >= 0.95 and P >= 0.995,
-              R >= 0.88 on both, with the f32 solve's own spread printed
-              beside the bar (each device's IoU under +-1 ulp of noise on
-              the matvec outputs, 4 trials on cuda, 2 on cpu); its dense
+              8); the facade's triangle engine at m=8192 on cuda and on
+              cpu, row-chunked and tile list: mask IoU >= 0.95 and
+              P >= 0.995, R >= 0.88 on both, with the f32 solve's own
+              spread printed beside the bar (each device's IoU under +-1
+              ulp of noise on the matvec outputs: 4 trials on cuda and 2 on
+              cpu row-chunked, 2 and 1 for the tile list); its dense
               engine in f64 at
               m=1024, 90% outliers: masks equal, P >= 0.995 and R >= 0.85 on
               cuda, and with solve(multistart=4): masks equal.
 6. timing   — each kernel at its path's shapes (the builds at W=512, the tri
-              matvec at B=128, K=16 and B=512, K=1, the rows matvec on the
-              m=65,536 storage at K=16 and K=1, the pattern matvec at B=512
-              in f32 and bf16) held against its plain version as in phase
-              2, then timed beside its bound, its plain version and, where
-              one exists, one PyTorch call computing the same function.
+              matvec at B=128, K=16 and B=512, K=1, the rows and the
+              tile-list matvecs on the m=65,536 storage at K=16 and K=1
+              (the tile list also on its D=3 slices), the pattern matvec at
+              B=512 in f32 and bf16) held against its plain version as in
+              phase 2, then timed beside its bound, its plain version and,
+              where one exists, one PyTorch call computing the same
+              function.
 
 The line before the last is a JSON object of the kernels' numbers; the last
 line is {"ok": true, "device": {...}}.
@@ -69,13 +83,15 @@ line is {"ok": true, "device": {...}}.
 Usage: python3 chip_smoke.py [--quick] [--profile]
   --quick    phases 1-2 only
   --profile  also run the pool path, the stacked pool, the fused batched
-             engine and the capacity path once each under torch.profiler
-             and print the device's busy share and the kernels that take
-             its time
+             engine and the capacity path (row-chunked, tile list, and
+             sharded "xla" at D=1) once each under torch.profiler and
+             print the device's busy share
+             and the kernels that take its time
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -91,13 +107,14 @@ HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 BF16_FLOPS = 989e12           # dense bf16 tensor-core peak
 F32_FLOPS = 67e12             # f32 outside the tensor cores
 BUILD_OPS_PER_ENTRY = 30      # f32 operations per stored entry (tri_build.cu)
-MATVEC_TOL = 1e-4             # max |kernel - plain| of the tri and rows matvecs
+MATVEC_TOL = 1e-4             # max |kernel - plain| of the matvecs
 CAP_M = 65536       # the capacity path: one problem at m=65,536 ...
 CAP_RHO = 0.95      # ... with 95% outliers
 CAP_PARITY_M = 8192           # facade cuda/cpu comparison, triangle engine
 CAP_PARITY_IOU = 0.95         # ... its mask IoU bar
 SPREAD_TRIALS_CUDA = 4        # ... and its spread: u0 moved by +-1 ulp
 SPREAD_TRIALS_CPU = 2
+SPREAD_TRIALS_TILES = 2       # ... on cuda for the tile list (1 on cpu)
 DENSE_M = 1024                # facade cuda/cpu comparison, dense engine
 ROWS_T = 128                  # the capacity engine's tile
 # the stacked pool: bench/pool_ab.py:26, 78-80
@@ -106,6 +123,7 @@ W_MULTI, K_MULTI = 128, 4     # multistart: bench/multistart_bench.py:63-65
 W_PARITY_MULTI = 8            # multistart problems in the cuda/cpu check
 M_EDGE = 1000                 # the stacked build where no tile divides m
 STACKED_MV_TOL = 1.1e-5       # stacked int8 matvec vs f64 (BENCH.md:591-595)
+ORACLE_TOL = 1.1e-5           # tile-list matvec vs an f64 oracle, m <= 4096
 
 
 def fail(msg: str) -> None:
@@ -349,6 +367,41 @@ def phase_kernels(inv, check, dev):
         cf = rows_storage(inv, prob, dev, G=8, storage=dtype)
         check_rows(cf, nt, unit_rows(gen, 1, 4, dev)[0].to(dtype),
                    f"{dtype} storage, m={M}, G=8, K=4")
+        if dtype == torch.float64:
+            check_rows_slices(cf, nt, unit_rows(gen, 1, 4, dev)[0].to(dtype),
+                              f"{dtype} storage, m={M}, G=8, K=4")
+    # ... over the D=3 chunk slices of the sharded engine's 'pallas' mode
+    U16 = unit_rows(gen, 1, 16, dev)[0]
+    rows_err = max(rows_err, check_rows_slices(chunks, nt, U16,
+                                               f"int8, m={M}, G=8, K=16"))
+
+    # the tile-list matvec on the same problem: int8 (t=128), f32 and f64
+    # storage, K=16 and K=1, the whole list and its D=3 slices, against
+    # the plain version and an f64 oracle; then against the rows matvec
+    # on the same codes
+    from clipper_tpu_torch.ops import symstore
+    tiles_err = 0.0
+    for storage in (torch.int8, torch.float32, torch.float64):
+        tl = tiles_storage(inv, prob, dev, storage)
+        fdt = torch.float64 if storage == torch.float64 else torch.float32
+        for K in (16, 1):
+            U = unit_rows(gen, 1, K, dev)[0].to(fdt)
+            label = f"{str(storage).split('.')[-1]}, m={M}, K={K}"
+            tiles_err = max(tiles_err, check_tiles(tl, nt, U, label))
+            y = symstore.sym_tiles_matvec_cuda(tl, nt, U)
+            e_o = float((y.double() - tiles_oracle(tl, nt, U)).abs().max())
+            print(f"sym_tiles_matvec {label}: max|kernel - f64 oracle|="
+                  f"{e_o:.3e}", flush=True)
+            require(e_o <= ORACLE_TOL, f"sym_tiles_matvec {label} exceeds "
+                    f"{ORACLE_TOL} against the f64 oracle")
+        if storage == torch.int8:
+            e_x = float((symstore.sym_tiles_matvec_cuda(tl, nt, U16)
+                         - symstore.sym_rows_matvec_cuda(chunks, nt, U16))
+                        .abs().max())
+            print(f"sym_tiles_matvec vs sym_rows_matvec on the same codes "
+                  f"(m={M}, K=16): max|diff|={e_x:.3e}", flush=True)
+            require(e_x <= MATVEC_TOL, "the tile-list and rows kernels "
+                    "disagree on the same problem")
 
     # the stacked build: int8 and bf16 at m=1024, then the first M_EDGE
     # associations (no tile divides M_EDGE) with m_true < m on four
@@ -378,7 +431,7 @@ def phase_kernels(inv, check, dev):
     del Md
     return {"tri_matvec": max(errs.values()), "tri_build": build_err,
             "sym_rows_matvec": rows_err, "stored_build": stored_err,
-            "pattern_matvec": pattern_err}
+            "pattern_matvec": pattern_err, "sym_tiles_matvec": tiles_err}
 
 
 def one_problem(m: int, rho: float, seed: int):
@@ -413,18 +466,156 @@ def mask_iou(a, b) -> float:
     return float((a & b).sum() / max(1, (a | b).sum()))
 
 
+def capacity_endpoints(prob, dev, storage=None):
+    """(P1, P2, A) of one problem on dev, in f32 for int8 storage (the
+    facade's f32 working precision) and else in the storage dtype."""
+    import torch
+    pcd0, pcd1, A, _, _ = prob
+    dtype = storage if storage in (torch.float32, torch.float64) else \
+        torch.float32
+    At = torch.as_tensor(A, device=dev)
+    P1 = torch.as_tensor(pcd0, dtype=dtype, device=dev)[At[:, 0].long()]
+    P2 = torch.as_tensor(pcd1, dtype=dtype, device=dev)[At[:, 1].long()]
+    return P1, P2, At
+
+
 def rows_storage(inv, prob, dev, G, storage=None):
     """The capacity engine's row-chunked storage of one problem (int8 by
     default, else the raw scores in the float dtype ``storage``)."""
     import torch
     from clipper_tpu_torch.ops import symstore
-    pcd0, pcd1, A, _, _ = prob
-    dtype = storage or torch.float32
-    At = torch.as_tensor(A, device=dev)
-    P1 = torch.as_tensor(pcd0, dtype=dtype, device=dev)[At[:, 0].long()]
-    P2 = torch.as_tensor(pcd1, dtype=dtype, device=dev)[At[:, 1].long()]
-    return symstore.build_symchunks(inv, P1, P2, At, len(A), tile=ROWS_T, G=G,
-                                    storage_dtype=storage or torch.int8)
+    P1, P2, At = capacity_endpoints(prob, dev, storage)
+    return symstore.build_symchunks(inv, P1, P2, At, len(At), tile=ROWS_T,
+                                    G=G, storage_dtype=storage or torch.int8)
+
+
+def tiles_storage(inv, prob, dev, storage=None):
+    """The same problem's tile-list storage (ops/symstore.build_symtiles)."""
+    import torch
+    from clipper_tpu_torch.ops import symstore
+    P1, P2, At = capacity_endpoints(prob, dev, storage)
+    return symstore.build_symtiles(inv, P1, P2, At, len(At), tile=ROWS_T,
+                                   storage_dtype=storage or torch.int8)
+
+
+def tile_slices(tiles, nt, D):
+    """The D contiguous slices of shard_tile_coords(nt, D), as a sharded
+    rank holds them: (storage, rows, cols) each. The padded list is the
+    canonical one followed by inert zero tiles, so a slice is a view of
+    the whole storage, the last one copied with its zero tiles."""
+    from clipper_tpu_torch.ops import symstore
+    rows, cols = symstore.shard_tile_coords(nt, D)
+    T, n = tiles.shape[0], len(rows) // D
+    out = []
+    for d in range(D):
+        a, b = d * n, (d + 1) * n
+        part = tiles[a:min(b, T)]
+        if b > T:
+            part = with_zeros(part, b - max(a, T))
+        out.append((part, rows[a:b], cols[a:b]))
+    return out
+
+
+def chunk_slices(chunks, nt, D):
+    """The D contiguous slices of the chunk list padded with inert zero
+    chunks to a multiple of D (the sharded engine's 'pallas' mode): (base,
+    storage) each."""
+    NC, n = chunks.shape[0], -(-chunks.shape[0] // D)
+    out = []
+    for d in range(D):
+        a, b = d * n, (d + 1) * n
+        part = chunks[a:min(b, NC)]
+        if b > NC:
+            part = with_zeros(part, b - max(a, NC))
+        out.append((a, part))
+    return out
+
+
+def with_zeros(part, n):
+    """part followed by n zero entries along its first axis."""
+    import torch
+    return torch.cat([part, part.new_zeros((n,) + tuple(part.shape[1:]))])
+
+
+def check_tiles(tiles, nt, U, label, D=3):
+    """sym_tiles_matvec against the plain version on U (K, m), on the whole
+    list and on its D slices summed (each slice's f64 sums added, then
+    rounded once, as the sharded engine's all-reduce does); returns the
+    max abs error."""
+    import torch
+    from clipper_tpu_torch.ops import symstore
+    a = symstore.sym_tiles_matvec_cuda(tiles, nt, U)
+    b = symstore.sym_tiles_matvec_plain(tiles, nt, U)
+    require(bool(torch.isfinite(a).all()) and a.shape == b.shape,
+            f"sym_tiles_matvec {label}: non-finite output or bad shape")
+    require(bool(torch.equal(a, symstore.sym_tiles_matvec_cuda(tiles, nt, U))),
+            f"sym_tiles_matvec {label}: a rerun is not bit-identical")
+    acc = sum(symstore.sym_tiles_matvec_cuda(p, nt, U, r, c, raw=True)
+              for p, r, c in tile_slices(tiles, nt, D))
+    summed = symstore._finish(acc, symstore._scale(tiles.dtype))
+    err = float((a - b).abs().max())
+    e_sl = float((summed - b).abs().max())
+    print(f"sym_tiles_matvec vs plain ({label}): max|kernel - plain|="
+          f"{err:.3e}; {D} slices summed: {e_sl:.3e}", flush=True)
+    require(err <= MATVEC_TOL, f"sym_tiles_matvec {label} disagrees with "
+            "plain")
+    require(e_sl <= MATVEC_TOL, f"sym_tiles_matvec {label}: the {D} slices "
+            "summed disagree with the plain whole list")
+    return max(err, e_sl)
+
+
+def check_rows_slices(chunks, nt, U, label, D=3):
+    """sym_rows_matvec over the D chunk slices against its plain version
+    on each slice, and the slices summed against the whole list."""
+    from clipper_tpu_torch.ops import symstore
+    scale = symstore._scale(chunks.dtype)
+    err, acc = 0.0, 0
+    for base, part in chunk_slices(chunks, nt, D):
+        k = symstore.sym_rows_matvec_cuda(part, nt, U, base, raw=True)
+        p = symstore.sym_rows_matvec_plain(part, nt, U, base, raw=True)
+        err = max(err, float((symstore._finish(k, scale)
+                              - symstore._finish(p, scale)).abs().max()))
+        acc = acc + k
+    whole = symstore.sym_rows_matvec_plain(chunks, nt, U)
+    e_sum = float((symstore._finish(acc, scale) - whole).abs().max())
+    print(f"sym_rows_matvec on {D} chunk slices ({label}): max|kernel - "
+          f"plain| per slice={err:.3e}, slices summed vs whole={e_sum:.3e}",
+          flush=True)
+    require(max(err, e_sum) <= MATVEC_TOL, f"sym_rows_matvec slices {label} "
+            "disagree with plain")
+    return max(err, e_sum)
+
+
+def dense_from_tiles(tiles, nt, dtype):
+    """Tile-list storage -> the dense stacked (2m, m) [M; C] in dtype (both
+    triangles): row block r's tiles are its diagonal tile k = r and the
+    contiguous run of its strictly-upper tiles (ops/symstore.tile_coords)."""
+    import torch
+    T, two_t, t = tiles.shape
+    m = nt * t
+    D = torch.zeros(2 * m, m, dtype=dtype, device=tiles.device)
+    k = nt
+    for r in range(nt):
+        seg = torch.cat([tiles[r:r + 1], tiles[k:k + nt - r - 1]])
+        k += nt - r - 1
+        seg = seg.permute(1, 0, 2).reshape(two_t, -1).to(dtype)
+        for h in range(2):
+            half = seg[h * t:(h + 1) * t]
+            D[h * m + r * t:h * m + (r + 1) * t, r * t:] = half
+            D[h * m + (r + 1) * t:h * m + m, r * t:(r + 1) * t] = \
+                half[:, t:].T
+    return D
+
+
+def tiles_oracle(tiles, nt, U):
+    """The tile-list matvec in f64 through the dense [M; C]: int8 codes
+    times bf16-rounded u over 127, or the float storage times u rounded to
+    the storage dtype."""
+    import torch
+    from clipper_tpu_torch.ops import symstore
+    Uc, scale = symstore._operand(tiles.dtype, U)
+    Dn = dense_from_tiles(tiles, nt, torch.float64)
+    return (Uc.double() @ Dn.T) * scale                 # (K, 2m)
 
 
 def check_rows(chunks, nt, U, label):
@@ -864,54 +1055,116 @@ def time_stacked_and_pattern(inv, main, dev):
     return rows, errs
 
 
-def phase_capacity(inv, prob, dev):
-    """The capacity path: one m=65,536 problem through the facade. The
-    counted call is also the warm-up; the second call is timed."""
+def capacity_solve(inv, prob, dev, engine, opts):
+    """One problem through the facade in f32: the counted call (also the
+    warm-up), then one timed warm call. Returns (clipper, solution, the
+    warm call's stats, the counted call's launches, warm wall s, first
+    call s)."""
     import torch
-    from clipper_tpu_torch import Clipper, _kernels
-    from clipper_tpu_torch.bench import data
+    from clipper_tpu_torch import Clipper
     from clipper_tpu_torch.types import Params
 
-    pcd0, pcd1, A, Agt, u0 = prob
-    m = len(A)
+    pcd0, pcd1, A, _, u0 = prob
     stats = {}
-    c = Clipper(inv, Params(), engine="auto", dtype=torch.float32,
-                device=dev, engine_opts={"stats": stats})
+    c = Clipper(inv, Params(), engine=engine, dtype=torch.float32,
+                device=dev, engine_opts=dict(opts, stats=stats))
     c.score_pairwise_consistency(pcd0.T, pcd1.T, A)
-    engine = c._resolve_engine(m)
-    require(engine == "triangle" and c._cap is not None,
-            f"m={m} resolved to engine {engine!r}, not the triangle engine")
-    _kernels.reset_launches()
-    sol = c.solve(u0=u0)
-    torch.cuda.synchronize()
-    launches = dict(_kernels.LAUNCHES)
+    sol, launches = counted_call(lambda: c.solve(u0=u0))
     cold = sol.t
     t0 = time.perf_counter()
     sol = c.solve(u0=u0)
     torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    return c, sol, stats, launches, time.perf_counter() - t0, cold
 
+
+def report_capacity(label, run, Agt, kernel):
+    """Shapes, finite values, F <= m, the P/R bars and ``kernel`` launched;
+    prints the quality, stage times, ticks, storage and launches."""
+    import torch
+    from clipper_tpu_torch.bench import data
+
+    c, sol, stats, launches, wall, cold = run
+    m = c.get_initial_associations().shape[0]
     mask = sol.mask.cpu().numpy()
     F = float(sol.score)
     require(mask.shape == (m,) and bool(torch.isfinite(sol.u).all())
-            and np.isfinite(F), "capacity path: bad shape or non-finite u/F")
-    require(F <= m, "capacity path: objective F > m")
+            and np.isfinite(F), f"{label}: bad shape or non-finite u/F")
+    require(F <= m, f"{label}: objective F > m")
     P, R = data.get_precision_recall(c.get_selected_associations(), Agt)
-    print(f"capacity path: m={m} rho={CAP_RHO} engine={engine}: precision="
+    print(f"{label}: m={m} rho={CAP_RHO} layout={stats['layout']}: precision="
           f"{P * 100:.2f}% recall={R * 100:.2f}% |mask|={int(mask.sum())} "
           f"(|Agt|={len(Agt)}); ifinal={int(sol.ifinal)} F={F:.4f} "
           f"ticks={stats['ticks']} rejected probes={stats['nback']}; "
           f"storage {stats['storage_bytes'] / 1e9:.3f} GB", flush=True)
-    print(f"capacity path wall: warm call {wall:.4f} s (first call "
-          f"{cold:.4f} s); stage ms of the warm call (CUDA events): "
-          + ", ".join(f"{k}={stats[k]:.3f}" for k in
-                      ("build", "init", "solve", "polish")), flush=True)
-    print(f"capacity path kernel launches (one call): {launches}",
+    total = sum(stats[k] for k in ("build", "init", "solve", "polish"))
+    print(f"{label} wall: warm call {wall:.4f} s (first call {cold:.4f} s); "
+          "stage ms of the warm call (CUDA events): "
+          + ", ".join(f"{k}={stats[k]:.3f} ({stats[k] / total * 100:.1f}%)"
+                      for k in ("build", "init", "solve", "polish")),
           flush=True)
-    require(launches["sym_rows_matvec"] > 0,
-            f"the rows matvec was never launched: {launches}")
-    require(P >= 0.995, f"capacity path precision {P:.4f} < 0.995")
-    require(R >= 0.88, f"capacity path recall {R:.4f} < 0.88")
+    print(f"{label} kernel launches (one call): {launches}", flush=True)
+    require(launches[kernel] > 0, f"{label}: {kernel} was never launched: "
+            f"{launches}")
+    require(P >= 0.995, f"{label} precision {P:.4f} < 0.995")
+    require(R >= 0.88, f"{label} recall {R:.4f} < 0.88")
+    return mask, F
+
+
+@contextlib.contextmanager
+def one_rank_group(dev):
+    """A 1-rank NCCL process group on dev, met through an in-memory
+    HashStore (no network), destroyed on the way out."""
+    import torch
+    import torch.distributed as dist
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+SHARDED_OPTS = {"build_chunk": 256, "support": 512}   # the triangle engine's
+
+
+def phase_capacity(inv, prob, dev):
+    """The capacity path: one m=65,536 problem through the facade, four
+    ways: engine="auto" (the triangle engine's row-chunked layout), the
+    triangle engine's tile list (matvec="xla"), and the sharded engine on
+    a 1-rank NCCL group in its 'xla' (tile list) and 'pallas' (row-chunked)
+    modes, with the triangle engine's build chunk and support so that its
+    'xla' mode must reproduce the tile-list solve. Returns the launches of
+    the auto and tile-list runs."""
+    m, Agt = len(prob[2]), prob[3]
+    run = capacity_solve(inv, prob, dev, "auto", {})
+    engine = run[0]._resolve_engine(m)
+    require(engine == "triangle" and run[0]._cap is not None,
+            f"m={m} resolved to engine {engine!r}, not the triangle engine")
+    report_capacity("capacity path (auto)", run, Agt, "sym_rows_matvec")
+    launches = dict(run[3])
+    run = capacity_solve(inv, prob, dev, "triangle", {"matvec": "xla"})
+    mask_x, F_x = report_capacity("capacity path (tile list)", run, Agt,
+                                  "sym_tiles_matvec")
+    launches["sym_tiles_matvec"] = run[3]["sym_tiles_matvec"]
+
+    with one_rank_group(dev):
+        for mode, kernel in (("xla", "sym_tiles_matvec"),
+                             ("pallas", "sym_rows_matvec")):
+            run = capacity_solve(inv, prob, dev, "sharded",
+                                 dict(SHARDED_OPTS, matvec=mode))
+            require(run[2]["ranks"] == 1, "the sharded engine did not take "
+                    "the 1-rank group")
+            mask, F = report_capacity(f"sharded engine D=1 ({mode})", run,
+                                      Agt, kernel)
+            if mode == "xla":
+                same = bool((mask == mask_x).all())
+                dF = abs(F - F_x) / abs(F_x)
+                print(f"sharded D=1 (xla) vs tile-list solve: masks equal "
+                      f"{same} ({int((mask != mask_x).sum())} differ), F "
+                      f"relative difference {dF:.3e}", flush=True)
+                require(same and dF <= 1e-6, "the sharded engine at D=1 "
+                        "differs from the single-device tile-list solve")
     return launches
 
 
@@ -935,39 +1188,44 @@ def phase_facade_parity(inv, dev):
     # and the f32 solve's accept and stall decisions amplify that. The
     # spread printed beside the bar: on each device, the same solve with
     # +-1 ulp of noise on every matvec output, against that device's
-    # noiseless run.
+    # noiseless run. Both layouts of the triangle engine: row-chunked
+    # ('auto') and the tile list (matvec='xla').
     prob = one_problem(CAP_PARITY_M, CAP_RHO, seed=2)
-    cg, mg, ig = run(prob, dev, "auto", torch.float32)
-    require(cg._resolve_engine(CAP_PARITY_M) == "triangle",
-            f"m={CAP_PARITY_M} did not take the triangle engine")
-    cc, mc, ic = run(prob, "cpu", "auto", torch.float32)
-    iou = mask_iou(mg, mc)
-    pr = [data.get_precision_recall(c.get_selected_associations(), prob[3])
-          for c in (cg, cc)]
-    print(f"facade cuda vs cpu, triangle engine m={CAP_PARITY_M}: mask IoU="
-          f"{iou:.4f}, |mask| cuda {int(mg.sum())} cpu {int(mc.sum())}, "
-          f"{int((mg != mc).sum())} vertices differ; ifinal cuda {ig} cpu "
-          f"{ic}; P/R cuda {pr[0][0] * 100:.2f}/{pr[0][1] * 100:.2f}% cpu "
-          f"{pr[1][0] * 100:.2f}/{pr[1][1] * 100:.2f}%", flush=True)
-    spread = []
-    for d, mref, trials in ((dev, mg, SPREAD_TRIALS_CUDA),
-                            ("cpu", mc, SPREAD_TRIALS_CPU)):
-        for s in range(1, trials + 1):
-            cn, mn, i_n = run(prob, d, "auto", torch.float32,
-                              {"wrap_matvec": ulp_noise(s, d)})
-            P, R = data.get_precision_recall(cn.get_selected_associations(),
-                                             prob[3])
-            spread.append(mask_iou(mn, mref))
-            print(f"  matvec +-1 ulp ({d}, trial {s}): IoU vs noiseless "
-                  f"{spread[-1]:.4f}, |mask| {int(mn.sum())}, ifinal {i_n}, "
-                  f"P/R {P * 100:.2f}/{R * 100:.2f}%", flush=True)
-    print(f"facade triangle engine m={CAP_PARITY_M}: cuda vs cpu IoU "
-          f"{iou:.4f}; lowest IoU under 1-ulp matvec noise "
-          f"{min(spread):.4f} (bar {CAP_PARITY_IOU})", flush=True)
-    require(iou >= CAP_PARITY_IOU, "facade triangle engine: cuda and cpu "
-            f"masks differ past IoU {CAP_PARITY_IOU}")
-    require(all(p >= 0.995 and r >= 0.88 for p, r in pr),
-            "facade triangle engine: P/R below 0.995/0.88")
+    for layout, opts, trials in (
+            ("row-chunked", {}, (SPREAD_TRIALS_CUDA, SPREAD_TRIALS_CPU)),
+            ("tile list", {"matvec": "xla"}, (SPREAD_TRIALS_TILES, 1))):
+        cg, mg, ig = run(prob, dev, "auto", torch.float32, opts)
+        require(cg._resolve_engine(CAP_PARITY_M) == "triangle",
+                f"m={CAP_PARITY_M} did not take the triangle engine")
+        cc, mc, ic = run(prob, "cpu", "auto", torch.float32, opts)
+        iou = mask_iou(mg, mc)
+        pr = [data.get_precision_recall(c.get_selected_associations(),
+                                        prob[3]) for c in (cg, cc)]
+        label = f"triangle engine ({layout}) m={CAP_PARITY_M}"
+        print(f"facade cuda vs cpu, {label}: mask IoU={iou:.4f}, |mask| "
+              f"cuda {int(mg.sum())} cpu {int(mc.sum())}, "
+              f"{int((mg != mc).sum())} vertices differ; ifinal cuda {ig} "
+              f"cpu {ic}; P/R cuda {pr[0][0] * 100:.2f}/"
+              f"{pr[0][1] * 100:.2f}% cpu {pr[1][0] * 100:.2f}/"
+              f"{pr[1][1] * 100:.2f}%", flush=True)
+        spread = []
+        for d, mref, n in ((dev, mg, trials[0]), ("cpu", mc, trials[1])):
+            for s in range(1, n + 1):
+                cn, mn, i_n = run(prob, d, "auto", torch.float32,
+                                  dict(opts, wrap_matvec=ulp_noise(s, d)))
+                P, R = data.get_precision_recall(
+                    cn.get_selected_associations(), prob[3])
+                spread.append(mask_iou(mn, mref))
+                print(f"  matvec +-1 ulp ({d}, trial {s}): IoU vs noiseless "
+                      f"{spread[-1]:.4f}, |mask| {int(mn.sum())}, ifinal "
+                      f"{i_n}, P/R {P * 100:.2f}/{R * 100:.2f}%", flush=True)
+        print(f"facade {label}: cuda vs cpu IoU {iou:.4f}; lowest IoU under "
+              f"1-ulp matvec noise {min(spread):.4f} (bar {CAP_PARITY_IOU})",
+              flush=True)
+        require(iou >= CAP_PARITY_IOU, f"facade {label}: cuda and cpu masks "
+                f"differ past IoU {CAP_PARITY_IOU}")
+        require(all(p >= 0.995 and r >= 0.88 for p, r in pr),
+                f"facade {label}: P/R below 0.995/0.88")
 
     prob = one_problem(DENSE_M, RHO, seed=3)
     prob = prob[:4] + (prob[4].astype(np.float64),)
@@ -1074,6 +1332,51 @@ def time_rows(inv, prob, dev):
     return rows[16], err
 
 
+def time_tiles(inv, prob, dev):
+    """The tile-list matvec on the capacity path's m=65,536 storage: held
+    against its plain version at K=16 and K=1 (whole list and D=3
+    slices), then timed. Returns the K=16 row of the kernels' JSON line
+    and the max abs error."""
+    import torch
+    from clipper_tpu_torch.ops import symstore
+
+    m = len(prob[2])
+    t = ROWS_T
+    nt = m // t
+    tiles = tiles_storage(inv, prob, dev)
+    T = tiles.shape[0]
+    print(f"tile-list storage m={m}: {tuple(tiles.shape)} int8, "
+          f"{tiles.numel() / 1e9:.3f} GB", flush=True)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    Us = {K: unit_rows(gen, 1, K, dev, m)[0] for K in (16, 1)}
+    err = max(check_tiles(tiles, nt, U, f"int8, m={m}, K={K}")
+              for K, U in Us.items())
+    walks = symstore._device_walks(nt, *symstore.tile_coords(nt), dev)
+    dense = dense_from_tiles(tiles, nt, torch.bfloat16)
+    rows = {}
+    for K, U in Us.items():
+        mv_bytes = T * 2 * t * t + K * m * 2 + K * 2 * m * 4
+        mv_ops = 2 * K * 2 * t * t * (2 * T - nt)
+        Ut = U.to(torch.bfloat16).T.contiguous()
+        r = dict(ms=cuda_ms(lambda: symstore.sym_tiles_matvec_cuda(
+                     tiles, nt, U, walks=walks), 10),
+                 plain_ms=cuda_ms(lambda: symstore.sym_tiles_matvec_plain(
+                     tiles, nt, U), 2),
+                 bound_ms=max(mv_bytes / HBM_BYTES_PER_S,
+                              mv_ops / BF16_FLOPS) * 1e3,
+                 bound_by=("bytes" if mv_bytes / HBM_BYTES_PER_S
+                           > mv_ops / BF16_FLOPS else "operations"),
+                 library_ms=cuda_ms(lambda: torch.matmul(dense, Ut), 5))
+        rows[K] = r
+        print(f"timing sym_tiles_matvec m={m} K={K}: kernel {r['ms']:.4f} "
+              f"ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), plain "
+              f"{r['plain_ms']:.4f} ms, matmul over dense bf16 [M; C] "
+              f"{r['library_ms']:.4f} ms", flush=True)
+    del dense, tiles
+    torch.cuda.empty_cache()
+    return rows[16], err
+
+
 def profile_call(label, fn):
     """One call of fn under torch.profiler (after one warm-up call): the
     union of the device's kernel and copy intervals over the wall time of
@@ -1114,8 +1417,9 @@ def profile_call(label, fn):
 
 def phase_profile(inv, main, cap, dev):
     """The pool path, the stacked pool and the fused batched engine
-    (W=512), and the capacity path (m=65,536) under the profiler, one call
-    each."""
+    (W=512), and the capacity path (m=65,536: row-chunked, the tile list,
+    and the sharded engine's "xla" mode at D=1) under the profiler, one
+    call each."""
     import torch
     from clipper_tpu_torch import Clipper
     from clipper_tpu_torch.types import Params
@@ -1128,10 +1432,20 @@ def phase_profile(inv, main, cap, dev):
     c = Clipper(inv, Params(), engine="auto", dtype=torch.float32, device=dev)
     c.score_pairwise_consistency(pcd0.T, pcd1.T, A)
     profile_call("capacity-path", lambda: c.solve(u0=u0))
+    c = Clipper(inv, Params(), engine="triangle", dtype=torch.float32,
+                device=dev, engine_opts={"matvec": "xla"})
+    c.score_pairwise_consistency(pcd0.T, pcd1.T, A)
+    profile_call("capacity-tile-list", lambda: c.solve(u0=u0))
+    with one_rank_group(dev):
+        c = Clipper(inv, Params(), engine="sharded", dtype=torch.float32,
+                    device=dev, engine_opts=dict(SHARDED_OPTS, matvec="xla"))
+        c.score_pairwise_consistency(pcd0.T, pcd1.T, A)
+        profile_call("capacity-sharded-xla-D=1", lambda: c.solve(u0=u0))
 
 
 def main() -> None:
     quick = "--quick" in sys.argv[1:]
+    t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a GPU")
@@ -1175,8 +1489,9 @@ def main() -> None:
     cap = one_problem(CAP_M, CAP_RHO, seed=0)
     print(f"capacity data: m={CAP_M} in {time.perf_counter() - t0:.1f} s",
           flush=True)
-    launches["sym_rows_matvec"] = phase_capacity(inv, cap, dev)[
-        "sym_rows_matvec"]
+    cap_launches = phase_capacity(inv, cap, dev)
+    for name in ("sym_rows_matvec", "sym_tiles_matvec"):
+        launches[name] = cap_launches[name]
     phase_parity(inv, check, dev)
     phase_facade_parity(inv, dev)
     rows, build_err_main, mv_err_main = phase_timing(inv, main_data, dev)
@@ -1184,6 +1499,8 @@ def main() -> None:
     errs["tri_matvec"] = max(errs["tri_matvec"], mv_err_main)
     rows["sym_rows_matvec"], rows_err_cap = time_rows(inv, cap, dev)
     errs["sym_rows_matvec"] = max(errs["sym_rows_matvec"], rows_err_cap)
+    rows["sym_tiles_matvec"], tiles_err_cap = time_tiles(inv, cap, dev)
+    errs["sym_tiles_matvec"] = max(errs["sym_tiles_matvec"], tiles_err_cap)
     rows_sp, errs_sp = time_stacked_and_pattern(inv, main_data, dev)
     rows.update(rows_sp)
     for name, e in errs_sp.items():
@@ -1198,6 +1515,7 @@ def main() -> None:
         "sym_rows_matvec": "clipper_tpu/ops/symstore.py:653",
         "stored_build": "clipper_tpu/ops/affinity_pallas.py:107",
         "pattern_matvec": "clipper_tpu/ops/fused_matvec.py:55",
+        "sym_tiles_matvec": "clipper_tpu/ops/symstore.py:314",
     }
     kernels = [dict(name=name, route="cuda", source=f"{src}{name}.cu",
                     replaces=where, launches=launches[name],
@@ -1207,6 +1525,8 @@ def main() -> None:
         for key in ("ms", "plain_ms", "bound_ms", "library_ms"):
             if k[key] is not None:
                 k[key] = float(k[key])
+    print(f"all phases passed in {time.perf_counter() - t_start:.1f} s",
+          flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

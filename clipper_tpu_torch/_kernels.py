@@ -38,6 +38,7 @@ SOURCES: Dict[str, list] = {
     "sym_rows_matvec": [],
     "stored_build": ["--fmad=false"],
     "pattern_matvec": [],
+    "sym_tiles_matvec": [],
 }
 
 _P = ctypes.c_void_p
@@ -50,9 +51,13 @@ _SIGNATURES = {
     "tri_matvec_f64": [_P, _P, _P, _P, _I, _I, _I, _I, _LL, _P],
     "tri_build_int8": [_P, _P, _P, _P, _P, _I, _I, _I, _LL, _F, _F, _F, _F,
                        _P],
-    "sym_rows_matvec_int8": [_P, _P, _P, _I, _I, _I, _I, _F, _P],
-    "sym_rows_matvec_f32": [_P, _P, _P, _I, _I, _I, _I, _P],
-    "sym_rows_matvec_f64": [_P, _P, _P, _I, _I, _I, _I, _P],
+    "sym_rows_matvec_int8": [_P, _P, _P, _I, _I, _I, _I, _LL, _LL, _I, _F,
+                             _P],
+    "sym_rows_matvec_f32": [_P, _P, _P, _I, _I, _I, _I, _LL, _LL, _I, _P],
+    "sym_rows_matvec_f64": [_P, _P, _P, _I, _I, _I, _I, _LL, _LL, _I, _P],
+    "sym_tiles_matvec_int8": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    "sym_tiles_matvec_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "sym_tiles_matvec_f64": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "stored_build_int8": [_P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _P],
     "stored_build_bf16": [_P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _P],
     "pattern_matvec_f32": [_P, _P, _P, _P, _I, _I, _I, _P],

@@ -7,9 +7,16 @@ names. ``D1`` is (d, n1) with the data as columns, as in the reference.
 
 Engines: ``"dense"`` builds the (m, m) M and C in the working dtype and
 runs the nested solver (solvers/msrc.py); ``"triangle"`` keeps the
-row-major datasets and solves through the row-chunked symmetric-triangle
-capacity engine (ops/symstore.solve_single, the CUDA rows matvec on the
-card); ``"auto"`` takes dense below m = 8192 and the triangle from there.
+row-major datasets and solves through the symmetric-triangle capacity
+engine (ops/symstore.solve_single, row-chunked by default, a CUDA kernel
+on the card for either layout); ``"sharded"`` splits that storage over
+the ranks of a ``torch.distributed`` process group (``mesh``; see
+ops/symstore.solve_sharded_sym); ``"auto"`` takes dense below m = 8192
+and the triangle from there, never the sharded engine.
+
+The sharded engine is SPMD: every rank builds a Clipper with the same
+options and calls it with the same data and u0 (the JAX package's
+replicated inputs), and every rank gets the same Solution.
 
 ``solve(multistart=K)`` runs K inits of the dense engine's problem in
 lock-step through the flat solver (solvers/msrc_flat.solve_multistart)
@@ -17,8 +24,7 @@ and keeps the densest cluster; the triangle engine raises for it, as the
 JAX package's capacity engines do.
 
 Not ported yet, and raising NotImplementedError with their ROADMAP.md
-Queue 1 item: ``engine="sharded"`` (13),
-``set_sparse_matrix_data`` (12), ``Rounding.DSD`` and
+Queue 1 item: ``set_sparse_matrix_data`` (12), ``Rounding.DSD`` and
 ``solve_as_maximum_clique`` (15, the host solvers), and
 ``solve_as_msrc_sdr*`` (14).
 """
@@ -52,7 +58,8 @@ class Clipper:
     def __init__(self, invariant: Optional[PairwiseInvariant],
                  params: Params = Params(), *, dtype=None,
                  seed: Optional[int] = 0, engine: str = "auto",
-                 engine_opts: Optional[dict] = None, device="cuda"):
+                 mesh=None, engine_opts: Optional[dict] = None,
+                 device="cuda"):
         """dtype: the working dtype (default torch's default float, the
         counterpart of the JAX package's x64 switch).
 
@@ -62,22 +69,23 @@ class Clipper:
         from the clock, as the reference does (src/utils.cpp:22-29). The
         draws differ from the JAX package's ``jax.random`` stream.
 
-        engine: 'auto' | 'dense' | 'triangle' (see the module docstring).
-        engine_opts are forwarded to the capacity engine (probes,
-        power_steps, storage_dtype, support, tile, stats, ...).
+        engine: 'auto' | 'dense' | 'triangle' | 'sharded' (see the module
+        docstring). mesh: the sharded engine's process group (None: the
+        default group when one is initialized, else one rank). engine_opts
+        are forwarded to the capacity engines (matvec, probes, power_steps,
+        storage_dtype, support, tile, stats, ...).
 
         device: where matrices live and the solvers run, "cuda" by
         default; raises when CUDA is asked for and missing.
         """
-        if engine == "sharded":
-            raise _not_ported("engine='sharded'", 13)
-        if engine not in ("auto", "dense", "triangle"):
+        if engine not in ("auto", "dense", "triangle", "sharded"):
             raise ValueError(f"unknown engine {engine!r}")
         self.invariant = invariant
         self.params = params
         self.dtype = dtype or torch.get_default_dtype()
         self.seed = seed
         self.engine = engine
+        self.mesh = mesh
         self.engine_opts = dict(engine_opts or {})
         self.device = resolve_device(device)
         self._nsolves = 0
@@ -100,13 +108,14 @@ class Clipper:
         """Build affinity/constraint matrices from (d, n) column-major data
         (reference: src/clipper.cpp:21-65). Under the triangle engine no
         dense (m, m) is made here: the datasets are kept and :meth:`solve`
-        builds triangle storage on the device."""
+        builds triangle storage on the device (under the sharded engine,
+        each rank its slice)."""
         D1 = self._tensor(D1).T     # -> (n1, d) rows
         D2 = self._tensor(D2).T
         if A is not None and np.size(A) == 0:
             A = None
         m = len(A) if A is not None else D1.shape[0] * D2.shape[0]
-        if self._resolve_engine(m) == "triangle":
+        if self._resolve_engine(m) in ("triangle", "sharded"):
             if A is None:
                 A = create_all_to_all(D1.shape[0], D2.shape[0])
             self._A = as_association(A, device=self.device)
@@ -185,9 +194,10 @@ class Clipper:
         return soln
 
     def _solve_capacity(self, u0: torch.Tensor) -> Solution:
-        """Solve through the row-chunked triangle engine
-        (ops/symstore.solve_single): storage built on the device in int8
-        (f64 working precision stores f64), no dense (m, m) anywhere."""
+        """Solve through a symmetric-triangle capacity engine: one device
+        (ops/symstore.solve_single) or the ranks of ``mesh``
+        (solve_sharded_sym), storage built on the device in int8 (f64
+        working precision stores f64), no dense (m, m) anywhere."""
         opts = dict(affinityeps=self.params.affinityeps)
         if self.dtype == torch.float64:
             # reference-parity working precision stores full f64 tiles
@@ -195,6 +205,10 @@ class Clipper:
         else:
             opts.update(storage_dtype=torch.int8, probes=16, power_steps=4)
         opts.update(self.engine_opts)
+        if self.engine == "sharded":
+            return symstore.solve_sharded_sym(
+                self.invariant, self._cap["D1"], self._cap["D2"], self._A,
+                u0, self.params, self.mesh, **opts)
         u, F, ifinal = symstore.solve_single(
             self.invariant, self._cap["D1"], self._cap["D2"], self._A, u0,
             self.params, **opts)

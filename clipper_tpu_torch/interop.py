@@ -51,6 +51,14 @@ def chunks_to_torch(chunks, device="cpu") -> torch.Tensor:
     return to_torch(chunks, device).contiguous()
 
 
+def tiles_to_torch(tiles, device="cpu") -> torch.Tensor:
+    """(T, 2t, t) tile-list triangle storage (ops/symstore.py)."""
+    if np.ndim(tiles) != 3 or np.shape(tiles)[1] != 2 * np.shape(tiles)[2]:
+        raise ValueError(f"tiles must be (T, 2t, t); got shape "
+                         f"{np.shape(tiles)}")
+    return to_torch(tiles, device).contiguous()
+
+
 def state_to_torch(state: Dict[str, np.ndarray], device="cpu") -> _FlatState:
     """A batched _FlatState given as a dict of (B, ...) arrays."""
     fields = {}

@@ -219,3 +219,80 @@ def test_pattern_matvec_kernel_matches_plain(cuda, m, dtype):
         assert float((x - y).abs().max()) <= 1e-4
     again = fused_matvec.pattern_dual_matvec(M, u)
     assert all(torch.equal(x, y) for x, y in zip(a, again))
+
+
+def _capacity_endpoints(cuda, m, seed, dtype=torch.float32):
+    pcd0, D2s, As, _ = _problems(1, m, seed=seed)
+    P1, P2 = gather_endpoints(torch.from_numpy(pcd0).to(cuda, dtype),
+                              torch.from_numpy(D2s[0]).to(cuda, dtype),
+                              torch.from_numpy(As[0]).to(cuda))
+    return P1, P2, torch.from_numpy(As[0]).to(cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage", [torch.int8, torch.float32,
+                                     torch.float64])
+def test_sym_tiles_kernel_matches_plain(cuda, storage):
+    """Kernel 7 against its plain version at t=128, K=1 and 16 (and 20,
+    two column groups), on the whole list and on D=3 slices summed, within
+    1e-4; a rerun is bit-identical; one launch a call."""
+    m, t = 1024, 128
+    nt = m // t
+    inv = harness.default_invariant()
+    fdt = torch.float64 if storage == torch.float64 else torch.float32
+    P1, P2, A = _capacity_endpoints(cuda, m, seed=9, dtype=fdt)
+    tiles = symstore.build_symtiles(inv, P1, P2, A, m, tile=t,
+                                    storage_dtype=storage)
+    slices = []
+    for rank in range(3):
+        rows, cols = symstore._shard_coords(nt, 3, rank, "xla", 32)
+        slices.append((symstore._build_tiles_at(
+            inv, P1, P2, A, rows, cols, m, t, 1e-4, storage, 64), rows, cols))
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    for K in (1, 16, 20):
+        U = torch.rand(K, m, generator=gen, device=cuda, dtype=fdt)
+        U /= torch.linalg.vector_norm(U, dim=-1, keepdim=True)
+        before = _kernels.LAUNCHES["sym_tiles_matvec"]
+        a = symstore.sym_tiles_matvec_cuda(tiles, nt, U)
+        assert _kernels.LAUNCHES["sym_tiles_matvec"] == before + 1
+        b = symstore.sym_tiles_matvec_plain(tiles, nt, U)
+        assert a.dtype == torch.float32 and a.shape == (K, 2 * m)
+        assert float((a - b).abs().max()) <= 1e-4
+        assert torch.equal(a, symstore.sym_tiles_matvec_cuda(tiles, nt, U))
+        acc = sum(symstore.sym_tiles_matvec_cuda(tl, nt, U, r, c, raw=True)
+                  for tl, r, c in slices)
+        summed = symstore._finish(acc, symstore._scale(storage))
+        assert float((summed - b).abs().max()) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage", [torch.int8, torch.float64])
+def test_sym_rows_kernel_on_slices(cuda, storage):
+    """Kernel 3 over D=3 chunk slices (G=8) against its plain version on
+    the same slices, and their sum against the whole list, within 1e-4."""
+    m, t, G = 1024, 128, 8
+    nt = m // t
+    inv = harness.default_invariant()
+    fdt = torch.float64 if storage == torch.float64 else torch.float32
+    P1, P2, A = _capacity_endpoints(cuda, m, seed=10, dtype=fdt)
+    whole = symstore.build_symchunks(inv, P1, P2, A, m, tile=t, G=G,
+                                     storage_dtype=storage)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    U = torch.rand(16, m, generator=gen, device=cuda, dtype=fdt)
+    U /= torch.linalg.vector_norm(U, dim=-1, keepdim=True)
+    ref = symstore.sym_rows_matvec_plain(whole, nt, U)
+    scale = symstore._scale(storage)
+    acc = 0
+    for rank in range(3):
+        base, crs, cc0, _, _ = symstore._shard_coords(nt, 3, rank, "pallas", G)
+        ch = symstore.build_symchunks(inv, P1, P2, A, m, tile=t, G=G,
+                                      storage_dtype=storage,
+                                      chunk_coords=(crs, cc0))
+        k = symstore.sym_rows_matvec_cuda(ch, nt, U, base, raw=True)
+        p = symstore.sym_rows_matvec_plain(ch, nt, U, base, raw=True)
+        assert k.dtype == torch.float64
+        err = symstore._finish(k, scale) - symstore._finish(p, scale)
+        assert float(err.abs().max()) <= 1e-4
+        acc = acc + k
+    summed = symstore._finish(acc, scale)
+    assert float((summed - ref).abs().max()) <= 1e-4

@@ -1,8 +1,9 @@
 """Port parity: the Clipper facade and its utilities.
 
 Mirrors tests/test_facade.py and tests/test_facade_capacity.py where this
-slice covers them: engine routing, the dense engine (f64) and the triangle
-capacity engine (f32, int8 storage) against clipper_tpu.Clipper from the
+slice covers them: engine routing, the dense engine (f64), the triangle
+capacity engine (f32, int8 storage) and the sharded engine on one rank
+against clipper_tpu.Clipper from the
 same explicit numpy u0, the accessors and their densify guard, seeding,
 and the options that are not ported yet.
 """
@@ -125,6 +126,40 @@ def test_triangle_engine_matches_jax_f32():
                                   np.asarray(jc.get_constraint_matrix()))
 
 
+@pytest.mark.parametrize("matvec", ["auto", "xla"])
+def test_sharded_engine_matches_jax(matvec):
+    """engine='sharded' on one rank (no process group) against the JAX
+    facade's engine='sharded' on a 1-device mesh, m=256, tile=32, the
+    facade's f32 defaults: equal masks and F within 1e-3 relative, in the
+    port's row-chunked ('auto') and tile-list ('xla') modes. The JAX side
+    takes its CPU default, the XLA tile list, whose f32 sums follow another
+    trajectory to the same mask (F 1.4e-4 apart here; see
+    test_triangle_engine_matches_jax_f32)."""
+    from jax.sharding import Mesh
+    import jax
+    pcd0, pcd1, A, Agt = _scene(256, 0.9, seed=2)
+    u0 = np.random.default_rng(102).random(256).astype(np.float32)
+    jc = ct.Clipper(jharness.default_invariant(), ct.Params(),
+                    dtype=jnp.float32, engine="sharded",
+                    mesh=Mesh(np.array(jax.devices()[:1]), ("d",)),
+                    engine_opts=dict(tile=32))
+    jc.score_pairwise_consistency(pcd0.T.astype(np.float32),
+                                  pcd1.T.astype(np.float32), A)
+    sj = jc.solve(u0=u0)
+    stats = {}
+    tc = Clipper(harness.default_invariant(), Params(), dtype=torch.float32,
+                 engine="sharded", device="cpu",
+                 engine_opts=dict(tile=32, matvec=matvec, stats=stats))
+    tc.score_pairwise_consistency(pcd0.T, pcd1.T, A)
+    st = tc.solve(u0=u0)
+    assert tc._cap is not None and tc._M is None
+    assert stats["ranks"] == 1
+    np.testing.assert_array_equal(st.mask.numpy(), np.asarray(sj.mask))
+    assert abs(float(st.score) - float(sj.score)) <= 1e-3 * float(sj.score)
+    p, r = data.get_precision_recall(tc.get_selected_associations(), Agt)
+    assert p > 0.97 and r > 0.8
+
+
 def test_engine_opts_reach_the_capacity_engine():
     pcd0, pcd1, A, _ = _scene(128, 0.9, seed=3)
     stats = {}
@@ -149,8 +184,9 @@ def test_capacity_densify_guard():
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="item 13"):
-        Clipper(None, engine="sharded", device="cpu")
+    # the sharded engine is ported: it constructs on the CPU
+    sh = Clipper(None, engine="sharded", device="cpu")
+    assert sh._resolve_engine(64) == "sharded" and sh.mesh is None
     model, scene = make_scene()
     c = Clipper(EuclideanDistance(), dtype=torch.float64, device="cpu")
     with pytest.raises(NotImplementedError, match="item 12"):
@@ -166,6 +202,10 @@ def test_unported_options_raise():
     tri.score_pairwise_consistency(model, scene)
     with pytest.raises(NotImplementedError, match="capacity engines"):
         tri.solve(multistart=4)
+    sh = Clipper(EuclideanDistance(), engine="sharded", device="cpu")
+    sh.score_pairwise_consistency(model, scene)
+    with pytest.raises(NotImplementedError, match="capacity engines"):
+        sh.solve(multistart=4)
     with pytest.raises(NotImplementedError, match="item 15"):
         c.solve_as_maximum_clique()
     with pytest.raises(NotImplementedError, match="item 14"):

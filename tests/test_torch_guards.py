@@ -49,6 +49,7 @@ def test_import_pulls_in_no_jax():
         "import clipper_tpu_torch.ops.affinity_pallas\n"
         "import clipper_tpu_torch.parallel.batched\n"
         "import clipper_tpu_torch.parallel.buckets\n"
+        "import clipper_tpu_torch.bench.cpu_mesh_run\n"
         "import chip_smoke\n"
         "bad = [k for k in sys.modules if k.split('.')[0] in "
         "('jax', 'jaxlib', 'clipper_tpu')]\n"
@@ -64,7 +65,8 @@ def test_import_pulls_in_no_jax():
 def test_default_device_raises_without_cuda():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
-    from clipper_tpu_torch import (BucketedPipeline, make_batched_pipeline,
+    from clipper_tpu_torch import (BucketedPipeline, Clipper,
+                                   make_batched_pipeline,
                                    make_pool_multistart_pipeline,
                                    make_pool_pipeline)
     from clipper_tpu_torch.bench.harness import default_invariant
@@ -74,7 +76,8 @@ def test_default_device_raises_without_cuda():
                  lambda: make_pool_pipeline(inv, layout="stacked"),
                  lambda: make_pool_multistart_pipeline(inv),
                  lambda: make_batched_pipeline(inv, matvec="fused"),
-                 lambda: BucketedPipeline(inv)):
+                 lambda: BucketedPipeline(inv),
+                 lambda: Clipper(inv, engine="sharded")):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             make()
     with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -93,3 +96,33 @@ def test_chip_smoke_refuses_without_cuda():
                          timeout=120)
     assert out.returncode != 0
     assert '"ok": true' not in out.stdout
+
+
+def _kernel_sources():
+    return sorted((PORT / "csrc").glob("*.cu*"))
+
+
+@pytest.mark.parametrize("path", _kernel_sources(),
+                         ids=lambda p: p.name)
+def test_kernel_source_is_shipped_and_registered(path):
+    """Every kernel source and header is in the package data
+    (pyproject.toml), every header it includes is a file of csrc/, and a
+    .cu file is registered in _kernels.SOURCES with each of its C entry
+    points bound in _kernels._SIGNATURES."""
+    import fnmatch
+    import re
+    import tomllib
+
+    from clipper_tpu_torch import _kernels
+    data = tomllib.loads((ROOT / "pyproject.toml").read_text())
+    globs = data["tool"]["setuptools"]["package-data"]["clipper_tpu_torch"]
+    rel = str(path.relative_to(PORT))
+    assert any(fnmatch.fnmatch(rel, g) for g in globs), (rel, globs)
+    text = path.read_text()
+    for inc in re.findall(r'#include "([^"]+)"', text):
+        assert (path.parent / inc).is_file(), (path.name, inc)
+    if path.suffix == ".cu":
+        assert path.stem in _kernels.SOURCES
+        c_api = text.split('extern "C"', 1)[1]
+        entry = re.findall(r"^int (\w+)\(", c_api, re.M)
+        assert entry and all(e in _kernels._SIGNATURES for e in entry), entry

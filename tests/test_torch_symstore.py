@@ -211,8 +211,9 @@ def test_solve_single_matches_jax(support):
     assert abs(float(F) - float(F_j)) <= 1e-4 * abs(float(F_j))
     assert (int((u > 0).sum()) > support) == (support == 8)
     assert set(stats) == {"build", "init", "solve", "polish", "ticks",
-                          "nback", "storage_bytes"}
+                          "nback", "storage_bytes", "layout"}
     assert stats["ticks"] > 0 and stats["storage_bytes"] == 4 * 64 * 128
+    assert stats["layout"] == "row-chunked"
 
 
 def test_solve_single_wrap_matvec():
