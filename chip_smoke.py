@@ -23,7 +23,16 @@ Phases, each of which must pass (any failure exits non-zero):
               the stacked int8 matvec (plain, cuBLAS) against an f64 oracle
               (<= 1.1e-5), and the pattern matvec on the 16 problems' dense
               f32 M and its bf16 cast (<= 1e-4 against the plain version
-              and an f64 oracle).
+              and an f64 oracle); the dense build on one bunny problem
+              (m=1024) and one point-normal problem cut to m=1000, f32
+              and f64 (C exact, no M entry differing); the tri and stacked
+              builds on 16 point-normal problems (C exact, no M code
+              differing); the fused tri build byte-equal to the tri build
+              (both invariants); and the tiles matvec on the tile-major
+              form of the check storage, int8, f32 and f64 (<= 1e-4
+              against its plain version and the tri matvec at K=1,
+              <= 1.1e-5 against an f64 oracle, all three <= 1e-12 for f64
+              storage, a rerun bit-identical).
 3. pool     — the bench protocol through make_pool_pipeline: W=512
               problems, m=1024, 90% outliers, bench.py's settings (1 warm-up
               call and 3 timed calls). Prints P/R, problems/s, per-stage times
@@ -44,6 +53,21 @@ Phases, each of which must pass (any failure exits non-zero):
               matvec="fused") in f32 (bench/harness.py's call): the P/R bars
               and the pattern matvec launched; prints problems/s and the
               lock-step tick count.
+3e. point-normal — BASELINE.json config 3: one m=5000, 80% outlier
+              problem through Clipper(pointnormal_invariant(), f32) (the
+              dense build launched once a score_pairwise_consistency,
+              P >= 0.99, R >= 0.85; prints the build's, the solve's and the
+              plain build's ms), and W=512 problems at m=1024, 90%
+              outliers, per-problem datasets, through the tri pool
+              (bench.py's settings; tri_build and tri_matvec launched) and
+              the stacked pool (3b's settings; stored_build once a call),
+              each at the bench bars, printing problems/s and stage ms.
+3f. variants — the 512 bunny problems: the fused tri build byte-equal to
+              the tri build, then the pool solved over its tile-major form
+              (solve_pool_tri(matvec="tiles")) beside the flat storage
+              (matvec="pallas"), one probe a tick (window 12): both at the
+              bench bars, tri_build_fused and tri_tiles_matvec launched;
+              prints each call's ms and stage ms.
 4. capacity — one problem through the Clipper facade in f32: m=65,536,
               95% outliers, the bunny (seed 0), u0 from numpy
               default_rng(0), four ways: engine="auto" (the triangle
@@ -67,15 +91,22 @@ Phases, each of which must pass (any failure exits non-zero):
               cpu row-chunked, 2 and 1 for the tile list); its dense
               engine in f64 at
               m=1024, 90% outliers: masks equal, P >= 0.995 and R >= 0.85 on
-              cuda, and with solve(multistart=4): masks equal.
+              cuda, and with solve(multistart=4): masks equal; the
+              point-normal tri pool and the tile-major pool at W=16 (masks
+              equal on >= 15 of 16, mean P/R within 1 point) and the
+              point-normal dense facade in f64 at m=1024 (masks equal, the
+              dense build launched on cuda).
 6. timing   — each kernel at its path's shapes (the builds at W=512, the tri
               matvec at B=128, K=16 and B=512, K=1, the rows and the
               tile-list matvecs on the m=65,536 storage at K=16 and K=1
               (the tile list also on its D=3 slices), the pattern matvec at
-              B=512 in f32 and bf16) held against its plain version as in
-              phase 2, then timed beside its bound, its plain version and,
-              where one exists, one PyTorch call computing the same
-              function.
+              B=512 in f32 and bf16, the fused tri build beside the tri
+              build at W=512, the tiles matvec at B=128 and B=512 beside the
+              tri matvec at K=1, the dense build at m=5000 point-normal and
+              m=1024 bunny, the point-normal tri and stacked builds at
+              W=512) held against its plain version as in phase 2, then
+              timed beside its bound, its plain version and, where one
+              exists, one PyTorch call computing the same function.
 
 The line before the last is a JSON object of the kernels' numbers; the last
 line is {"ok": true, "device": {...}}.
@@ -106,7 +137,7 @@ W_CHECK = 16        # problems for the kernel and CPU-parity checks
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 BF16_FLOPS = 989e12           # dense bf16 tensor-core peak
 F32_FLOPS = 67e12             # f32 outside the tensor cores
-BUILD_OPS_PER_ENTRY = 30      # f32 operations per stored entry (tri_build.cu)
+BUILD_OPS_PER_PAIR = 30       # f32 operations a Euclidean pair (tri_build.cu)
 MATVEC_TOL = 1e-4             # max |kernel - plain| of the matvecs
 CAP_M = 65536       # the capacity path: one problem at m=65,536 ...
 CAP_RHO = 0.95      # ... with 95% outliers
@@ -124,11 +155,35 @@ W_PARITY_MULTI = 8            # multistart problems in the cuda/cpu check
 M_EDGE = 1000                 # the stacked build where no tile divides m
 STACKED_MV_TOL = 1.1e-5       # stacked int8 matvec vs f64 (BENCH.md:591-595)
 ORACLE_TOL = 1.1e-5           # tile-list matvec vs an f64 oracle, m <= 4096
+F64_MATVEC_TOL = 1e-12        # a matvec over f64 storage, summed in f64
+# the point-normal configuration (BASELINE.json config 3,
+# clipper_tpu/bench/harness.py:117-185): n=2000 surfels a scan
+PN_N = 2000
+PN_M, PN_RHO = 5000, 0.8      # the facade's one problem
+PN_EDGE = 1000                # the dense build where no tile divides m
+# f32 operations a pair of the point-normal score (pointnormal_score.cuh):
+# two distances (3 sub, 3 mul, 2 add, sqrt: 9 each), two angles (3 mul,
+# 2 add, 2 clamp, acos: 8 each), 2 sub + 2 abs, two gaussians (2 mul, div,
+# exp: 4 each), 1 mul, 2 compares, and the masks' 4 compares: 51, each
+# transcendental counted once; 56 with the int8 quantization
+PN_OPS_PER_PAIR = 56
 
 
 def fail(msg: str) -> None:
     print(f"FAIL: {msg}", flush=True)
     sys.exit(1)
+
+
+def build_bound(b_bytes, W, m, ops_per_pair):
+    """(bound_ms, bound_by) of a build of W problems of m associations:
+    the larger of its bytes over the memory rate and its operations over
+    the f32 peak, the operations counted over the m (m - 1) / 2 distinct
+    pairs a problem needs (the kernels also score the pairs they mirror:
+    a diagonal tile's lower half, the stacked form's lower triangle)."""
+    t_bytes = b_bytes / HBM_BYTES_PER_S
+    t_ops = W * (m * (m - 1) // 2) * ops_per_pair / F32_FLOPS
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes > t_ops else "operations")
 
 
 def require(cond: bool, msg: str) -> None:
@@ -195,8 +250,9 @@ def unit_rows(gen, B, K, dev, m=None):
 def check_build(tri_k, tri_p, t, label):
     """tri_build output against the plain build: same shape, C half
     exact, and no M code differing (kernel and plain take the same IEEE
-    f32 steps, true division and no FMA contraction, and round half to
-    even). Returns the max |code diff|."""
+    f32 steps, true division and no FMA contraction, the same CUDA
+    library sqrt, exp and acos, and round half to even). Returns the max
+    |code diff|."""
     import torch
     require(tri_k.shape == tri_p.shape, f"tri_build {label}: shape "
             f"{tuple(tri_k.shape)} vs plain {tuple(tri_p.shape)}")
@@ -634,6 +690,11 @@ def check_rows(chunks, nt, U, label):
     return err
 
 
+def first(D1, W):
+    """The shared first dataset, or the first W problems' own."""
+    return D1[:W] if np.ndim(D1) == 3 else D1
+
+
 def run_pipeline(inv, data_, dev, W, timings=None):
     import torch
     from clipper_tpu_torch.parallel import pool
@@ -643,7 +704,7 @@ def run_pipeline(inv, data_, dev, W, timings=None):
                                    storage_dtype=torch.int8, power_steps=4,
                                    layout="tri", tri_probes=16, d_scale=0.15,
                                    device=dev)
-    return pipe(D1, D2s[:W], As[:W], u0s[:W], timings=timings)
+    return pipe(first(D1, W), D2s[:W], As[:W], u0s[:W], timings=timings)
 
 
 def phase_main(inv, main, dev):
@@ -734,7 +795,8 @@ def run_stacked(inv, data_, dev, W, timings=None, stats=None):
     D1, D2s, As, _, u0s = data_
     pipe = pool.make_pool_pipeline(inv, Params(), storage_dtype=torch.int8,
                                    device=dev, **STACKED)
-    return pipe(D1, D2s[:W], As[:W], u0s[:W], timings=timings, stats=stats)
+    return pipe(first(D1, W), D2s[:W], As[:W], u0s[:W], timings=timings,
+                stats=stats)
 
 
 def multistart_u0(W):
@@ -913,9 +975,11 @@ def phase_parity(inv, check, dev):
 
 
 def phase_timing(inv, main, dev):
-    """Per-kernel checks and times at the main path's shapes. Returns
-    the rows of the kernels' JSON line and the max errors at these shapes
-    (build code diff, matvec abs error)."""
+    """Per-kernel checks and times at the main path's shapes: the tri
+    build and matvec, the fused build beside the tri build, the tiles
+    matvec beside the tri matvec at K=1. Returns the rows of the kernels'
+    JSON line and the max errors at these shapes (build code diff, tri
+    matvec and tiles matvec abs errors)."""
     import torch
     from clipper_tpu_torch.ops import flattri
 
@@ -936,15 +1000,12 @@ def phase_timing(inv, main, dev):
         inv, P1s, P2s, At, mts, t=t), t, f"W={W_MAIN}, m={M}")
     b_bytes = (W_MAIN * 2 * t * S + 2 * W_MAIN * M * 3 * 4
                + W_MAIN * M * 2 * 4 + W_MAIN * 4)
-    b_ops = W_MAIN * T * t * t * BUILD_OPS_PER_ENTRY
+    bound_ms, bound_by = build_bound(b_bytes, W_MAIN, M, BUILD_OPS_PER_PAIR)
     rows["tri_build"] = dict(
         ms=cuda_ms(build, 10),
         plain_ms=cuda_ms(lambda: flattri.build_tri_plain(
             inv, P1s, P2s, At, mts, t=t), 2),
-        bound_ms=max(b_bytes / HBM_BYTES_PER_S, b_ops / F32_FLOPS) * 1e3,
-        bound_by=("bytes" if b_bytes / HBM_BYTES_PER_S > b_ops / F32_FLOPS
-                  else "operations"),
-        library_ms=None)
+        bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
 
     gen = torch.Generator(device=dev).manual_seed(1)
     extra = []
@@ -982,7 +1043,58 @@ def phase_timing(inv, main, dev):
               f"bound {r['bound_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
               f"bmm over dense bf16 [M; C] {r['library_ms']:.4f} ms",
               flush=True)
-    return rows, build_err, mv_err
+
+    # kernel 8 beside kernel 2 on the same problems
+    def fused():
+        return flattri.build_tri_fused_cuda(inv, P1s, P2s, At, mts, t=t)
+
+    require(bool(torch.equal(fused(), tri)), "tri_build_fused differs from "
+            "tri_build at W=512")
+    r2 = rows["tri_build"]
+    rows["tri_build_fused"] = dict(
+        r2, ms=cuda_ms(fused, 10), plain_ms=cuda_ms(
+            lambda: flattri.build_tri_plain(inv, P1s, P2s, At, mts, t=t), 2))
+    print(f"timing tri_build_fused W={W_MAIN} m={M} t={t}: kernel "
+          f"{rows['tri_build_fused']['ms']:.4f} ms beside tri_build "
+          f"{cuda_ms(build, 10):.4f} ms (bound {r2['bound_ms']:.4f} ms), "
+          f"plain {rows['tri_build_fused']['plain_ms']:.4f} ms", flush=True)
+
+    # kernel 9 on the tile-major form, one probe a lane, beside kernel 1
+    # at K=1 on the same content
+    tiles = flat_tiles(tri, nt)
+    tiles_err = 0.0
+    for B in (128, W_MAIN):
+        idx = torch.randperm(W_MAIN, generator=gen, device=dev)[:B].to(
+            torch.int32)
+        U = unit_rows(gen, B, 1, dev)[:, 0]
+        tiles_err = max(tiles_err, check_tiles_matvec(
+            tri, nt, idx, U, f"int8, B={B}, m={M}"))
+        mv_bytes = B * T * 2 * t * t + B * M * 2 + B * 2 * M * 4 + B * 4
+        mv_ops = 2 * B * 2 * t * t * (2 * T - nt)
+        dense = flattri.dense_stacked(tri[idx.long()], nt).to(torch.bfloat16)
+        Ub = U.to(torch.bfloat16)[..., None]
+        r = dict(ms=cuda_ms(lambda: flattri.tri_tiles_matvec_cuda(
+                     tiles, nt, idx, U, torch.float32), 50),
+                 plain_ms=cuda_ms(lambda: flattri.tri_tiles_matvec_plain(
+                     tiles, nt, idx, U, torch.float32), 3),
+                 bound_ms=max(mv_bytes / HBM_BYTES_PER_S,
+                              mv_ops / BF16_FLOPS) * 1e3,
+                 bound_by=("bytes" if mv_bytes / HBM_BYTES_PER_S
+                           > mv_ops / BF16_FLOPS else "operations"),
+                 library_ms=cuda_ms(lambda: torch.bmm(dense, Ub), 20))
+        del dense
+        k1 = cuda_ms(lambda: flattri.tri_pool_matvec_cuda(
+            tri, nt, idx, U[:, None], torch.float32), 50)
+        if B == 128:
+            rows["tri_tiles_matvec"] = r
+        print(f"timing tri_tiles_matvec B={B} one probe: kernel {r['ms']:.4f}"
+              f" ms beside tri_matvec K=1 {k1:.4f} ms on the same content, "
+              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), plain "
+              f"{r['plain_ms']:.4f} ms, bmm over dense bf16 [M; C] "
+              f"{r['library_ms']:.4f} ms", flush=True)
+    del tiles
+    torch.cuda.empty_cache()
+    return rows, build_err, mv_err, tiles_err
 
 
 def time_stacked_and_pattern(inv, main, dev):
@@ -1004,16 +1116,13 @@ def time_stacked_and_pattern(inv, main, dev):
         inv, P1s, P2s, At, mts, torch.int8, f"int8, W={W}, m={M}")
     del store
     b_bytes = W * 2 * M * M + 2 * W * M * 3 * 4 + W * M * 2 * 4 + W * 4
-    b_ops = W * M * M * BUILD_OPS_PER_ENTRY
+    bound_ms, bound_by = build_bound(b_bytes, W, M, BUILD_OPS_PER_PAIR)
     rows["stored_build"] = dict(
         ms=cuda_ms(lambda: affinity_pallas.stored_build_cuda(
             inv, P1s, P2s, At, mts), 10),
         plain_ms=cuda_ms(lambda: stored_from_endpoints(
             inv, P1s, P2s, At, m_true=mts), 2),
-        bound_ms=max(b_bytes / HBM_BYTES_PER_S, b_ops / F32_FLOPS) * 1e3,
-        bound_by=("bytes" if b_bytes / HBM_BYTES_PER_S > b_ops / F32_FLOPS
-                  else "operations"),
-        library_ms=None)
+        bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
     torch.cuda.empty_cache()
 
     Md, _ = pairwise_from_endpoints(inv, P1s, P2s, At)
@@ -1443,6 +1552,473 @@ def phase_profile(inv, main, cap, dev):
         profile_call("capacity-sharded-xla-D=1", lambda: c.solve(u0=u0))
 
 
+# ---------------------------------------------------------------------------
+# the point-normal configuration and the tri pool's kernel variants
+# ---------------------------------------------------------------------------
+
+
+def make_pn_problems(W: int, seed: int, m: int = M, rho: float = RHO):
+    """W point-normal scan problems (BASELINE.json config 3's generator),
+    each with its own (n, 6) datasets: (D1s, D2s, As, Agts, u0s) with u0
+    from numpy default_rng(seed)."""
+    from clipper_tpu_torch.bench import harness
+    rng = np.random.default_rng(seed)
+    probs = [harness.make_pointnormal_problem(rng, n=PN_N, m=m, rho=rho)
+             for _ in range(W)]
+    D1s = np.stack([p[0] for p in probs]).astype(np.float32)
+    D2s = np.stack([p[1] for p in probs]).astype(np.float32)
+    As = np.stack([p[2] for p in probs]).astype(np.int32)
+    u0s = np.random.default_rng(seed).random((W, m)).astype(np.float32)
+    return D1s, D2s, As, [p[3] for p in probs], u0s
+
+
+def check_dense(inv, P1, P2, A, label):
+    """affinity_build against its plain version on the card: C exact, a
+    zero diagonal and no M entry differing (the same IEEE steps and CUDA
+    library functions). Returns the max |kernel - plain|."""
+    import torch
+    from clipper_tpu_torch.ops import affinity_pallas
+    from clipper_tpu_torch.ops.affinity import pairwise_from_endpoints
+    Mk, Ck = affinity_pallas.affinity_build_cuda(inv, P1, P2, A)
+    Mp, Cp = pairwise_from_endpoints(inv, P1, P2, A)
+    m = P1.shape[0]
+    require(Mk.shape == Ck.shape == (m, m) and Mk.dtype == P1.dtype,
+            f"affinity_build {label}: shape {tuple(Mk.shape)} {Mk.dtype}")
+    c_exact = bool(torch.equal(Ck, Cp))
+    n_diff = int((Mk != Mp).sum())
+    err = float((Mk - Mp).abs().max())
+    nnz = int((Cp > 0).sum())
+    print(f"affinity_build vs plain ({label}): C exact={c_exact}, M entries "
+          f"differing={n_diff} of {nnz} edges, max|kernel - plain|="
+          f"{err:.3e}", flush=True)
+    require(c_exact, f"affinity_build {label}: C differs from the plain build")
+    require(not bool(Mk.diagonal().any()), f"affinity_build {label}: "
+            "nonzero diagonal")
+    require(n_diff == 0, f"affinity_build {label}: {n_diff} M entries "
+            "differ from the plain build")
+    return err
+
+
+def flat_tiles(tri, nt):
+    """Flat (P, 2t, S) storage -> tile-major (P, T, 2t, t): tile k sits at
+    columns [k t, (k + 1) t) of the flat layout."""
+    P, two_t, S = tri.shape
+    t = two_t // 2
+    T = nt * (nt + 1) // 2
+    return tri.view(P, two_t, T, t).permute(0, 2, 1, 3).contiguous()
+
+
+def check_tiles_matvec(tri, nt, idx, U, label):
+    """tri_tiles_matvec on the tile-major form of flat storage ``tri``
+    against its plain version (<= 1e-4), an f64 oracle on the same content
+    (<= 1.1e-5) and tri_matvec at K=1 on the flat storage (<= 1e-4); all
+    three <= 1e-12 for f64 storage; a rerun bit-identical. Returns the max
+    |kernel - plain|."""
+    import torch
+    from clipper_tpu_torch.ops import flattri
+    tiles = flat_tiles(tri, nt)
+    fdt = torch.float64 if tri.dtype == torch.float64 else torch.float32
+    a = flattri.tri_tiles_matvec_cuda(tiles, nt, idx, U, fdt)
+    require(all(bool(torch.isfinite(x).all()) for x in a),
+            f"tri_tiles_matvec {label}: non-finite output")
+    again = flattri.tri_tiles_matvec_cuda(tiles, nt, idx, U, fdt)
+    require(all(bool(torch.equal(x, y)) for x, y in zip(a, again)),
+            f"tri_tiles_matvec {label}: a rerun is not bit-identical")
+    b = flattri.tri_tiles_matvec_plain(tiles, nt, idx, U, fdt)
+    c = flattri.tri_pool_matvec_cuda(tri, nt, idx, U[:, None], fdt)
+    Uo = U.bfloat16().double() if tri.dtype == torch.int8 else U.double()
+    o = flattri.tri_pool_matvec_plain(tri.double(), nt, idx, Uo[:, None],
+                                      torch.float64)
+    scale = 127.0 if tri.dtype == torch.int8 else 1.0
+    err = max(float((x - y).abs().max()) for x, y in zip(a, b))
+    e_o = max(float((x.double() - y[:, 0] / scale).abs().max())
+              for x, y in zip(a, o))
+    e_1 = max(float((x - y[:, 0]).abs().max()) for x, y in zip(a, c))
+    print(f"tri_tiles_matvec ({label}): max|kernel - plain|={err:.3e}, "
+          f"max|kernel - f64 oracle|={e_o:.3e}, max|kernel - tri_matvec "
+          f"K=1|={e_1:.3e}; rerun bit-identical", flush=True)
+    f64 = tri.dtype == torch.float64
+    tol = F64_MATVEC_TOL if f64 else MATVEC_TOL
+    require(err <= tol, f"tri_tiles_matvec {label} disagrees with plain")
+    require(e_o <= (F64_MATVEC_TOL if f64 else ORACLE_TOL),
+            f"tri_tiles_matvec {label} exceeds its bound against the f64 "
+            "oracle")
+    require(e_1 <= tol, f"tri_tiles_matvec {label} disagrees with "
+            "tri_matvec on the same content")
+    return err
+
+
+def phase_kernels_pn(inv, pn_inv, check, pn_check, dev):
+    """Phase 2's checks of this configuration's kernels: the dense build
+    (bunny m=1024 and point-normal m=1000, f32 and f64), the point-normal
+    tri and stacked builds (W=16, m=1024), the fused build against the
+    per-tile build (both invariants), and the tiles matvec on the check
+    storage (int8, f32, f64). Returns the max errors by kernel."""
+    import torch
+    from clipper_tpu_torch.ops import flattri
+
+    D1, D2s, As, _, _ = check
+    P1s, P2s = endpoints(D1, D2s, As, dev)
+    At = torch.as_tensor(As, device=dev)
+    D1p, D2p, Ap, _, _ = pn_check
+    Q1s, Q2s = endpoints(D1p, D2p, Ap, dev)
+    Apt = torch.as_tensor(Ap, device=dev)
+    mts = torch.full((W_CHECK,), M, dtype=torch.int32, device=dev)
+    t, nt = 256, M // 256
+    errs = {"affinity_build": 0.0, "tri_build": 0, "stored_build": 0.0,
+            "tri_build_fused": 0, "tri_tiles_matvec": 0.0}
+
+    for dtype in (torch.float32, torch.float64):
+        name = str(dtype).split(".")[-1]
+        errs["affinity_build"] = max(
+            errs["affinity_build"],
+            check_dense(inv, P1s[0].to(dtype), P2s[0].to(dtype), At[0],
+                        f"bunny, m={M}, {name}"),
+            check_dense(pn_inv, Q1s[0, :PN_EDGE].to(dtype),
+                        Q2s[0, :PN_EDGE].to(dtype), Apt[0, :PN_EDGE],
+                        f"point-normal, m={PN_EDGE}, {name}"))
+
+    tri_pn = flattri.build_tri_cuda(pn_inv, Q1s, Q2s, Apt, mts, t=t)
+    tri_pn_p = flattri.build_tri_plain(pn_inv, Q1s, Q2s, Apt, mts, t=t)
+    errs["tri_build"] = check_build(tri_pn, tri_pn_p, t,
+                                    f"point-normal, W={W_CHECK}, m={M}")
+    mts_e = mts.clone()
+    mts_e[:4] = torch.tensor([M - 1, M - 24, 700, 513], device=dev)
+    _, errs["stored_build"] = check_stored(
+        pn_inv, Q1s, Q2s, Apt, mts_e, torch.int8,
+        f"point-normal int8, W={W_CHECK}, m={M}, m_true < m on 4")
+
+    for label, (iv, X1, X2, XA, ref) in (
+            ("bunny", (inv, P1s, P2s, At, None)),
+            ("point-normal", (pn_inv, Q1s, Q2s, Apt, tri_pn))):
+        if ref is None:
+            ref = flattri.build_tri_cuda(iv, X1, X2, XA, mts, t=t)
+        fused = flattri.build_tri_fused_cuda(iv, X1, X2, XA, mts, t=t)
+        same = bool(torch.equal(fused, ref))
+        print(f"tri_build_fused vs tri_build ({label}, W={W_CHECK}, m={M}): "
+              f"byte-equal={same}", flush=True)
+        require(same, f"tri_build_fused ({label}) differs from tri_build")
+
+    tri = flattri.build_tri_cuda(inv, P1s, P2s, At, mts, t=t)
+    gen = torch.Generator(device=dev).manual_seed(6)
+    idx = torch.randint(0, W_CHECK, (128,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    errs["tri_tiles_matvec"] = check_tiles_matvec(
+        tri, nt, idx, unit_rows(gen, 128, 1, dev)[:, 0],
+        f"int8, B=128, m={M}")
+    for dtype in (torch.float32, torch.float64):
+        tri_f = flattri.build_tri_plain(inv, P1s[:4].to(dtype),
+                                        P2s[:4].to(dtype), At[:4], mts[:4],
+                                        t=t, storage_dtype=None)
+        idx = torch.randint(0, 4, (32,), generator=gen, device=dev,
+                            dtype=torch.int32)
+        errs["tri_tiles_matvec"] = max(
+            errs["tri_tiles_matvec"],
+            check_tiles_matvec(tri_f, nt, idx,
+                               unit_rows(gen, 32, 1, dev)[:, 0].to(dtype),
+                               f"{str(dtype).split('.')[-1]} storage, B=32"))
+    return errs
+
+
+def phase_pointnormal(pn_inv, pn_main, dev):
+    """3e: the point-normal configuration. (a) one m=5000 problem through
+    the Clipper facade's dense engine in f32 (the dense build kernel);
+    (b) W=512 problems at m=1024 through the tri pool with bench.py's
+    settings and per-problem datasets; (c) the same through the stacked
+    pool. Returns the launches of (a), (b) and (c)."""
+    import torch
+    from clipper_tpu_torch import Clipper
+    from clipper_tpu_torch.bench import data, harness
+    from clipper_tpu_torch.ops.affinity import build_affinity
+    from clipper_tpu_torch.types import Params
+
+    t0 = time.perf_counter()
+    D1, D2, A, Agt = harness.make_pointnormal_problem(
+        np.random.default_rng(0), n=PN_N, m=PN_M, rho=PN_RHO)
+    D1, D2 = D1.astype(np.float32), D2.astype(np.float32)
+    u0 = np.random.default_rng(0).random(PN_M).astype(np.float32)
+    print(f"point-normal facade data: m={PN_M} in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    c = Clipper(pn_inv, Params(), dtype=torch.float32, device=dev)
+
+    def call():
+        c.score_pairwise_consistency(D1.T, D2.T, A)
+        return c.solve(u0=u0)
+
+    sol, launches = counted_call(call)
+    require(c._resolve_engine(PN_M) == "dense" and c._M is not None,
+            "the point-normal facade did not take the dense engine")
+    require(launches["affinity_build"] == 1, "point-normal facade: "
+            f"affinity_build launched {launches['affinity_build']} times "
+            "in one score_pairwise_consistency, not once")
+    build_ms = cuda_ms(lambda: c.score_pairwise_consistency(D1.T, D2.T, A), 3)
+    t0 = time.perf_counter()
+    sol = c.solve(u0=u0)
+    torch.cuda.synchronize()
+    solve_ms = (time.perf_counter() - t0) * 1e3
+    D1t = torch.as_tensor(D1, device=dev)
+    D2t = torch.as_tensor(D2, device=dev)
+    At = torch.as_tensor(A, device=dev)
+    plain_ms = cuda_ms(lambda: build_affinity(pn_inv, D1t, D2t, At), 2)
+    mask = sol.mask.cpu().numpy()
+    require(mask.shape == (PN_M,) and bool(torch.isfinite(sol.u).all())
+            and np.isfinite(float(sol.score)), "point-normal facade: bad "
+            "shape or non-finite u/F")
+    require(float(sol.score) <= PN_M, "point-normal facade: objective F > m")
+    P, R = data.get_precision_recall(c.get_selected_associations(), Agt)
+    print(f"point-normal facade: m={PN_M} rho={PN_RHO} f32 dense engine: "
+          f"precision={P * 100:.2f}% recall={R * 100:.2f}% |mask|="
+          f"{int(mask.sum())} (|Agt|={len(Agt)}); ifinal={int(sol.ifinal)}; "
+          f"build {build_ms:.3f} ms (score_pairwise_consistency, CUDA "
+          f"events, mean of 3), solve {solve_ms:.3f} ms (host clock, "
+          f"synchronised); the plain build on the card {plain_ms:.3f} ms",
+          flush=True)
+    print(f"point-normal facade kernel launches (one build and solve): "
+          f"{launches}", flush=True)
+    require(P >= 0.99, f"point-normal facade precision {P:.4f} < 0.99")
+    require(R >= 0.85, f"point-normal facade recall {R:.4f} < 0.85")
+    out = {"facade": launches}
+
+    _, _, As, Agts, _ = pn_main
+    for layout, run, kernels in (
+            ("tri", run_pipeline, ("tri_build", "tri_matvec")),
+            ("stacked", run_stacked, ("stored_build",))):
+        sol, launches = counted_call(lambda: run(pn_inv, pn_main, dev,
+                                                 W_MAIN))
+        timings = {}
+        reps = 2
+        sol, wall = timed_calls(lambda: run(pn_inv, pn_main, dev, W_MAIN,
+                                            timings=timings), reps)
+        label = f"point-normal {layout} pool"
+        P, R = check_quality(label, As, sol, Agts, W_MAIN)
+        print(f"{label}: W={W_MAIN} m={M} rho={RHO}: precision={P * 100:.2f}%"
+              f" recall={R * 100:.2f}%  {W_MAIN / wall:.1f} problems/s "
+              f"({wall * 1e3:.1f} ms/batch, mean of {reps} after 1 warm-up); "
+              "stage ms (last call, CUDA events): "
+              + ", ".join(f"{k}={v:.3f}" for k, v in timings.items()),
+              flush=True)
+        print(f"{label} kernel launches (one call): {launches}", flush=True)
+        for k in kernels:
+            require(launches[k] > 0, f"{label}: {k} was never launched")
+        if layout == "stacked":
+            require(launches["stored_build"] == 1, f"{label}: stored_build "
+                    f"launched {launches['stored_build']} times, not once")
+        out[layout] = launches
+    return out
+
+
+def run_tri_variant(inv, data_, dev, W, variant, timings=None):
+    """The bunny pool problems over the flat storage's two builds and two
+    layouts, one probe a tick: variant "tiles" builds with
+    build_tri_pallas_fused and solves over its tile-major form through
+    solve_pool_tri(matvec="tiles"); "pallas" builds with build_tri and
+    solves the flat storage through matvec="pallas". Inits through the
+    same matvec, the pool's polish and rounding. Returns a Solution."""
+    import torch
+    from clipper_tpu_torch.ops import flattri
+    from clipper_tpu_torch.parallel import pool
+    from clipper_tpu_torch.solvers import msrc, msrc_flat
+    from clipper_tpu_torch.types import Params, Solution
+    D1, D2s, As, _, u0s = data_
+    t, nt = 256, M // 256
+    clock = pool.StageClock(torch.device(dev), timings)
+    clock.mark("start")
+    P1s, P2s = endpoints(first(D1, W), D2s[:W], As[:W], dev)
+    At = torch.as_tensor(As[:W], device=dev)
+    mts = torch.full((W,), M, dtype=torch.int32, device=dev)
+    if variant == "tiles":
+        store = flat_tiles(flattri.build_tri_pallas_fused(
+            inv, P1s, P2s, At, mts, t=t), nt)
+        bmv = flattri.make_tri_pool_matvec_tiles(store, nt, torch.float32)
+    else:
+        store = flattri.build_tri(inv, P1s, P2s, At, mts, t=t)
+        bmv = flattri.make_tri_pool_matvec(store, nt, torch.float32)
+    clock.mark("build")
+    u = msrc_flat.power_init_batched(bmv, None, torch.as_tensor(
+        u0s[:W], device=dev), 4)
+    inits = msrc_flat.flat_init_batched(bmv, None, u, Params())
+    clock.mark("init")
+    u, F, ifinal = pool.solve_pool_tri(store, nt, inits, Params(), lanes=128,
+                                       window=STACKED["window"],
+                                       matvec=variant, d_scale=0.15)
+    clock.mark("solve")
+    Fp = pool._polish_batch(inv, P1s, P2s, At, u, 256, 1e-4)
+    mask = msrc.round_solution(u, Fp, Params().rounding)
+    clock.mark("polish")
+    clock.finish()
+    return Solution(ifinal=ifinal, mask=mask, u0=None, u=u, score=Fp)
+
+
+def phase_tri_variants(inv, main, dev):
+    """3f: the tri pool's kernel variants on the 512 bunny problems: the
+    fused build's bytes against build_tri's, then the tile-major pool
+    (matvec="tiles") beside the flat one (matvec="pallas"), one probe a
+    tick each. Returns the tile-major call's launches."""
+    import torch
+    from clipper_tpu_torch.ops import flattri
+
+    D1, D2s, As, Agts, _ = main
+    P1s, P2s = endpoints(D1, D2s, As, dev)
+    At = torch.as_tensor(As, device=dev)
+    mts = torch.full((W_MAIN,), M, dtype=torch.int32, device=dev)
+    same = bool(torch.equal(
+        flattri.build_tri_pallas_fused(inv, P1s, P2s, At, mts, t=256),
+        flattri.build_tri(inv, P1s, P2s, At, mts, t=256)))
+    print(f"tri_build_fused vs tri_build (W={W_MAIN}, m={M}): byte-equal="
+          f"{same}", flush=True)
+    require(same, "tri_build_fused differs from tri_build at W=512")
+    out = {}
+    for variant in ("tiles", "pallas"):
+        sol, launches = counted_call(lambda: run_tri_variant(
+            inv, main, dev, W_MAIN, variant))
+        timings = {}
+        reps = 2
+        sol, wall = timed_calls(lambda: run_tri_variant(
+            inv, main, dev, W_MAIN, variant, timings=timings), reps)
+        label = f"tri pool, matvec={variant!r}, one probe a tick"
+        P, R = check_quality(label, As, sol, Agts, W_MAIN)
+        print(f"{label}: W={W_MAIN} m={M}: precision={P * 100:.2f}% recall="
+              f"{R * 100:.2f}%  {wall * 1e3:.1f} ms a call ({W_MAIN / wall:.1f}"
+              f" problems/s, mean of {reps} after 1 warm-up); stage ms (last "
+              "call, CUDA events): " + ", ".join(
+                  f"{k}={v:.3f}" for k, v in timings.items()), flush=True)
+        print(f"{label} kernel launches (one call): {launches}", flush=True)
+        out[variant] = launches
+    need = {"tiles": ("tri_build_fused", "tri_tiles_matvec"),
+            "pallas": ("tri_build", "tri_matvec")}
+    for variant, names in need.items():
+        for k in names:
+            require(out[variant][k] > 0, f"tri pool ({variant}): {k} was "
+                    "never launched")
+    return out["tiles"]
+
+
+def phase_parity_pn(inv, pn_inv, check, pn_check, dev):
+    """Phase 5's comparisons of this configuration: the point-normal tri
+    pool and the tile-major pool at W=16, cuda against cpu, and the
+    point-normal dense facade in f64 at m=1024 (masks equal)."""
+    import torch
+    from clipper_tpu_torch import Clipper
+    from clipper_tpu_torch import _kernels
+    from clipper_tpu_torch.bench import data, harness
+    from clipper_tpu_torch.types import Params
+
+    _, _, As, Agts, _ = pn_check
+    compare_devices("point-normal tri pool",
+                    run_pipeline(pn_inv, pn_check, dev, W_CHECK),
+                    run_pipeline(pn_inv, pn_check, "cpu", W_CHECK), As, Agts,
+                    W_CHECK, W_CHECK - 1)
+    _, _, As, Agts, _ = check
+    compare_devices("tile-major tri pool",
+                    run_tri_variant(inv, check, dev, W_CHECK, "tiles"),
+                    run_tri_variant(inv, check, "cpu", W_CHECK, "tiles"), As,
+                    Agts, W_CHECK, W_CHECK - 1)
+
+    D1, D2, A, Agt = harness.make_pointnormal_problem(
+        np.random.default_rng(3), n=PN_N, m=DENSE_M, rho=RHO)
+    u0 = np.random.default_rng(3).random(DENSE_M)
+    runs = []
+    for d in (dev, "cpu"):
+        c = Clipper(pn_inv, Params(), engine="dense", dtype=torch.float64,
+                    device=d)
+        _kernels.reset_launches()
+        c.score_pairwise_consistency(D1.T, D2.T, A)
+        n_build = _kernels.LAUNCHES["affinity_build"]
+        sol = c.solve(u0=u0)
+        runs.append((sol.mask.cpu().numpy(), int(sol.ifinal), n_build,
+                     data.get_precision_recall(
+                         c.get_selected_associations(), Agt)))
+    (mg, ig, ng, prg), (mc, ic, _, prc) = runs
+    print(f"facade dense engine point-normal f64 m={DENSE_M}: masks equal to "
+          f"cpu: {bool((mg == mc).all())} ({int((mg != mc).sum())} differ); "
+          f"ifinal cuda {ig} cpu {ic}; P/R cuda {prg[0] * 100:.2f}/"
+          f"{prg[1] * 100:.2f}% cpu {prc[0] * 100:.2f}/{prc[1] * 100:.2f}%; "
+          f"affinity_build launches on cuda {ng}", flush=True)
+    require(ng == 1, "the point-normal dense facade did not build through "
+            "affinity_build on the card")
+    require(bool((mg == mc).all()), "facade dense point-normal: cuda and cpu "
+            "masks differ")
+
+
+def time_pn_and_dense(inv, pn_inv, check, pn_main, dev):
+    """Phase 6's new rows: the dense build at m=5000 (point-normal, f32)
+    and m=1024 (bunny), and the point-normal tri and stacked builds at
+    W=512, each first held to its plain version (C exact, no M code
+    differing). Returns the dense build's row of the kernels' JSON line
+    and its max error."""
+    import torch
+    from clipper_tpu_torch.bench import harness
+    from clipper_tpu_torch.ops import affinity_pallas, flattri
+    from clipper_tpu_torch.ops.affinity import (gather_endpoints,
+                                                pairwise_from_endpoints,
+                                                stored_from_endpoints)
+
+    D1, D2, A, _ = harness.make_pointnormal_problem(
+        np.random.default_rng(0), n=PN_N, m=PN_M, rho=PN_RHO)
+    At = torch.as_tensor(A, device=dev)
+    P1, P2 = gather_endpoints(torch.as_tensor(D1, dtype=torch.float32,
+                                              device=dev),
+                              torch.as_tensor(D2, dtype=torch.float32,
+                                              device=dev), At)
+    err = check_dense(pn_inv, P1, P2, At, f"point-normal, m={PN_M}, f32")
+    rows = {}
+    B1, B2, BA, _, _ = check
+    Q1, Q2 = endpoints(B1, B2[:1], BA[:1], dev)
+    for label, (iv, X1, X2, XA) in (
+            (f"point-normal m={PN_M}", (pn_inv, P1, P2, At)),
+            (f"bunny m={M}", (inv, Q1[0], Q2[0],
+                              torch.as_tensor(BA[0], device=dev)))):
+        m, d = X1.shape
+        bound_ms, bound_by = build_bound(
+            2 * m * m * 4 + 2 * m * d * 4 + m * 2 * 4, 1, m,
+            PN_OPS_PER_PAIR if d == 6 else BUILD_OPS_PER_PAIR)
+        r = dict(ms=cuda_ms(lambda: affinity_pallas.affinity_build_cuda(
+                     iv, X1, X2, XA), 10),
+                 plain_ms=cuda_ms(lambda: pairwise_from_endpoints(
+                     iv, X1, X2, XA), 2),
+                 bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+        rows.setdefault("affinity_build", r)
+        print(f"timing affinity_build {label} f32: kernel {r['ms']:.4f} ms, "
+              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), plain "
+              f"{r['plain_ms']:.4f} ms, library None", flush=True)
+    del P1, P2
+    torch.cuda.empty_cache()
+
+    D1s, D2s, As, _, _ = pn_main
+    P1s, P2s = endpoints(D1s, D2s, As, dev)
+    At = torch.as_tensor(As, device=dev)
+    mts = torch.full((W_MAIN,), M, dtype=torch.int32, device=dev)
+    t, nt = 256, M // 256
+    S = flattri.tri_ncols(nt, t)
+    label = f"point-normal, W={W_MAIN}, m={M}"
+    check_build(flattri.build_tri_cuda(pn_inv, P1s, P2s, At, mts, t=t),
+                flattri.build_tri_plain(pn_inv, P1s, P2s, At, mts, t=t), t,
+                label)
+    torch.cuda.empty_cache()
+    check_stored(pn_inv, P1s, P2s, At, mts, torch.int8, f"{label}, int8")
+    torch.cuda.empty_cache()
+    in_bytes = 2 * W_MAIN * M * 6 * 4 + W_MAIN * M * 2 * 4 + W_MAIN * 4
+    for name, out_bytes, kernel, plain in (
+            ("tri_build", W_MAIN * 2 * t * S,
+             lambda: flattri.build_tri_cuda(pn_inv, P1s, P2s, At, mts, t=t),
+             lambda: flattri.build_tri_plain(pn_inv, P1s, P2s, At, mts,
+                                             t=t)),
+            ("stored_build", W_MAIN * 2 * M * M,
+             lambda: affinity_pallas.stored_build_cuda(pn_inv, P1s, P2s, At,
+                                                       mts),
+             lambda: stored_from_endpoints(pn_inv, P1s, P2s, At,
+                                           m_true=mts))):
+        bound, by = build_bound(out_bytes + in_bytes, W_MAIN, M,
+                                PN_OPS_PER_PAIR)
+        ms = cuda_ms(kernel, 10)
+        pms = cuda_ms(plain, 1)
+        torch.cuda.empty_cache()
+        print(f"timing {name} point-normal W={W_MAIN} m={M} int8: kernel "
+              f"{ms:.4f} ms, bound {bound:.4f} ms ({by}), plain {pms:.4f} ms",
+              flush=True)
+    return rows["affinity_build"], err
+
+
 def main() -> None:
     quick = "--quick" in sys.argv[1:]
     t_start = time.perf_counter()
@@ -1466,11 +2042,16 @@ def main() -> None:
                 print(f"  ptxas {name}: {line.strip()}", flush=True)
 
     inv = harness.default_invariant()
+    pn_inv = harness.pointnormal_invariant()
     t0 = time.perf_counter()
     check = make_problems(W_CHECK, seed=1)
-    print(f"check data: {W_CHECK} problems in "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    pn_check = make_pn_problems(W_CHECK, seed=1)
+    print(f"check data: {W_CHECK} bunny and {W_CHECK} point-normal problems "
+          f"in {time.perf_counter() - t0:.1f} s", flush=True)
     errs = phase_kernels(inv, check, dev)
+    for name, e in phase_kernels_pn(inv, pn_inv, check, pn_check,
+                                    dev).items():
+        errs[name] = max(errs.get(name, 0), e)
     if quick:
         print("quick: build and kernel checks passed", flush=True)
         return
@@ -1486,6 +2067,15 @@ def main() -> None:
     launches["pattern_matvec"] = phase_batched(inv, main_data,
                                                dev)["pattern_matvec"]
     t0 = time.perf_counter()
+    pn_main = make_pn_problems(W_MAIN, seed=0)
+    print(f"point-normal pool data: {W_MAIN} problems in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    launches["affinity_build"] = phase_pointnormal(
+        pn_inv, pn_main, dev)["facade"]["affinity_build"]
+    variant = phase_tri_variants(inv, main_data, dev)
+    for name in ("tri_build_fused", "tri_tiles_matvec"):
+        launches[name] = variant[name]
+    t0 = time.perf_counter()
     cap = one_problem(CAP_M, CAP_RHO, seed=0)
     print(f"capacity data: m={CAP_M} in {time.perf_counter() - t0:.1f} s",
           flush=True)
@@ -1493,8 +2083,11 @@ def main() -> None:
     for name in ("sym_rows_matvec", "sym_tiles_matvec"):
         launches[name] = cap_launches[name]
     phase_parity(inv, check, dev)
+    phase_parity_pn(inv, pn_inv, check, pn_check, dev)
     phase_facade_parity(inv, dev)
-    rows, build_err_main, mv_err_main = phase_timing(inv, main_data, dev)
+    rows, build_err_main, mv_err_main, tiles_err_main = phase_timing(
+        inv, main_data, dev)
+    errs["tri_tiles_matvec"] = max(errs["tri_tiles_matvec"], tiles_err_main)
     errs["tri_build"] = max(errs["tri_build"], build_err_main)
     errs["tri_matvec"] = max(errs["tri_matvec"], mv_err_main)
     rows["sym_rows_matvec"], rows_err_cap = time_rows(inv, cap, dev)
@@ -1505,6 +2098,9 @@ def main() -> None:
     rows.update(rows_sp)
     for name, e in errs_sp.items():
         errs[name] = max(errs[name], e)
+    rows["affinity_build"], e = time_pn_and_dense(inv, pn_inv, check,
+                                                  pn_main, dev)
+    errs["affinity_build"] = max(errs["affinity_build"], e)
     if "--profile" in sys.argv[1:]:
         phase_profile(inv, main_data, cap, dev)
 
@@ -1516,6 +2112,9 @@ def main() -> None:
         "stored_build": "clipper_tpu/ops/affinity_pallas.py:107",
         "pattern_matvec": "clipper_tpu/ops/fused_matvec.py:55",
         "sym_tiles_matvec": "clipper_tpu/ops/symstore.py:314",
+        "affinity_build": "clipper_tpu/ops/affinity_pallas.py:42",
+        "tri_build_fused": "clipper_tpu/ops/flattri.py:567",
+        "tri_tiles_matvec": "clipper_tpu/ops/flattri.py:283",
     }
     kernels = [dict(name=name, route="cuda", source=f"{src}{name}.cu",
                     replaces=where, launches=launches[name],

@@ -3,10 +3,11 @@
 Robust data association (graph-theoretic inlier selection) on an NVIDIA
 Hopper GPU. This package covers these paths end to end:
 
-- the triangle-pool pipeline (many problems): Euclidean scoring, the flat
-  upper-triangle int8 [M; C] build, the flat MSRC solver with the K-wide
-  multiprobe line search, lane compaction, the f32 polish and DSD_HEU
-  rounding;
+- the triangle-pool pipeline (many problems): Euclidean or point-normal
+  scoring, the flat upper-triangle int8 [M; C] build, the flat MSRC
+  solver with the K-wide multiprobe line search (or, over tile-major
+  storage, single-probe ticks), lane compaction, the f32 polish and
+  DSD_HEU rounding;
 - the stacked pool (``layout="stacked"``, any m), its multistart pipeline
   and the bucketed mixed-m pipeline over it, and the lock-step batched
   engine (``make_batched_pipeline``);
@@ -14,10 +15,11 @@ Hopper GPU. This package covers these paths end to end:
   solver or multistart, and from m = 8192 the row-chunked
   symmetric-triangle capacity engine.
 
-The pool's triangle build and matvec, the stacked build, the batched
-engine's fused matvec and the capacity engine's rows matvec are
-hand-written CUDA kernels (csrc/); every kernel has a plain PyTorch
-version that CPU tensors take.
+The pool's triangle builds and matvecs (flat and tile-major), the stacked
+build, the facade's dense build, the batched engine's fused matvec and
+the capacity engine's rows and tile-list matvecs are hand-written CUDA
+kernels (csrc/); every kernel has a plain PyTorch version that CPU
+tensors take.
 
 It imports torch and never jax or clipper_tpu. Entry points run on
 ``device="cuda"`` unless asked for the CPU, and raise when CUDA is asked
@@ -28,6 +30,8 @@ from clipper_tpu_torch.clipper import CLIPPER, Clipper
 from clipper_tpu_torch.invariants.base import Invariant, PairwiseInvariant
 from clipper_tpu_torch.invariants.euclidean import (EuclideanDistance,
                                                     EuclideanDistanceParams)
+from clipper_tpu_torch.invariants.pointnormal import (
+    PointNormalDistance, PointNormalDistanceParams)
 from clipper_tpu_torch.ops.affinity import (distinctness_mask,
                                             score_consistency_stored,
                                             score_pairwise_consistency)
@@ -44,7 +48,8 @@ from clipper_tpu_torch.types import Params, Rounding, Solution
 
 __all__ = [
     "Clipper", "CLIPPER", "Invariant", "PairwiseInvariant", "EuclideanDistance",
-    "EuclideanDistanceParams", "distinctness_mask",
+    "EuclideanDistanceParams", "PointNormalDistance",
+    "PointNormalDistanceParams", "distinctness_mask",
     "score_consistency_stored", "score_pairwise_consistency",
     "score_consistency_stored_pallas", "build_tri", "make_tri_pool_matvec",
     "pattern_dual_matvec", "make_pool_pipeline",

@@ -6,7 +6,14 @@ bindings/python/py_clipper.cpp:197-232), with the same snake_case method
 names. ``D1`` is (d, n1) with the data as columns, as in the reference.
 
 Engines: ``"dense"`` builds the (m, m) M and C in the working dtype and
-runs the nested solver (solvers/msrc.py); ``"triangle"`` keeps the
+runs the nested solver (solvers/msrc.py); on the card it builds them for
+the built-in invariants (Euclidean, point-normal) with the dense build
+kernel, ops/affinity_pallas.build_affinity_pallas (csrc/affinity_build.cu),
+which computes the same function as ops/affinity.build_affinity. This is
+a departure in routing only: the JAX facade builds through
+``build_affinity`` everywhere. A user's own PairwiseInvariant subclass
+builds through ``build_affinity`` on every device, as in the JAX facade;
+the kernel does not compute it. ``"triangle"`` keeps the
 row-major datasets and solves through the symmetric-triangle capacity
 engine (ops/symstore.solve_single, row-chunked by default, a CUDA kernel
 on the card for either layout); ``"sharded"`` splits that storage over
@@ -38,9 +45,11 @@ import numpy as np
 import torch
 
 from clipper_tpu_torch import utils
+from clipper_tpu_torch.invariants import kernel_builds
 from clipper_tpu_torch.invariants.base import PairwiseInvariant
-from clipper_tpu_torch.ops import symstore
-from clipper_tpu_torch.ops.affinity import build_affinity, create_all_to_all
+from clipper_tpu_torch.ops import affinity_pallas, symstore
+from clipper_tpu_torch.ops.affinity import (build_affinity, create_all_to_all,
+                                            gather_endpoints)
 from clipper_tpu_torch.solvers import msrc, msrc_flat
 from clipper_tpu_torch.types import (Params, Rounding, Solution,
                                      as_association, resolve_device)
@@ -109,7 +118,9 @@ class Clipper:
         (reference: src/clipper.cpp:21-65). Under the triangle engine no
         dense (m, m) is made here: the datasets are kept and :meth:`solve`
         builds triangle storage on the device (under the sharded engine,
-        each rank its slice)."""
+        each rank its slice). The dense engine builds on the card through
+        the dense build kernel for the built-in invariants (see the module
+        docstring)."""
         D1 = self._tensor(D1).T     # -> (n1, d) rows
         D2 = self._tensor(D2).T
         if A is not None and np.size(A) == 0:
@@ -122,9 +133,18 @@ class Clipper:
             self._cap = {"D1": D1, "D2": D2}
             self._M = self._C = None
             return
-        self._M, self._C, self._A = build_affinity(
-            self.invariant, D1, D2, A, affinityeps=self.params.affinityeps,
-            dtype=self.dtype)
+        if self.device.type == "cuda" and kernel_builds(self.invariant):
+            if A is None:
+                A = create_all_to_all(D1.shape[0], D2.shape[0])
+            self._A = as_association(A, device=self.device)
+            P1, P2 = gather_endpoints(D1, D2, self._A)
+            self._M, self._C = affinity_pallas.build_affinity_pallas(
+                self.invariant, P1, P2, self._A,
+                affinityeps=self.params.affinityeps)
+        else:
+            self._M, self._C, self._A = build_affinity(
+                self.invariant, D1, D2, A,
+                affinityeps=self.params.affinityeps, dtype=self.dtype)
         self._cap = None
 
     def _resolve_engine(self, m: int) -> str:

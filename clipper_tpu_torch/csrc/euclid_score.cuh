@@ -1,33 +1,100 @@
 // The Euclidean pairwise score, step for step as the plain PyTorch build
 // computes it (invariants/euclidean.py, ops/pairwise.py), shared by the
-// build kernels tri_build.cu and stored_build.cu. Both are compiled with
-// --fmad=false, and the explicit __f*_rn intrinsics keep FMA contraction
-// from changing the roundings that decide the int8 codes:
-//   sq = ((0 + dx^2) + dy^2) + dz^2 in coordinate order, l = sqrtf(sq);
-//   c = |l1 - l2|; s = expf(((-0.5 c) c) / s2), s2 = (float)(sigma sigma)
-//   formed in double on the host; gated on c < (float)epsilon; 0 when
+// build kernels tri_build.cu, tri_build_fused.cu, stored_build.cu and
+// affinity_build.cu, in float or double. They are compiled with
+// --fmad=false, and the explicit round-to-nearest intrinsics keep FMA
+// contraction from changing the roundings that decide the int8 codes:
+//   sq = ((0 + dx^2) + dy^2) + dz^2 in coordinate order, l = sqrt(sq);
+//   c = |l1 - l2|; s = exp(((-0.5 c) c) / s2), s2 = (T)(sigma sigma)
+//   formed in double on the host; gated on c < (T)epsilon; 0 when
 //   mindist > 0 and l1 or l2 < mindist.
 // The (b, a) coordinate differences are the exact negations of the (a, b)
 // ones, so the score of a pair does not depend on its order.
+//
+// A score functor takes a row's and a column's endpoints in both sets,
+// (r1, c1) and (r2, c2), each D values, so that one build body serves
+// every invariant: EuclidScore (D = 3) here, PointNormalScore (D = 6) in
+// pointnormal_score.cuh.
 
 #pragma once
 
-__device__ __forceinline__ float dist3(float ax, float ay, float az, float bx,
-                                       float by, float bz) {
-  const float dx = __fsub_rn(ax, bx);
-  const float dy = __fsub_rn(ay, by);
-  const float dz = __fsub_rn(az, bz);
-  float sq = __fmul_rn(dx, dx);
-  sq = __fadd_rn(sq, __fmul_rn(dy, dy));
-  sq = __fadd_rn(sq, __fmul_rn(dz, dz));
-  return sqrtf(sq);
+__device__ __forceinline__ float rn_add(float a, float b) {
+  return __fadd_rn(a, b);
+}
+__device__ __forceinline__ double rn_add(double a, double b) {
+  return __dadd_rn(a, b);
+}
+__device__ __forceinline__ float rn_sub(float a, float b) {
+  return __fsub_rn(a, b);
+}
+__device__ __forceinline__ double rn_sub(double a, double b) {
+  return __dsub_rn(a, b);
+}
+__device__ __forceinline__ float rn_mul(float a, float b) {
+  return __fmul_rn(a, b);
+}
+__device__ __forceinline__ double rn_mul(double a, double b) {
+  return __dmul_rn(a, b);
+}
+__device__ __forceinline__ float rn_div(float a, float b) {
+  return __fdiv_rn(a, b);
+}
+__device__ __forceinline__ double rn_div(double a, double b) {
+  return __ddiv_rn(a, b);
+}
+// the CUDA math library's correctly rounded sqrt and its exp / acos, the
+// functions PyTorch's CUDA kernels call for the same operators
+__device__ __forceinline__ float m_sqrt(float x) { return sqrtf(x); }
+__device__ __forceinline__ double m_sqrt(double x) { return sqrt(x); }
+__device__ __forceinline__ float m_exp(float x) { return expf(x); }
+__device__ __forceinline__ double m_exp(double x) { return exp(x); }
+__device__ __forceinline__ float m_acos(float x) { return acosf(x); }
+__device__ __forceinline__ double m_acos(double x) { return acos(x); }
+__device__ __forceinline__ float m_abs(float x) { return fabsf(x); }
+__device__ __forceinline__ double m_abs(double x) { return fabs(x); }
+// clamp(x, lo, hi) as torch.clamp: min(max(x, lo), hi)
+__device__ __forceinline__ float m_clamp(float x, float lo, float hi) {
+  return fminf(fmaxf(x, lo), hi);
+}
+__device__ __forceinline__ double m_clamp(double x, double lo, double hi) {
+  return fmin(fmax(x, lo), hi);
 }
 
-__device__ __forceinline__ float euclid_score(float l1, float l2, float s2,
-                                              float eps, float mindist) {
-  const float cc = fabsf(__fsub_rn(l1, l2));
-  float s = 0.f;
-  if (cc < eps) s = expf(__fdiv_rn(__fmul_rn(__fmul_rn(-0.5f, cc), cc), s2));
-  if (mindist > 0.f && (l1 < mindist || l2 < mindist)) s = 0.f;
-  return s;
+// ||a - b|| over 3 coordinates, summed in coordinate order
+template <typename T>
+__device__ __forceinline__ T dist3(const T* a, const T* b) {
+  const T dx = rn_sub(a[0], b[0]);
+  const T dy = rn_sub(a[1], b[1]);
+  const T dz = rn_sub(a[2], b[2]);
+  T sq = rn_mul(dx, dx);
+  sq = rn_add(sq, rn_mul(dy, dy));
+  sq = rn_add(sq, rn_mul(dz, dz));
+  return m_sqrt(sq);
 }
+
+// exp(((-0.5 d) d) / s2)
+template <typename T>
+__device__ __forceinline__ T gauss(T d, T s2) {
+  return m_exp(rn_div(rn_mul(rn_mul((T)-0.5, d), d), s2));
+}
+
+template <typename T>
+struct EuclidScore {
+  static constexpr int D = 3;
+  T s2, eps, mindist;
+
+  // p: (s2, epsilon, mindist, unused), formed in double on the host
+  __host__ __device__ EuclidScore(const double (&p)[4])
+      : s2((T)p[0]), eps((T)p[1]), mindist((T)p[2]) {}
+
+  __device__ __forceinline__ T operator()(const T* r1, const T* c1,
+                                          const T* r2, const T* c2) const {
+    const T l1 = dist3(r1, c1);
+    const T l2 = dist3(r2, c2);
+    const T cc = m_abs(rn_sub(l1, l2));
+    T s = (T)0;
+    if (cc < eps) s = gauss(cc, s2);
+    if (mindist > (T)0 && (l1 < mindist || l2 < mindist)) s = (T)0;
+    return s;
+  }
+};

@@ -5,6 +5,7 @@ The JAX package's arrays arrive as numpy arrays (``np.asarray(x)``), its
 a field dict (``dataclasses.asdict(params)``). These functions turn them
 into the port's tensors and back, so both packages can be fed the same
 storage and lane states. bfloat16 arrays (ml_dtypes) pass through float32.
+An invariant's parameters arrive as ``dataclasses.asdict(inv.params)``.
 """
 
 from __future__ import annotations
@@ -15,6 +16,8 @@ from typing import Dict
 import numpy as np
 import torch
 
+from clipper_tpu_torch.invariants import BUILTINS
+from clipper_tpu_torch.invariants.base import PairwiseInvariant
 from clipper_tpu_torch.solvers.msrc_flat import _FlatState
 from clipper_tpu_torch.types import Params, Rounding
 
@@ -39,7 +42,13 @@ def to_numpy(x: torch.Tensor) -> np.ndarray:
 
 
 def tri_to_torch(tri, device="cpu") -> torch.Tensor:
-    """(W, 2t, S) flat-triangle storage."""
+    """(W, 2t, S) flat-triangle or (P, T, 2t, t) tile-major storage
+    (ops/flattri.py)."""
+    shape = np.shape(tri)
+    if len(shape) not in (3, 4) or (len(shape) == 4
+                                    and shape[2] != 2 * shape[3]):
+        raise ValueError(f"triangle storage must be (W, 2t, S) or "
+                         f"(P, T, 2t, t); got shape {shape}")
     return to_torch(tri, device).contiguous()
 
 
@@ -57,6 +66,17 @@ def tiles_to_torch(tiles, device="cpu") -> torch.Tensor:
         raise ValueError(f"tiles must be (T, 2t, t); got shape "
                          f"{np.shape(tiles)}")
     return to_torch(tiles, device).contiguous()
+
+
+def invariant_from_params(kind: str, params: Dict) -> PairwiseInvariant:
+    """The port's built-in invariant of ``kind`` ("euclidean" or
+    "pointnormal", invariants.BUILTINS) from a field dict of its
+    parameters, e.g. the JAX invariant's ``dataclasses.asdict(inv.params)``."""
+    if kind not in BUILTINS:
+        raise ValueError(f"unknown invariant kind {kind!r}; one of "
+                         f"{sorted(BUILTINS)}")
+    b = BUILTINS[kind]
+    return b.cls(b.params_cls(**{k: float(v) for k, v in params.items()}))
 
 
 def state_to_torch(state: Dict[str, np.ndarray], device="cpu") -> _FlatState:

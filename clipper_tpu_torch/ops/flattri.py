@@ -1,24 +1,30 @@
 """Flat row-major triangle storage: the pool engine's half-traffic layout.
 
-Counterpart of ``clipper_tpu/ops/flattri.py`` (:51-149, :152-245,
-:428-460, :463-564, :658-680). M and C are symmetric, so only the upper
-triangle TILES of [M; C] are stored, packed per problem as one (2t, S)
-array with S = t * nt (nt + 1) / 2:
+Counterpart of ``clipper_tpu/ops/flattri.py`` (:51-460, :463-680). M and
+C are symmetric, so only the upper triangle TILES of [M; C] are stored,
+packed per problem as one (2t, S) array with S = t * nt (nt + 1) / 2:
 
     row-block r's tiles (r, r), (r, r+1), ..., (r, nt-1) occupy the
     contiguous column span [off_r * t, (off_r + nt - r) * t) with
     off_r = r * nt - r (r - 1) / 2.
 
-Rows 0:t hold the M tiles, rows t:2t the C tiles.
+Rows 0:t hold the M tiles, rows t:2t the C tiles. The tile-major form
+(P, T, 2t, t) holds the same T = nt (nt + 1) / 2 tiles as contiguous
+(2t, t) blocks in :func:`tri_coords` order (:func:`repack_stacked_tiles`).
 
-Two functions carry the main path, each a wrapper around a hand-written
-CUDA kernel (csrc/) with a plain PyTorch version beside it:
+Each of these is a wrapper around a hand-written CUDA kernel (csrc/) with
+a plain PyTorch version beside it:
 
 - :func:`make_tri_pool_matvec` -> csrc/tri_matvec.cu, every solver tick;
-- :func:`build_tri` -> csrc/tri_build.cu, once per problem.
+- :func:`build_tri` -> csrc/tri_build.cu, once per problem;
+- :func:`build_tri_pallas_fused` -> csrc/tri_build_fused.cu, the same
+  output with one kernel block per problem (no pipeline selects it);
+- :func:`make_tri_pool_matvec_tiles` -> csrc/tri_tiles_matvec.cu, the
+  single-probe matvec over tile-major storage.
 
 A wrapper launches its kernel for CUDA tensors and takes the plain version
-only for CPU tensors; a failed build or launch raises.
+only for CPU tensors; a failed build or launch raises. The builds compute
+the two built-in invariants (invariants.kernel_score) on the card.
 """
 
 from __future__ import annotations
@@ -29,8 +35,8 @@ import numpy as np
 import torch
 
 from clipper_tpu_torch import _kernels
+from clipper_tpu_torch.invariants import kernel_score
 from clipper_tpu_torch.invariants.base import PairwiseInvariant
-from clipper_tpu_torch.invariants.euclidean import EuclideanDistance
 from clipper_tpu_torch.ops.affinity import (pairwise_from_endpoints,
                                             stored_from_endpoints)
 from clipper_tpu_torch.solvers.msrc_flat import _INT8_SCALE
@@ -187,12 +193,23 @@ def make_tri_pool_matvec(tri: torch.Tensor, nt: int, out_dtype: torch.dtype):
     (K multiprobe candidates per lane); outputs match U's shape. CUDA
     storage launches the kernel, CPU storage takes the plain version.
     """
+    return _flat_bmv(tri, nt, out_dtype, tri_pool_matvec_cuda
+                     if tri.is_cuda else tri_pool_matvec_plain)
+
+
+def make_tri_pool_matvec_xla(tri: torch.Tensor, nt: int,
+                             out_dtype: torch.dtype):
+    """:func:`make_tri_pool_matvec` through the plain version on every
+    device (the JAX package's make_tri_pool_matvec_xla)."""
+    return _flat_bmv(tri, nt, out_dtype, tri_pool_matvec_plain)
+
+
+def _flat_bmv(tri, nt, out_dtype, fn):
     P, two_t, S = tri.shape
     t = two_t // 2
     if S != tri_ncols(nt, t):
         raise ValueError(f"storage has {S} columns; nt={nt}, t={t} needs "
                          f"{tri_ncols(nt, t)}")
-    fn = tri_pool_matvec_cuda if tri.is_cuda else tri_pool_matvec_plain
 
     def bmv(idx, U):
         if idx is None:
@@ -232,42 +249,58 @@ def build_tri_plain(invariant: PairwiseInvariant, P1s, P2s, As, m_trues, *,
     return torch.cat(parts) if len(parts) > 1 else parts[0]
 
 
-def build_tri_cuda(invariant: PairwiseInvariant, P1s, P2s, As, m_trues, *,
-                   t: int = 256, affinityeps: float = 1e-4,
-                   storage_dtype=torch.int8):
-    """Launch csrc/tri_build.cu: (W, 2t, S) int8 storage on the card."""
-    if not isinstance(invariant, EuclideanDistance):
-        raise NotImplementedError(
-            "the CUDA tri build is specific to EuclideanDistance; build "
-            f"{type(invariant).__name__} on the CPU (ROADMAP.md Queue 2)")
+def _launch_tri_build(kernel: str, invariant: PairwiseInvariant, P1s, P2s,
+                      As, m_trues, t: int, affinityeps: float,
+                      storage_dtype) -> torch.Tensor:
+    """Launch csrc/<kernel>.cu: (W, 2t, S) int8 storage on the card."""
+    kind, d, params = kernel_score(invariant)
     if storage_dtype != torch.int8:
         raise NotImplementedError(
-            f"the CUDA tri build writes int8 storage, not {storage_dtype}")
-    W, m, d = P1s.shape
+            f"the CUDA tri builds write int8 storage, not {storage_dtype}")
+    W, m, dp = P1s.shape
     if not (P1s.is_cuda and P2s.is_cuda and As.is_cuda):
-        raise ValueError("tri build kernel: inputs must lie on the card")
-    if d != 3 or P1s.dtype != torch.float32 or P2s.dtype != torch.float32:
-        raise ValueError("tri build kernel takes (W, m, 3) float32 endpoints")
+        raise ValueError(f"{kernel} kernel: inputs must lie on the card")
+    if (dp != d or P2s.shape != P1s.shape or P1s.dtype != torch.float32
+            or P2s.dtype != torch.float32):
+        raise ValueError(f"{kernel} kernel takes (W, m, {d}) float32 "
+                         f"endpoints for {type(invariant).__name__}")
     if m % t or t > 256:
-        raise ValueError(f"tri build kernel needs t <= 256 dividing m; "
+        raise ValueError(f"{kernel} kernel needs t <= 256 dividing m; "
                          f"got m={m}, t={t}")
     nt = m // t
     S = tri_ncols(nt, t)
-    p = invariant.params
+    # held in locals until the launch (see stored_build_cuda)
     P1c = P1s.contiguous()
     P2c = P2s.contiguous()
     Ac = As.to(torch.int32).contiguous()
     mts = torch.as_tensor(m_trues, device=P1s.device).to(
-        torch.int32).contiguous()
+        torch.int32).expand(W).contiguous()
     out = torch.empty(W, 2 * t, S, dtype=torch.int8, device=P1s.device)
-    code = _kernels.lib("tri_build").tri_build_int8(
-        P1c.data_ptr(), P2c.data_ptr(), Ac.data_ptr(), mts.data_ptr(),
-        out.data_ptr(), W, m, t, S, float(p.sigma * p.sigma),
-        float(p.epsilon), float(affinityeps), float(p.mindist),
-        _kernels.stream_ptr(P1s.device))
-    _kernels.check(code, "tri_build")
-    _kernels.LAUNCHES["tri_build"] += 1
+    fn = getattr(_kernels.lib(kernel), f"{kernel}_int8")
+    code = fn(P1c.data_ptr(), P2c.data_ptr(), Ac.data_ptr(), mts.data_ptr(),
+              out.data_ptr(), W, m, t, S, kind, *params, float(affinityeps),
+              _kernels.stream_ptr(P1s.device))
+    _kernels.check(code, kernel)
+    _kernels.LAUNCHES[kernel] += 1
     return out
+
+
+def build_tri_cuda(invariant: PairwiseInvariant, P1s, P2s, As, m_trues, *,
+                   t: int = 256, affinityeps: float = 1e-4,
+                   storage_dtype=torch.int8):
+    """Launch csrc/tri_build.cu (one kernel block per upper tile):
+    (W, 2t, S) int8 storage on the card, for the built-in invariants."""
+    return _launch_tri_build("tri_build", invariant, P1s, P2s, As, m_trues,
+                             t, affinityeps, storage_dtype)
+
+
+def build_tri_fused_cuda(invariant: PairwiseInvariant, P1s, P2s, As,
+                         m_trues, *, t: int = 256, affinityeps: float = 1e-4,
+                         storage_dtype=torch.int8):
+    """Launch csrc/tri_build_fused.cu (one kernel block per problem): the
+    same bytes as :func:`build_tri_cuda`."""
+    return _launch_tri_build("tri_build_fused", invariant, P1s, P2s, As,
+                             m_trues, t, affinityeps, storage_dtype)
 
 
 def build_tri(invariant: PairwiseInvariant, P1s, P2s, As, m_trues, *,
@@ -280,6 +313,168 @@ def build_tri(invariant: PairwiseInvariant, P1s, P2s, As, m_trues, *,
     fn = build_tri_cuda if P1s.is_cuda else build_tri_plain
     return fn(invariant, P1s, P2s, As, m_trues, t=t,
               affinityeps=affinityeps, storage_dtype=storage_dtype)
+
+
+def build_tri_pallas_fused(invariant: PairwiseInvariant, P1s, P2s, As,
+                           m_trues, *, t: int = 256,
+                           affinityeps: float = 1e-4,
+                           storage_dtype=torch.int8):
+    """:func:`build_tri` with one kernel block per problem looping over
+    its T upper tiles (the JAX package's one-program-per-problem variant):
+    the same bytes. No pipeline selects it, as in the JAX package, which
+    measured it a wash against the per-tile grid. CUDA inputs launch the
+    kernel, CPU inputs take the plain version."""
+    fn = build_tri_fused_cuda if P1s.is_cuda else build_tri_plain
+    return fn(invariant, P1s, P2s, As, m_trues, t=t,
+              affinityeps=affinityeps, storage_dtype=storage_dtype)
+
+
+# ---------------------------------------------------------------------------
+# tile-major (P, T, 2t, t) storage and its single-probe matvec
+# ---------------------------------------------------------------------------
+
+
+def repack_stacked_tiles(MC: torch.Tensor, t: int) -> torch.Tensor:
+    """Dense stacked (..., 2m, m) [M; C] -> tile-major (..., T, 2t, t):
+    tile k (row r_k, column c_k in :func:`tri_coords` order) is the
+    stacked pair [M[r t:(r+1) t, c t:(c+1) t]; C[...]]."""
+    two_m, m = MC.shape[-2:]
+    if two_m != 2 * m or m % t:
+        raise ValueError(f"need stacked (..., 2m, m) with t | m; got "
+                         f"{tuple(MC.shape)}, t={t}")
+    rs, cs, _ = tri_coords(m // t)
+    tiles = [torch.cat([MC[..., r * t:(r + 1) * t, c * t:(c + 1) * t],
+                        MC[..., m + r * t:m + (r + 1) * t,
+                           c * t:(c + 1) * t]], dim=-2)
+             for r, c in zip(rs.tolist(), cs.tolist())]
+    return torch.stack(tiles, dim=-3).contiguous()
+
+
+def _tile_assembly(nt: int, dtype, device=None):
+    """0/1 assembly operators mapping per-tile products to output blocks:
+    fwd[r, k] = 1 iff tile k lives in row r; trn[c, k] = 1 iff tile k is
+    strictly upper in column c (a diagonal tile's content is complete in
+    its forward product)."""
+    rs, cs, _ = tri_coords(nt)
+    k = torch.arange(len(rs))
+    fwd = torch.zeros(nt, len(rs), dtype=dtype)
+    trn = torch.zeros(nt, len(rs), dtype=dtype)
+    fwd[torch.from_numpy(rs).long(), k] = 1
+    upper = torch.from_numpy(rs != cs)
+    trn[torch.from_numpy(cs).long()[upper], k[upper]] = 1
+    return fwd.to(device), trn.to(device)
+
+
+def tri_tiles_matvec_plain(tri: torch.Tensor, nt: int, idx: torch.Tensor,
+                           U: torch.Tensor, out_dtype: torch.dtype):
+    """Plain PyTorch version of the tile-major matvec (the JAX package's
+    make_tri_pool_matvec_tiles_xla): gathers each lane's (T, 2t, t) tiles,
+    runs the three tile-batched contractions and assembles them into
+    output blocks. U (B, m) -> (MU, CU) each (B, m) in out_dtype. f32
+    storage on the card raises when TF32 is on, as for
+    :func:`tri_pool_matvec_plain`."""
+    P, T, two_t, t = tri.shape
+    B = U.shape[0]
+    m = nt * t
+    cdt, acc, scale = _dtypes(tri.dtype)
+    if (tri.is_cuda and tri.dtype == torch.float32
+            and torch.backends.cuda.matmul.allow_tf32):
+        raise RuntimeError(
+            "tri_tiles_matvec_plain: f32 storage on the card needs "
+            "torch.backends.cuda.matmul.allow_tf32 = False")
+    rs, cs, _ = tri_coords(nt)
+    rs = torch.from_numpy(rs).long().to(tri.device)
+    cs = torch.from_numpy(cs).long().to(tri.device)
+    tr = tri[idx.long()].to(acc)                         # (B, T, 2t, t)
+    Ub = U.to(cdt).to(acc).reshape(B, nt, t)
+    of = torch.einsum("bkot,bkt->bko", tr, Ub[:, cs])    # (B, T, 2t)
+    ugr = Ub[:, rs]
+    om = torch.einsum("bkst,bks->bkt", tr[:, :, :t], ugr)  # (B, T, t)
+    oc = torch.einsum("bkst,bks->bkt", tr[:, :, t:], ugr)
+    fwd, trn = _tile_assembly(nt, acc, tri.device)
+    yf = torch.einsum("rk,bko->bro", fwd, of)            # (B, nt, 2t)
+    ym = torch.einsum("ck,bko->bco", trn, om)            # (B, nt, t)
+    yc = torch.einsum("ck,bko->bco", trn, oc)
+    s = torch.tensor(scale, dtype=acc)
+    MU = (yf[:, :, :t] + ym).reshape(B, m)
+    CU = (yf[:, :, t:] + yc).reshape(B, m)
+    return (MU * s).to(out_dtype), (CU * s).to(out_dtype)
+
+
+def tri_tiles_matvec_cuda(tri: torch.Tensor, nt: int, idx: torch.Tensor,
+                          U: torch.Tensor, out_dtype: torch.dtype):
+    """Launch csrc/tri_tiles_matvec.cu: U (B, m) on the card -> (MU, CU)."""
+    P, T, two_t, t = tri.shape
+    m = nt * t
+    B = U.shape[0]
+    cdt, acc, scale = _dtypes(tri.dtype)
+    if tri.dtype not in (torch.int8, torch.float32, torch.float64):
+        raise NotImplementedError(f"tiles matvec kernel takes int8/f32/f64 "
+                                  f"storage, not {tri.dtype}")
+    if t not in (128, 256):
+        raise NotImplementedError(f"tiles matvec kernel needs t in "
+                                  f"(128, 256), got {t}")
+    if not (tri.is_cuda and idx.is_cuda and U.is_cuda
+            and tri.is_contiguous()):
+        raise ValueError("tiles matvec kernel: storage, idx and U must lie "
+                         "on the card, the storage contiguous")
+    if tri.data_ptr() % 64:
+        raise ValueError("tiles matvec kernel: the storage must be 64-byte "
+                         "aligned (its vector loads)")
+    idx32 = idx.to(torch.int32).contiguous()
+    Uc = U.to(cdt).contiguous()
+    out = torch.empty(B, 2 * m, dtype=acc, device=tri.device)
+    lib = _kernels.lib("tri_tiles_matvec")
+    args = (tri.data_ptr(), idx32.data_ptr(), Uc.data_ptr(), out.data_ptr(),
+            B, nt, t)
+    stream = _kernels.stream_ptr(tri.device)
+    if tri.dtype == torch.int8:
+        code = lib.tri_tiles_matvec_int8(*args, scale, stream)
+    elif tri.dtype == torch.float32:
+        code = lib.tri_tiles_matvec_f32(*args, stream)
+    else:
+        code = lib.tri_tiles_matvec_f64(*args, stream)
+    _kernels.check(code, "tri_tiles_matvec")
+    _kernels.LAUNCHES["tri_tiles_matvec"] += 1
+    out = out.to(out_dtype)
+    return out[:, :m], out[:, m:]
+
+
+def make_tri_pool_matvec_tiles(tri: torch.Tensor, nt: int,
+                               out_dtype: torch.dtype):
+    """Batched per-lane dual matvec over (P, T, 2t, t) tile-major storage,
+    one probe a lane: ``bmv(idx, U) -> (MU, CU)`` with idx (B,) lane ->
+    pool row (or None: lane b reads row b) and U (B, m). CUDA storage
+    launches the kernel, CPU storage takes the plain version. (The TPU
+    kernel miscompiled under Mosaic; the card's kernel is held to an f64
+    oracle and to the flat kernel.)"""
+    return _tiles_bmv(tri, nt, out_dtype, tri_tiles_matvec_cuda
+                      if tri.is_cuda else tri_tiles_matvec_plain)
+
+
+def make_tri_pool_matvec_tiles_xla(tri: torch.Tensor, nt: int,
+                                   out_dtype: torch.dtype):
+    """:func:`make_tri_pool_matvec_tiles` through the plain version on
+    every device (the JAX package's make_tri_pool_matvec_tiles_xla)."""
+    return _tiles_bmv(tri, nt, out_dtype, tri_tiles_matvec_plain)
+
+
+def _tiles_bmv(tri, nt, out_dtype, fn):
+    P, T, two_t, t = tri.shape
+    if T != nt * (nt + 1) // 2 or two_t != 2 * t:
+        raise ValueError(f"tile-major storage {tuple(tri.shape)} does not "
+                         f"hold the (2t, t) upper tiles of nt={nt} blocks")
+
+    def bmv(idx, U):
+        if U.dim() != 2:
+            raise ValueError("the tile-major matvec takes one probe a lane: "
+                             f"U (B, m), got shape {tuple(U.shape)}")
+        if idx is None:
+            idx = torch.arange(U.shape[0], dtype=torch.int32,
+                               device=tri.device)
+        return fn(tri, nt, idx, U, out_dtype)
+
+    return bmv
 
 
 def dense_stacked(tri: torch.Tensor, nt: int) -> torch.Tensor:
@@ -303,5 +498,9 @@ def dense_stacked(tri: torch.Tensor, nt: int) -> torch.Tensor:
 
 __all__ = ["tri_tile_offsets", "tri_ncols", "tri_coords", "repack_stacked",
            "tri_pool_matvec_plain", "tri_pool_matvec_cuda",
-           "make_tri_pool_matvec", "build_tri_plain", "build_tri_cuda",
-           "build_tri", "dense_stacked"]
+           "make_tri_pool_matvec", "make_tri_pool_matvec_xla",
+           "build_tri_plain", "build_tri_cuda", "build_tri_fused_cuda",
+           "build_tri", "build_tri_pallas_fused", "repack_stacked_tiles",
+           "tri_tiles_matvec_plain", "tri_tiles_matvec_cuda",
+           "make_tri_pool_matvec_tiles", "make_tri_pool_matvec_tiles_xla",
+           "dense_stacked"]

@@ -16,6 +16,9 @@ Two storage layouts, as in the JAX package: ``"stacked"`` keeps each
 problem's dense (2m, m) [M; C] (any m; the build kernel
 csrc/stored_build.cu on the card), and ``"tri"`` its flat upper triangle
 (m divisible by 128; the kernels csrc/tri_build.cu and csrc/tri_matvec.cu).
+:func:`solve_pool_tri` also solves over the triangle's tile-major form
+(csrc/tri_tiles_matvec.cu). The build kernels compute the Euclidean and
+the point-normal invariants.
 :func:`make_pool_multistart_pipeline` runs K restarts of each problem as
 extra lanes over the stacked storage.
 """
@@ -28,8 +31,8 @@ from typing import Dict, Optional
 
 import torch
 
+from clipper_tpu_torch.invariants import kernel_builds
 from clipper_tpu_torch.invariants.base import PairwiseInvariant
-from clipper_tpu_torch.invariants.euclidean import EuclideanDistance
 from clipper_tpu_torch.ops import affinity_pallas, flattri
 from clipper_tpu_torch.ops.affinity import (distinctness_mask,
                                             gather_endpoints,
@@ -132,18 +135,42 @@ def solve_pool(MCs: torch.Tensor, inits: msrc_flat._FlatState,
 
 def solve_pool_tri(tri: torch.Tensor, nt: int, inits: msrc_flat._FlatState,
                    params: Params = Params(), *, lanes: int = 128,
-                   window: int = 8, warm_alpha: bool = False,
-                   probes: int = 1, d_scale: float = 1.0,
-                   return_windows: bool = False,
+                   window: int = 8, matvec: str = "auto",
+                   warm_alpha: bool = False, probes: int = 1,
+                   d_scale: float = 1.0, return_windows: bool = False,
                    stats: Optional[Dict] = None):
-    """Solve W prepared lane instances over (P, 2t, S) flat-triangle
-    storage with B=lanes compacted lanes; one batched tri matvec per tick
-    (the CUDA kernel for storage on the card); lane instance w reads
-    storage row w."""
+    """Solve W prepared lane instances over (P, 2t, S) flat-triangle or
+    (P, T, 2t, t) tile-major storage (ops/flattri.py) with B=lanes
+    compacted lanes; one batched matvec per tick; lane instance w reads
+    storage row w.
+
+    matvec: 'auto' | 'tiles' | 'pallas' | 'xla'. 'tiles' is the tile-major
+    matvec (csrc/tri_tiles_matvec.cu on the card), 'pallas' the flat one
+    (csrc/tri_matvec.cu); either takes its plain version for CPU storage.
+    'auto' picks by the storage's rank, 4-D 'tiles' and 3-D 'pallas'.
+    'xla' is the plain version on every device. The JAX package's 'auto'
+    raised for 4-D storage on the TPU only because Mosaic miscompiled the
+    tile-major kernel there. The tile-major matvec takes one probe a lane,
+    so 4-D storage with probes > 1 raises."""
+    if matvec not in ("auto", "tiles", "pallas", "xla"):
+        raise ValueError(f"unknown matvec {matvec!r}")
     dtype = inits.u.dtype
-    t = tri.shape[1] // 2
+    tile_major = tri.dim() == 4
+    if matvec == "auto":
+        matvec = "tiles" if tile_major else "pallas"
+    if (matvec == "tiles") != tile_major and matvec != "xla":
+        raise ValueError(f"matvec={matvec!r} does not take "
+                         f"{tri.dim()}-D storage")
+    if tile_major and probes > 1:
+        raise ValueError("the tile-major matvec takes one probe a lane; "
+                         f"got probes={probes}")
+    t = tri.shape[-1] if tile_major else tri.shape[1] // 2
     m = nt * t
-    bmv = flattri.make_tri_pool_matvec(tri, nt, dtype)
+    maker = {("tiles", True): flattri.make_tri_pool_matvec_tiles,
+             ("xla", True): flattri.make_tri_pool_matvec_tiles_xla,
+             ("pallas", False): flattri.make_tri_pool_matvec,
+             ("xla", False): flattri.make_tri_pool_matvec_xla}
+    bmv = maker[(matvec, tile_major)](tri, nt, dtype)
     btick = msrc_flat.make_tick(bmv, params, dtype, probes=probes,
                                 warm_alpha=warm_alpha, d_scale=d_scale)
     return _pool_schedule(btick, inits, m, lanes=lanes, window=window,
@@ -258,8 +285,10 @@ def _polish_batch(invariant: PairwiseInvariant, P1s, P2s, As, U,
 def _resolve_build(build: str, storage_dtype, invariant, dev: torch.device,
                    kernel_dtypes) -> str:
     """'auto' -> 'pallas' (the build kernel) on the card for a storage
-    dtype in ``kernel_dtypes`` and the Euclidean invariant, else 'xla' (the
-    plain build), mirroring the JAX package's pool.py:346-370. 'pallas'
+    dtype in ``kernel_dtypes`` and a built-in symmetric invariant
+    (Euclidean or point-normal, the ones the kernels compute), else 'xla'
+    (the plain build), mirroring the JAX package's pool.py:346-370, which
+    takes its kernel for any invariant with ``score_block_t``. 'pallas'
     takes the kernel on the card and its plain version on the CPU."""
     if build not in ("auto", "pallas", "xla"):
         raise ValueError(f"unknown build {build!r}")
@@ -270,7 +299,7 @@ def _resolve_build(build: str, storage_dtype, invariant, dev: torch.device,
             "quantizes as it builds and has no dense full-precision output")
     if build == "auto":
         if (dev.type == "cuda" and storage_dtype in kernel_dtypes
-                and isinstance(invariant, EuclideanDistance)):
+                and kernel_builds(invariant)):
             return "pallas"
         return "xla"
     return build
@@ -365,7 +394,8 @@ def make_pool_pipeline(invariant: PairwiseInvariant,
     plain build). build: 'auto' | 'pallas' | 'xla' (see
     :func:`_resolve_build`): 'auto' takes the build kernel on the card
     (csrc/tri_build.cu for int8 triangles, csrc/stored_build.cu for int8
-    or bf16 stacked storage) for the Euclidean invariant.
+    or bf16 stacked storage) for the Euclidean and point-normal
+    invariants.
 
     Shapes: D1 (n1, d) shared by all problems or (W, n1, d), D2s
     (W, n2, d), As (W, m, 2), u0s (W, m); numpy arrays or tensors. The

@@ -43,8 +43,9 @@ def test_every_source_is_built():
     on_disk = {p.stem for p in _kernels.CSRC.glob("*.cu")}
     assert on_disk == set(_kernels.SOURCES) == set(_kernels.LAUNCHES)
     # the build kernels are compiled without FMA contraction
-    assert "--fmad=false" in _kernels.SOURCES["tri_build"]
-    assert "--fmad=false" in _kernels.SOURCES["stored_build"]
+    for name in ("tri_build", "tri_build_fused", "stored_build",
+                 "affinity_build"):
+        assert "--fmad=false" in _kernels.SOURCES[name]
     names = {_kernels._target(n).name for n in _kernels.SOURCES}
     assert len(names) == len(_kernels.SOURCES)
     assert all(_kernels._target(n).parent == _kernels.BUILD_DIR
@@ -296,3 +297,112 @@ def test_sym_rows_kernel_on_slices(cuda, storage):
         acc = acc + k
     summed = symstore._finish(acc, scale)
     assert float((summed - ref).abs().max()) <= 1e-4
+
+
+def _pointnormal_problems(W, m, seed):
+    """W point-normal problems (per-problem datasets), float32."""
+    rng = np.random.default_rng(seed)
+    probs = [harness.make_pointnormal_problem(rng, n=400, m=m, rho=0.9)
+             for _ in range(W)]
+    return tuple(np.stack([p[i] for p in probs]).astype(
+        np.float32 if i < 2 else np.int32) for i in range(3))
+
+
+@pytest.mark.cuda
+def test_pointnormal_builds_match_plain(cuda):
+    """Kernels 2, 8 and 4 on point-normal problems (m=256, t=128; m_true <
+    m on one) equal to their plain versions on the card (the same IEEE
+    steps and CUDA library functions); the fused build byte-equal to the
+    per-tile build; one launch each."""
+    W, m, t = 3, 256, 128
+    D1s, D2s, As = _pointnormal_problems(W, m, seed=11)
+    P1, P2 = gather_endpoints(torch.from_numpy(D1s).to(cuda),
+                              torch.from_numpy(D2s).to(cuda),
+                              torch.from_numpy(As).to(cuda))
+    A = torch.from_numpy(As).to(cuda)
+    mts = torch.tensor([m, 200, m], device=cuda)
+    inv = harness.pointnormal_invariant()
+    before = dict(_kernels.LAUNCHES)
+    tk = flattri.build_tri(inv, P1, P2, A, mts, t=t)
+    tf = flattri.build_tri_pallas_fused(inv, P1, P2, A, mts, t=t)
+    sk = affinity_pallas.stored_build(inv, P1, P2, A, mts)
+    for name in ("tri_build", "tri_build_fused", "stored_build"):
+        assert _kernels.LAUNCHES[name] == before[name] + 1
+    assert torch.equal(tk, tf)
+    for got, ref, half in (
+            (tk, flattri.build_tri_plain(inv, P1, P2, A, mts, t=t), t),
+            (sk, affinity_pallas.stored_from_endpoints(
+                inv, P1, P2, A, m_true=mts), m)):
+        assert bool(ref[:, half:].any()) and torch.equal(got, ref)
+    for h in (sk[:, :m], sk[:, m:]):
+        assert torch.equal(h, h.transpose(1, 2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["euclidean", "pointnormal"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("m", [256, 203])
+def test_affinity_build_kernel_matches_plain(cuda, kind, dtype, m):
+    """Kernel 6 against its plain version on the card (m=203: ragged edge
+    tiles): M and C equal (the same IEEE steps and CUDA library
+    functions), zero diagonal; one launch."""
+    if kind == "euclidean":
+        pcd0, D2s, As, _ = _problems(1, m, seed=12)
+        D1, D2, A = pcd0, D2s[0], As[0]
+        inv = harness.default_invariant()
+    else:
+        D1s, D2s, As = _pointnormal_problems(1, m, seed=12)
+        D1, D2, A = D1s[0], D2s[0], As[0]
+        inv = harness.pointnormal_invariant()
+    At = torch.from_numpy(A).to(cuda)
+    P1, P2 = gather_endpoints(torch.from_numpy(D1).to(cuda, dtype),
+                              torch.from_numpy(D2).to(cuda, dtype), At)
+    before = _kernels.LAUNCHES["affinity_build"]
+    M, C = affinity_pallas.build_affinity_pallas(inv, P1, P2, At)
+    assert _kernels.LAUNCHES["affinity_build"] == before + 1
+    Mp, Cp = affinity_pallas.pairwise_from_endpoints(inv, P1, P2, At)
+    assert M.dtype == C.dtype == dtype and M.shape == (m, m)
+    assert torch.equal(C, Cp) and int((C > 0).sum()) > m
+    assert not M.diagonal().any()
+    assert torch.equal(M, Mp)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage", [torch.int8, torch.float32,
+                                     torch.float64])
+@pytest.mark.parametrize("t", [256, 128])
+def test_tri_tiles_kernel_matches_plain(cuda, storage, t):
+    """Kernel 9 against its plain version and against kernel 1 on the
+    same content (the flat storage's tile-major view), within 1e-4 (1e-12
+    for f64 storage, summed in f64); a rerun is bit-identical; one launch
+    a call."""
+    W, m = 4, 512
+    nt = m // t
+    pcd0, D2s, As, _ = _problems(W, m, seed=13)
+    fdt = torch.float64 if storage == torch.float64 else torch.float32
+    P1, P2 = gather_endpoints(torch.from_numpy(pcd0).to(cuda, fdt),
+                              torch.from_numpy(D2s).to(cuda, fdt),
+                              torch.from_numpy(As).to(cuda))
+    A = torch.from_numpy(As).to(cuda)
+    inv = harness.default_invariant()
+    flat = flattri.build_tri_plain(
+        inv, P1, P2, A, torch.full((W,), m, device=cuda), t=t,
+        storage_dtype=storage if storage == torch.int8 else None)
+    T = nt * (nt + 1) // 2
+    tiles = flat.view(W, 2 * t, T, t).permute(0, 2, 1, 3).contiguous()
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    U = torch.rand(6, m, generator=gen, device=cuda, dtype=fdt)
+    U /= torch.linalg.vector_norm(U, dim=-1, keepdim=True)
+    idx = torch.tensor([3, 0, 1, 3, 2, 0], device=cuda, dtype=torch.int32)
+    before = _kernels.LAUNCHES["tri_tiles_matvec"]
+    a = flattri.make_tri_pool_matvec_tiles(tiles, nt, fdt)(idx, U)
+    assert _kernels.LAUNCHES["tri_tiles_matvec"] == before + 1
+    b = flattri.tri_tiles_matvec_plain(tiles, nt, idx, U, fdt)
+    c = flattri.make_tri_pool_matvec(flat, nt, fdt)(idx, U)
+    tol = 1e-12 if storage == torch.float64 else 1e-4
+    for x, y, z in zip(a, b, c):
+        assert x.dtype == fdt and x.shape == (6, m)
+        assert float((x - y).abs().max()) <= tol
+        assert float((x - z).abs().max()) <= tol
+    again = flattri.make_tri_pool_matvec_tiles(tiles, nt, fdt)(idx, U)
+    assert all(torch.equal(x, y) for x, y in zip(a, again))

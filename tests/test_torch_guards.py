@@ -50,6 +50,7 @@ def test_import_pulls_in_no_jax():
         "import clipper_tpu_torch.parallel.batched\n"
         "import clipper_tpu_torch.parallel.buckets\n"
         "import clipper_tpu_torch.bench.cpu_mesh_run\n"
+        "import clipper_tpu_torch.invariants.pointnormal\n"
         "import chip_smoke\n"
         "bad = [k for k in sys.modules if k.split('.')[0] in "
         "('jax', 'jaxlib', 'clipper_tpu')]\n"
