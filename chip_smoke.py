@@ -107,6 +107,26 @@ Phases, each of which must pass (any failure exits non-zero):
               W=512) held against its plain version as in phase 2, then
               timed beside its bound, its plain version and, where one
               exists, one PyTorch call computing the same function.
+7. probe    — the build-anatomy probe (csrc/build_probe.cu) on the JAX
+              probe's inputs at B=512, m=1024 and at an edge tile (B=16,
+              m=1000): full byte-equal to the stacked build, writeonly all
+              zeros, sqrt1, noexp and nosqrt with the C half exact and M
+              codes within one of their plain versions (the count of
+              differing codes printed, 0 expected); then
+              bench/build_probe.main(["512", "1024"]), which prints each
+              variant's ms beside the stacked build's and the write bound.
+8. drivers  — each ported bench driver's main() in-process on the card at
+              a small setting: grid_tpu (4 trials a cell, the whole 5 x 5
+              grid), pool_ab (W=128, all five configurations), tickstats
+              (B=128), gridcell_probe (8 problems at m=2048), mixed_bench
+              (8 a size, 1 rep), multistart_bench (W=32, K=4, 1 rep),
+              symstore_bench (m=8192, --mv-only) and symshard_bench
+              (m=8192 on a 1-rank NCCL group); then the harness's
+              run_grid at m=1024, rho=0.9 (4 trials, the dense build
+              kernel launched) and one run_pointnormal_trial (m=5000).
+              Each prints its launch counts and finite P/R; the rows at
+              the bench protocol's point (m=1024, rho=0.9) meet
+              P >= 0.995 and R >= 0.88 (the dense engine's R >= 0.85).
 
 The line before the last is a JSON object of the kernels' numbers; the last
 line is {"ok": true, "device": {...}}.
@@ -216,21 +236,6 @@ def precision_recall(As, masks, Agts):
     pr = np.array([data.get_precision_recall(As[b][masks[b]], Agts[b])
                    for b in range(len(Agts))])
     return pr[:, 0], pr[:, 1]
-
-
-def cuda_ms(fn, reps: int) -> float:
-    """Mean device milliseconds of fn() over reps calls (after a warm-up)."""
-    import torch
-    fn()
-    torch.cuda.synchronize()
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    a.record()
-    for _ in range(reps):
-        fn()
-    b.record()
-    torch.cuda.synchronize()
-    return a.elapsed_time(b) / reps
 
 
 def endpoints(D1, D2s, As, dev):
@@ -828,6 +833,7 @@ def run_batched(inv, data_, dev, W, stats=None):
 def phase_stacked(inv, main, dev):
     """3b: the stacked pool on the main data. Returns its launches."""
     import torch
+    from clipper_tpu_torch.bench.harness import time_ms
     from clipper_tpu_torch.ops import affinity_pallas
     from clipper_tpu_torch.solvers import msrc_flat
 
@@ -869,7 +875,7 @@ def phase_stacked(inv, main, dev):
     idx = torch.randperm(W_MAIN, generator=gen, device=dev)[:B].to(
         torch.int32)
     U = unit_rows(gen, B, 1, dev)[:, 0]
-    mv_ms = cuda_ms(lambda: bmv(idx, U), 20)
+    mv_ms = time_ms(lambda: bmv(idx, U), dev, 20)
     print(f"stacked matvec a tick (B={B} lanes, int8 storage: gather + f32 "
           f"matmul, plain PyTorch): {mv_ms:.4f} ms", flush=True)
     return launches
@@ -981,6 +987,7 @@ def phase_timing(inv, main, dev):
     JSON line and the max errors at these shapes (build code diff, tri
     matvec and tiles matvec abs errors)."""
     import torch
+    from clipper_tpu_torch.bench.harness import time_ms
     from clipper_tpu_torch.ops import flattri
 
     D1, D2s, As, _, _ = main
@@ -1002,9 +1009,9 @@ def phase_timing(inv, main, dev):
                + W_MAIN * M * 2 * 4 + W_MAIN * 4)
     bound_ms, bound_by = build_bound(b_bytes, W_MAIN, M, BUILD_OPS_PER_PAIR)
     rows["tri_build"] = dict(
-        ms=cuda_ms(build, 10),
-        plain_ms=cuda_ms(lambda: flattri.build_tri_plain(
-            inv, P1s, P2s, At, mts, t=t), 2),
+        ms=time_ms(build, dev, 10),
+        plain_ms=time_ms(lambda: flattri.build_tri_plain(
+            inv, P1s, P2s, At, mts, t=t), dev, 2),
         bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
 
     gen = torch.Generator(device=dev).manual_seed(1)
@@ -1018,13 +1025,13 @@ def phase_timing(inv, main, dev):
                                           f"int8, B={B}, K={K}"))
         mv_bytes = B * 2 * t * S + B * K * M * 2 + B * K * 2 * M * 4
         mv_ops = 2 * K * B * (2 * t * S + 2 * t * t * (T - nt))
-        ms = cuda_ms(lambda: flattri.tri_pool_matvec_cuda(
-            tri, nt, idx, U, torch.float32), 50)
-        plain = cuda_ms(lambda: flattri.tri_pool_matvec_plain(
-            tri, nt, idx, U, torch.float32), 5)
+        ms = time_ms(lambda: flattri.tri_pool_matvec_cuda(
+            tri, nt, idx, U, torch.float32), dev, 50)
+        plain = time_ms(lambda: flattri.tri_pool_matvec_plain(
+            tri, nt, idx, U, torch.float32), dev, 5)
         dense = flattri.dense_stacked(tri[idx.long()], nt).to(torch.bfloat16)
         Ut = U.to(torch.bfloat16).transpose(1, 2).contiguous()
-        lib = cuda_ms(lambda: torch.bmm(dense, Ut), 20)
+        lib = time_ms(lambda: torch.bmm(dense, Ut), dev, 20)
         del dense
         bound_s = max(mv_bytes / HBM_BYTES_PER_S, mv_ops / BF16_FLOPS)
         r = dict(ms=ms, plain_ms=plain, bound_ms=bound_s * 1e3,
@@ -1052,11 +1059,12 @@ def phase_timing(inv, main, dev):
             "tri_build at W=512")
     r2 = rows["tri_build"]
     rows["tri_build_fused"] = dict(
-        r2, ms=cuda_ms(fused, 10), plain_ms=cuda_ms(
-            lambda: flattri.build_tri_plain(inv, P1s, P2s, At, mts, t=t), 2))
+        r2, ms=time_ms(fused, dev, 10), plain_ms=time_ms(
+            lambda: flattri.build_tri_plain(inv, P1s, P2s, At, mts, t=t),
+            dev, 2))
     print(f"timing tri_build_fused W={W_MAIN} m={M} t={t}: kernel "
           f"{rows['tri_build_fused']['ms']:.4f} ms beside tri_build "
-          f"{cuda_ms(build, 10):.4f} ms (bound {r2['bound_ms']:.4f} ms), "
+          f"{time_ms(build, dev, 10):.4f} ms (bound {r2['bound_ms']:.4f} ms), "
           f"plain {rows['tri_build_fused']['plain_ms']:.4f} ms", flush=True)
 
     # kernel 9 on the tile-major form, one probe a lane, beside kernel 1
@@ -1073,18 +1081,18 @@ def phase_timing(inv, main, dev):
         mv_ops = 2 * B * 2 * t * t * (2 * T - nt)
         dense = flattri.dense_stacked(tri[idx.long()], nt).to(torch.bfloat16)
         Ub = U.to(torch.bfloat16)[..., None]
-        r = dict(ms=cuda_ms(lambda: flattri.tri_tiles_matvec_cuda(
-                     tiles, nt, idx, U, torch.float32), 50),
-                 plain_ms=cuda_ms(lambda: flattri.tri_tiles_matvec_plain(
-                     tiles, nt, idx, U, torch.float32), 3),
+        r = dict(ms=time_ms(lambda: flattri.tri_tiles_matvec_cuda(
+                     tiles, nt, idx, U, torch.float32), dev, 50),
+                 plain_ms=time_ms(lambda: flattri.tri_tiles_matvec_plain(
+                     tiles, nt, idx, U, torch.float32), dev, 3),
                  bound_ms=max(mv_bytes / HBM_BYTES_PER_S,
                               mv_ops / BF16_FLOPS) * 1e3,
                  bound_by=("bytes" if mv_bytes / HBM_BYTES_PER_S
                            > mv_ops / BF16_FLOPS else "operations"),
-                 library_ms=cuda_ms(lambda: torch.bmm(dense, Ub), 20))
+                 library_ms=time_ms(lambda: torch.bmm(dense, Ub), dev, 20))
         del dense
-        k1 = cuda_ms(lambda: flattri.tri_pool_matvec_cuda(
-            tri, nt, idx, U[:, None], torch.float32), 50)
+        k1 = time_ms(lambda: flattri.tri_pool_matvec_cuda(
+            tri, nt, idx, U[:, None], torch.float32), dev, 50)
         if B == 128:
             rows["tri_tiles_matvec"] = r
         print(f"timing tri_tiles_matvec B={B} one probe: kernel {r['ms']:.4f}"
@@ -1102,6 +1110,7 @@ def time_stacked_and_pattern(inv, main, dev):
     (f32 and bf16 M), held against their plain versions, then timed.
     Returns their rows of the kernels' JSON line and max errors."""
     import torch
+    from clipper_tpu_torch.bench.harness import time_ms
     from clipper_tpu_torch.ops import affinity_pallas, fused_matvec
     from clipper_tpu_torch.ops.affinity import (pairwise_from_endpoints,
                                                 stored_from_endpoints)
@@ -1118,10 +1127,10 @@ def time_stacked_and_pattern(inv, main, dev):
     b_bytes = W * 2 * M * M + 2 * W * M * 3 * 4 + W * M * 2 * 4 + W * 4
     bound_ms, bound_by = build_bound(b_bytes, W, M, BUILD_OPS_PER_PAIR)
     rows["stored_build"] = dict(
-        ms=cuda_ms(lambda: affinity_pallas.stored_build_cuda(
-            inv, P1s, P2s, At, mts), 10),
-        plain_ms=cuda_ms(lambda: stored_from_endpoints(
-            inv, P1s, P2s, At, m_true=mts), 2),
+        ms=time_ms(lambda: affinity_pallas.stored_build_cuda(
+            inv, P1s, P2s, At, mts), dev, 10),
+        plain_ms=time_ms(lambda: stored_from_endpoints(
+            inv, P1s, P2s, At, m_true=mts), dev, 2),
         bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
     torch.cuda.empty_cache()
 
@@ -1135,10 +1144,11 @@ def time_stacked_and_pattern(inv, main, dev):
             Mx, u, label, oracle=False))
         p_bytes = Mx.numel() * Mx.element_size() + W * M * 4 + 2 * W * M * 4
         p_ops = 4 * W * M * M
-        r = dict(ms=cuda_ms(lambda: fused_matvec.pattern_dual_matvec_cuda(
-                     Mx, u), 20),
-                 plain_ms=cuda_ms(
-                     lambda: fused_matvec.pattern_dual_matvec_plain(Mx, u), 3),
+        r = dict(ms=time_ms(lambda: fused_matvec.pattern_dual_matvec_cuda(
+                     Mx, u), dev, 20),
+                 plain_ms=time_ms(
+                     lambda: fused_matvec.pattern_dual_matvec_plain(Mx, u),
+                     dev, 3),
                  bound_ms=max(p_bytes / HBM_BYTES_PER_S,
                               p_ops / F32_FLOPS) * 1e3,
                  bound_by=("bytes" if p_bytes / HBM_BYTES_PER_S
@@ -1147,8 +1157,8 @@ def time_stacked_and_pattern(inv, main, dev):
         if Mx.dtype == torch.float32:
             # the yardstick: one bmm over the dense f32 [M; C], TF32 off
             MC = torch.cat([Md, (Md > 0).float()], dim=1)
-            r["library_ms"] = cuda_ms(lambda: torch.bmm(MC, u[..., None]),
-                                      10)
+            r["library_ms"] = time_ms(lambda: torch.bmm(MC, u[..., None]),
+                                      dev, 10)
             del MC
             rows["pattern_matvec"] = r
         print(f"timing pattern_matvec {label}: kernel {r['ms']:.4f} ms, "
@@ -1402,6 +1412,7 @@ def time_rows(inv, prob, dev):
     against its plain version at K=16 and K=1, then timed. Returns the
     K=16 row of the kernels' JSON line and the max abs error."""
     import torch
+    from clipper_tpu_torch.bench.harness import time_ms
     from clipper_tpu_torch.ops import symstore
 
     m = len(prob[2])
@@ -1422,15 +1433,15 @@ def time_rows(inv, prob, dev):
         mv_bytes = T * 2 * t * t + K * m * 2 + K * 2 * m * 4
         mv_ops = 2 * K * 2 * t * t * (2 * T - nt)
         Ut = U.to(torch.bfloat16).T.contiguous()
-        r = dict(ms=cuda_ms(lambda: symstore.sym_rows_matvec_cuda(
-                     chunks, nt, U), 10),
-                 plain_ms=cuda_ms(lambda: symstore.sym_rows_matvec_plain(
-                     chunks, nt, U), 2),
+        r = dict(ms=time_ms(lambda: symstore.sym_rows_matvec_cuda(
+                     chunks, nt, U), dev, 10),
+                 plain_ms=time_ms(lambda: symstore.sym_rows_matvec_plain(
+                     chunks, nt, U), dev, 2),
                  bound_ms=max(mv_bytes / HBM_BYTES_PER_S,
                               mv_ops / BF16_FLOPS) * 1e3,
                  bound_by=("bytes" if mv_bytes / HBM_BYTES_PER_S
                            > mv_ops / BF16_FLOPS else "operations"),
-                 library_ms=cuda_ms(lambda: torch.matmul(dense, Ut), 5))
+                 library_ms=time_ms(lambda: torch.matmul(dense, Ut), dev, 5))
         rows[K] = r
         print(f"timing sym_rows_matvec m={m} K={K}: kernel {r['ms']:.4f} ms, "
               f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), plain "
@@ -1447,6 +1458,7 @@ def time_tiles(inv, prob, dev):
     slices), then timed. Returns the K=16 row of the kernels' JSON line
     and the max abs error."""
     import torch
+    from clipper_tpu_torch.bench.harness import time_ms
     from clipper_tpu_torch.ops import symstore
 
     m = len(prob[2])
@@ -1467,15 +1479,15 @@ def time_tiles(inv, prob, dev):
         mv_bytes = T * 2 * t * t + K * m * 2 + K * 2 * m * 4
         mv_ops = 2 * K * 2 * t * t * (2 * T - nt)
         Ut = U.to(torch.bfloat16).T.contiguous()
-        r = dict(ms=cuda_ms(lambda: symstore.sym_tiles_matvec_cuda(
-                     tiles, nt, U, walks=walks), 10),
-                 plain_ms=cuda_ms(lambda: symstore.sym_tiles_matvec_plain(
-                     tiles, nt, U), 2),
+        r = dict(ms=time_ms(lambda: symstore.sym_tiles_matvec_cuda(
+                     tiles, nt, U, walks=walks), dev, 10),
+                 plain_ms=time_ms(lambda: symstore.sym_tiles_matvec_plain(
+                     tiles, nt, U), dev, 2),
                  bound_ms=max(mv_bytes / HBM_BYTES_PER_S,
                               mv_ops / BF16_FLOPS) * 1e3,
                  bound_by=("bytes" if mv_bytes / HBM_BYTES_PER_S
                            > mv_ops / BF16_FLOPS else "operations"),
-                 library_ms=cuda_ms(lambda: torch.matmul(dense, Ut), 5))
+                 library_ms=time_ms(lambda: torch.matmul(dense, Ut), dev, 5))
         rows[K] = r
         print(f"timing sym_tiles_matvec m={m} K={K}: kernel {r['ms']:.4f} "
               f"ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), plain "
@@ -1729,6 +1741,7 @@ def phase_pointnormal(pn_inv, pn_main, dev):
     import torch
     from clipper_tpu_torch import Clipper
     from clipper_tpu_torch.bench import data, harness
+    from clipper_tpu_torch.bench.harness import time_ms
     from clipper_tpu_torch.ops.affinity import build_affinity
     from clipper_tpu_torch.types import Params
 
@@ -1751,7 +1764,8 @@ def phase_pointnormal(pn_inv, pn_main, dev):
     require(launches["affinity_build"] == 1, "point-normal facade: "
             f"affinity_build launched {launches['affinity_build']} times "
             "in one score_pairwise_consistency, not once")
-    build_ms = cuda_ms(lambda: c.score_pairwise_consistency(D1.T, D2.T, A), 3)
+    build_ms = time_ms(
+        lambda: c.score_pairwise_consistency(D1.T, D2.T, A), dev, 3)
     t0 = time.perf_counter()
     sol = c.solve(u0=u0)
     torch.cuda.synchronize()
@@ -1759,7 +1773,7 @@ def phase_pointnormal(pn_inv, pn_main, dev):
     D1t = torch.as_tensor(D1, device=dev)
     D2t = torch.as_tensor(D2, device=dev)
     At = torch.as_tensor(A, device=dev)
-    plain_ms = cuda_ms(lambda: build_affinity(pn_inv, D1t, D2t, At), 2)
+    plain_ms = time_ms(lambda: build_affinity(pn_inv, D1t, D2t, At), dev, 2)
     mask = sol.mask.cpu().numpy()
     require(mask.shape == (PN_M,) and bool(torch.isfinite(sol.u).all())
             and np.isfinite(float(sol.score)), "point-normal facade: bad "
@@ -1948,6 +1962,7 @@ def time_pn_and_dense(inv, pn_inv, check, pn_main, dev):
     and its max error."""
     import torch
     from clipper_tpu_torch.bench import harness
+    from clipper_tpu_torch.bench.harness import time_ms
     from clipper_tpu_torch.ops import affinity_pallas, flattri
     from clipper_tpu_torch.ops.affinity import (gather_endpoints,
                                                 pairwise_from_endpoints,
@@ -1972,10 +1987,10 @@ def time_pn_and_dense(inv, pn_inv, check, pn_main, dev):
         bound_ms, bound_by = build_bound(
             2 * m * m * 4 + 2 * m * d * 4 + m * 2 * 4, 1, m,
             PN_OPS_PER_PAIR if d == 6 else BUILD_OPS_PER_PAIR)
-        r = dict(ms=cuda_ms(lambda: affinity_pallas.affinity_build_cuda(
-                     iv, X1, X2, XA), 10),
-                 plain_ms=cuda_ms(lambda: pairwise_from_endpoints(
-                     iv, X1, X2, XA), 2),
+        r = dict(ms=time_ms(lambda: affinity_pallas.affinity_build_cuda(
+                     iv, X1, X2, XA), dev, 10),
+                 plain_ms=time_ms(lambda: pairwise_from_endpoints(
+                     iv, X1, X2, XA), dev, 2),
                  bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
         rows.setdefault("affinity_build", r)
         print(f"timing affinity_build {label} f32: kernel {r['ms']:.4f} ms, "
@@ -2010,13 +2025,207 @@ def time_pn_and_dense(inv, pn_inv, check, pn_main, dev):
                                            m_true=mts))):
         bound, by = build_bound(out_bytes + in_bytes, W_MAIN, M,
                                 PN_OPS_PER_PAIR)
-        ms = cuda_ms(kernel, 10)
-        pms = cuda_ms(plain, 1)
+        ms = time_ms(kernel, dev, 10)
+        pms = time_ms(plain, dev, 1)
         torch.cuda.empty_cache()
         print(f"timing {name} point-normal W={W_MAIN} m={M} int8: kernel "
               f"{ms:.4f} ms, bound {bound:.4f} ms ({by}), plain {pms:.4f} ms",
               flush=True)
     return rows["affinity_build"], err
+
+
+# ---------------------------------------------------------------------------
+# the bench layer: the build-anatomy probe and the drivers
+# ---------------------------------------------------------------------------
+
+PROBE_B, PROBE_M = 512, 1024        # the JAX probe's defaults
+PROBE_EDGE_B, PROBE_EDGE_M = 16, 1000   # an edge tile: no block divides m
+PROBE_CHUNK = 64                    # problems a plain-version check takes
+
+
+def check_probe(B: int, m: int, dev):
+    """Phase 7's bars at (B, m) on the probe's inputs: full byte-equal to
+    stored_build (m_true = m), writeonly all zeros, and sqrt1, noexp,
+    nosqrt and full against build_probe_plain (C half exact, M codes
+    within one; the count of differing codes printed, 0 expected: the
+    kernel and the plain version take the same IEEE f32 steps). Returns
+    the max |code diff|."""
+    import torch
+    from clipper_tpu_torch.bench import build_probe as bp
+    from clipper_tpu_torch.bench import harness
+    from clipper_tpu_torch.ops import affinity_pallas
+
+    P1, P2, A = (torch.from_numpy(x).to(dev) for x in bp.make_inputs(B, m))
+    mts = torch.full((B,), m, dtype=torch.int32, device=dev)
+    ref = affinity_pallas.stored_build_cuda(harness.default_invariant(),
+                                            P1, P2, A, mts)
+    full = bp.build_probe_cuda("full", P1, P2, A)
+    nd = int((full != ref).sum())
+    print(f"probe B={B} m={m}: full vs stored_build: {nd} of "
+          f"{full.numel()} bytes differ", flush=True)
+    require(nd == 0, f"probe full differs from stored_build at B={B}, m={m}")
+    del ref, full
+    require(not bool(bp.build_probe_cuda("writeonly", P1, P2, A).any()),
+            f"probe writeonly wrote non-zeros at B={B}, m={m}")
+    worst = 0
+    for v in ("full", "sqrt1", "noexp", "nosqrt"):
+        out = bp.build_probe_cuda(v, P1, P2, A)
+        c_equal, ndiff, maxd = True, 0, 0
+        for s in range(0, B, PROBE_CHUNK):
+            e = min(B, s + PROBE_CHUNK)
+            plain = bp.build_probe_plain(v, P1[s:e], P2[s:e], A[s:e])
+            c_equal &= bool(torch.equal(out[s:e, m:], plain[:, m:]))
+            d = (out[s:e, :m].int() - plain[:, :m].int()).abs()
+            ndiff += int((d > 0).sum())
+            maxd = max(maxd, int(d.max()))
+            del plain, d
+        kept = int((out[:, m:] != 0).sum())
+        print(f"probe {v} B={B} m={m}: C half exact {c_equal} ({kept} kept),"
+              f" {ndiff} M codes differ from the plain version (max "
+              f"{maxd})", flush=True)
+        require(c_equal and maxd <= 1, f"probe {v} disagrees with its plain "
+                f"version at B={B}, m={m}")
+        worst = max(worst, maxd)
+        del out
+    torch.cuda.empty_cache()
+    return worst
+
+
+def phase_probe(dev):
+    """7: the probe's bars at the JAX probe's shapes and at an edge tile,
+    then build_probe.main(["512", "1024"]) with the launch counts set to 0
+    just before it and read just after. Returns the build_probe row of
+    the kernels' line, its launches and its max error."""
+    import torch
+    from clipper_tpu_torch import _kernels
+    from clipper_tpu_torch.bench import build_probe as bp
+    from clipper_tpu_torch.bench.harness import time_ms
+
+    err = max(check_probe(PROBE_B, PROBE_M, dev),
+              check_probe(PROBE_EDGE_B, PROBE_EDGE_M, dev))
+    _kernels.reset_launches()
+    variants = bp.main([str(PROBE_B), str(PROBE_M), "--device=cuda"])
+    torch.cuda.synchronize()
+    launches = dict(_kernels.LAUNCHES)
+    print(f"probe driver launches: {launches}", flush=True)
+    require(launches["build_probe"] > 0 and launches["stored_build"] > 0,
+            f"the probe driver launched no probe kernel: {launches}")
+    require(set(variants) == set(bp.VARIANTS) and all(
+        np.isfinite(v) and v > 0 for v in variants.values()),
+        f"probe times {variants}")
+
+    P1, P2, A = (torch.from_numpy(x).to(dev)
+                 for x in bp.make_inputs(PROBE_B, PROBE_M))
+    in_bytes = 2 * PROBE_B * PROBE_M * 3 * 4 + PROBE_B * PROBE_M * 2 * 4
+    bound_ms, bound_by = build_bound(
+        2 * PROBE_B * PROBE_M * PROBE_M + in_bytes, PROBE_B, PROBE_M,
+        BUILD_OPS_PER_PAIR)
+    plain_ms = time_ms(lambda: bp.build_probe_plain("full", P1, P2, A), dev, 2)
+    del P1, P2, A
+    torch.cuda.empty_cache()
+    row = dict(ms=variants["full"], plain_ms=plain_ms, bound_ms=bound_ms,
+               bound_by=bound_by, library_ms=None,
+               variants_ms={v: float(variants[v]) for v in bp.VARIANTS})
+    print(f"timing build_probe B={PROBE_B} m={PROBE_M}: full {row['ms']:.4f}"
+          f" ms, bound {bound_ms:.4f} ms ({bound_by}; write bound "
+          f"{bp.write_bound_ms(PROBE_B, PROBE_M):.4f} ms), plain "
+          f"{plain_ms:.4f} ms, variants {row['variants_ms']}", flush=True)
+    return row, launches["build_probe"], err
+
+
+BENCH_P, BENCH_R = 0.995, 0.88    # the bench protocol's bars
+DENSE_R = 0.85                     # the dense engine's recall bar at m=1024
+
+
+def driver_call(label, run, need=()):
+    """One driver call with the launch counts set to 0 just before it and
+    read just after; requires each kernel of ``need`` launched. Returns
+    (result, launches)."""
+    import torch
+    from clipper_tpu_torch import _kernels
+    _kernels.reset_launches()
+    t0 = time.perf_counter()
+    out = run()
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in _kernels.LAUNCHES.items() if v}
+    print(f"driver {label}: {time.perf_counter() - t0:.1f} s, launches "
+          f"{launches}", flush=True)
+    missing = [k for k in need if not launches.get(k)]
+    require(not missing, f"driver {label}: kernels never launched: "
+            f"{missing}")
+    return out, launches
+
+
+def check_bench_rows(label, rows, p_bar=BENCH_P, r_bar=BENCH_R):
+    """Finite P/R on every row; the rows at the bench protocol's point
+    (m=1024, rho=0.9) at the bars."""
+    for row in rows:
+        P, R = row["precision"], row["recall"]
+        require(np.isfinite(P) and np.isfinite(R),
+                f"{label}: non-finite P/R in {row}")
+        if row.get("m", M) == M and row.get("rho", RHO) == RHO:
+            require(P >= p_bar and R >= r_bar, f"{label}: P={P:.4f} "
+                    f"R={R:.4f} at m={M}, rho={RHO} (bars {p_bar}, "
+                    f"{r_bar})")
+
+
+def phase_drivers(dev):
+    """8: each ported driver's main() in-process on the card at a small
+    setting, and the harness's trials through the dense build kernel."""
+    from clipper_tpu_torch.bench import (grid_tpu, gridcell_probe, harness,
+                                         mixed_bench, multistart_bench,
+                                         pool_ab, symshard_bench,
+                                         symstore_bench, tickstats)
+    cuda = f"--device={dev.type}"
+    rows, _ = driver_call("grid_tpu (4 trials a cell)",
+                          lambda: grid_tpu.main(["4", cuda]),
+                          ("tri_build", "tri_matvec", "stored_build"))
+    require(len(rows) == 25, f"grid_tpu: {len(rows)} rows, not 25")
+    check_bench_rows("grid_tpu", rows)
+    rows, _ = driver_call("pool_ab W=128", lambda: pool_ab.main(["128",
+                                                                   cuda]),
+                          ("tri_build", "tri_matvec", "stored_build"))
+    check_bench_rows("pool_ab", rows)
+    out, _ = driver_call("tickstats B=128", lambda: tickstats.main(
+        ["128", cuda]))
+    require(int(out["ticks"].min()) > 0, "tickstats: a lane took no tick")
+    rows, _ = driver_call("gridcell_probe W=8 m=2048",
+                          lambda: gridcell_probe.main(["8", "2048", cuda]),
+                          ("stored_build",))
+    check_bench_rows("gridcell_probe", rows)
+    out, _ = driver_call("mixed_bench 8 a size", lambda: mixed_bench.main(
+        ["8", "1", cuda]), ("stored_build",))
+    check_bench_rows("mixed_bench", [dict(out, m=None)])
+    out, _ = driver_call("multistart_bench W=32 K=4",
+                         lambda: multistart_bench.main(["32", "4", "1",
+                                                        cuda]),
+                         ("stored_build",))
+    check_bench_rows("multistart_bench", [out["single"], out["multi"]])
+    driver_call("symstore_bench m=8192 --mv-only",
+                lambda: symstore_bench.main(["8192", "--mv-only", cuda]),
+                ("sym_tiles_matvec", "sym_rows_matvec", "stored_build"))
+    with one_rank_group(dev):
+        out, _ = driver_call("symshard_bench m=8192 (1-rank NCCL group)",
+                             lambda: symshard_bench.main(["8192", cuda]),
+                             ("sym_rows_matvec",))
+    require(out["ranks"] == 1, "symshard_bench did not take the group")
+    check_bench_rows("symshard_bench", [dict(out, m=None)])
+    # the harness's trials: the dense engine, its build on kernel 6
+    rows, _ = driver_call(f"harness.run_grid m={M} rho={RHO} (4 trials)",
+                          lambda: harness.run_grid((M,), (RHO,), n_trials=4,
+                                                   device=dev),
+                          ("affinity_build",))
+    check_bench_rows("run_grid", rows, r_bar=DENSE_R)
+    trial, _ = driver_call(
+        f"harness.run_pointnormal_trial m={PN_M}",
+        lambda: harness.run_pointnormal_trial(np.random.default_rng(0),
+                                              device=dev),
+        ("affinity_build",))
+    print(f"point-normal trial: build {trial.t_affinity * 1e3:.3f} ms, solve "
+          f"{trial.t_solver * 1e3:.3f} ms, P={trial.p:.4f} R={trial.r:.4f}",
+          flush=True)
+    check_bench_rows("run_pointnormal_trial", [dict(precision=trial.p,
+                                              recall=trial.r, m=None)])
 
 
 def main() -> None:
@@ -2101,6 +2310,11 @@ def main() -> None:
     rows["affinity_build"], e = time_pn_and_dense(inv, pn_inv, check,
                                                   pn_main, dev)
     errs["affinity_build"] = max(errs["affinity_build"], e)
+    (rows["build_probe"], launches["build_probe"],
+     errs["build_probe"]) = phase_probe(dev)
+    t0 = time.perf_counter()
+    phase_drivers(dev)
+    print(f"drivers: {time.perf_counter() - t0:.1f} s", flush=True)
     if "--profile" in sys.argv[1:]:
         phase_profile(inv, main_data, cap, dev)
 
@@ -2115,6 +2329,7 @@ def main() -> None:
         "affinity_build": "clipper_tpu/ops/affinity_pallas.py:42",
         "tri_build_fused": "clipper_tpu/ops/flattri.py:567",
         "tri_tiles_matvec": "clipper_tpu/ops/flattri.py:283",
+        "build_probe": "clipper_tpu/bench/build_probe.py:135",
     }
     kernels = [dict(name=name, route="cuda", source=f"{src}{name}.cu",
                     replaces=where, launches=launches[name],

@@ -42,6 +42,7 @@ SOURCES: Dict[str, list] = {
     "affinity_build": ["--fmad=false"],
     "tri_build_fused": ["--fmad=false"],
     "tri_tiles_matvec": [],
+    "build_probe": ["--fmad=false"],
 }
 
 _P = ctypes.c_void_p
@@ -74,6 +75,7 @@ _SIGNATURES = {
     "stored_build_bf16": [_P, _P, _P, _P, _P, _I, _I, *_SCORE, _P],
     "pattern_matvec_f32": [_P, _P, _P, _P, _I, _I, _I, _P],
     "pattern_matvec_bf16": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "build_probe_int8": [_I, _P, _P, _P, _P, _P, _I, _I, _D, _D, _D, _P],
 }
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in SOURCES}

@@ -15,7 +15,7 @@ import pytest
 import torch
 
 from clipper_tpu_torch import _kernels
-from clipper_tpu_torch.bench import harness
+from clipper_tpu_torch.bench import build_probe, harness
 from clipper_tpu_torch.ops import (affinity_pallas, flattri, fused_matvec,
                                    symstore)
 from clipper_tpu_torch.ops.affinity import gather_endpoints
@@ -44,7 +44,7 @@ def test_every_source_is_built():
     assert on_disk == set(_kernels.SOURCES) == set(_kernels.LAUNCHES)
     # the build kernels are compiled without FMA contraction
     for name in ("tri_build", "tri_build_fused", "stored_build",
-                 "affinity_build"):
+                 "affinity_build", "build_probe"):
         assert "--fmad=false" in _kernels.SOURCES[name]
     names = {_kernels._target(n).name for n in _kernels.SOURCES}
     assert len(names) == len(_kernels.SOURCES)
@@ -406,3 +406,30 @@ def test_tri_tiles_kernel_matches_plain(cuda, storage, t):
         assert float((x - z).abs().max()) <= tol
     again = flattri.make_tri_pool_matvec_tiles(tiles, nt, fdt)(idx, U)
     assert all(torch.equal(x, y) for x, y in zip(a, again))
+
+
+@pytest.mark.cuda
+def test_build_probe_kernel_matches_plain(cuda):
+    """The five variants of the build probe at B=4, m=1000 (an edge tile):
+    full byte-equal to kernel 4 and to its plain version, writeonly all
+    zeros, sqrt1, noexp and nosqrt with the C half exact and M codes
+    within one of their plain versions (0 expected: the same IEEE f32
+    steps); one launch a call."""
+    B, m = 4, 1000
+    P1, P2, A = (torch.from_numpy(x).to(cuda)
+                 for x in build_probe.make_inputs(B, m, seed=2))
+    ref = affinity_pallas.stored_build_cuda(
+        harness.default_invariant(), P1, P2, A,
+        torch.full((B,), m, device=cuda))
+    for variant in build_probe.VARIANTS:
+        before = _kernels.LAUNCHES["build_probe"]
+        got = build_probe.build_probe(variant, P1, P2, A)
+        assert _kernels.LAUNCHES["build_probe"] == before + 1
+        assert got.shape == (B, 2 * m, m) and got.dtype == torch.int8
+        plain = build_probe.build_probe_plain(variant, P1, P2, A)
+        assert torch.equal(got[:, m:], plain[:, m:])
+        assert int((got[:, :m].int() - plain[:, :m].int()).abs().max()) <= 1
+        if variant == "full":
+            assert torch.equal(got, ref) and torch.equal(got, plain)
+        if variant == "writeonly":
+            assert not got.any()

@@ -50,6 +50,15 @@ def test_import_pulls_in_no_jax():
         "import clipper_tpu_torch.parallel.batched\n"
         "import clipper_tpu_torch.parallel.buckets\n"
         "import clipper_tpu_torch.bench.cpu_mesh_run\n"
+        "import clipper_tpu_torch.bench.build_probe\n"
+        "import clipper_tpu_torch.bench.grid_tpu\n"
+        "import clipper_tpu_torch.bench.gridcell_probe\n"
+        "import clipper_tpu_torch.bench.mixed_bench\n"
+        "import clipper_tpu_torch.bench.multistart_bench\n"
+        "import clipper_tpu_torch.bench.pool_ab\n"
+        "import clipper_tpu_torch.bench.symshard_bench\n"
+        "import clipper_tpu_torch.bench.symstore_bench\n"
+        "import clipper_tpu_torch.bench.tickstats\n"
         "import clipper_tpu_torch.invariants.pointnormal\n"
         "import chip_smoke\n"
         "bad = [k for k in sys.modules if k.split('.')[0] in "
