@@ -32,12 +32,25 @@ Phases, each of which must pass (any failure exits non-zero):
               form of the check storage, int8, f32 and f64 (<= 1e-4
               against its plain version and the tri matvec at K=1,
               <= 1.1e-5 against an f64 oracle, all three <= 1e-12 for f64
-              storage, a rerun bit-identical).
+              storage, a rerun bit-identical). In bf16 storage (the JAX
+              package's default): the tri build and the fused build (both
+              invariants, C exact, no M value differing, byte-equal to
+              each other), the tri matvec (B=128, K=16 and B=16, K=1), the
+              tri matvec at nt=9 (one m=2304 problem, t=256, int8 and
+              bf16), each against its plain version (<= 1e-4), an f64
+              oracle (<= 1.1e-5) and a rerun bit for bit, the tiles
+              matvec, and the rows and tile-list matvecs on one m=1024
+              problem's bf16 storage (t=128; K=16, K=1, D=3 slices).
 3. pool     — the bench protocol through make_pool_pipeline: W=512
               problems, m=1024, 90% outliers, bench.py's settings (1 warm-up
               call and 3 timed calls). Prints P/R, problems/s, per-stage times
               and the kernels' launch counts; requires P >= 0.995, R >= 0.88
               and both pool kernels launched.
+3g. bf16    — the same protocol with storage_dtype=torch.bfloat16 (one
+              counted call and 2 timed calls): the P/R bars, tri_build
+              launched once a call (no plain build) and tri_matvec
+              launched; prints problems/s and stage ms. (Run right after
+              phase 3.)
 3b. stacked — the same 512 problems through make_pool_pipeline(
               layout="stacked", int8, power_steps=4, window=12, lanes=128),
               bench/pool_ab.py's settings, same protocol: the P/R bars and
@@ -79,9 +92,10 @@ Phases, each of which must pass (any failure exits non-zero):
               solve's and F within 1e-6 relative. Each requires P >= 0.995
               and R >= 0.88 and prints the stage times and shares of one
               warm call, its ticks, ifinal, F, storage GB and wall time.
-5. parity   — W=16 pool problems on cuda and on cpu: masks equal on >= 15
-              of 16, mean P/R within 1 point; the same for the stacked pool
-              and the fused batched engine at W=16, and for multistart at
+5. parity   — W=16 pool problems on cuda and on cpu, int8 and bf16 tri
+              pools: masks equal on >= 15 of 16, mean P/R within 1 point;
+              the same for the stacked pool and the fused batched engine
+              at W=16, and for multistart at
               W=8, K=4 (the chosen restart and the mask equal on >= 7 of
               8); the facade's triangle engine at m=8192 on cuda and on
               cpu, row-chunked and tile list: mask IoU >= 0.95 and
@@ -106,7 +120,12 @@ Phases, each of which must pass (any failure exits non-zero):
               m=1024 bunny, the point-normal tri and stacked builds at
               W=512) held against its plain version as in phase 2, then
               timed beside its bound, its plain version and, where one
-              exists, one PyTorch call computing the same function.
+              exists, one PyTorch call computing the same function. The
+              tri matvec, the tri and fused builds and the tiles matvec
+              again over bf16 storage, and the rows and tile-list matvecs
+              over the m=65,536 problem's bf16 storage at K=16: their
+              numbers go into a "bf16" field of each row of the kernels'
+              line.
 7. probe    — the build-anatomy probe (csrc/build_probe.cu) on the JAX
               probe's inputs at B=512, m=1024 and at an edge tile (B=16,
               m=1000): full byte-equal to the stacked build, writeonly all
@@ -133,11 +152,11 @@ line is {"ok": true, "device": {...}}.
 
 Usage: python3 chip_smoke.py [--quick] [--profile]
   --quick    phases 1-2 only
-  --profile  also run the pool path, the stacked pool, the fused batched
-             engine and the capacity path (row-chunked, tile list, and
-             sharded "xla" at D=1) once each under torch.profiler and
-             print the device's busy share
-             and the kernels that take its time
+  --profile  also run the pool path (int8 and bf16), the stacked pool,
+             the fused batched engine and the capacity path (row-chunked,
+             tile list, and sharded "xla" at D=1) once each under
+             torch.profiler and print the device's busy share and the
+             kernels that take its time
 """
 
 from __future__ import annotations
@@ -206,6 +225,15 @@ def build_bound(b_bytes, W, m, ops_per_pair):
             "bytes" if t_bytes > t_ops else "operations")
 
 
+def bound_of(n_bytes, n_ops, peak=None):
+    """bound_ms and bound_by of a kernel moving n_bytes and doing n_ops
+    operations (bf16 tensor-core peak unless ``peak``)."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S
+    t_ops = n_ops / (peak or BF16_FLOPS)
+    return dict(bound_ms=max(t_bytes, t_ops) * 1e3,
+                bound_by="bytes" if t_bytes > t_ops else "operations")
+
+
 def require(cond: bool, msg: str) -> None:
     if not cond:
         fail(msg)
@@ -253,30 +281,33 @@ def unit_rows(gen, B, K, dev, m=None):
 
 
 def check_build(tri_k, tri_p, t, label):
-    """tri_build output against the plain build: same shape, C half
-    exact, and no M code differing (kernel and plain take the same IEEE
-    f32 steps, true division and no FMA contraction, the same CUDA
-    library sqrt, exp and acos, and round half to even). Returns the max
-    |code diff|."""
+    """tri_build output against the plain build: same shape and dtype, C
+    half exact, and no M value differing (kernel and plain take the same
+    IEEE f32 steps, true division and no FMA contraction, the same CUDA
+    library sqrt, exp and acos, and round half to even, to an int8 code or
+    a bf16 value). Returns the max |M diff| (codes or values)."""
     import torch
-    require(tri_k.shape == tri_p.shape, f"tri_build {label}: shape "
-            f"{tuple(tri_k.shape)} vs plain {tuple(tri_p.shape)}")
+    require(tri_k.shape == tri_p.shape and tri_k.dtype == tri_p.dtype,
+            f"tri_build {label}: {tuple(tri_k.shape)} {tri_k.dtype} vs "
+            f"plain {tuple(tri_p.shape)} {tri_p.dtype}")
     c_equal = bool(torch.equal(tri_k[:, t:], tri_p[:, t:]))
-    dM = (tri_k[:, :t].int() - tri_p[:, :t].int()).abs()
+    dM = (tri_k[:, :t].float() - tri_p[:, :t].float()).abs()
     n_diff = int((dM > 0).sum())
-    build_err = int(dM.max())
+    build_err = float(dM.max())
     nnz = int((tri_p[:, t:] > 0).sum())
     print(f"tri_build vs plain ({label}): C exact={c_equal}, "
-          f"M codes differing={n_diff} of {nnz} stored edges, "
-          f"max |code diff|={build_err}", flush=True)
+          f"M values differing={n_diff} of {nnz} stored edges, "
+          f"max |M diff|={build_err}", flush=True)
     require(c_equal, f"tri_build {label}: C half differs from the plain build")
-    require(n_diff == 0, f"tri_build {label}: {n_diff} M codes differ")
+    require(n_diff == 0, f"tri_build {label}: {n_diff} M values differ")
     return build_err
 
 
-def check_matvec(tri, nt, idx, U, label):
-    """tri_matvec against the plain version on the same inputs; returns
-    the max abs error."""
+def check_matvec(tri, nt, idx, U, label, oracle=False):
+    """tri_matvec against the plain version on the same inputs (<= 1e-4);
+    with oracle, also against an f64 oracle on the same content and
+    bf16-rounded u (<= 1.1e-5) and a rerun bit for bit. Returns the max
+    |kernel - plain|."""
     import torch
     from clipper_tpu_torch.ops import flattri
     MUk, CUk = flattri.tri_pool_matvec_cuda(tri, nt, idx, U, torch.float32)
@@ -284,8 +315,22 @@ def check_matvec(tri, nt, idx, U, label):
     require(bool(torch.isfinite(MUk).all() & torch.isfinite(CUk).all()),
             f"tri_matvec {label}: non-finite output")
     err = max(float((MUk - MUp).abs().max()), float((CUk - CUp).abs().max()))
-    print(f"tri_matvec vs plain ({label}): max|kernel - plain|={err:.3e}",
-          flush=True)
+    msg = f"tri_matvec vs plain ({label}): max|kernel - plain|={err:.3e}"
+    if oracle:
+        MUo, CUo = flattri.tri_pool_matvec_plain(
+            tri.double(), nt, idx, U.bfloat16().double(), torch.float64)
+        s = 1 / 127 if tri.dtype == torch.int8 else 1.0
+        e_o = max(float((MUk.double() - MUo * s).abs().max()),
+                  float((CUk.double() - CUo * s).abs().max()))
+        again = flattri.tri_pool_matvec_cuda(tri, nt, idx, U, torch.float32)
+        same = bool(torch.equal(MUk, again[0]) and torch.equal(CUk,
+                                                               again[1]))
+        msg += (f", max|kernel - f64 oracle|={e_o:.3e}, rerun "
+                f"bit-identical={same}")
+        require(e_o <= ORACLE_TOL, f"tri_matvec {label} exceeds "
+                f"{ORACLE_TOL} against the f64 oracle")
+        require(same, f"tri_matvec {label}: a rerun is not bit-identical")
+    print(msg, flush=True)
     require(err <= MATVEC_TOL, f"tri_matvec {label} disagrees with plain")
     return err
 
@@ -390,15 +435,8 @@ def phase_kernels(inv, check, dev):
         idx = torch.randint(0, W_CHECK, (B,), generator=gen, device=dev,
                             dtype=torch.int32)
         U = unit_rows(gen, B, K, dev)
-        errs[K] = check_matvec(tri_k, nt, idx, U, f"int8, B={B}, K={K}")
-        MUk, CUk = flattri.tri_pool_matvec_cuda(tri_k, nt, idx, U,
-                                                torch.float32)
-        MUo, CUo = flattri.tri_pool_matvec_plain(
-            tri_k.double(), nt, idx, U.bfloat16().double(), torch.float64)
-        e_oracle = max(float((MUk.double() - MUo / 127).abs().max()),
-                       float((CUk.double() - CUo / 127).abs().max()))
-        print(f"tri_matvec int8 B={B} K={K}: max|kernel - f64 oracle|="
-              f"{e_oracle:.3e}", flush=True)
+        errs[K] = check_matvec(tri_k, nt, idx, U, f"int8, B={B}, K={K}",
+                               oracle=True)
 
     # float storage kinds (the f32 / f64 kernels), on the full-precision
     # storage of the first 4 problems
@@ -700,15 +738,16 @@ def first(D1, W):
     return D1[:W] if np.ndim(D1) == 3 else D1
 
 
-def run_pipeline(inv, data_, dev, W, timings=None):
+def run_pipeline(inv, data_, dev, W, timings=None, storage=None):
+    """bench.py's tri pool (int8 storage unless ``storage`` says)."""
     import torch
     from clipper_tpu_torch.parallel import pool
     from clipper_tpu_torch.types import Params
     D1, D2s, As, _, u0s = data_
     pipe = pool.make_pool_pipeline(inv, Params(), lanes=128, window=2,
-                                   storage_dtype=torch.int8, power_steps=4,
-                                   layout="tri", tri_probes=16, d_scale=0.15,
-                                   device=dev)
+                                   storage_dtype=storage or torch.int8,
+                                   power_steps=4, layout="tri",
+                                   tri_probes=16, d_scale=0.15, device=dev)
     return pipe(first(D1, W), D2s[:W], As[:W], u0s[:W], timings=timings)
 
 
@@ -964,9 +1003,38 @@ def compare_devices(label, sg, sc, As, Agts, W, need, restarts=False):
             f"{label}: cuda/cpu P/R differ > 1pt")
 
 
+def run_pipeline_bf16(inv, data_, dev, W, timings=None):
+    import torch
+    return run_pipeline(inv, data_, dev, W, timings, storage=torch.bfloat16)
+
+
+def phase_bf16_pool(inv, main, dev):
+    """3g: bench.py's tri pool protocol with bf16 storage (the JAX
+    package's default): the W=512 problems, one counted call (also the
+    warm-up) and 2 timed calls; the P/R bars, the tri build kernel
+    launched once a call (no plain build) and the tri matvec launched."""
+    _, _, As, Agts, _ = main
+    sol, launches = counted_call(
+        lambda: run_pipeline_bf16(inv, main, dev, W_MAIN))
+    timings = {}
+    sol, secs = timed_calls(lambda: run_pipeline_bf16(
+        inv, main, dev, W_MAIN, timings=timings), 2)
+    P, R = check_quality("bf16 tri pool", As, sol, Agts, W_MAIN)
+    print(f"bf16 tri pool: W={W_MAIN} m={M}: precision={P * 100:.2f}% "
+          f"recall={R * 100:.2f}%  {W_MAIN / secs:.1f} problems/s "
+          f"({secs * 1e3:.1f} ms/batch, mean of 2 after 1 warm-up); stage "
+          "ms " + ", ".join(f"{k}={v:.3f}" for k, v in timings.items())
+          + f"; launches {launches}", flush=True)
+    require(launches["tri_build"] == 1 and launches["tri_matvec"] > 0,
+            f"bf16 tri pool: tri_build once and tri_matvec expected: "
+            f"{launches}")
+    return launches
+
+
 def phase_parity(inv, check, dev):
     _, _, As, Agts, _ = check
     for label, run in (("tri pool", run_pipeline),
+                       ("bf16 tri pool", run_pipeline_bf16),
                        ("stacked pool", run_stacked),
                        ("fused batched", run_batched)):
         compare_devices(label, run(inv, check, dev, W_CHECK),
@@ -1041,6 +1109,7 @@ def phase_timing(inv, main, dev):
         if K == 16:
             rows["tri_matvec"] = r
         extra.append((B, K, r))
+    rows["tri_matvec"]["int8_B512_K1"] = dict(extra[-1][2])
     for name, r in rows.items():
         print(f"timing {name}: kernel {r['ms']:.4f} ms, bound "
               f"{r['bound_ms']:.4f} ms ({r['bound_by']}), plain "
@@ -1101,6 +1170,84 @@ def phase_timing(inv, main, dev):
               f"{r['plain_ms']:.4f} ms, bmm over dense bf16 [M; C] "
               f"{r['library_ms']:.4f} ms", flush=True)
     del tiles
+    torch.cuda.empty_cache()
+
+    # the same kernels writing and reading bf16 storage: the builds (2 and
+    # 8), the tri matvec (1) and the tiles matvec (9); their numbers go
+    # into each row's "bf16" field
+    bf = torch.bfloat16
+
+    def build_bf():
+        return flattri.build_tri_cuda(inv, P1s, P2s, At, mts, t=t,
+                                      storage_dtype=bf)
+
+    tri_bf = build_bf()
+    build_err = max(build_err, check_build(tri_bf, flattri.build_tri_plain(
+        inv, P1s, P2s, At, mts, t=t, storage_dtype=bf), t,
+        f"bf16, W={W_MAIN}, m={M}"))
+    require(bool(torch.equal(flattri.build_tri_fused_cuda(
+        inv, P1s, P2s, At, mts, t=t, storage_dtype=bf), tri_bf)),
+        "tri_build_fused differs from tri_build in bf16 at W=512")
+    bb_ms, bb_by = build_bound(b_bytes + W_MAIN * 2 * t * S, W_MAIN, M,
+                               BUILD_OPS_PER_PAIR)
+    plain_bf = time_ms(lambda: flattri.build_tri_plain(
+        inv, P1s, P2s, At, mts, t=t, storage_dtype=bf), dev, 2)
+    for name, fn in (("tri_build", build_bf),
+                     ("tri_build_fused", lambda: flattri.build_tri_fused_cuda(
+                         inv, P1s, P2s, At, mts, t=t, storage_dtype=bf))):
+        rows[name]["bf16"] = dict(ms=time_ms(fn, dev, 10), plain_ms=plain_bf,
+                                  bound_ms=bb_ms, bound_by=bb_by,
+                                  library_ms=None)
+        print(f"timing {name} bf16 W={W_MAIN} m={M}: kernel "
+              f"{rows[name]['bf16']['ms']:.4f} ms, bound {bb_ms:.4f} ms "
+              f"({bb_by}), plain {plain_bf:.4f} ms", flush=True)
+    for B, K in ((128, 16), (W_MAIN, 1)):
+        idx = torch.randperm(W_MAIN, generator=gen, device=dev)[:B].to(
+            torch.int32)
+        U = unit_rows(gen, B, K, dev)
+        mv_err = max(mv_err, check_matvec(tri_bf, nt, idx, U,
+                                          f"bf16, B={B}, K={K}"))
+        mv_bytes = B * 2 * t * S * 2 + B * K * M * 2 + B * K * 2 * M * 4
+        mv_ops = 2 * K * B * (2 * t * S + 2 * t * t * (T - nt))
+        dense = flattri.dense_stacked(tri_bf[idx.long()], nt)
+        Ut = U.to(bf).transpose(1, 2).contiguous()
+        r = dict(ms=time_ms(lambda: flattri.tri_pool_matvec_cuda(
+                     tri_bf, nt, idx, U, torch.float32), dev, 50),
+                 plain_ms=time_ms(lambda: flattri.tri_pool_matvec_plain(
+                     tri_bf, nt, idx, U, torch.float32), dev, 5),
+                 library_ms=time_ms(lambda: torch.bmm(dense, Ut), dev, 20),
+                 **bound_of(mv_bytes, mv_ops))
+        del dense
+        rows["tri_matvec"]["bf16" if K == 16 else "bf16_B512_K1"] = r
+        print(f"timing tri_matvec bf16 B={B} K={K}: kernel {r['ms']:.4f} "
+              f"ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), plain "
+              f"{r['plain_ms']:.4f} ms, bmm over dense bf16 [M; C] "
+              f"{r['library_ms']:.4f} ms", flush=True)
+    tiles = flat_tiles(tri_bf, nt)
+    for B in (128, W_MAIN):
+        idx = torch.randperm(W_MAIN, generator=gen, device=dev)[:B].to(
+            torch.int32)
+        U = unit_rows(gen, B, 1, dev)[:, 0]
+        tiles_err = max(tiles_err, check_tiles_matvec(
+            tri_bf, nt, idx, U, f"bf16, B={B}, m={M}"))
+        mv_bytes = B * T * 2 * t * t * 2 + B * M * 2 + B * 2 * M * 4 + B * 4
+        mv_ops = 2 * B * 2 * t * t * (2 * T - nt)
+        dense = flattri.dense_stacked(tri_bf[idx.long()], nt)
+        Ub = U.to(bf)[..., None]
+        r = dict(ms=time_ms(lambda: flattri.tri_tiles_matvec_cuda(
+                     tiles, nt, idx, U, torch.float32), dev, 50),
+                 plain_ms=time_ms(lambda: flattri.tri_tiles_matvec_plain(
+                     tiles, nt, idx, U, torch.float32), dev, 3),
+                 library_ms=time_ms(lambda: torch.bmm(dense, Ub), dev, 20),
+                 **bound_of(mv_bytes, mv_ops))
+        del dense
+        if B == 128:
+            rows["tri_tiles_matvec"]["bf16"] = r
+        print(f"timing tri_tiles_matvec bf16 B={B} one probe: kernel "
+              f"{r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}), plain {r['plain_ms']:.4f} ms, bmm over "
+              f"dense bf16 [M; C] {r['library_ms']:.4f} ms", flush=True)
+    del tiles, tri_bf
     torch.cuda.empty_cache()
     return rows, build_err, mv_err, tiles_err
 
@@ -1447,7 +1594,27 @@ def time_rows(inv, prob, dev):
               f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), plain "
               f"{r['plain_ms']:.4f} ms, matmul over dense bf16 [M; C] "
               f"{r['library_ms']:.4f} ms", flush=True)
-    del dense
+    del dense, chunks
+    torch.cuda.empty_cache()
+    # bf16 storage (twice the bytes) at K=16
+    chunks = rows_storage(inv, prob, dev, G=G, storage=torch.bfloat16)
+    U = Us[16]
+    err = max(err, check_rows(chunks, nt, U, f"bf16, m={m}, K=16"))
+    dense = dense_from_chunks(chunks, nt)
+    Ut = U.to(torch.bfloat16).T.contiguous()
+    r = dict(ms=time_ms(lambda: symstore.sym_rows_matvec_cuda(
+                 chunks, nt, U), dev, 10),
+             plain_ms=time_ms(lambda: symstore.sym_rows_matvec_plain(
+                 chunks, nt, U), dev, 2),
+             library_ms=time_ms(lambda: torch.matmul(dense, Ut), dev, 5),
+             **bound_of(T * 2 * t * t * 2 + 16 * m * 2 + 16 * 2 * m * 4,
+                        2 * 16 * 2 * t * t * (2 * T - nt)))
+    rows[16]["bf16"] = r
+    print(f"timing sym_rows_matvec bf16 m={m} K=16: kernel {r['ms']:.4f} "
+          f"ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), plain "
+          f"{r['plain_ms']:.4f} ms, matmul over dense bf16 [M; C] "
+          f"{r['library_ms']:.4f} ms", flush=True)
+    del dense, chunks
     torch.cuda.empty_cache()
     return rows[16], err
 
@@ -1493,6 +1660,26 @@ def time_tiles(inv, prob, dev):
               f"ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), plain "
               f"{r['plain_ms']:.4f} ms, matmul over dense bf16 [M; C] "
               f"{r['library_ms']:.4f} ms", flush=True)
+    del dense, tiles
+    torch.cuda.empty_cache()
+    # bf16 storage (twice the bytes) at K=16
+    tiles = tiles_storage(inv, prob, dev, torch.bfloat16)
+    U = Us[16]
+    err = max(err, check_tiles(tiles, nt, U, f"bf16, m={m}, K=16"))
+    dense = dense_from_tiles(tiles, nt, torch.bfloat16)
+    Ut = U.to(torch.bfloat16).T.contiguous()
+    r = dict(ms=time_ms(lambda: symstore.sym_tiles_matvec_cuda(
+                 tiles, nt, U, walks=walks), dev, 10),
+             plain_ms=time_ms(lambda: symstore.sym_tiles_matvec_plain(
+                 tiles, nt, U), dev, 2),
+             library_ms=time_ms(lambda: torch.matmul(dense, Ut), dev, 5),
+             **bound_of(T * 2 * t * t * 2 + 16 * m * 2 + 16 * 2 * m * 4,
+                        2 * 16 * 2 * t * t * (2 * T - nt)))
+    rows[16]["bf16"] = r
+    print(f"timing sym_tiles_matvec bf16 m={m} K=16: kernel {r['ms']:.4f} "
+          f"ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), plain "
+          f"{r['plain_ms']:.4f} ms, matmul over dense bf16 [M; C] "
+          f"{r['library_ms']:.4f} ms", flush=True)
     del dense, tiles
     torch.cuda.empty_cache()
     return rows[16], err
@@ -1546,6 +1733,8 @@ def phase_profile(inv, main, cap, dev):
     from clipper_tpu_torch.types import Params
 
     profile_call("pool-path", lambda: run_pipeline(inv, main, dev, W_MAIN))
+    profile_call("bf16-pool-path", lambda: run_pipeline_bf16(inv, main, dev,
+                                                             W_MAIN))
     profile_call("stacked-pool", lambda: run_stacked(inv, main, dev, W_MAIN))
     profile_call("fused-batched", lambda: run_batched(inv, main, dev,
                                                       W_MAIN))
@@ -1638,7 +1827,8 @@ def check_tiles_matvec(tri, nt, idx, U, label):
             f"tri_tiles_matvec {label}: a rerun is not bit-identical")
     b = flattri.tri_tiles_matvec_plain(tiles, nt, idx, U, fdt)
     c = flattri.tri_pool_matvec_cuda(tri, nt, idx, U[:, None], fdt)
-    Uo = U.bfloat16().double() if tri.dtype == torch.int8 else U.double()
+    Uo = (U.bfloat16().double() if tri.dtype in (torch.int8, torch.bfloat16)
+          else U.double())
     o = flattri.tri_pool_matvec_plain(tri.double(), nt, idx, Uo[:, None],
                                       torch.float64)
     scale = 127.0 if tri.dtype == torch.int8 else 1.0
@@ -1729,6 +1919,104 @@ def phase_kernels_pn(inv, pn_inv, check, pn_check, dev):
             check_tiles_matvec(tri_f, nt, idx,
                                unit_rows(gen, 32, 1, dev)[:, 0].to(dtype),
                                f"{str(dtype).split('.')[-1]} storage, B=32"))
+    return errs
+
+
+def phase_kernels_bf16(inv, pn_inv, check, pn_check, dev):
+    """Phase 2's bf16 storage checks (the JAX package's default storage):
+    the tri build and the fused build (both invariants, W=16, m=1024:
+    C exact, no M value differing, the two byte-equal), the tri matvec on
+    that storage (B=128, K=16 and B=16, K=1) and kernel 1 at nt=9 (one
+    m=2304 problem, t=256, int8 and bf16; the builds held to their plain
+    versions too), each against its plain version, an f64 oracle and a
+    rerun; the tiles matvec on its tile-major form; the rows and the
+    tile-list matvecs on one m=1024 problem's bf16 storage (t=128, K=16
+    and K=1, the D=3 slices). Returns the max errors by kernel."""
+    import torch
+    from clipper_tpu_torch.ops import flattri, symstore
+
+    bf = torch.bfloat16
+    D1, D2s, As, _, _ = check
+    P1s, P2s = endpoints(D1, D2s, As, dev)
+    At = torch.as_tensor(As, device=dev)
+    D1p, D2p, Ap, _, _ = pn_check
+    Q1s, Q2s = endpoints(D1p, D2p, Ap, dev)
+    Apt = torch.as_tensor(Ap, device=dev)
+    mts = torch.full((W_CHECK,), M, dtype=torch.int32, device=dev)
+    t, nt = 256, M // 256
+    errs = {"tri_build": 0.0, "tri_build_fused": 0.0}
+    for label, (iv, X1, X2, XA) in (("bunny", (inv, P1s, P2s, At)),
+                                    ("point-normal", (pn_inv, Q1s, Q2s,
+                                                      Apt))):
+        k = flattri.build_tri_cuda(iv, X1, X2, XA, mts, t=t,
+                                   storage_dtype=bf)
+        errs["tri_build"] = max(errs["tri_build"], check_build(
+            k, flattri.build_tri_plain(iv, X1, X2, XA, mts, t=t,
+                                       storage_dtype=bf),
+            t, f"bf16 {label}, W={W_CHECK}, m={M}"))
+        same = bool(torch.equal(flattri.build_tri_fused_cuda(
+            iv, X1, X2, XA, mts, t=t, storage_dtype=bf), k))
+        print(f"tri_build_fused vs tri_build (bf16 {label}, W={W_CHECK}, "
+              f"m={M}): byte-equal={same}", flush=True)
+        require(same, f"tri_build_fused (bf16 {label}) differs from "
+                "tri_build")
+        if label == "bunny":
+            tri = k
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+    errs["tri_matvec"] = 0.0
+    for B, K in ((128, 16), (W_CHECK, 1)):
+        idx = torch.randint(0, W_CHECK, (B,), generator=gen, device=dev,
+                            dtype=torch.int32)
+        errs["tri_matvec"] = max(errs["tri_matvec"], check_matvec(
+            tri, nt, idx, unit_rows(gen, B, K, dev), f"bf16, B={B}, K={K}",
+            oracle=True))
+    idx = torch.randint(0, W_CHECK, (128,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    errs["tri_tiles_matvec"] = check_tiles_matvec(
+        tri, nt, idx, unit_rows(gen, 128, 1, dev)[:, 0],
+        f"bf16, B=128, m={M}")
+
+    # kernel 1 at nt = 9: one m=2304 problem, 8 lanes on it
+    m9 = 9 * t
+    P1, P2, A9 = capacity_endpoints(one_problem(m9, RHO, seed=4), dev)
+    idx = torch.zeros(8, dtype=torch.int32, device=dev)
+    m9s = torch.tensor([m9], dtype=torch.int32, device=dev)
+    for storage in (torch.int8, bf):
+        name = str(storage).split(".")[-1]
+        k = flattri.build_tri_cuda(inv, P1[None], P2[None], A9[None], m9s,
+                                   t=t, storage_dtype=storage)
+        errs["tri_build"] = max(errs["tri_build"], check_build(
+            k, flattri.build_tri_plain(inv, P1[None], P2[None], A9[None],
+                                       m9s, t=t, storage_dtype=storage),
+            t, f"{name}, m={m9}, nt=9"))
+        for K in (16, 1):
+            errs["tri_matvec"] = max(errs["tri_matvec"], check_matvec(
+                k, 9, idx, unit_rows(gen, 8, K, dev, m9),
+                f"{name}, m={m9}, nt=9, B=8, K={K}", oracle=True))
+
+    # kernels 3 and 7 on bf16 storage at t=128
+    prob = one_problem(M, RHO, seed=1)
+    ntr = M // ROWS_T
+    chunks = rows_storage(inv, prob, dev, G=8, storage=bf)
+    errs["sym_rows_matvec"] = max(
+        [check_rows(chunks, ntr, unit_rows(gen, 1, K, dev)[0],
+                    f"bf16, m={M}, G=8, K={K}") for K in (16, 1)]
+        + [check_rows_slices(chunks, ntr, unit_rows(gen, 1, 16, dev)[0],
+                             f"bf16, m={M}, G=8, K=16")])
+    tl = tiles_storage(inv, prob, dev, bf)
+    errs["sym_tiles_matvec"] = 0.0
+    for K in (16, 1):
+        U = unit_rows(gen, 1, K, dev)[0]
+        label = f"bf16, m={M}, K={K}"
+        errs["sym_tiles_matvec"] = max(errs["sym_tiles_matvec"],
+                                       check_tiles(tl, ntr, U, label))
+        y = symstore.sym_tiles_matvec_cuda(tl, ntr, U)
+        e_o = float((y.double() - tiles_oracle(tl, ntr, U)).abs().max())
+        print(f"sym_tiles_matvec {label}: max|kernel - f64 oracle|="
+              f"{e_o:.3e}", flush=True)
+        require(e_o <= ORACLE_TOL, f"sym_tiles_matvec {label} exceeds "
+                f"{ORACLE_TOL} against the f64 oracle")
     return errs
 
 
@@ -2258,9 +2546,9 @@ def main() -> None:
     print(f"check data: {W_CHECK} bunny and {W_CHECK} point-normal problems "
           f"in {time.perf_counter() - t0:.1f} s", flush=True)
     errs = phase_kernels(inv, check, dev)
-    for name, e in phase_kernels_pn(inv, pn_inv, check, pn_check,
-                                    dev).items():
-        errs[name] = max(errs.get(name, 0), e)
+    for phase in (phase_kernels_pn, phase_kernels_bf16):
+        for name, e in phase(inv, pn_inv, check, pn_check, dev).items():
+            errs[name] = max(errs.get(name, 0), e)
     if quick:
         print("quick: build and kernel checks passed", flush=True)
         return
@@ -2270,6 +2558,7 @@ def main() -> None:
     print(f"pool data: {W_MAIN} problems in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     launches = phase_main(inv, main_data, dev)
+    phase_bf16_pool(inv, main_data, dev)
     launches["stored_build"] = phase_stacked(inv, main_data,
                                              dev)["stored_build"]
     phase_multistart(inv, main_data, dev)

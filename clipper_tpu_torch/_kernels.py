@@ -53,22 +53,29 @@ _D = ctypes.c_double
 # a build kernel's score: kind, its four parameters, affinityeps
 _SCORE = [_I, _D, _D, _D, _D, _D]
 _SIGNATURES = {
-    "tri_matvec_int8": [_P, _P, _P, _P, _I, _I, _I, _I, _LL, _F, _P],
+    "tri_matvec_int8": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _LL, _F, _P],
+    "tri_matvec_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _LL, _P],
     "tri_matvec_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _LL, _P],
     "tri_matvec_f64": [_P, _P, _P, _P, _I, _I, _I, _I, _LL, _P],
     "tri_build_int8": [_P, _P, _P, _P, _P, _I, _I, _I, _LL, *_SCORE, _P],
+    "tri_build_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _LL, *_SCORE, _P],
     "tri_build_fused_int8": [_P, _P, _P, _P, _P, _I, _I, _I, _LL, *_SCORE,
+                             _P],
+    "tri_build_fused_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _LL, *_SCORE,
                              _P],
     "affinity_build_f32": [_P, _P, _P, _P, _P, _I, *_SCORE, _P],
     "affinity_build_f64": [_P, _P, _P, _P, _P, _I, *_SCORE, _P],
     "tri_tiles_matvec_int8": [_P, _P, _P, _P, _I, _I, _I, _F, _P],
+    "tri_tiles_matvec_bf16": [_P, _P, _P, _P, _I, _I, _I, _P],
     "tri_tiles_matvec_f32": [_P, _P, _P, _P, _I, _I, _I, _P],
     "tri_tiles_matvec_f64": [_P, _P, _P, _P, _I, _I, _I, _P],
     "sym_rows_matvec_int8": [_P, _P, _P, _I, _I, _I, _I, _LL, _LL, _I, _F,
                              _P],
+    "sym_rows_matvec_bf16": [_P, _P, _P, _I, _I, _I, _I, _LL, _LL, _I, _P],
     "sym_rows_matvec_f32": [_P, _P, _P, _I, _I, _I, _I, _LL, _LL, _I, _P],
     "sym_rows_matvec_f64": [_P, _P, _P, _I, _I, _I, _I, _LL, _LL, _I, _P],
     "sym_tiles_matvec_int8": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    "sym_tiles_matvec_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "sym_tiles_matvec_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "sym_tiles_matvec_f64": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "stored_build_int8": [_P, _P, _P, _P, _P, _I, _I, *_SCORE, _P],

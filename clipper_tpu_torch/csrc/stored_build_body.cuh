@@ -20,28 +20,12 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "store_put.cuh"
+
 namespace {
 
 constexpr int kCols = 256;  // threads of a block: one output column each
 constexpr int kRows = 64;   // rows a block walks
-
-__device__ __forceinline__ void put(int8_t* M, int8_t* C, bool keep,
-                                    float s) {
-  int8_t mq = 0, cq = 0;
-  if (keep) {
-    const float q = rintf(__fmul_rn(s, 127.f));
-    mq = (int8_t)fminf(fmaxf(q, 0.f), 127.f);
-    cq = 127;
-  }
-  *M = mq;
-  *C = cq;
-}
-
-__device__ __forceinline__ void put(__nv_bfloat16* M, __nv_bfloat16* C,
-                                    bool keep, float s) {
-  *M = __float2bfloat16_rn(keep ? s : 0.f);
-  *C = __float2bfloat16_rn(keep ? 1.f : 0.f);
-}
 
 template <typename Score, typename T>
 __global__ void __launch_bounds__(kCols) stored_build_kernel(

@@ -42,10 +42,10 @@
 // search on the chunk index first(r) + (j - r) / G, which grows with r; for
 // the whole list they are c = j..nt-1 and r = 0..j-1. The TPU's row table
 // and in-kernel binary search were an SMEM workaround and are gone, and pad
-// tiles are never read. Each (2t, t) int8 tile is staged into shared memory,
-// double-buffered so the next tile loads while this one is applied (a third
-// buffer measured no faster), and contracted on the tensor cores
-// (csrc/sym_tile_mma.cuh); the products are the JAX kernel's. Every
+// tiles are never read. Each (2t, t) int8 or bf16 tile is staged into
+// shared memory, double-buffered so the next tile loads while this one is
+// applied (a third buffer measured no faster), and contracted on the tensor
+// cores (csrc/sym_tile_mma.cuh); the products are the JAX kernel's. Every
 // off-diagonal tile is read twice per call (by block r forward and block c
 // transposed), so expect about 2x the byte bound; the one-read design and
 // TMA / wgmma staging are later work. Chunk and tile offsets are 64-bit: the
@@ -141,8 +141,10 @@ struct Walk {
   }
 };
 
-__global__ void __launch_bounds__(kThreads, 2) sym_rows_int8_kernel(
-    const int8_t* __restrict__ chunks, const __nv_bfloat16* __restrict__ U,
+// S: int8 codes or bf16, on the tensor cores
+template <typename S>
+__global__ void __launch_bounds__(kThreads, 2) sym_rows_mma_kernel(
+    const S* __restrict__ chunks, const __nv_bfloat16* __restrict__ U,
     void* __restrict__ out, int K, int nt, int G, long long base, long long n,
     int raw, float scale) {
   extern __shared__ __align__(16) int8_t smem[];
@@ -168,7 +170,7 @@ __global__ void __launch_bounds__(kThreads, 2) sym_rows_int8_kernel(
   for (int s = 0; s < kStages - 1; ++s) {
     if (s < w.total) {
       w.at(s, j, r, c, fwd);
-      stage_tile(smem + s * kTileSmem,
+      stage_tile(smem + s * TileStage<S>::kBytes,
                  chunks + tile_offset(r, c, nt, kT, G, base), Gt);
     }
     cp_async_commit();
@@ -181,20 +183,20 @@ __global__ void __launch_bounds__(kThreads, 2) sym_rows_int8_kernel(
     const int next = it + kStages - 1;
     if (next < w.total) {
       w.at(next, j, r, c, fwd);
-      stage_tile(smem + (next % kStages) * kTileSmem,
+      stage_tile(smem + (next % kStages) * TileStage<S>::kBytes,
                  chunks + tile_offset(r, c, nt, kT, G, base), Gt);
     }
     cp_async_commit();
     w.at(it, j, r, c, fwd);
     float part[kNtw][4];
-    apply_tile_int8(part, smem + (it % kStages) * kTileSmem, U, K, m, g, tig,
-                    o_base, fwd, fwd ? c : r);
+    apply_tile<S>(part, smem + (it % kStages) * TileStage<S>::kBytes, U, K,
+                  m, g, tig, o_base, fwd, fwd ? c : r);
 #pragma unroll
     for (int nn = 0; nn < kNtw; ++nn)
 #pragma unroll
       for (int q = 0; q < 4; ++q) acc[nn][q] += (double)part[nn][q];
   }
-  store_int8(acc, out, raw, scale, K, m, j, g, tig, o_base);
+  store_mma(acc, out, raw, scale, K, m, j, g, tig, o_base);
 }
 
 // float / double storage: one thread per output column, K <= 16 f64 sums in
@@ -227,6 +229,22 @@ bool bad_args(int K, int G, long long base, long long n) {
   return K < 1 || K > kMaxK || G < 1 || base < 0 || n < 0;
 }
 
+template <typename S>
+int launch_mma(const void* chunks, const void* U, void* out, int K, int nt,
+               int t, int G, long long base, long long n, int raw,
+               float scale, void* stream) {
+  if (bad_args(K, G, base, n) || t != kT) return (int)cudaErrorInvalidValue;
+  const int smem_bytes = kStages * TileStage<S>::kBytes;
+  const cudaError_t err = cudaFuncSetAttribute(
+      sym_rows_mma_kernel<S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem_bytes);
+  if (err != cudaSuccess) return (int)err;
+  sym_rows_mma_kernel<S><<<nt, kThreads, smem_bytes, (cudaStream_t)stream>>>(
+      (const S*)chunks, (const __nv_bfloat16*)U, out, K, nt, G, base, n, raw,
+      scale);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -237,16 +255,16 @@ extern "C" {
 int sym_rows_matvec_int8(const void* chunks, const void* U, void* out, int K,
                          int nt, int t, int G, long long base, long long n,
                          int raw, float scale, void* stream) {
-  if (bad_args(K, G, base, n) || t != kT) return (int)cudaErrorInvalidValue;
-  const int smem_bytes = kStages * kTileSmem;
-  const cudaError_t err = cudaFuncSetAttribute(
-      sym_rows_int8_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem_bytes);
-  if (err != cudaSuccess) return (int)err;
-  sym_rows_int8_kernel<<<nt, kThreads, smem_bytes, (cudaStream_t)stream>>>(
-      (const int8_t*)chunks, (const __nv_bfloat16*)U, out, K, nt, G, base, n,
-      raw, scale);
-  return (int)cudaGetLastError();
+  return launch_mma<int8_t>(chunks, U, out, K, nt, t, G, base, n, raw, scale,
+                            stream);
+}
+
+// the same over bf16 storage (no scale)
+int sym_rows_matvec_bf16(const void* chunks, const void* U, void* out, int K,
+                         int nt, int t, int G, long long base, long long n,
+                         int raw, void* stream) {
+  return launch_mma<__nv_bfloat16>(chunks, U, out, K, nt, t, G, base, n, raw,
+                                   1.f, stream);
 }
 
 // chunks f32, U (K, m) f32, out as above.

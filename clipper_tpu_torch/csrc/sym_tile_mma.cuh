@@ -5,11 +5,13 @@
 // transposed (its columns are outputs), and differ only in where a tile sits
 // and in which order an output block visits its tiles.
 //
-// int8 tiles (t = 128): each tile is staged into shared memory with 16-byte
-// cp.async copies, rows padded to t + 16 bytes so the fragment reads hit
-// distinct banks, and contracted with mma.sync.m16n8k16 (bf16 in, f32
-// accumulate; U rows >= K read as zero). The codes 0..127 become bf16
-// exactly by a bias trick (codes_bf16x2). Every tile's 8 mma steps start
+// int8 and bf16 tiles (t = 128): each tile is staged into shared memory
+// with 16-byte cp.async copies, rows padded by 16 bytes so the fragment
+// reads hit distinct banks (an int8 stage is 36 KB, a bf16 one 68 KB; two
+// stages fit either way), and contracted with mma.sync.m16n8k16 (bf16 in,
+// f32 accumulate; U rows >= K read as zero). The int8 codes 0..127 become
+// bf16 exactly by a bias trick (codes_bf16x2); bf16 fragments are pairs of
+// staged values, with no conversion. Every tile's 8 mma steps start
 // from zero and the f32 tile partials are summed in f64 by the caller: the
 // result is the exact sum to within the partials' rounding, rounded once.
 //
@@ -22,29 +24,25 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bf16_mma.cuh"
+
 namespace symtile {
 
-constexpr int kT = 128;             // the int8 kernels' tile
-constexpr int kLds = kT + 16;       // padded shared-memory row, bytes
-constexpr int kTileSmem = 2 * kT * kLds;
+constexpr int kT = 128;             // the tensor-core kernels' tile
 constexpr int kStages = 2;          // tiles in shared memory: 1 in flight
 constexpr int kThreads = 256;
 constexpr int kNtw = kT / 32;       // n-tiles of 8 output columns per warp
 constexpr int kMaxK = 16;           // candidate rows a block takes
 
-// Two int8 codes in 0..127 (the quantizer's range: M in 0..127, C 0 or
-// 127), in bytes 0 and 2 of w, as bf16x2 (byte 0 in the low half). The
-// bf16 bits 0x4300 | x are 128 + x exactly (ulp 1 in [128, 256)), and the
-// bf16 subtraction of 128 is exact: one OR and one HSUB2 at full rate,
-// where the int -> float -> bf16 conversions run at a quarter rate.
-__device__ __forceinline__ uint32_t codes_bf16x2(uint32_t w) {
-  const uint32_t biased = w | 0x43004300u;
-  const uint32_t bias = 0x43004300u;
-  __nv_bfloat162 a = *reinterpret_cast<const __nv_bfloat162*>(&biased);
-  const __nv_bfloat162 b = *reinterpret_cast<const __nv_bfloat162*>(&bias);
-  a = __hsub2(a, b);
-  return *reinterpret_cast<uint32_t*>(&a);
-}
+using bf16mma::codes_bf16x2;
+using bf16mma::mma_bf16;
+
+// a staged (2T, T) tile of storage type S: rows padded by 16 bytes
+template <typename S>
+struct TileStage {
+  static constexpr int kLd = kT * (int)sizeof(S) + 16;  // bytes a row
+  static constexpr int kBytes = 2 * kT * kLd;
+};
 
 // two adjacent codes (a little-endian uint16) -> bf16x2
 __device__ __forceinline__ uint32_t i8pair(uint16_t two) {
@@ -54,15 +52,6 @@ __device__ __forceinline__ uint32_t i8pair(uint16_t two) {
 // codes lo and hi from two smem bytes -> bf16x2 (lo in the low half)
 __device__ __forceinline__ uint32_t i8bytes(int8_t lo, int8_t hi) {
   return codes_bf16x2((uint32_t)(uint8_t)lo | ((uint32_t)(uint8_t)hi << 16));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 __device__ __forceinline__ uint32_t load_u2(const __nv_bfloat16* u, int row,
@@ -96,18 +85,20 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// copy the (2T, T) int8 tile (global row stride ld bytes) into a padded
-// smem tile
-__device__ __forceinline__ void stage_tile(int8_t* dst, const int8_t* src,
+// copy the (2T, T) tile of S (global row stride ld elements) into a
+// padded smem tile
+template <typename S>
+__device__ __forceinline__ void stage_tile(int8_t* dst, const S* src,
                                            size_t ld) {
-  constexpr int kSegs = 2 * kT * kT / 16;    // 16-byte segments per tile
-  constexpr int kSegsPerRow = kT / 16;
+  constexpr int kSegsPerRow = kT * (int)sizeof(S) / 16;
+  constexpr int kSegs = 2 * kT * kSegsPerRow;  // 16-byte segments a tile
 #pragma unroll
   for (int i = 0; i < kSegs / kThreads; ++i) {
     const int s = threadIdx.x + i * kThreads;
     const int row = s / kSegsPerRow;
     const int col = (s % kSegsPerRow) * 16;
-    cp_async16(dst + row * kLds + col, src + (size_t)row * ld + col);
+    cp_async16(dst + row * TileStage<S>::kLd + col,
+               reinterpret_cast<const int8_t*>(src + (size_t)row * ld) + col);
   }
 }
 
@@ -119,6 +110,7 @@ __device__ __forceinline__ void stage_tile(int8_t* dst, const int8_t* src,
 __device__ __forceinline__ void apply_tile_int8(
     float (&part)[kNtw][4], const int8_t* tile, const __nv_bfloat16* U, int K,
     int m, int g, int tig, int o_base, bool fwd, int ub) {
+  constexpr int kLd = TileStage<int8_t>::kLd;
 #pragma unroll
   for (int nn = 0; nn < kNtw; ++nn)
     part[nn][0] = part[nn][1] = part[nn][2] = part[nn][3] = 0.f;
@@ -128,7 +120,7 @@ __device__ __forceinline__ void apply_tile_int8(
       load_a(a, U, K, m, g, tig, ub * kT + ks * 16);
 #pragma unroll
       for (int nn = 0; nn < kNtw; ++nn) {
-        const int8_t* p = tile + (o_base + nn * 8 + g) * kLds + ks * 16 +
+        const int8_t* p = tile + (o_base + nn * 8 + g) * kLd + ks * 16 +
                           2 * tig;
         const uint16_t lo = *reinterpret_cast<const uint16_t*>(p);
         const uint16_t hi = *reinterpret_cast<const uint16_t*>(p + 8);
@@ -144,18 +136,68 @@ __device__ __forceinline__ void apply_tile_int8(
         const int o = o_base + nn * 8;
         const int h = o / kT;
         const int l = o % kT + g;
-        const int8_t* p = tile + (h * kT + ks * 16 + 2 * tig) * kLds + l;
-        mma_bf16(part[nn], a, i8bytes(p[0], p[kLds]),
-                 i8bytes(p[8 * kLds], p[9 * kLds]));
+        const int8_t* p = tile + (h * kT + ks * 16 + 2 * tig) * kLd + l;
+        mma_bf16(part[nn], a, i8bytes(p[0], p[kLd]),
+                 i8bytes(p[8 * kLd], p[9 * kLd]));
       }
     }
   }
 }
 
-// Write output block j of the int8 kernels' f64 sums: out (K, 2m) row
+// The same for a staged bf16 tile: fragments are pairs of staged values.
+__device__ __forceinline__ void apply_tile_bf16(
+    float (&part)[kNtw][4], const int8_t* tile, const __nv_bfloat16* U, int K,
+    int m, int g, int tig, int o_base, bool fwd, int ub) {
+  constexpr int kLd = TileStage<__nv_bfloat16>::kLd;
+#pragma unroll
+  for (int nn = 0; nn < kNtw; ++nn)
+    part[nn][0] = part[nn][1] = part[nn][2] = part[nn][3] = 0.f;
+  if (fwd) {
+    for (int ks = 0; ks < kT / 16; ++ks) {
+      uint32_t a[4];
+      load_a(a, U, K, m, g, tig, ub * kT + ks * 16);
+#pragma unroll
+      for (int nn = 0; nn < kNtw; ++nn) {
+        const int8_t* p = tile + (o_base + nn * 8 + g) * kLd +
+                          2 * (ks * 16 + 2 * tig);
+        mma_bf16(part[nn], a, *reinterpret_cast<const uint32_t*>(p),
+                 *reinterpret_cast<const uint32_t*>(p + 16));
+      }
+    }
+  } else {
+    for (int ks = 0; ks < kT / 16; ++ks) {
+      uint32_t a[4];
+      load_a(a, U, K, m, g, tig, ub * kT + ks * 16);
+#pragma unroll
+      for (int nn = 0; nn < kNtw; ++nn) {
+        const int o = o_base + nn * 8;
+        const int h = o / kT;
+        const int l = o % kT + g;
+        const uint16_t* p = reinterpret_cast<const uint16_t*>(
+            tile + (h * kT + ks * 16 + 2 * tig) * kLd + 2 * l);
+        constexpr int kRow = kLd / 2;  // a row in 16-bit units
+        mma_bf16(part[nn], a, (uint32_t)p[0] | ((uint32_t)p[kRow] << 16),
+                 (uint32_t)p[8 * kRow] | ((uint32_t)p[9 * kRow] << 16));
+      }
+    }
+  }
+}
+
+// the tile applier of storage type S
+template <typename S>
+__device__ __forceinline__ void apply_tile(
+    float (&part)[kNtw][4], const int8_t* tile, const __nv_bfloat16* U, int K,
+    int m, int g, int tig, int o_base, bool fwd, int ub) {
+  if constexpr (sizeof(S) == 1)
+    apply_tile_int8(part, tile, U, K, m, g, tig, o_base, fwd, ub);
+  else
+    apply_tile_bf16(part, tile, U, K, m, g, tig, o_base, fwd, ub);
+}
+
+// Write output block j of the tensor-core kernels' f64 sums: out (K, 2m) row
 // major, f32 scaled after one rounding (raw = 0), or the unscaled f64 sums
 // (raw = 1) for a caller that reduces them across ranks first.
-__device__ __forceinline__ void store_int8(const double (&acc)[kNtw][4],
+__device__ __forceinline__ void store_mma(const double (&acc)[kNtw][4],
                                            void* out, int raw, float scale,
                                            int K, int m, int j, int g, int tig,
                                            int o_base) {

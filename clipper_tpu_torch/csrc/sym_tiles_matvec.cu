@@ -24,10 +24,10 @@
 // pairs with ub the block of u the tile contracts; inert slots are in no
 // walk and never index u. The block streams its walk's tiles through a
 // double-buffered shared-memory stage and applies them exactly as the rows
-// kernel does (csrc/sym_tile_mma.cuh): int8 at t = 128 on the tensor cores
-// (mma.sync.m16n8k16 bf16, the bias trick for the codes), f32 and f64 on
-// CUDA cores. Tile partials are summed in f64 and rounded once to f32
-// (raw = 0), or written unrounded in f64 (raw = 1) for the sharded engine,
+// kernel does (csrc/sym_tile_mma.cuh): int8 and bf16 at t = 128 on the
+// tensor cores (mma.sync.m16n8k16 bf16, the bias trick for the int8
+// codes), f32 and f64 on CUDA cores. Tile partials are summed in f64 and
+// rounded once to f32 (raw = 0), or written unrounded in f64 (raw = 1) for the sharded engine,
 // which sums the ranks' slices before that one rounding.
 //
 // What bounds it on this card. At m = 65,536 (t = 128, K = 16) the tile
@@ -44,8 +44,10 @@ namespace {
 
 using namespace symtile;
 
-__global__ void __launch_bounds__(kThreads, 2) sym_tiles_int8_kernel(
-    const int8_t* __restrict__ tiles, const int2* __restrict__ walks,
+// S: int8 codes or bf16, on the tensor cores
+template <typename S>
+__global__ void __launch_bounds__(kThreads, 2) sym_tiles_mma_kernel(
+    const S* __restrict__ tiles, const int2* __restrict__ walks,
     const int* __restrict__ offsets, const __nv_bfloat16* __restrict__ U,
     void* __restrict__ out, int K, int nt, int raw, float scale) {
   extern __shared__ __align__(16) int8_t smem[];
@@ -74,7 +76,7 @@ __global__ void __launch_bounds__(kThreads, 2) sym_tiles_int8_kernel(
 #pragma unroll
   for (int s = 0; s < kStages - 1; ++s) {
     if (s < total)
-      stage_tile(smem + s * kTileSmem,
+      stage_tile(smem + s * TileStage<S>::kBytes,
                  tiles + (size_t)walks[e0 + s].x * tile_elems, kT);
     cp_async_commit();
   }
@@ -85,19 +87,19 @@ __global__ void __launch_bounds__(kThreads, 2) sym_tiles_int8_kernel(
                                        // it - 1's buffer is free again
     const int next = it + kStages - 1;
     if (next < total)
-      stage_tile(smem + (next % kStages) * kTileSmem,
+      stage_tile(smem + (next % kStages) * TileStage<S>::kBytes,
                  tiles + (size_t)walks[e0 + next].x * tile_elems, kT);
     cp_async_commit();
     const int code = walks[e0 + it].y;
     float part[kNtw][4];
-    apply_tile_int8(part, smem + (it % kStages) * kTileSmem, Ub, Kb, m, g,
-                    tig, o_base, (code & 1) == 0, code >> 1);
+    apply_tile<S>(part, smem + (it % kStages) * TileStage<S>::kBytes, Ub,
+                  Kb, m, g, tig, o_base, (code & 1) == 0, code >> 1);
 #pragma unroll
     for (int nn = 0; nn < kNtw; ++nn)
 #pragma unroll
       for (int q = 0; q < 4; ++q) acc[nn][q] += (double)part[nn][q];
   }
-  store_int8(acc, outb, raw, scale, Kb, m, j, g, tig, o_base);
+  store_mma(acc, outb, raw, scale, Kb, m, j, g, tig, o_base);
 }
 
 // float / double tiles: one thread per output column, the same walk.
@@ -131,6 +133,23 @@ __global__ void __launch_bounds__(kThreads) sym_tiles_float_kernel(
 
 dim3 grid_of(int nt, int K) { return dim3(nt, (K + kMaxK - 1) / kMaxK); }
 
+template <typename S>
+int launch_mma(const void* tiles, const void* walks, const void* offsets,
+               const void* U, void* out, int K, int nt, int t, int raw,
+               float scale, void* stream) {
+  if (K < 1 || nt < 1 || t != kT) return (int)cudaErrorInvalidValue;
+  const int smem_bytes = kStages * TileStage<S>::kBytes;
+  const cudaError_t err = cudaFuncSetAttribute(
+      sym_tiles_mma_kernel<S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem_bytes);
+  if (err != cudaSuccess) return (int)err;
+  sym_tiles_mma_kernel<S><<<grid_of(nt, K), kThreads, smem_bytes,
+                            (cudaStream_t)stream>>>(
+      (const S*)tiles, (const int2*)walks, (const int*)offsets,
+      (const __nv_bfloat16*)U, out, K, nt, raw, scale);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -141,17 +160,16 @@ extern "C" {
 int sym_tiles_matvec_int8(const void* tiles, const void* walks,
                           const void* offsets, const void* U, void* out, int K,
                           int nt, int t, int raw, float scale, void* stream) {
-  if (K < 1 || nt < 1 || t != kT) return (int)cudaErrorInvalidValue;
-  const int smem_bytes = kStages * kTileSmem;
-  const cudaError_t err = cudaFuncSetAttribute(
-      sym_tiles_int8_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem_bytes);
-  if (err != cudaSuccess) return (int)err;
-  sym_tiles_int8_kernel<<<grid_of(nt, K), kThreads, smem_bytes,
-                          (cudaStream_t)stream>>>(
-      (const int8_t*)tiles, (const int2*)walks, (const int*)offsets,
-      (const __nv_bfloat16*)U, out, K, nt, raw, scale);
-  return (int)cudaGetLastError();
+  return launch_mma<int8_t>(tiles, walks, offsets, U, out, K, nt, t, raw,
+                            scale, stream);
+}
+
+// the same over bf16 tiles (no scale)
+int sym_tiles_matvec_bf16(const void* tiles, const void* walks,
+                          const void* offsets, const void* U, void* out, int K,
+                          int nt, int t, int raw, void* stream) {
+  return launch_mma<__nv_bfloat16>(tiles, walks, offsets, U, out, K, nt, t,
+                                   raw, 1.f, stream);
 }
 
 // tiles f32, U (K, m) f32, out as above.

@@ -1,5 +1,5 @@
-// Flat upper-triangle int8 [M; C] build with one thread block per problem,
-// for Hopper.
+// Flat upper-triangle int8 or bf16 [M; C] build with one thread block per
+// problem, for Hopper.
 //
 // Replaces the TPU kernel clipper_tpu/ops/flattri.py:build_tri_pallas_fused
 // (:567-655), whose grid had one program per problem that computed all T
@@ -27,11 +27,11 @@
 
 namespace {
 
-template <typename Score>
-__global__ void __launch_bounds__(256) tri_build_fused_int8_kernel(
+template <typename Score, typename T>
+__global__ void __launch_bounds__(256) tri_build_fused_kernel(
     const Score score, const float* __restrict__ P1,
     const float* __restrict__ P2, const int* __restrict__ A,
-    const int* __restrict__ m_trues, int8_t* __restrict__ out, int m, int t,
+    const int* __restrict__ m_trues, T* __restrict__ out, int m, int t,
     long long S, float affeps) {
   constexpr int D = Score::D;
   __shared__ TileRows<D> rows;
@@ -41,7 +41,7 @@ __global__ void __launch_bounds__(256) tri_build_fused_int8_kernel(
   const float* p1 = P1 + (size_t)w * m * D;
   const float* p2 = P2 + (size_t)w * m * D;
   const int* a = A + (size_t)w * m * 2;
-  int8_t* ow = out + (size_t)w * (size_t)(2 * t) * (size_t)S;
+  T* ow = out + (size_t)w * (size_t)(2 * t) * (size_t)S;
   const int lim = m_trues[w];
   int k = 0;
   for (int r = 0; r < nt; ++r) {
@@ -52,14 +52,30 @@ __global__ void __launch_bounds__(256) tri_build_fused_int8_kernel(
   }
 }
 
-template <typename Score>
+template <typename T, typename Score>
 int launch(const Score& score, const void* P1, const void* P2, const void* A,
            const void* m_trues, void* out, int W, int m, int t, long long S,
            float affeps, void* stream) {
-  tri_build_fused_int8_kernel<Score><<<W, 256, 0, (cudaStream_t)stream>>>(
+  tri_build_fused_kernel<Score, T><<<W, 256, 0, (cudaStream_t)stream>>>(
       score, (const float*)P1, (const float*)P2, (const int*)A,
-      (const int*)m_trues, (int8_t*)out, m, t, S, affeps);
+      (const int*)m_trues, (T*)out, m, t, S, affeps);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int build(const void* P1, const void* P2, const void* A, const void* m_trues,
+          void* out, int W, int m, int t, long long S, int kind, double p0,
+          double p1, double p2, double p3, double affeps, void* stream) {
+  if (t < 1 || t > kMaxTile || m % t || W < 1)
+    return (int)cudaErrorInvalidValue;
+  const double p[4] = {p0, p1, p2, p3};
+  if (kind == 0)
+    return launch<T>(EuclidScore<float>(p), P1, P2, A, m_trues, out, W, m, t,
+                     S, (float)affeps, stream);
+  if (kind == 1)
+    return launch<T>(PointNormalScore<float>(p), P1, P2, A, m_trues, out, W,
+                     m, t, S, (float)affeps, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -71,16 +87,17 @@ int tri_build_fused_int8(const void* P1, const void* P2, const void* A,
                          const void* m_trues, void* out, int W, int m, int t,
                          long long S, int kind, double p0, double p1,
                          double p2, double p3, double affeps, void* stream) {
-  if (t < 1 || t > kMaxTile || m % t || W < 1)
-    return (int)cudaErrorInvalidValue;
-  const double p[4] = {p0, p1, p2, p3};
-  if (kind == 0)
-    return launch(EuclidScore<float>(p), P1, P2, A, m_trues, out, W, m, t, S,
-                  (float)affeps, stream);
-  if (kind == 1)
-    return launch(PointNormalScore<float>(p), P1, P2, A, m_trues, out, W, m,
-                  t, S, (float)affeps, stream);
-  return (int)cudaErrorInvalidValue;
+  return build<int8_t>(P1, P2, A, m_trues, out, W, m, t, S, kind, p0, p1, p2,
+                       p3, affeps, stream);
+}
+
+// The arguments of tri_build_bf16 (tri_build.cu).
+int tri_build_fused_bf16(const void* P1, const void* P2, const void* A,
+                         const void* m_trues, void* out, int W, int m, int t,
+                         long long S, int kind, double p0, double p1,
+                         double p2, double p3, double affeps, void* stream) {
+  return build<__nv_bfloat16>(P1, P2, A, m_trues, out, W, m, t, S, kind, p0,
+                              p1, p2, p3, affeps, stream);
 }
 
 }  // extern "C"

@@ -1,4 +1,4 @@
-// One upper tile of the flat-triangle int8 [M; C] storage, built by one
+// One upper tile of the flat-triangle [M; C] storage, built by one
 // thread block: the body that tri_build.cu (one block per tile) and
 // tri_build_fused.cu (one block per problem, looping over its tiles) both
 // run, so that their outputs are identical by construction.
@@ -10,17 +10,20 @@
 // +-1 int8 codes and the 0/127 C codes: the score functor's value s
 // (euclid_score.cuh, pointnormal_score.cuh), then
 //   keep = distinct & off-diagonal & row, col < m_true & s > (float)affeps;
-//   M = clip(rint(127 s), 0, 127) (round half to even, as torch.round);
-//   C = 127.
+// then store_put.cuh's step for the storage type: int8 M = clip(rint(127
+// s), 0, 127) (round half to even, as torch.round) and C = 127, or bf16
+// M = bf16(s) and C = 1 (flattri.py:529-533 of the JAX package).
 // The block's t row endpoints sit in shared memory; each thread holds one
 // output column's endpoints in registers and walks the t rows, so each
-// row of the tile is written as t consecutive bytes by consecutive
+// row of the tile is written as t consecutive elements by consecutive
 // threads (coalesced).
 
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "store_put.cuh"
 
 constexpr int kMaxTile = 256;
 
@@ -35,11 +38,11 @@ struct TileRows {
 // p1, p2: the problem's (m, D) endpoints; a: its (m, 2) associations;
 // ob: its storage advanced to column k t. Every thread of the block calls
 // it; the leading barrier lets a block reuse `rows` tile after tile.
-template <typename Score>
+template <typename Score, typename T>
 __device__ __forceinline__ void build_tri_tile(
     const Score& score, const float* __restrict__ p1,
     const float* __restrict__ p2, const int* __restrict__ a, int lim, int r,
-    int c, int t, long long S, float affeps, int8_t* __restrict__ ob,
+    int c, int t, long long S, float affeps, T* __restrict__ ob,
     TileRows<Score::D>& rows) {
   constexpr int D = Score::D;
   __syncthreads();
@@ -67,14 +70,7 @@ __device__ __forceinline__ void build_tri_tile(
           !(rows.ra[i * 2] == ca0 || rows.ra[i * 2 + 1] == ca1);
       const bool keep = distinct && gr != gc && gr < lim && gc < lim &&
                         s > affeps;
-      int8_t mq = 0, cq = 0;
-      if (keep) {
-        const float q = rintf(__fmul_rn(s, 127.f));
-        mq = (int8_t)fminf(fmaxf(q, 0.f), 127.f);
-        cq = 127;
-      }
-      ob[(size_t)i * S + l] = mq;
-      ob[(size_t)(t + i) * S + l] = cq;
+      put(ob + (size_t)i * S + l, ob + (size_t)(t + i) * S + l, keep, s);
     }
   }
 }

@@ -17,8 +17,8 @@
 // atomics, so a rerun reproduces every lane bit for bit.
 //
 // Numerics as the JAX kernel's: int8 codes times bf16-rounded u (exact
-// products in f32), summed in f32 and scaled by 1/127 once; f32 storage
-// in f32; f64 storage in f64.
+// products in f32), summed in f32 and scaled by 1/127 once; bf16 storage
+// times bf16 u, summed in f32; f32 storage in f32; f64 storage in f64.
 //
 // What bounds it on this card: every lane's whole storage read once a
 // call (B * T * 2t * t bytes for int8: 168 MB at B=128, m=1024, t=256,
@@ -48,6 +48,9 @@ struct alignas(sizeof(S) * V) Pack {
 };
 
 __device__ __forceinline__ float widen(int8_t x) { return (float)x; }
+__device__ __forceinline__ float widen(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
 __device__ __forceinline__ float widen(float x) { return x; }
 __device__ __forceinline__ double widen(double x) { return x; }
 
@@ -183,6 +186,13 @@ int tri_tiles_matvec_int8(const void* tri, const void* idx, const void* U,
                           void* stream) {
   return launch<int8_t, __nv_bfloat16, float>(tri, idx, U, out, B, nt, t,
                                               scale, stream);
+}
+
+// bf16 storage: U (B, m) bf16, out (B, 2m) f32 (exact products, f32 sums).
+int tri_tiles_matvec_bf16(const void* tri, const void* idx, const void* U,
+                          void* out, int B, int nt, int t, void* stream) {
+  return launch<__nv_bfloat16, __nv_bfloat16, float>(tri, idx, U, out, B, nt,
+                                                     t, 1.f, stream);
 }
 
 // f32 storage: U (B, m) f32, out (B, 2m) f32.

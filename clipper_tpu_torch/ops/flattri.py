@@ -149,16 +149,20 @@ def tri_pool_matvec_cuda(tri: torch.Tensor, nt: int, idx: torch.Tensor,
     m = nt * t
     B, K, _ = U.shape
     cdt, acc, scale = _dtypes(tri.dtype)
-    if tri.dtype not in (torch.int8, torch.float32, torch.float64):
-        raise NotImplementedError(
-            f"tri matvec kernel takes int8/f32/f64 storage, not {tri.dtype}")
-    if tri.dtype == torch.int8 and t not in (128, 256):
-        raise NotImplementedError(f"int8 tri matvec kernel needs t in "
+    mma = tri.dtype in (torch.int8, torch.bfloat16)
+    if not mma and tri.dtype not in (torch.float32, torch.float64):
+        raise NotImplementedError(f"tri matvec kernel takes int8/bf16/f32/"
+                                  f"f64 storage, not {tri.dtype}")
+    if mma and t not in (128, 256):
+        raise NotImplementedError(f"{tri.dtype} tri matvec kernel needs t in "
                                   f"(128, 256), got {t}")
     if not (tri.is_cuda and idx.is_cuda and U.is_cuda
             and tri.is_contiguous()):
         raise ValueError("tri matvec kernel: storage, idx and U must lie on "
                          "the card, the storage contiguous")
+    if mma and tri.data_ptr() % 16:
+        raise ValueError("tri matvec kernel: the storage must be 16-byte "
+                         "aligned (its bulk copies)")
     lib = _kernels.lib("tri_matvec")
     idx32 = idx.to(torch.int32).contiguous()
     Uc = U.to(cdt).contiguous()
@@ -169,14 +173,17 @@ def tri_pool_matvec_cuda(tri: torch.Tensor, nt: int, idx: torch.Tensor,
         Uk = Uc[:, k0:k1].contiguous()
         ok = out[:, k0:k1] if (k0, k1) == (0, K) else torch.empty(
             B, k1 - k0, 2 * m, dtype=acc, device=tri.device)
-        args = (tri.data_ptr(), idx32.data_ptr(), Uk.data_ptr(),
-                ok.data_ptr(), B, k1 - k0, nt, t, S)
+        ptrs = (tri.data_ptr(), idx32.data_ptr(), Uk.data_ptr(),
+                ok.data_ptr())
+        shape = (B, k1 - k0, nt, t, S)
         if tri.dtype == torch.int8:
-            code = lib.tri_matvec_int8(*args, scale, stream)
+            code = lib.tri_matvec_int8(*ptrs, P, *shape, scale, stream)
+        elif tri.dtype == torch.bfloat16:
+            code = lib.tri_matvec_bf16(*ptrs, P, *shape, stream)
         elif tri.dtype == torch.float32:
-            code = lib.tri_matvec_f32(*args, stream)
+            code = lib.tri_matvec_f32(*ptrs, *shape, stream)
         else:
-            code = lib.tri_matvec_f64(*args, stream)
+            code = lib.tri_matvec_f64(*ptrs, *shape, stream)
         _kernels.check(code, "tri_matvec")
         _kernels.LAUNCHES["tri_matvec"] += 1
         if ok.data_ptr() != out.data_ptr():
@@ -252,11 +259,13 @@ def build_tri_plain(invariant: PairwiseInvariant, P1s, P2s, As, m_trues, *,
 def _launch_tri_build(kernel: str, invariant: PairwiseInvariant, P1s, P2s,
                       As, m_trues, t: int, affinityeps: float,
                       storage_dtype) -> torch.Tensor:
-    """Launch csrc/<kernel>.cu: (W, 2t, S) int8 storage on the card."""
+    """Launch csrc/<kernel>.cu: (W, 2t, S) int8 or bf16 storage on the
+    card."""
     kind, d, params = kernel_score(invariant)
-    if storage_dtype != torch.int8:
-        raise NotImplementedError(
-            f"the CUDA tri builds write int8 storage, not {storage_dtype}")
+    suffix = {torch.int8: "int8", torch.bfloat16: "bf16"}.get(storage_dtype)
+    if suffix is None:
+        raise NotImplementedError(f"the CUDA tri builds write int8 or bf16 "
+                                  f"storage, not {storage_dtype}")
     W, m, dp = P1s.shape
     if not (P1s.is_cuda and P2s.is_cuda and As.is_cuda):
         raise ValueError(f"{kernel} kernel: inputs must lie on the card")
@@ -275,8 +284,8 @@ def _launch_tri_build(kernel: str, invariant: PairwiseInvariant, P1s, P2s,
     Ac = As.to(torch.int32).contiguous()
     mts = torch.as_tensor(m_trues, device=P1s.device).to(
         torch.int32).expand(W).contiguous()
-    out = torch.empty(W, 2 * t, S, dtype=torch.int8, device=P1s.device)
-    fn = getattr(_kernels.lib(kernel), f"{kernel}_int8")
+    out = torch.empty(W, 2 * t, S, dtype=storage_dtype, device=P1s.device)
+    fn = getattr(_kernels.lib(kernel), f"{kernel}_{suffix}")
     code = fn(P1c.data_ptr(), P2c.data_ptr(), Ac.data_ptr(), mts.data_ptr(),
               out.data_ptr(), W, m, t, S, kind, *params, float(affinityeps),
               _kernels.stream_ptr(P1s.device))
@@ -289,7 +298,8 @@ def build_tri_cuda(invariant: PairwiseInvariant, P1s, P2s, As, m_trues, *,
                    t: int = 256, affinityeps: float = 1e-4,
                    storage_dtype=torch.int8):
     """Launch csrc/tri_build.cu (one kernel block per upper tile):
-    (W, 2t, S) int8 storage on the card, for the built-in invariants."""
+    (W, 2t, S) int8 or bf16 storage on the card, for the built-in
+    invariants."""
     return _launch_tri_build("tri_build", invariant, P1s, P2s, As, m_trues,
                              t, affinityeps, storage_dtype)
 
@@ -408,9 +418,10 @@ def tri_tiles_matvec_cuda(tri: torch.Tensor, nt: int, idx: torch.Tensor,
     m = nt * t
     B = U.shape[0]
     cdt, acc, scale = _dtypes(tri.dtype)
-    if tri.dtype not in (torch.int8, torch.float32, torch.float64):
-        raise NotImplementedError(f"tiles matvec kernel takes int8/f32/f64 "
-                                  f"storage, not {tri.dtype}")
+    if tri.dtype not in (torch.int8, torch.bfloat16, torch.float32,
+                         torch.float64):
+        raise NotImplementedError(f"tiles matvec kernel takes int8/bf16/f32/"
+                                  f"f64 storage, not {tri.dtype}")
     if t not in (128, 256):
         raise NotImplementedError(f"tiles matvec kernel needs t in "
                                   f"(128, 256), got {t}")
@@ -430,6 +441,8 @@ def tri_tiles_matvec_cuda(tri: torch.Tensor, nt: int, idx: torch.Tensor,
     stream = _kernels.stream_ptr(tri.device)
     if tri.dtype == torch.int8:
         code = lib.tri_tiles_matvec_int8(*args, scale, stream)
+    elif tri.dtype == torch.bfloat16:
+        code = lib.tri_tiles_matvec_bf16(*args, stream)
     elif tri.dtype == torch.float32:
         code = lib.tri_tiles_matvec_f32(*args, stream)
     else:

@@ -268,12 +268,13 @@ def _finish(acc: torch.Tensor, scale: float) -> torch.Tensor:
 
 def _check_kernel_storage(what: str, item: int, dtype, t: int):
     roadmap = f"(ROADMAP.md Queue 2 item {item})"
-    if dtype not in (torch.int8, torch.float32, torch.float64):
-        raise NotImplementedError(f"{what} kernel takes int8/f32/f64 "
+    if dtype not in (torch.int8, torch.bfloat16, torch.float32,
+                     torch.float64):
+        raise NotImplementedError(f"{what} kernel takes int8/bf16/f32/f64 "
                                   f"storage, not {dtype} {roadmap}")
-    if dtype == torch.int8 and t != 128:
-        raise NotImplementedError(f"int8 {what} kernel needs t = 128, got "
-                                  f"{t} {roadmap}")
+    if dtype in (torch.int8, torch.bfloat16) and t != 128:
+        raise NotImplementedError(f"{dtype} {what} kernel needs t = 128, "
+                                  f"got {t} {roadmap}")
 
 
 def sym_tiles_matvec_plain(tiles: torch.Tensor, nt: int, U: torch.Tensor,
@@ -347,6 +348,8 @@ def sym_tiles_matvec_cuda(tiles: torch.Tensor, nt: int, U: torch.Tensor,
     stream = _kernels.stream_ptr(tiles.device)
     if tiles.dtype == torch.int8:
         code = lib.sym_tiles_matvec_int8(*args, scale, stream)
+    elif tiles.dtype == torch.bfloat16:
+        code = lib.sym_tiles_matvec_bf16(*args, stream)
     elif tiles.dtype == torch.float32:
         code = lib.sym_tiles_matvec_f32(*args, stream)
     else:
@@ -569,6 +572,8 @@ def sym_rows_matvec_cuda(chunks: torch.Tensor, nt: int, U: torch.Tensor,
                 k1 - k0, nt, t, G, chunk_base or 0, chunks.shape[0], int(raw))
         if chunks.dtype == torch.int8:
             code = lib.sym_rows_matvec_int8(*args, scale, stream)
+        elif chunks.dtype == torch.bfloat16:
+            code = lib.sym_rows_matvec_bf16(*args, stream)
         elif chunks.dtype == torch.float32:
             code = lib.sym_rows_matvec_f32(*args, stream)
         else:

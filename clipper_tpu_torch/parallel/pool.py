@@ -282,14 +282,14 @@ def _polish_batch(invariant: PairwiseInvariant, P1s, P2s, As, U,
     return Fp.to(U.dtype)
 
 
-def _resolve_build(build: str, storage_dtype, invariant, dev: torch.device,
-                   kernel_dtypes) -> str:
-    """'auto' -> 'pallas' (the build kernel) on the card for a storage
-    dtype in ``kernel_dtypes`` and a built-in symmetric invariant
-    (Euclidean or point-normal, the ones the kernels compute), else 'xla'
-    (the plain build), mirroring the JAX package's pool.py:346-370, which
-    takes its kernel for any invariant with ``score_block_t``. 'pallas'
-    takes the kernel on the card and its plain version on the CPU."""
+def _resolve_build(build: str, storage_dtype, invariant,
+                   dev: torch.device) -> str:
+    """'auto' -> 'pallas' (the build kernel) on the card for int8 or bf16
+    storage and a built-in symmetric invariant (Euclidean or
+    point-normal, the ones the kernels compute), else 'xla' (the plain
+    build), mirroring the JAX package's pool.py:346-370, which takes its
+    kernel for any invariant with ``score_block_t``. 'pallas' takes the
+    kernel on the card and its plain version on the CPU."""
     if build not in ("auto", "pallas", "xla"):
         raise ValueError(f"unknown build {build!r}")
     if build == "pallas" and storage_dtype is None:
@@ -298,7 +298,8 @@ def _resolve_build(build: str, storage_dtype, invariant, dev: torch.device,
             "(storage_dtype=torch.int8/torch.bfloat16); the fused kernel "
             "quantizes as it builds and has no dense full-precision output")
     if build == "auto":
-        if (dev.type == "cuda" and storage_dtype in kernel_dtypes
+        if (dev.type == "cuda"
+                and storage_dtype in (torch.int8, torch.bfloat16)
                 and kernel_builds(invariant)):
             return "pallas"
         return "xla"
@@ -368,6 +369,7 @@ def make_pool_pipeline(invariant: PairwiseInvariant,
                        mesh=None,
                        build: str = "auto",
                        layout: str = "tri",
+                       tri_tile: int = 0,
                        tri_probes: int = 1,
                        warm_alpha: bool = False,
                        d_scale: float = 1.0,
@@ -383,19 +385,19 @@ def make_pool_pipeline(invariant: PairwiseInvariant,
 
     layout: ``"tri"`` (the default here; the JAX package defaults to
     ``"stacked"``) stores the flat upper triangle, m divisible by the tile
-    (256 when it divides m, else 128), with the K=tri_probes multiprobe
+    ``tri_tile`` (0, the default: 256 when it divides m, else 128; the
+    card's kernels take 128 and 256), with the K=tri_probes multiprobe
     tick and the warm_alpha and d_scale options. ``"stacked"`` stores the
     dense (2m, m) [M; C] of each problem, for any m, and runs the
     single-probe reference tick; the tri-only options raise there (the
     JAX package ignores them).
 
     storage_dtype: int8 (the default here; the JAX package's is bfloat16),
-    bfloat16 (stacked only on the card), or None for full precision (the
-    plain build). build: 'auto' | 'pallas' | 'xla' (see
-    :func:`_resolve_build`): 'auto' takes the build kernel on the card
-    (csrc/tri_build.cu for int8 triangles, csrc/stored_build.cu for int8
-    or bf16 stacked storage) for the Euclidean and point-normal
-    invariants.
+    bfloat16, or None for full precision (the plain build). build: 'auto'
+    | 'pallas' | 'xla' (see :func:`_resolve_build`): 'auto' takes the
+    build kernel on the card (csrc/tri_build.cu for int8 or bf16
+    triangles, csrc/stored_build.cu for int8 or bf16 stacked storage) for
+    the Euclidean and point-normal invariants.
 
     Shapes: D1 (n1, d) shared by all problems or (W, n1, d), D2s
     (W, n2, d), As (W, m, 2), u0s (W, m); numpy arrays or tensors. The
@@ -407,23 +409,20 @@ def make_pool_pipeline(invariant: PairwiseInvariant,
         raise NotImplementedError(
             "mesh= is not ported yet (ROADMAP.md Queue 1 item 13)")
     if layout == "stacked" and (tri_probes != 1 or warm_alpha
-                                or d_scale != 1.0):
-        raise ValueError("tri_probes, warm_alpha and d_scale apply to "
-                         "layout='tri' only")
+                                or d_scale != 1.0 or tri_tile):
+        raise ValueError("tri_tile, tri_probes, warm_alpha and d_scale "
+                         "apply to layout='tri' only")
     dev = resolve_device(device)
     rounding = _pool_rounding(params)
-    kernel_dtypes = ((torch.int8,) if layout == "tri"
-                     else (torch.int8, torch.bfloat16))
-    build = _resolve_build(build, storage_dtype, invariant, dev,
-                           kernel_dtypes)
+    build = _resolve_build(build, storage_dtype, invariant, dev)
     as_tensor = _as_tensor(dev)
 
     def tri_meta(m: int):
-        t = 256 if m % 256 == 0 else 128
+        t = tri_tile or (256 if m % 256 == 0 else 128)
         if m % t:
             raise ValueError(
                 f"pool layout='tri' needs m divisible by {t}; got m={m} "
-                "(use layout='stacked')")
+                f"(use layout='stacked' or pad the workload)")
         return t, m // t
 
     def build_tri(P1s, P2s, As, m_trues, m):
@@ -518,8 +517,7 @@ def make_pool_multistart_pipeline(invariant: PairwiseInvariant,
     K = int(restarts)
     dev = resolve_device(device)
     rounding = _pool_rounding(params)
-    build = _resolve_build(build, storage_dtype, invariant, dev,
-                           (torch.int8, torch.bfloat16))
+    build = _resolve_build(build, storage_dtype, invariant, dev)
     as_tensor = _as_tensor(dev)
 
     def pipeline(D1, D2s, As, u0s,

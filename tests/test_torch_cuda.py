@@ -66,6 +66,20 @@ def test_wrappers_reject_cpu_tensors():
         flattri.build_tri_cuda(object(), P, P, None, None)
 
 
+def test_tri_matvec_probe_edits_apply():
+    """The kernel 1 probe's variants are edits of the current source: each
+    applies, and each differs from the kernel as built."""
+    from clipper_tpu_torch.bench import tri_matvec_probe
+    src = tri_matvec_probe.variant_sources()
+    assert set(src) == set(tri_matvec_probe.VARIANTS)
+    assert src["full"] == (_kernels.CSRC / "tri_matvec.cu").read_text()
+    for name in ("nocompute", "noforward", "notransposed"):
+        assert src[name] != src["full"]
+    assert src["nocompute"].count("if (false) {") == 2
+    for name in ("noforward", "notransposed"):
+        assert src[name].count("if (false) {") == 1
+
+
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     if shutil.which("nvcc"):
         pytest.skip("nvcc is installed here")
@@ -150,11 +164,12 @@ def test_sym_rows_kernel_matches_plain(cuda, m, G):
         assert float((a - b).abs().max()) <= 1e-4
         assert torch.equal(a, symstore.sym_rows_matvec_cuda(chunks, nt, U))
     assert _kernels.LAUNCHES["sym_rows_matvec"] == before + 2 * (1 + 1 + 2)
-    for dtype in (torch.float32, torch.float64):
+    for dtype in (torch.bfloat16, torch.float32, torch.float64):
+        wdt = torch.float32 if dtype == torch.bfloat16 else dtype
         cf = symstore.build_symchunks(harness.default_invariant(),
-                                      P1.to(dtype), P2.to(dtype), A, m,
+                                      P1.to(wdt), P2.to(wdt), A, m,
                                       tile=t, G=G, storage_dtype=dtype)
-        U = torch.rand(4, m, generator=gen, device=cuda, dtype=dtype)
+        U = torch.rand(4, m, generator=gen, device=cuda, dtype=wdt)
         U /= torch.linalg.vector_norm(U, dim=-1, keepdim=True)
         a = symstore.sym_rows_matvec_cuda(cf, nt, U)
         b = symstore.sym_rows_matvec_plain(cf, nt, U)
@@ -231,8 +246,8 @@ def _capacity_endpoints(cuda, m, seed, dtype=torch.float32):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("storage", [torch.int8, torch.float32,
-                                     torch.float64])
+@pytest.mark.parametrize("storage", [torch.int8, torch.bfloat16,
+                                     torch.float32, torch.float64])
 def test_sym_tiles_kernel_matches_plain(cuda, storage):
     """Kernel 7 against its plain version at t=128, K=1 and 16 (and 20,
     two column groups), on the whole list and on D=3 slices summed, within
@@ -267,7 +282,8 @@ def test_sym_tiles_kernel_matches_plain(cuda, storage):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("storage", [torch.int8, torch.float64])
+@pytest.mark.parametrize("storage", [torch.int8, torch.bfloat16,
+                                     torch.float64])
 def test_sym_rows_kernel_on_slices(cuda, storage):
     """Kernel 3 over D=3 chunk slices (G=8) against its plain version on
     the same slices, and their sum against the whole list, within 1e-4."""
@@ -368,8 +384,8 @@ def test_affinity_build_kernel_matches_plain(cuda, kind, dtype, m):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("storage", [torch.int8, torch.float32,
-                                     torch.float64])
+@pytest.mark.parametrize("storage", [torch.int8, torch.bfloat16,
+                                     torch.float32, torch.float64])
 @pytest.mark.parametrize("t", [256, 128])
 def test_tri_tiles_kernel_matches_plain(cuda, storage, t):
     """Kernel 9 against its plain version and against kernel 1 on the
@@ -387,7 +403,8 @@ def test_tri_tiles_kernel_matches_plain(cuda, storage, t):
     inv = harness.default_invariant()
     flat = flattri.build_tri_plain(
         inv, P1, P2, A, torch.full((W,), m, device=cuda), t=t,
-        storage_dtype=storage if storage == torch.int8 else None)
+        storage_dtype=(storage if storage in (torch.int8, torch.bfloat16)
+                       else None))
     T = nt * (nt + 1) // 2
     tiles = flat.view(W, 2 * t, T, t).permute(0, 2, 1, 3).contiguous()
     gen = torch.Generator(device=cuda).manual_seed(4)
@@ -433,3 +450,87 @@ def test_build_probe_kernel_matches_plain(cuda):
             assert torch.equal(got, ref) and torch.equal(got, plain)
         if variant == "writeonly":
             assert not got.any()
+
+
+def _random_tri(P, t, nt, storage, cuda, seed):
+    """(P, 2t, S) storage of random symmetric [M; C] content at 10%
+    density: int8 codes 0..127 (C 127) or bf16 values in (0, 1] (C 1)."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    m = t * nt
+    M = torch.rand(P, m, m, generator=g, device=cuda)
+    M = torch.triu(torch.where(M > 0.9, M, 0.0), 1)
+    M = M + M.transpose(1, 2)
+    C = (M > 0).float()
+    if storage == torch.int8:
+        M, C = torch.round(M * 127), C * 127
+    return flattri.repack_stacked(torch.cat([M, C], 1), t).to(storage)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage", [torch.int8, torch.bfloat16])
+@pytest.mark.parametrize("t,nt", [(128, 1), (256, 1), (128, 4), (256, 4),
+                                  (128, 9), (256, 9), (128, 16),
+                                  (256, 16)])
+def test_tri_matvec_kernel_every_shape(cuda, storage, t, nt):
+    """Kernel 1 at every tile and width the pool uses (nt up to 16: m <=
+    2048 at t=128, m <= 4096 at t=256), K = 1, 5, 16 and 17 (two
+    launches): within 1e-4 of its plain version and 1.1e-5 of an f64
+    oracle on the same content and bf16-rounded u; a rerun is bit
+    identical; one launch a 16 candidates."""
+    P, B = 3, 5
+    m = t * nt
+    tri = _random_tri(P, t, nt, storage, cuda, seed=nt)
+    scale = 1 / 127 if storage == torch.int8 else 1.0
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    idx = torch.tensor([2, 0, 1, 2, 0], device=cuda, dtype=torch.int32)
+    for K in (1, 5, 16, 17):
+        U = torch.rand(B, K, m, generator=gen, device=cuda)
+        U /= torch.linalg.vector_norm(U, dim=-1, keepdim=True)
+        before = _kernels.LAUNCHES["tri_matvec"]
+        a = flattri.tri_pool_matvec_cuda(tri, nt, idx, U, torch.float32)
+        assert _kernels.LAUNCHES["tri_matvec"] == before + (K + 15) // 16
+        b = flattri.tri_pool_matvec_plain(tri, nt, idx, U, torch.float32)
+        o = flattri.tri_pool_matvec_plain(tri.double(), nt, idx,
+                                          U.bfloat16().double(),
+                                          torch.float64)
+        for x, y, z in zip(a, b, o):
+            assert x.shape == (B, K, m) and x.dtype == torch.float32
+            assert float((x - y).abs().max()) <= 1e-4
+            assert float((x.double() - z * scale).abs().max()) <= 1.1e-5
+        again = flattri.tri_pool_matvec_cuda(tri, nt, idx, U, torch.float32)
+        assert all(torch.equal(x, y) for x, y in zip(a, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["euclidean", "pointnormal"])
+def test_tri_builds_bf16_match_plain(cuda, kind):
+    """Kernels 2 and 8 writing bf16 storage (m=512, t=256 and t=128; m_true
+    < m on one problem): equal to the plain build (C exact, 0 M values
+    differing: the same f32 score rounded once to bf16) and to each
+    other; one launch each."""
+    W, m = 3, 512
+    if kind == "euclidean":
+        D1, D2s, As, _ = _problems(W, m, seed=14)
+        inv = harness.default_invariant()
+    else:
+        D1, D2s, As = _pointnormal_problems(W, m, seed=14)
+        inv = harness.pointnormal_invariant()
+    P1, P2 = gather_endpoints(torch.from_numpy(D1).to(cuda),
+                              torch.from_numpy(D2s).to(cuda),
+                              torch.from_numpy(As).to(cuda))
+    A = torch.from_numpy(As).to(cuda)
+    mts = torch.tensor([m, 300, m], device=cuda)
+    for t in (256, 128):
+        before = dict(_kernels.LAUNCHES)
+        tk = flattri.build_tri(inv, P1, P2, A, mts, t=t,
+                               storage_dtype=torch.bfloat16)
+        tf = flattri.build_tri_pallas_fused(inv, P1, P2, A, mts, t=t,
+                                            storage_dtype=torch.bfloat16)
+        for name in ("tri_build", "tri_build_fused"):
+            assert _kernels.LAUNCHES[name] == before[name] + 1
+        tp = flattri.build_tri_plain(inv, P1, P2, A, mts, t=t,
+                                     storage_dtype=torch.bfloat16)
+        assert tk.dtype == torch.bfloat16 and tk.shape == tp.shape
+        assert bool(tp[:, t:].any()) and torch.equal(tk[:, t:], tp[:, t:])
+        assert int((tk[:, :t] != tp[:, :t]).sum()) == 0
+        assert torch.equal(tk, tf)

@@ -37,6 +37,8 @@ def _storage(rng, P, m, t, kind):
                for MC in MCs]
     elif kind == "f32":
         MCs = [MC.astype(np.float32) for MC in MCs]
+    elif kind == "bf16":
+        MCs = [jnp.asarray(MC, jnp.bfloat16) for MC in MCs]
     return np.stack([np.asarray(jflattri.repack_stacked(jnp.asarray(MC), t))
                      for MC in MCs])
 
@@ -57,7 +59,8 @@ def test_layout_helpers_match(nt):
     np.testing.assert_array_equal(flattri.dense_stacked(got, nt).numpy(), MC)
 
 
-@pytest.mark.parametrize("kind,K", [(k, K) for k in ("f64", "f32", "int8")
+@pytest.mark.parametrize("kind,K", [(k, K) for k in ("f64", "f32", "int8",
+                                                     "bf16")
                                     for K in (1, 16)])
 def test_plain_matvec_matches_jax(kind, K):
     rng = np.random.default_rng(10 + K)
@@ -119,6 +122,36 @@ def test_plain_build_matches_jax():
         assert d.max() <= 1
         # +-1 codes only at round(127 s) ties moved by an ulp of exp
         assert (d > 0).sum() <= 1e-3 * (ref[:, t:] > 0).sum()
+
+
+def test_plain_build_bf16_matches_jax():
+    """The plain tri build in bf16 against the JAX package's
+    build_tri_pallas(storage_dtype=bfloat16) in interpret mode: C exact;
+    M equal, or one bf16 ulp apart where exp's last f32 bit moved the
+    rounding, on at most 1 in 1000 stored edges."""
+    W, m, t = 2, 256, 128
+    pcd0, D2s, As = _bunny_problems(W, m, seed=2)
+    D1j = jnp.asarray(pcd0, jnp.float32)
+    P1j = D1j[jnp.asarray(As[..., 0])]
+    P2j = jnp.stack([jnp.asarray(D2s[w])[As[w, :, 1]] for w in range(W)])
+    ref = interop.tri_to_torch(np.asarray(jflattri.build_tri_pallas(
+        jharness.default_invariant(), P1j, P2j, jnp.asarray(As),
+        jnp.full((W,), m, jnp.int32), t=t, storage_dtype=jnp.bfloat16)))
+    P1, P2 = gather_endpoints(torch.from_numpy(pcd0), torch.from_numpy(D2s),
+                              torch.from_numpy(As))
+    got = flattri.build_tri_plain(harness.default_invariant(), P1, P2,
+                                  torch.from_numpy(As), torch.full((W,), m),
+                                  t=t, storage_dtype=torch.bfloat16)
+    assert got.dtype == ref.dtype == torch.bfloat16
+    assert got.shape == ref.shape == (W, 2 * t, flattri.tri_ncols(2, t))
+    assert torch.equal(got[:, t:], ref[:, t:])                 # C exact
+    nnz = int((ref[:, t:] > 0).sum())
+    assert nnz > 0
+    # M >= 0: adjacent bf16 values are adjacent 16-bit patterns
+    ulps = (got[:, :t].view(torch.int16).int()
+            - ref[:, :t].view(torch.int16).int()).abs()
+    assert int(ulps.max()) <= 1
+    assert int((ulps > 0).sum()) <= 1e-3 * nnz
 
 
 def test_build_wrapper_takes_plain_on_cpu():

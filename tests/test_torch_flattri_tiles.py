@@ -58,13 +58,13 @@ def test_repack_stacked_tiles_matches_jax(nt):
     np.testing.assert_array_equal(b.numpy(), np.asarray(jb))
 
 
-@pytest.mark.parametrize("kind", ["f64", "int8"])
+@pytest.mark.parametrize("kind", ["f64", "int8", "bf16"])
 def test_tiles_matvec_matches_jax(kind):
     """The tiles matvec's CPU path against the JAX package's XLA version
     and its Pallas kernel in interpret mode, on one (P=3, T=10, 2t, t)
     storage, t=128: f64 within 1e-12 (tests/test_flattri.py:290-309's
-    bar), int8 within f32 summation error (5e-6 on unit-norm u); and
-    against the flat matvec on the same content."""
+    bar), int8 and bf16 within f32 summation error (5e-6 on unit-norm u);
+    and against the flat matvec on the same content."""
     rng = np.random.default_rng(9)
     t, nt, P, B = 128, 4, 3, 5
     m = t * nt
@@ -72,6 +72,8 @@ def test_tiles_matvec_matches_jax(kind):
     if kind == "int8":
         MCs = [np.asarray(jmsrc_flat.quantize_stacked(jnp.asarray(MC)))
                for MC in MCs]
+    elif kind == "bf16":
+        MCs = [np.asarray(jnp.asarray(MC, jnp.bfloat16)) for MC in MCs]
     tri = np.stack([np.asarray(jflattri.repack_stacked_tiles(
         jnp.asarray(MC), t)) for MC in MCs])
     dt = np.float64 if kind == "f64" else np.float32
@@ -93,8 +95,8 @@ def test_tiles_matvec_matches_jax(kind):
             assert g.shape == (B, m)
             np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=0,
                                        atol=tol)
-    flat = torch.from_numpy(np.stack([np.asarray(jflattri.repack_stacked(
-        jnp.asarray(MC), t)) for MC in MCs]))
+    flat = interop.tri_to_torch(np.stack([np.asarray(
+        jflattri.repack_stacked(jnp.asarray(MC), t)) for MC in MCs]))
     fl = flattri.make_tri_pool_matvec(flat, nt, got[0].dtype)(
         torch.from_numpy(idx), torch.from_numpy(U))
     for g, f in zip(got, fl):

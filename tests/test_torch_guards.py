@@ -136,3 +136,47 @@ def test_kernel_source_is_shipped_and_registered(path):
         c_api = text.split('extern "C"', 1)[1]
         entry = re.findall(r"^int (\w+)\(", c_api, re.M)
         assert entry and all(e in _kernels._SIGNATURES for e in entry), entry
+
+
+@pytest.mark.parametrize("storage", [torch.int8, torch.bfloat16])
+def test_kernel_wrappers_reject_cpu_tensors_and_tiles(storage):
+    """Kernels 1, 2, 3, 7, 8 and 9 in int8 and bf16: a wrapper raises on
+    CPU tensors (it never gives way to its plain version) and on a tile
+    its kernel does not take (1 and 9: t in (128, 256); 3 and 7:
+    t = 128)."""
+    from clipper_tpu_torch.bench import harness
+    from clipper_tpu_torch.ops import flattri, symstore
+    idx = torch.zeros(1, dtype=torch.int32)
+    f32 = torch.float32
+    for t, err, match in ((128, ValueError, "on the card"),
+                          (64, NotImplementedError, "t in")):
+        with pytest.raises(err, match=match):
+            flattri.tri_pool_matvec_cuda(
+                torch.zeros(1, 2 * t, t, dtype=storage), 1, idx,
+                torch.zeros(1, 1, t), f32)
+        with pytest.raises(err, match=match):
+            flattri.tri_tiles_matvec_cuda(
+                torch.zeros(1, 1, 2 * t, t, dtype=storage), 1, idx,
+                torch.zeros(1, t), f32)
+    with pytest.raises(ValueError, match="on the card"):
+        symstore.sym_rows_matvec_cuda(torch.zeros(1, 256, 128, dtype=storage),
+                                      1, torch.zeros(1, 128))
+    with pytest.raises(NotImplementedError, match="t = 128"):
+        symstore.sym_rows_matvec_cuda(torch.zeros(2, 64, 64, dtype=storage),
+                                      2, torch.zeros(1, 64))
+    with pytest.raises(ValueError, match="on the card"):
+        symstore.sym_tiles_matvec_cuda(
+            torch.zeros(1, 256, 128, dtype=storage), 1, torch.zeros(1, 128))
+    with pytest.raises(NotImplementedError, match="t = 128"):
+        symstore.sym_tiles_matvec_cuda(torch.zeros(3, 64, 32, dtype=storage),
+                                       2, torch.zeros(1, 64))
+    inv = harness.default_invariant()
+    P = torch.zeros(1, 128, 3)
+    A = torch.zeros(1, 128, 2, dtype=torch.int32)
+    for build in (flattri.build_tri_cuda, flattri.build_tri_fused_cuda):
+        with pytest.raises(ValueError, match="on the card"):
+            build(inv, P, P, A, torch.tensor([128]), t=128,
+                  storage_dtype=storage)
+        with pytest.raises(NotImplementedError, match="int8 or bf16"):
+            build(inv, P, P, A, torch.tensor([128]), t=128,
+                  storage_dtype=torch.float32)

@@ -40,33 +40,57 @@ def _pr(As, masks, Agts):
     return pr.mean(0)
 
 
-def _run_both(problems, dt, storage_t, storage_j):
+def _run_both(problems, dt, storage_t, storage_j, w=W, **opts):
+    """The first w problems through both pipelines, ENGINE's options
+    updated by opts."""
     pcd0, D2s, As, _, u0 = problems
+    engine = dict(ENGINE, **opts)
     jp = jpool.make_pool_pipeline(jharness.default_invariant(), JParams(),
-                                  storage_dtype=storage_j, **ENGINE)
-    sj = jp(jnp.asarray(pcd0, dt), jnp.asarray(D2s, dt), jnp.asarray(As),
-            jnp.asarray(u0, dt))
+                                  storage_dtype=storage_j, **engine)
+    sj = jp(jnp.asarray(pcd0, dt), jnp.asarray(D2s[:w], dt),
+            jnp.asarray(As[:w]), jnp.asarray(u0[:w], dt))
     tp = pool.make_pool_pipeline(harness.default_invariant(), Params(),
                                  storage_dtype=storage_t, device="cpu",
-                                 **ENGINE)
+                                 **engine)
     timings = {}
-    st = tp(pcd0.astype(dt), D2s.astype(dt), As, u0.astype(dt),
+    st = tp(pcd0.astype(dt), D2s[:w].astype(dt), As[:w], u0[:w].astype(dt),
             timings=timings)
     assert set(timings) == {"build", "init", "solve", "polish"}
     return sj, st
 
 
-def test_pipeline_int8_matches_jax(problems):
+def _assert_matches(problems, sj, st, w=W):
+    """The bar of the f32 pools: masks equal on all but one problem, mean
+    P/R within 1 point, and the bench protocol's quality."""
     _, _, As, Agts, _ = problems
-    sj, st = _run_both(problems, np.float32, torch.int8, jnp.int8)
     mj = np.asarray(sj.mask)
     mt = st.mask.numpy()
-    assert st.mask.shape == (W, M_ASSOC) and st.u.dtype == torch.float32
-    assert (mj == mt).all(1).sum() >= W - 1
-    pj, rj = _pr(As, mj, Agts)
-    pt, rt = _pr(As, mt, Agts)
+    assert st.mask.shape == (w, M_ASSOC) and st.u.dtype == torch.float32
+    assert (mj == mt).all(1).sum() >= w - 1
+    pj, rj = _pr(As[:w], mj, Agts[:w])
+    pt, rt = _pr(As[:w], mt, Agts[:w])
     assert abs(pj - pt) <= 0.01 and abs(rj - rt) <= 0.01
     assert pt > 0.97 and rt > 0.8
+
+
+def test_pipeline_int8_matches_jax(problems):
+    sj, st = _run_both(problems, np.float32, torch.int8, jnp.int8)
+    _assert_matches(problems, sj, st)
+
+
+def test_pipeline_bf16_matches_jax(problems):
+    """bf16 storage (the JAX package's default) in the tri pool, W=4."""
+    sj, st = _run_both(problems, np.float32, torch.bfloat16, jnp.bfloat16,
+                       w=4)
+    _assert_matches(problems, sj, st, w=4)
+
+
+def test_pipeline_tri_tile_matches_jax(problems):
+    """tri_tile=128 at m=256 (two row blocks where the default takes one
+    256 tile), against the JAX package's tri_tile=128."""
+    sj, st = _run_both(problems, np.float32, torch.int8, jnp.int8,
+                       tri_tile=128)
+    _assert_matches(problems, sj, st)
 
 
 def test_pipeline_f64_matches_jax_exactly(problems):
@@ -147,3 +171,11 @@ def test_pipeline_rejects_unported_and_bad_shapes():
     with pytest.raises(ValueError, match="divisible"):
         pipe(np.zeros((10, 3), np.float32), np.zeros((2, 10, 3), np.float32),
              np.zeros((2, 100, 2), np.int32), np.ones((2, 100), np.float32))
+    # tri_tile: the JAX package's semantics and error text
+    pipe = pool.make_pool_pipeline(inv, tri_tile=384, device="cpu")
+    with pytest.raises(ValueError, match="divisible by 384"):
+        pipe(np.zeros((10, 3), np.float32), np.zeros((2, 10, 3), np.float32),
+             np.zeros((2, 256, 2), np.int32), np.ones((2, 256), np.float32))
+    with pytest.raises(ValueError, match="layout='tri' only"):
+        pool.make_pool_pipeline(inv, layout="stacked", tri_tile=128,
+                                device="cpu")

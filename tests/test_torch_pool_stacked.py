@@ -318,21 +318,17 @@ def test_support_overflow_matches_jax():
 
 def test_build_resolution_and_option_guards():
     cpu, cuda = torch.device("cpu"), torch.device("cuda")
-    both = (torch.int8, torch.bfloat16)
-    assert pool._resolve_build("auto", torch.int8, INV_T, cpu, both) == "xla"
-    assert pool._resolve_build("auto", torch.int8, INV_T, cuda,
-                               both) == "pallas"
-    assert pool._resolve_build("auto", torch.bfloat16, INV_T, cuda,
-                               (torch.int8,)) == "xla"
-    assert pool._resolve_build("auto", None, INV_T, cuda, both) == "xla"
-    assert pool._resolve_build("auto", torch.int8, object(), cuda,
-                               both) == "xla"
-    assert pool._resolve_build("pallas", torch.int8, INV_T, cpu,
-                               both) == "pallas"
+    for storage in (torch.int8, torch.bfloat16):
+        assert pool._resolve_build("auto", storage, INV_T, cpu) == "xla"
+        assert pool._resolve_build("auto", storage, INV_T, cuda) == "pallas"
+    assert pool._resolve_build("auto", torch.float32, INV_T, cuda) == "xla"
+    assert pool._resolve_build("auto", None, INV_T, cuda) == "xla"
+    assert pool._resolve_build("auto", torch.int8, object(), cuda) == "xla"
+    assert pool._resolve_build("pallas", torch.int8, INV_T, cpu) == "pallas"
     with pytest.raises(ValueError, match="direct-to-storage"):
-        pool._resolve_build("pallas", None, INV_T, cpu, both)
+        pool._resolve_build("pallas", None, INV_T, cpu)
     with pytest.raises(ValueError, match="unknown build"):
-        pool._resolve_build("mosaic", torch.int8, INV_T, cpu, both)
+        pool._resolve_build("mosaic", torch.int8, INV_T, cpu)
     for bad in (dict(tri_probes=4), dict(d_scale=0.5),
                 dict(warm_alpha=True)):
         with pytest.raises(ValueError, match="layout='tri' only"):

@@ -91,7 +91,8 @@ def test_build_symchunks_matches_jax(m, t, G):
         interop.chunks_to_torch(ref[0])
 
 
-@pytest.mark.parametrize("storage", ["int8", "float32", "float64"])
+@pytest.mark.parametrize("storage", ["int8", "bfloat16", "float32",
+                                     "float64"])
 @pytest.mark.parametrize("K", [1, 4, 16])
 def test_rows_matvec_plain_matches_jax(storage, K):
     """sym_rows_matvec_plain on the JAX package's own chunks against its
@@ -102,8 +103,8 @@ def test_rows_matvec_plain_matches_jax(storage, K):
     nt = m // t
     dt = np.float64 if storage == "float64" else np.float32
     P1, P2, A, *_ = _bunny(m, 0.8, seed=3, dtype=dt)
-    jst = {"int8": jnp.int8, "float32": jnp.float32,
-           "float64": jnp.float64}[storage]
+    jst = {"int8": jnp.int8, "bfloat16": jnp.bfloat16,
+           "float32": jnp.float32, "float64": jnp.float64}[storage]
     chunks = _jax_chunks(P1, P2, A, m, t, G, jst)
     cr, cc0, _, _ = jsym.row_chunk_coords(nt, G)
     u = np.random.default_rng(K).random((m, K)).astype(dt)

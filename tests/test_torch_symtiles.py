@@ -30,6 +30,7 @@ from test_symstore import make_problem
 JINV = jharness.default_invariant()
 INV = harness.default_invariant()
 STORAGE = {"int8": (jnp.int8, torch.int8, np.float32),
+           "bfloat16": (jnp.bfloat16, torch.bfloat16, np.float32),
            "float32": (jnp.float32, torch.float32, np.float32),
            "float64": (jnp.float64, torch.float64, np.float64)}
 
@@ -109,7 +110,8 @@ def test_build_symtiles_matches_jax(storage, m, t):
         interop.tiles_to_torch(ref[0])
 
 
-@pytest.mark.parametrize("storage", ["int8", "float32", "float64"])
+@pytest.mark.parametrize("storage", ["int8", "bfloat16", "float32",
+                                     "float64"])
 @pytest.mark.parametrize("K", [1, 4])
 def test_tiles_matvec_plain_matches_jax(storage, K):
     """The plain tile-list matvec on the JAX package's own tiles against
