@@ -16,7 +16,11 @@ Phases, each of which must pass (any failure exits non-zero):
               the tile-list matvec on the same problem (int8, f32, f64;
               K=16 and K=1; whole list, D=3 slices summed, a rerun
               bit-identical; <= 1e-4 against the plain version, <= 1.1e-5
-              against an f64 oracle, <= 1e-4 against the rows matvec), the
+              against an f64 oracle, <= 1e-4 against the rows matvec; the
+              slices' raw f64 sums printed against the whole list's), both
+              at an edge of their work units (one m=1152 problem, nt=9,
+              int8, K=5 and K=20: rows at G=4, the tile list with its D=3
+              slices; reruns bit-identical), the
               stacked build (the 16 problems in int8 and bf16, and their
               first 1000 associations with m_true < m on four: C half
               exact, no M code differing, output equal to its transpose),
@@ -84,11 +88,12 @@ Phases, each of which must pass (any failure exits non-zero):
 4. capacity — one problem through the Clipper facade in f32: m=65,536,
               95% outliers, the bunny (seed 0), u0 from numpy
               default_rng(0), four ways: engine="auto" (the triangle
-              engine, row-chunked, the rows matvec launched); the triangle
-              engine's tile list (matvec="xla", the tile-list matvec
-              launched); the sharded engine on a 1-rank NCCL group in its
-              "xla" and "pallas" modes (the tile-list and the rows matvec
-              launched), the "xla" mode with masks equal to the tile-list
+              engine, row-chunked, the rows matvec and its reduction
+              launched); the triangle engine's tile list (matvec="xla",
+              the tile-list matvec and its reduction launched); the
+              sharded engine on a 1-rank NCCL group in its "xla" and
+              "pallas" modes (the tile-list and the rows matvec launched,
+              with their reductions), the "xla" mode with masks equal to the tile-list
               solve's and F within 1e-6 relative. Each requires P >= 0.995
               and R >= 0.88 and prints the stage times and shares of one
               warm call, its ticks, ifinal, F, storage GB and wall time.
@@ -113,7 +118,14 @@ Phases, each of which must pass (any failure exits non-zero):
 6. timing   — each kernel at its path's shapes (the builds at W=512, the tri
               matvec at B=128, K=16 and B=512, K=1, the rows and the
               tile-list matvecs on the m=65,536 storage at K=16 and K=1
-              (the tile list also on its D=3 slices), the pattern matvec at
+              (the tile list also on its D=3 slices; each timed with its
+              plan built beforehand, the plan's own time printed with and
+              without the layout's plan cache, beside its earlier two-read
+              design's time, and the bytes its design moves a call printed
+              against the stored tiles': at most 1.4x in int8 at K=16,
+              1.25x in bf16, 1.05x at K=1, with the rate reached), the
+              pattern
+              matvec at
               B=512 in f32 and bf16, the fused tri build beside the tri
               build at W=512, the tiles matvec at B=128 and B=512 beside the
               tri matvec at K=1, the dense build at m=5000 point-normal and
@@ -147,8 +159,10 @@ Phases, each of which must pass (any failure exits non-zero):
               the bench protocol's point (m=1024, rho=0.9) meet
               P >= 0.995 and R >= 0.88 (the dense engine's R >= 0.85).
 
-The line before the last is a JSON object of the kernels' numbers; the last
-line is {"ok": true, "device": {...}}.
+The line before the last is a JSON object of the kernels' numbers (rows 3
+and 7 also carry reduce_launches, the main path's launches of their
+reduction kernel, and tb_per_s, the bytes their design moves a call over
+the measured ms); the last line is {"ok": true, "device": {...}}.
 
 Usage: python3 chip_smoke.py [--quick] [--profile]
   --quick    phases 1-2 only
@@ -156,7 +170,8 @@ Usage: python3 chip_smoke.py [--quick] [--profile]
              the fused batched engine and the capacity path (row-chunked,
              tile list, and sharded "xla" at D=1) once each under
              torch.profiler and print the device's busy share and the
-             kernels that take its time
+             kernels that take its time (the capacity kernels' unit pass
+             and reduction as sym_unit_kernel and sym_reduce_kernel)
 """
 
 from __future__ import annotations
@@ -502,6 +517,20 @@ def phase_kernels(inv, check, dev):
             require(e_x <= MATVEC_TOL, "the tile-list and rows kernels "
                     "disagree on the same problem")
 
+    # an edge of the capacity kernels' units: nt = 9 (m=1152), not a
+    # multiple of the unit's 8 row blocks, at K=5 and K=20 (two groups of
+    # 16 candidates), rows at G=4 and the tile list with its D=3 slices
+    prob9 = one_problem(9 * ROWS_T, RHO, seed=6)
+    chunks9 = rows_storage(inv, prob9, dev, G=4)
+    tiles9 = tiles_storage(inv, prob9, dev)
+    for K in (5, 20):
+        U = unit_rows(gen, 1, K, dev, 9 * ROWS_T)[0]
+        rows_err = max(rows_err, check_rows(chunks9, 9, U,
+                                            f"int8, nt=9, G=4, K={K}"))
+        tiles_err = max(tiles_err, check_tiles(tiles9, 9, U,
+                                               f"int8, nt=9, K={K}"))
+    del chunks9, tiles9
+
     # the stacked build: int8 and bf16 at m=1024, then the first M_EDGE
     # associations (no tile divides M_EDGE) with m_true < m on four
     stored_err = 0.0
@@ -652,10 +681,13 @@ def check_tiles(tiles, nt, U, label, D=3):
     acc = sum(symstore.sym_tiles_matvec_cuda(p, nt, U, r, c, raw=True)
               for p, r, c in tile_slices(tiles, nt, D))
     summed = symstore._finish(acc, symstore._scale(tiles.dtype))
+    raw = symstore.sym_tiles_matvec_cuda(tiles, nt, U, raw=True)
     err = float((a - b).abs().max())
     e_sl = float((summed - b).abs().max())
     print(f"sym_tiles_matvec vs plain ({label}): max|kernel - plain|="
-          f"{err:.3e}; {D} slices summed: {e_sl:.3e}", flush=True)
+          f"{err:.3e}; {D} slices summed: {e_sl:.3e} (their raw sums vs the "
+          f"whole list's: max|diff|={float((acc - raw).abs().max()):.3e})",
+          flush=True)
     require(err <= MATVEC_TOL, f"sym_tiles_matvec {label} disagrees with "
             "plain")
     require(e_sl <= MATVEC_TOL, f"sym_tiles_matvec {label}: the {D} slices "
@@ -677,9 +709,11 @@ def check_rows_slices(chunks, nt, U, label, D=3):
         acc = acc + k
     whole = symstore.sym_rows_matvec_plain(chunks, nt, U)
     e_sum = float((symstore._finish(acc, scale) - whole).abs().max())
+    raw = symstore.sym_rows_matvec_cuda(chunks, nt, U, raw=True)
     print(f"sym_rows_matvec on {D} chunk slices ({label}): max|kernel - "
-          f"plain| per slice={err:.3e}, slices summed vs whole={e_sum:.3e}",
-          flush=True)
+          f"plain| per slice={err:.3e}, slices summed vs whole={e_sum:.3e} "
+          f"(raw sums vs the whole list's: max|diff|="
+          f"{float((acc - raw).abs().max()):.3e})", flush=True)
     require(max(err, e_sum) <= MATVEC_TOL, f"sym_rows_matvec slices {label} "
             "disagree with plain")
     return max(err, e_sum)
@@ -726,6 +760,8 @@ def check_rows(chunks, nt, U, label):
     b = symstore.sym_rows_matvec_plain(chunks, nt, U)
     require(bool(torch.isfinite(a).all()), f"sym_rows_matvec {label}: "
             "non-finite output")
+    require(bool(torch.equal(a, symstore.sym_rows_matvec_cuda(chunks, nt, U))),
+            f"sym_rows_matvec {label}: a rerun is not bit-identical")
     err = float((a - b).abs().max())
     print(f"sym_rows_matvec vs plain ({label}): max|kernel - plain|="
           f"{err:.3e}", flush=True)
@@ -1344,9 +1380,11 @@ def capacity_solve(inv, prob, dev, engine, opts):
 
 
 def report_capacity(label, run, Agt, kernel):
-    """Shapes, finite values, F <= m, the P/R bars and ``kernel`` launched;
+    """Shapes, finite values, F <= m, the P/R bars, ``kernel`` and its
+    reduction launched;
     prints the quality, stage times, ticks, storage and launches."""
     import torch
+    from clipper_tpu_torch import _kernels
     from clipper_tpu_torch.bench import data
 
     c, sol, stats, launches, wall, cold = run
@@ -1369,8 +1407,9 @@ def report_capacity(label, run, Agt, kernel):
                       for k in ("build", "init", "solve", "polish")),
           flush=True)
     print(f"{label} kernel launches (one call): {launches}", flush=True)
-    require(launches[kernel] > 0, f"{label}: {kernel} was never launched: "
-            f"{launches}")
+    for name in (kernel, _kernels.REDUCTIONS[kernel]):
+        require(launches[name] > 0, f"{label}: {name} was never launched: "
+                f"{launches}")
     require(P >= 0.995, f"{label} precision {P:.4f} < 0.995")
     require(R >= 0.88, f"{label} recall {R:.4f} < 0.88")
     return mask, F
@@ -1412,7 +1451,8 @@ def phase_capacity(inv, prob, dev):
     run = capacity_solve(inv, prob, dev, "triangle", {"matvec": "xla"})
     mask_x, F_x = report_capacity("capacity path (tile list)", run, Agt,
                                   "sym_tiles_matvec")
-    launches["sym_tiles_matvec"] = run[3]["sym_tiles_matvec"]
+    for name in ("sym_tiles_matvec", "sym_tiles_reduce"):
+        launches[name] = run[3][name]
 
     with one_rank_group(dev):
         for mode, kernel in (("xla", "sym_tiles_matvec"),
@@ -1554,134 +1594,137 @@ def dense_from_chunks(chunks, nt):
     return D
 
 
-def time_rows(inv, prob, dev):
-    """The rows matvec on the capacity path's m=65,536 storage: held
-    against its plain version at K=16 and K=1, then timed. Returns the
-    K=16 row of the kernels' JSON line and the max abs error."""
+# the capacity kernels' times at the m=65,536 shapes below in their earlier,
+# two-read design (each off-diagonal tile read by its row's block and its
+# column's block), on an H100 80GB HBM3 at 700 W: K=16, K=1, bf16 K=16
+TWO_READ_MS = {"sym_rows_matvec": (5.4614, 3.9446, 11.8885),
+               "sym_tiles_matvec": (5.3948, 3.9653, 10.8469)}
+# the design's bytes a call over the stored tiles' bytes, at most
+DESIGN_RATIO = {("int8", 16): 1.4, ("bfloat16", 16): 1.25, ("int8", 1): 1.05}
+
+
+def design_bytes(plan, itemsize, K, m, t=ROWS_T):
+    """(stored tile bytes, bytes a call of a capacity kernel moves by its
+    design): every stored tile once, the workspace of f64 partials written
+    once and read once, u read and the output written once."""
+    tiles = len(plan.plan.entries) * 2 * t * t * itemsize
+    ws = 2 * plan.plan.n_slots * 2 * K * t * 8
+    return tiles, tiles + ws + K * m * 2 + K * 2 * m * 4
+
+
+def time_plan(make, cache):
+    """(device plan, (ms, cached ms)): make() with the host plans' cache
+    emptied, then again from the cache, each on the host clock through
+    the plan's copy to the card."""
+    import torch
+    ms = []
+    for clear in (True, False):
+        if clear:
+            cache.cache_clear()
+        t0 = time.perf_counter()
+        plan = make()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return plan, tuple(ms)
+
+
+def time_capacity(name, inv, prob, dev):
+    """The rows (name "sym_rows_matvec") or tile-list ("sym_tiles_matvec")
+    matvec on the capacity path's m=65,536 storage: held against its plain
+    version at K=16 and K=1 (the tile list on its D=3 slices too), then
+    timed with its plan built beforehand, beside its bound, its plain
+    version, the dense bf16 [M; C] matmul and its two-read design's time;
+    then the same over bf16 storage at K=16. Prints the time to make its
+    plan (with the layout's plan cache emptied, and from the cache), the
+    design's bytes a call against the stored tiles' (and fails past
+    DESIGN_RATIO) and the rate it reaches. Returns the K=16 row of the kernels' JSON line and the
+    max abs error."""
     import torch
     from clipper_tpu_torch.bench.harness import time_ms
     from clipper_tpu_torch.ops import symstore
 
+    rows_layout = name == "sym_rows_matvec"
     m = len(prob[2])
     t, G = ROWS_T, 32
     nt = m // t
     T = nt * (nt + 1) // 2
-    chunks = rows_storage(inv, prob, dev, G=G)
-    print(f"rows storage m={m}: {tuple(chunks.shape)} int8, "
-          f"{chunks.numel() / 1e9:.3f} GB ({T} tiles, "
-          f"{T * 2 * t * t / 1e9:.3f} GB of them stored)", flush=True)
-    gen = torch.Generator(device=dev).manual_seed(2)
+    gen = torch.Generator(device=dev).manual_seed(2 if rows_layout else 5)
     Us = {K: unit_rows(gen, 1, K, dev, m)[0] for K in (16, 1)}
-    err = max(check_rows(chunks, nt, U, f"int8, m={m}, K={K}")
-              for K, U in Us.items())
-    dense = dense_from_chunks(chunks, nt)
     rows = {}
-    for K, U in Us.items():
-        mv_bytes = T * 2 * t * t + K * m * 2 + K * 2 * m * 4
-        mv_ops = 2 * K * 2 * t * t * (2 * T - nt)
-        Ut = U.to(torch.bfloat16).T.contiguous()
-        r = dict(ms=time_ms(lambda: symstore.sym_rows_matvec_cuda(
-                     chunks, nt, U), dev, 10),
-                 plain_ms=time_ms(lambda: symstore.sym_rows_matvec_plain(
-                     chunks, nt, U), dev, 2),
-                 bound_ms=max(mv_bytes / HBM_BYTES_PER_S,
-                              mv_ops / BF16_FLOPS) * 1e3,
-                 bound_by=("bytes" if mv_bytes / HBM_BYTES_PER_S
-                           > mv_ops / BF16_FLOPS else "operations"),
-                 library_ms=time_ms(lambda: torch.matmul(dense, Ut), dev, 5))
-        rows[K] = r
-        print(f"timing sym_rows_matvec m={m} K={K}: kernel {r['ms']:.4f} ms, "
-              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), plain "
-              f"{r['plain_ms']:.4f} ms, matmul over dense bf16 [M; C] "
-              f"{r['library_ms']:.4f} ms", flush=True)
-    del dense, chunks
-    torch.cuda.empty_cache()
-    # bf16 storage (twice the bytes) at K=16
-    chunks = rows_storage(inv, prob, dev, G=G, storage=torch.bfloat16)
-    U = Us[16]
-    err = max(err, check_rows(chunks, nt, U, f"bf16, m={m}, K=16"))
-    dense = dense_from_chunks(chunks, nt)
-    Ut = U.to(torch.bfloat16).T.contiguous()
-    r = dict(ms=time_ms(lambda: symstore.sym_rows_matvec_cuda(
-                 chunks, nt, U), dev, 10),
-             plain_ms=time_ms(lambda: symstore.sym_rows_matvec_plain(
-                 chunks, nt, U), dev, 2),
-             library_ms=time_ms(lambda: torch.matmul(dense, Ut), dev, 5),
-             **bound_of(T * 2 * t * t * 2 + 16 * m * 2 + 16 * 2 * m * 4,
-                        2 * 16 * 2 * t * t * (2 * T - nt)))
-    rows[16]["bf16"] = r
-    print(f"timing sym_rows_matvec bf16 m={m} K=16: kernel {r['ms']:.4f} "
-          f"ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), plain "
-          f"{r['plain_ms']:.4f} ms, matmul over dense bf16 [M; C] "
-          f"{r['library_ms']:.4f} ms", flush=True)
-    del dense, chunks
-    torch.cuda.empty_cache()
-    return rows[16], err
+    err = 0.0
+    for storage in (torch.int8, torch.bfloat16):
+        label = str(storage).split(".")[-1]
+        if rows_layout:
+            store = rows_storage(inv, prob, dev, G=G, storage=storage)
+            plan, plan_ms = time_plan(
+                lambda: symstore.rows_device_plan(store, nt),
+                symstore._rows_plan)
+            dense = dense_from_chunks(store, nt)
 
+            def kernel(U):
+                return symstore.sym_rows_matvec_cuda(store, nt, U, plan=plan)
 
-def time_tiles(inv, prob, dev):
-    """The tile-list matvec on the capacity path's m=65,536 storage: held
-    against its plain version at K=16 and K=1 (whole list and D=3
-    slices), then timed. Returns the K=16 row of the kernels' JSON line
-    and the max abs error."""
-    import torch
-    from clipper_tpu_torch.bench.harness import time_ms
-    from clipper_tpu_torch.ops import symstore
+            def plain(U):
+                return symstore.sym_rows_matvec_plain(store, nt, U)
+        else:
+            store = tiles_storage(inv, prob, dev, storage)
+            plan, plan_ms = time_plan(
+                lambda: symstore.tiles_device_plan(store, nt),
+                symstore._tiles_plan)
+            dense = dense_from_tiles(store, nt, torch.bfloat16)
 
-    m = len(prob[2])
-    t = ROWS_T
-    nt = m // t
-    tiles = tiles_storage(inv, prob, dev)
-    T = tiles.shape[0]
-    print(f"tile-list storage m={m}: {tuple(tiles.shape)} int8, "
-          f"{tiles.numel() / 1e9:.3f} GB", flush=True)
-    gen = torch.Generator(device=dev).manual_seed(5)
-    Us = {K: unit_rows(gen, 1, K, dev, m)[0] for K in (16, 1)}
-    err = max(check_tiles(tiles, nt, U, f"int8, m={m}, K={K}")
-              for K, U in Us.items())
-    walks = symstore._device_walks(nt, *symstore.tile_coords(nt), dev)
-    dense = dense_from_tiles(tiles, nt, torch.bfloat16)
-    rows = {}
-    for K, U in Us.items():
-        mv_bytes = T * 2 * t * t + K * m * 2 + K * 2 * m * 4
-        mv_ops = 2 * K * 2 * t * t * (2 * T - nt)
-        Ut = U.to(torch.bfloat16).T.contiguous()
-        r = dict(ms=time_ms(lambda: symstore.sym_tiles_matvec_cuda(
-                     tiles, nt, U, walks=walks), dev, 10),
-                 plain_ms=time_ms(lambda: symstore.sym_tiles_matvec_plain(
-                     tiles, nt, U), dev, 2),
-                 bound_ms=max(mv_bytes / HBM_BYTES_PER_S,
-                              mv_ops / BF16_FLOPS) * 1e3,
-                 bound_by=("bytes" if mv_bytes / HBM_BYTES_PER_S
-                           > mv_ops / BF16_FLOPS else "operations"),
-                 library_ms=time_ms(lambda: torch.matmul(dense, Ut), dev, 5))
-        rows[K] = r
-        print(f"timing sym_tiles_matvec m={m} K={K}: kernel {r['ms']:.4f} "
-              f"ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), plain "
-              f"{r['plain_ms']:.4f} ms, matmul over dense bf16 [M; C] "
-              f"{r['library_ms']:.4f} ms", flush=True)
-    del dense, tiles
-    torch.cuda.empty_cache()
-    # bf16 storage (twice the bytes) at K=16
-    tiles = tiles_storage(inv, prob, dev, torch.bfloat16)
-    U = Us[16]
-    err = max(err, check_tiles(tiles, nt, U, f"bf16, m={m}, K=16"))
-    dense = dense_from_tiles(tiles, nt, torch.bfloat16)
-    Ut = U.to(torch.bfloat16).T.contiguous()
-    r = dict(ms=time_ms(lambda: symstore.sym_tiles_matvec_cuda(
-                 tiles, nt, U, walks=walks), dev, 10),
-             plain_ms=time_ms(lambda: symstore.sym_tiles_matvec_plain(
-                 tiles, nt, U), dev, 2),
-             library_ms=time_ms(lambda: torch.matmul(dense, Ut), dev, 5),
-             **bound_of(T * 2 * t * t * 2 + 16 * m * 2 + 16 * 2 * m * 4,
-                        2 * 16 * 2 * t * t * (2 * T - nt)))
-    rows[16]["bf16"] = r
-    print(f"timing sym_tiles_matvec bf16 m={m} K=16: kernel {r['ms']:.4f} "
-          f"ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), plain "
-          f"{r['plain_ms']:.4f} ms, matmul over dense bf16 [M; C] "
-          f"{r['library_ms']:.4f} ms", flush=True)
-    del dense, tiles
-    torch.cuda.empty_cache()
+            def kernel(U):
+                return symstore.sym_tiles_matvec_cuda(store, nt, U,
+                                                      plan=plan)
+
+            def plain(U):
+                return symstore.sym_tiles_matvec_plain(store, nt, U)
+        print(f"{name} storage m={m}: {tuple(store.shape)} {label}, "
+              f"{store.numel() * store.element_size() / 1e9:.3f} GB ({T} "
+              f"tiles); plan: {len(plan.plan.units)} units, "
+              f"{plan.plan.n_slots} partial slots, made in {plan_ms[0]:.1f} "
+              f"ms (host plan and copy to the card), {plan_ms[1]:.1f} ms "
+              "from the layout's cache", flush=True)
+        for K in ((16, 1) if storage == torch.int8 else (16,)):
+            U = Us[K]
+            label_k = f"{label}, m={m}, K={K}"
+            if rows_layout:
+                err = max(err, check_rows(store, nt, U, label_k))
+            else:
+                err = max(err, check_tiles(store, nt, U, label_k))
+            item = store.element_size()
+            tile_bytes, n_bytes = design_bytes(plan, item, K, m)
+            ratio = n_bytes / tile_bytes
+            Ut = U.to(torch.bfloat16).T.contiguous()
+            r = dict(ms=time_ms(lambda: kernel(U), dev, 10),
+                     plain_ms=time_ms(lambda: plain(U), dev, 2),
+                     library_ms=time_ms(lambda: torch.matmul(dense, Ut), dev,
+                                        5),
+                     **bound_of(T * 2 * t * t * item + K * m * 2
+                                + K * 2 * m * 4,
+                                2 * K * 2 * t * t * (2 * T - nt)))
+            two_read = TWO_READ_MS[name][
+                2 if storage == torch.bfloat16 else (0 if K == 16 else 1)]
+            # the measured time over the design's bytes a call
+            r["tb_per_s"] = n_bytes / r["ms"] / 1e9
+            print(f"timing {name} {label_k}: kernel {r['ms']:.4f} ms "
+                  f"(two-read design {two_read:.4f} ms), bound "
+                  f"{r['bound_ms']:.4f} ms ({r['bound_by']}), plain "
+                  f"{r['plain_ms']:.4f} ms, matmul over dense bf16 [M; C] "
+                  f"{r['library_ms']:.4f} ms; the design moves "
+                  f"{n_bytes / 1e9:.3f} GB a call, {ratio:.3f}x the "
+                  f"{tile_bytes / 1e9:.3f} GB of stored tiles, at "
+                  f"{r['tb_per_s']:.3f} TB/s", flush=True)
+            require(ratio <= DESIGN_RATIO[(label, K)], f"{name} {label_k}: "
+                    f"the design moves {ratio:.3f}x the stored tiles, past "
+                    f"{DESIGN_RATIO[(label, K)]}")
+            if storage == torch.int8:
+                rows[K] = r
+            else:
+                rows[16]["bf16"] = r
+        del dense, store, plan
+        torch.cuda.empty_cache()
+    rows[16]["K1"] = rows[1]
     return rows[16], err
 
 
@@ -2578,7 +2621,8 @@ def main() -> None:
     print(f"capacity data: m={CAP_M} in {time.perf_counter() - t0:.1f} s",
           flush=True)
     cap_launches = phase_capacity(inv, cap, dev)
-    for name in ("sym_rows_matvec", "sym_tiles_matvec"):
+    for name in ("sym_rows_matvec", "sym_tiles_matvec", "sym_rows_reduce",
+                 "sym_tiles_reduce"):
         launches[name] = cap_launches[name]
     phase_parity(inv, check, dev)
     phase_parity_pn(inv, pn_inv, check, pn_check, dev)
@@ -2588,10 +2632,9 @@ def main() -> None:
     errs["tri_tiles_matvec"] = max(errs["tri_tiles_matvec"], tiles_err_main)
     errs["tri_build"] = max(errs["tri_build"], build_err_main)
     errs["tri_matvec"] = max(errs["tri_matvec"], mv_err_main)
-    rows["sym_rows_matvec"], rows_err_cap = time_rows(inv, cap, dev)
-    errs["sym_rows_matvec"] = max(errs["sym_rows_matvec"], rows_err_cap)
-    rows["sym_tiles_matvec"], tiles_err_cap = time_tiles(inv, cap, dev)
-    errs["sym_tiles_matvec"] = max(errs["sym_tiles_matvec"], tiles_err_cap)
+    for name in ("sym_rows_matvec", "sym_tiles_matvec"):
+        rows[name], e = time_capacity(name, inv, cap, dev)
+        errs[name] = max(errs[name], e)
     rows_sp, errs_sp = time_stacked_and_pattern(inv, main_data, dev)
     rows.update(rows_sp)
     for name, e in errs_sp.items():
@@ -2624,6 +2667,14 @@ def main() -> None:
                     replaces=where, launches=launches[name],
                     max_abs_err=errs[name], **rows[name])
                for name, where in replaces.items()]
+    # the capacity matvecs' second kernel, the fixed-order reduction
+    for k in kernels:
+        if k["name"] in _kernels.REDUCTIONS:
+            k["reduce_launches"] = launches[_kernels.REDUCTIONS[k["name"]]]
+    print("main-path launches: " + ", ".join(
+        f"{name} {launches[name]}" for name in (*replaces, *_kernels.
+                                                REDUCTIONS.values())),
+          flush=True)
     for k in kernels:
         for key in ("ms", "plain_ms", "bound_ms", "library_ms"):
             if k[key] is not None:

@@ -52,6 +52,10 @@ _F = ctypes.c_float
 _D = ctypes.c_double
 # a build kernel's score: kind, its four parameters, affinityeps
 _SCORE = [_I, _D, _D, _D, _D, _D]
+# the capacity kernels' storage view (pointer, rows, columns), unit plan
+# (entries, units, fslots, units, red_off, red_slots, slots), U, out and
+# workspace; then K, nt, t, raw
+_UNITS = [_P, _LL, _LL, _P, _P, _P, _I, _P, _P, _I, _P, _P, _P]
 _SIGNATURES = {
     "tri_matvec_int8": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _LL, _F, _P],
     "tri_matvec_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _LL, _P],
@@ -69,13 +73,12 @@ _SIGNATURES = {
     "tri_tiles_matvec_bf16": [_P, _P, _P, _P, _I, _I, _I, _P],
     "tri_tiles_matvec_f32": [_P, _P, _P, _P, _I, _I, _I, _P],
     "tri_tiles_matvec_f64": [_P, _P, _P, _P, _I, _I, _I, _P],
-    "sym_rows_matvec_int8": [_P, _P, _P, _I, _I, _I, _I, _LL, _LL, _I, _F,
-                             _P],
-    "sym_rows_matvec_bf16": [_P, _P, _P, _I, _I, _I, _I, _LL, _LL, _I, _P],
+    "sym_rows_matvec_int8": [*_UNITS, _I, _I, _I, _I, _F, _P],
+    "sym_rows_matvec_bf16": [*_UNITS, _I, _I, _I, _I, _P],
     "sym_rows_matvec_f32": [_P, _P, _P, _I, _I, _I, _I, _LL, _LL, _I, _P],
     "sym_rows_matvec_f64": [_P, _P, _P, _I, _I, _I, _I, _LL, _LL, _I, _P],
-    "sym_tiles_matvec_int8": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
-    "sym_tiles_matvec_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "sym_tiles_matvec_int8": [*_UNITS, _I, _I, _I, _I, _F, _P],
+    "sym_tiles_matvec_bf16": [*_UNITS, _I, _I, _I, _I, _P],
     "sym_tiles_matvec_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "sym_tiles_matvec_f64": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "stored_build_int8": [_P, _P, _P, _P, _P, _I, _I, *_SCORE, _P],
@@ -85,7 +88,12 @@ _SIGNATURES = {
     "build_probe_int8": [_I, _P, _P, _P, _P, _P, _I, _I, _D, _D, _D, _P],
 }
 
-LAUNCHES: Dict[str, int] = {name: 0 for name in SOURCES}
+# the capacity matvecs' second kernel (the fixed-order reduction of their
+# int8 / bf16 unit pass), counted under its own key
+REDUCTIONS: Dict[str, str] = {"sym_rows_matvec": "sym_rows_reduce",
+                              "sym_tiles_matvec": "sym_tiles_reduce"}
+LAUNCHES: Dict[str, int] = {name: 0 for name in (*SOURCES,
+                                                 *REDUCTIONS.values())}
 BUILD_LOG: Dict[str, str] = {}
 _LIBS: Dict[str, ctypes.CDLL] = {}
 

@@ -3,10 +3,10 @@ card: where its time goes.
 
 Each variant is the kernel's own source with one part switched off by a
 text edit, compiled by its own nvcc into
-build/clipper_tpu_torch/probe/<variant>/ and timed through its C entry
-point (no wrapper) at the main path's shapes: m=1024, t=256, P=512 stored
-problems of random content (10% of pairs kept), B=128 lanes at K=16 and
-B=512 at K=1, int8 and bf16 storage.
+build/clipper_tpu_torch/probe/tri_matvec/<variant>/ and timed through its
+C entry point (no wrapper) at the main path's shapes: m=1024, t=256,
+P=512 stored problems of random content (10% of pairs kept), B=128 lanes
+at K=16 and B=512 at K=1, int8 and bf16 storage.
 
 - ``full``: the kernel as the package builds it;
 - ``nocompute``: the consumer warps wait for every panel, release it and
@@ -17,10 +17,14 @@ B=512 at K=1, int8 and bf16 storage.
 The variants' outputs are wrong by design; only their times mean
 anything. Run on a machine with the card:
 
-    python -m clipper_tpu_torch.bench.tri_matvec_probe
+    python -m clipper_tpu_torch.bench.tri_matvec_probe [--parent DIR]
 
 It prints the card's name and power limit, then one line per storage and
-shape with each variant's ms beside the bound.
+shape with each variant's ms beside the bound. ``--parent DIR`` adds the
+variant ``parent``: the kernel built from the sources of another checkout
+of the repo at DIR (for example an earlier commit unpacked with ``git
+archive``), timed beside the others, and it prints whether the kernel's
+output equals the parent's bit for bit at every shape.
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ import ctypes
 import os
 import subprocess
 import sys
+from pathlib import Path
 from typing import Dict, List
 
 from clipper_tpu_torch import _kernels
@@ -57,33 +62,53 @@ def variant_sources() -> Dict[str, str]:
             "noforward": no_fwd, "notransposed": no_tr}
 
 
-def build_variants() -> Dict[str, ctypes.CDLL]:
-    """Compile every variant (one nvcc each, all started together) and
-    load them."""
-    out_dir = _kernels.BUILD_DIR / "probe"
+def build_edited(probe: str, cu: str, edited: Dict[str, Dict[str, str]],
+                 fns) -> Dict[str, ctypes.CDLL]:
+    """Compile csrc/<cu>.cu once for each variant, in its own copy of csrc/
+    (build/clipper_tpu_torch/probe/<probe>/<variant>/) where the variant's
+    edited files (file name -> text) replace the package's: one nvcc per
+    variant, all started together. Returns the loaded libraries with their
+    C entry points ``fns`` bound."""
+    out_dir = _kernels.BUILD_DIR / "probe" / probe
     procs = {}
-    for name, src in variant_sources().items():
+    for name, files in edited.items():
         d = out_dir / name
         d.mkdir(parents=True, exist_ok=True)
-        (d / "tri_matvec.cu").write_text(src)
-        for h in _kernels.CSRC.glob("*.cuh"):
+        for h in _kernels.CSRC.glob("*.cu*"):
             (d / h.name).write_bytes(h.read_bytes())
+        for fname, text in files.items():
+            (d / fname).write_text(text)
         cmd = [_kernels._nvcc(), *_kernels._ARCH, *_kernels._COMMON,
-               "-o", str(d / "lib.so"), str(d / "tri_matvec.cu")]
+               "-o", str(d / "lib.so"), str(d / f"{cu}.cu")]
         procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                        stderr=subprocess.STDOUT, text=True)
     libs = {}
     for name, p in procs.items():
         log, _ = p.communicate()
         if p.returncode != 0:
-            raise RuntimeError(f"tri_matvec_probe: {name} failed to build:"
+            raise RuntimeError(f"{probe} probe: {name} failed to build:"
                                f"\n{log}")
         lib = ctypes.CDLL(os.path.abspath(out_dir / name / "lib.so"))
-        for fn in ("tri_matvec_int8", "tri_matvec_bf16"):
+        for fn in fns:
             getattr(lib, fn).argtypes = _kernels._SIGNATURES[fn]
             getattr(lib, fn).restype = ctypes.c_int
         libs[name] = lib
     return libs
+
+
+def build_variants(parent: str = None) -> Dict[str, ctypes.CDLL]:
+    """Compile every variant and load it; with ``parent``, also the kernel
+    from the csrc/ of the checkout at that path."""
+    edited = {name: {"tri_matvec.cu": src}
+              for name, src in variant_sources().items()}
+    if parent is not None:
+        csrc = Path(parent) / "clipper_tpu_torch" / "csrc"
+        edited["parent"] = {p.name: p.read_text()
+                            for p in csrc.glob("*.cu*")}
+        if "tri_matvec.cu" not in edited["parent"]:
+            raise SystemExit(f"tri_matvec_probe: no tri_matvec.cu in {csrc}")
+    return build_edited("tri_matvec", "tri_matvec", edited,
+                        ("tri_matvec_int8", "tri_matvec_bf16"))
 
 
 def main(argv: List[str] = None) -> list:
@@ -93,9 +118,12 @@ def main(argv: List[str] = None) -> list:
     from clipper_tpu_torch.ops import flattri
 
     argv = sys.argv[1:] if argv is None else argv
-    if argv:
-        raise SystemExit("usage: python -m "
-                         "clipper_tpu_torch.bench.tri_matvec_probe")
+    parent = None
+    if len(argv) == 2 and argv[0] == "--parent":
+        parent = argv[1]
+    elif argv:
+        raise SystemExit("usage: python -m clipper_tpu_torch.bench."
+                         "tri_matvec_probe [--parent DIR]")
     if not torch.cuda.is_available():
         raise SystemExit("tri_matvec_probe needs a CUDA device")
     dev = torch.device("cuda")
@@ -103,7 +131,8 @@ def main(argv: List[str] = None) -> list:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip(), flush=True)
-    libs = build_variants()
+    libs = build_variants(parent)
+    names = [*VARIANTS, *(["parent"] if parent else [])]
     t, nt, P = 256, 4, 512
     m = t * nt
     S = flattri.tri_ncols(nt, t)
@@ -134,11 +163,17 @@ def main(argv: List[str] = None) -> list:
                     def call(lib=lib):
                         return lib.tri_matvec_bf16(*args, stream)
                 _kernels.check(call(), f"tri_matvec_probe {name}")
+                if name == "full":
+                    full_out = out.clone()
+                elif name == "parent":
+                    row["equal_to_parent"] = bool(torch.equal(out, full_out))
                 row[name] = time_ms(call, dev, 50)
             rows.append(row)
             print(f"{row['storage']} B={B} K={K}: "
-                  + " | ".join(f"{n} {row[n]:.4f} ms" for n in VARIANTS)
-                  + f" | bound {row['bound_ms']:.4f} ms (bytes)",
+                  + " | ".join(f"{n} {row[n]:.4f} ms" for n in names)
+                  + f" | bound {row['bound_ms']:.4f} ms (bytes)"
+                  + (f" | output bit-identical to the parent's: "
+                     f"{row['equal_to_parent']}" if parent else ""),
                   flush=True)
     return rows
 

@@ -44,16 +44,11 @@
 // columns, not 15 of 16 rows). int8 codes become bf16 by the bias trick
 // (bf16_mma.cuh); bf16 storage is used as it is.
 //
-// int8 fragments. ldmatrix moves 16-bit elements, so an int8 stage is read
-// as pairs of codes. Forward, a lane gets 4 adjacent codes of one row; the
-// contraction index k is permuted within each 16 (a dot product does not
-// care), and u is read with the same permutation (8 contiguous bytes).
-// Transposed, ldmatrix.trans gives a lane 2 rows x 2 adjacent columns; the
-// two columns are two output rows of the mma (2g and 2g + 1 in place of g
-// and g + 8), and the forward direction takes its rows in the same order,
-// so both directions map an output to the same thread. The copies swizzle
-// each 128-byte row segment's 16-byte chunks by the row (see Ring), so the
-// 8 rows of an ldmatrix hit distinct banks, except the forward's even rows
+// The panel products (forward and transposed, int8 and bf16 fragments)
+// are bf16_mma.cuh's, shared with the capacity engines' kernels; the
+// copies, barriers and the tensor map are hopper_copy.cuh's. The copies
+// swizzle each 128-byte row segment's 16-byte chunks by the row, so the 8
+// rows of an ldmatrix hit distinct banks, except the forward's even rows
 // at int8, which meet in pairs (a 2-way conflict).
 //
 // Determinism. A block walks its tiles in storage order (r = 0..nt-1,
@@ -80,7 +75,11 @@
 
 namespace {
 
-using bf16mma::codes_of;
+using namespace hopper;
+using bf16mma::forward_bf16;
+using bf16mma::forward_i8;
+using bf16mma::transposed_bf16;
+using bf16mma::transposed_i8;
 
 constexpr int kPanel = 64;                       // tile rows a stage holds
 constexpr int kConsumers = 8;                    // warps applying panels
@@ -90,104 +89,6 @@ constexpr int kMaxStages = 8;
 
 __device__ __forceinline__ int tile_offset(int r, int nt) {
   return r * nt - r * (r - 1) / 2;
-}
-
-// ---- shared-memory barriers, bulk copies and fragment loads
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_u32(bar)),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
-                   smem_u32(bar))
-               : "memory");
-}
-
-// wait for the phase of the given parity to complete; a wait of over
-// ~10 s (a protocol fault) traps rather than hanging the card
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const long long start = clock64();
-  uint32_t done;
-  do {
-    if (clock64() - start > 20000000000LL) __trap();
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// bytes (a multiple of 16, both addresses 16-byte aligned) from global to
-// shared memory, completing as transaction bytes on bar
-__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
-                                          uint32_t bytes, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
-      "l"(src), "r"(bytes), "r"(smem_u32(bar))
-      : "memory");
-}
-
-// a (kPanel rows, 128 bytes) box of the storage's tensor map at element
-// column x, row y, completing as transaction bytes on bar
-__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
-                                            int x, int y, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::"
-      "complete_tx::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y),
-      "r"(smem_u32(bar))
-      : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&q)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(q[0]), "=r"(q[1]), "=r"(q[2]), "=r"(q[3])
-      : "r"(addr)
-      : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&q)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(q[0]), "=r"(q[1]), "=r"(q[2]), "=r"(q[3])
-      : "r"(addr)
-      : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x2(uint32_t (&q)[2], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
-               : "=r"(q[0]), "=r"(q[1])
-               : "r"(addr)
-               : "memory");
-}
-
-__device__ __forceinline__ uint2 lds64(uint32_t addr) {
-  uint2 v;
-  asm volatile("ld.shared.v2.u32 {%0,%1}, [%2];\n"
-               : "=r"(v.x), "=r"(v.y)
-               : "r"(addr)
-               : "memory");
-  return v;
 }
 
 // The ring's layout. A stage holds kPanel rows of one half of a tile, as
@@ -203,7 +104,7 @@ struct Ring {
   static constexpr int kRowBytes = T * (int)sizeof(S);
   static constexpr int kBoxes = kRowBytes / 128;
   static constexpr int kBytes = kPanel * kRowBytes;  // a multiple of 1024
-  static constexpr int kUPitch = 2 * T + 16;
+  static constexpr int kUPitch = bf16mma::UBlock<T>::kPitch;
   static constexpr int kURows = 8 * NK;
   static constexpr int kUBlock = kURows * kUPitch;  // u_c or u_r
   static constexpr int kUSlots = 2 * 2 * kUBlock;   // two slots of both
@@ -215,157 +116,7 @@ struct Ring {
   // + 1024: the stages' alignment (the swizzle repeats every 1024 bytes)
   static constexpr int kSmem = kCount * kBytes + kUSlots + kBarriers + 1024;
   static constexpr bool kCodes = sizeof(S) == 1;
-  // the offset of row r's 16 bytes at byte column x (a multiple of 16)
-  __device__ static __forceinline__ uint32_t at(int r, int x) {
-    return (uint32_t)((x >> 7) * (kPanel * 128) + r * 128 +
-                      ((((x >> 4) & 7) ^ (r & 7)) << 4));
-  }
 };
-
-// acc += a b for one k16 step: the step's product from zero, then a
-// rounded add. The tensor cores truncate as they accumulate, so a chain of
-// steps drifts low by up to an ulp a step (a chain over a whole row of
-// tiles sat 1.3e-5 from an f64 oracle at m=4096, where the bar is 1.1e-5);
-// one step from zero errs by at most an ulp of its own 16 terms, and the
-// steps' sums round to nearest.
-__device__ __forceinline__ void mma_add(float (&acc)[4], const uint32_t (&a)[4],
-                                        uint32_t b0, uint32_t b1) {
-  float d[4];
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%10,%10,%10,%10};\n"
-      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
-        "f"(0.f));
-#pragma unroll
-  for (int q = 0; q < 4; ++q) acc[q] += d[q];
-}
-
-// B fragments (natural k order) of one k16 step for the NK n8 groups, from
-// a u block at addr (its column k0 already added): b[nk] = {b0, b1}
-template <int T, int NK>
-__device__ __forceinline__ void load_b(uint32_t (&b)[NK][2], uint32_t addr,
-                                       int lane) {
-  constexpr int kUPitch = 2 * T + 16;
-  const int j = lane >> 3;
-  if constexpr (NK == 2) {
-    // matrix j: rows (lane & 7) + 8 (j >> 1), columns 8 (j & 1) ..
-    uint32_t q[4];
-    ldsm_x4(q, addr + ((lane & 7) + 8 * (j >> 1)) * kUPitch + 16 * (j & 1));
-    b[0][0] = q[0];
-    b[0][1] = q[1];
-    b[1][0] = q[2];
-    b[1][1] = q[3];
-  } else {
-    uint32_t q[2];
-    ldsm_x2(q, addr + (lane & 7) * kUPitch + 16 * (j & 1));
-    b[0][0] = q[0];
-    b[0][1] = q[1];
-  }
-}
-
-// ---- the two products of a staged panel, one 16-row output block each
-
-// Forward: output rows row0..row0+15 of the stage (complete sums over the
-// tile's t columns) against the u_c block at uc: acc[nk] += A u^T for the
-// candidates 8 nk .. 8 nk + 7.
-template <int T, int NK>
-__device__ __forceinline__ void forward_i8(float (&acc)[NK][4],
-                                           uint32_t stage, int row0,
-                                           uint32_t uc, int lane) {
-  using L = Ring<int8_t, T, NK>;
-  const int g = lane >> 2, tig = lane & 3;
-  // matrices: rows 2i | 2i + 1 (i = lane & 7) x bytes 0-15 | 16-31 (the
-  // even rows meet in pairs of banks: a 2-way conflict, the swizzle's)
-  const int rr = row0 + 2 * (lane & 7) + ((lane >> 3) & 1);
-  const int xo = 16 * (lane >> 4);
-  // u in the same permuted k order: 4 values a lane, from column 4 tig
-  const uint32_t ub = uc + g * L::kUPitch + 8 * tig;
-#pragma unroll
-  for (int kb = 0; kb < T; kb += 32) {
-    uint32_t q[4];
-    ldsm_x4(q, stage + L::at(rr, kb + xo));
-    // k permuted within each 16: slots 2tig, 2tig+1 <- codes 4tig, 4tig+1;
-    // slots 2tig+8, 2tig+9 <- codes 4tig+2, 4tig+3
-    const uint32_t a0[4] = {codes_of<0x4140>(q[0]), codes_of<0x4140>(q[1]),
-                            codes_of<0x4342>(q[0]), codes_of<0x4342>(q[1])};
-    const uint32_t a1[4] = {codes_of<0x4140>(q[2]), codes_of<0x4140>(q[3]),
-                            codes_of<0x4342>(q[2]), codes_of<0x4342>(q[3])};
-#pragma unroll
-    for (int nk = 0; nk < NK; ++nk) {
-      const uint32_t un = ub + 8 * nk * L::kUPitch + 2 * kb;
-      const uint2 v0 = lds64(un);
-      const uint2 v1 = lds64(un + 32);
-      mma_add(acc[nk], a0, v0.x, v0.y);
-      mma_add(acc[nk], a1, v1.x, v1.y);
-    }
-  }
-}
-
-template <int T, int NK>
-__device__ __forceinline__ void forward_bf16(float (&acc)[NK][4],
-                                             uint32_t stage, int row0,
-                                             uint32_t uc, int lane) {
-  using L = Ring<__nv_bfloat16, T, NK>;
-  // matrices: rows 0-7 | 8-15 x columns k..k+7 | k+8..k+15
-  const int rr = row0 + (lane & 7) + 8 * ((lane >> 3) & 1);
-  const int xo = 16 * (lane >> 4);
-#pragma unroll
-  for (int k = 0; k < T; k += 16) {
-    uint32_t a[4], b[NK][2];
-    ldsm_x4(a, stage + L::at(rr, 2 * k + xo));
-    load_b<T, NK>(b, uc + 2 * k, lane);
-#pragma unroll
-    for (int nk = 0; nk < NK; ++nk) mma_add(acc[nk], a, b[nk][0], b[nk][1]);
-  }
-}
-
-// Transposed: output columns l0..l0+15 of the stage's tile, partial sums
-// over the stage's kPanel rows, against u_r from ur (the panel's first
-// row's column of the u_r block).
-template <int T, int NK>
-__device__ __forceinline__ void transposed_i8(float (&acc)[NK][4],
-                                              uint32_t stage, int l0,
-                                              uint32_t ur, int lane) {
-  using L = Ring<int8_t, T, NK>;
-#pragma unroll
-  for (int kb = 0; kb < kPanel; kb += 32) {
-    // matrix j: rows kb + 8 j .. + 7, bytes l0 .. l0 + 15; a lane gets rows
-    // 2tig, 2tig+1 of columns 2g, 2g+1 (bytes: (2tig, 2g), (2tig, 2g+1),
-    // (2tig+1, 2g), (2tig+1, 2g+1))
-    uint32_t q[4], b0[NK][2], b1[NK][2];
-    ldsm_x4_t(q, stage + L::at(kb + lane, l0));
-    const uint32_t a0[4] = {codes_of<0x4240>(q[0]), codes_of<0x4341>(q[0]),
-                            codes_of<0x4240>(q[1]), codes_of<0x4341>(q[1])};
-    const uint32_t a1[4] = {codes_of<0x4240>(q[2]), codes_of<0x4341>(q[2]),
-                            codes_of<0x4240>(q[3]), codes_of<0x4341>(q[3])};
-    load_b<T, NK>(b0, ur + 2 * kb, lane);
-    load_b<T, NK>(b1, ur + 2 * (kb + 16), lane);
-#pragma unroll
-    for (int nk = 0; nk < NK; ++nk) {
-      mma_add(acc[nk], a0, b0[nk][0], b0[nk][1]);
-      mma_add(acc[nk], a1, b1[nk][0], b1[nk][1]);
-    }
-  }
-}
-
-template <int T, int NK>
-__device__ __forceinline__ void transposed_bf16(float (&acc)[NK][4],
-                                                uint32_t stage, int l0,
-                                                uint32_t ur, int lane) {
-  using L = Ring<__nv_bfloat16, T, NK>;
-  const int j = lane >> 3;
-#pragma unroll
-  for (int kb = 0; kb < kPanel; kb += 16) {
-    // matrix j: rows kb + 8 (j >> 1) .. + 7, columns l0 + 8 (j & 1) .. + 7
-    uint32_t a[4], b[NK][2];
-    ldsm_x4_t(a, stage + L::at(kb + (lane & 7) + 8 * (j >> 1),
-                               2 * (l0 + 8 * (j & 1))));
-    load_b<T, NK>(b, ur + 2 * kb, lane);
-#pragma unroll
-    for (int nk = 0; nk < NK; ++nk) mma_add(acc[nk], a, b[nk][0], b[nk][1]);
-  }
-}
 
 template <int NK>
 __device__ __forceinline__ void zero1(float (&acc)[NK][4]) {
@@ -574,9 +325,11 @@ __global__ void __launch_bounds__(kThreads) tri_matvec_mma_kernel(
           float part[NK][4];
           zero1(part);
           if constexpr (L::kCodes)
-            forward_i8<T, NK>(part, stage, 16 * (warp & 3), uc, lane);
+            forward_i8<T, NK, kPanel>(part, stage, 16 * (warp & 3), uc,
+                                      lane);
           else
-            forward_bf16<T, NK>(part, stage, 16 * (warp & 3), uc, lane);
+            forward_bf16<T, NK, kPanel>(part, stage, 16 * (warp & 3), uc,
+                                        lane);
           add(fwd[p >> 1], part);
         }
         if (!diag) {
@@ -585,11 +338,12 @@ __global__ void __launch_bounds__(kThreads) tri_matvec_mma_kernel(
             float part[NK][4];
             zero1(part);
             if constexpr (L::kCodes)
-              transposed_i8<T, NK>(part, stage, 16 * (warp + 8 * f),
-                                   ur + 2 * p * kPanel, lane);
+              transposed_i8<T, NK, kPanel>(part, stage, 16 * (warp + 8 * f),
+                                           ur + 2 * p * kPanel, lane);
             else
-              transposed_bf16<T, NK>(part, stage, 16 * (warp + 8 * f),
-                                     ur + 2 * p * kPanel, lane);
+              transposed_bf16<T, NK, kPanel>(part, stage,
+                                             16 * (warp + 8 * f),
+                                             ur + 2 * p * kPanel, lane);
             add(tr[f], part);
           }
         }
@@ -616,46 +370,6 @@ __global__ void __launch_bounds__(kThreads) tri_matvec_mma_kernel(
   }
 }
 
-// cuTensorMapEncodeTiled, from the driver through the runtime (no link
-// against libcuda)
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// The storage (P, 2t, S) as a 2-D tensor of P 2t rows and S columns, read
-// in (kPanel rows, 128 bytes) boxes with the 128-byte swizzle.
-template <typename S>
-cudaError_t storage_map(CUtensorMap* map, const void* tri, int P, int t,
-                        long long S_cols) {
-  static EncodeTiled encode = nullptr;
-  if (encode == nullptr) {
-    void* fn = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
-    if (err != cudaSuccess) return err;
-    if (found != cudaDriverEntryPointSuccess || fn == nullptr)
-      return cudaErrorNotSupported;
-    encode = (EncodeTiled)fn;
-  }
-  const cuuint64_t dims[2] = {(cuuint64_t)S_cols, (cuuint64_t)P * 2 * t};
-  const cuuint64_t strides[1] = {(cuuint64_t)S_cols * sizeof(S)};
-  const cuuint32_t box[2] = {(cuuint32_t)(128 / sizeof(S)),
-                             (cuuint32_t)kPanel};
-  const cuuint32_t steps[2] = {1, 1};
-  const CUresult res = encode(
-      map,
-      sizeof(S) == 1 ? CU_TENSOR_MAP_DATA_TYPE_UINT8
-                     : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-      2, const_cast<void*>(tri), dims, strides, box, steps,
-      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-}
-
 template <typename S, int T, int NK>
 int launch_mma(const CUtensorMap& map, const void* idx, const void* U,
                void* out, int B, int K, int nt, long long S_cols, float scale,
@@ -680,7 +394,8 @@ int dispatch_mma(const void* tri, const void* idx, const void* U, void* out,
       (t != 128 && t != 256))
     return (int)cudaErrorInvalidValue;
   CUtensorMap map;
-  const cudaError_t err = storage_map<S>(&map, tri, P, t, S_cols);
+  const cudaError_t err =
+      storage_map<S>(&map, tri, (long long)P * 2 * t, S_cols, kPanel);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t st = (cudaStream_t)stream;
   if (t == 256)

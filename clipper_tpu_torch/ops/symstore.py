@@ -22,6 +22,12 @@ Each layout's per-tick dual matvec wraps a hand-written CUDA kernel
 version beside it: CUDA storage launches the kernel, CPU storage takes the
 plain version; a failed build or launch, or a storage the kernel does not
 take, raises. Both sum the exact products in f64 and round once to f32.
+For int8 and bf16 storage both kernels walk a host-built plan
+(:func:`unit_plan`: the stored tiles cut into units of up to 8 row
+blocks by 32 column blocks, each read once a call; :func:`tiles_plan`,
+:func:`rows_plan`, cached by the layout), made once a storage by the
+closures, and a second kernel sums the units' partials (its launches
+counted under ``sym_tiles_reduce`` / ``sym_rows_reduce``).
 Everything else here is plain PyTorch, as it was XLA in the JAX package.
 
 :func:`solve_single` solves one problem on one device in either layout;
@@ -32,8 +38,9 @@ sums a tick.
 
 from __future__ import annotations
 
+import functools
 import warnings
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -45,8 +52,22 @@ from clipper_tpu_torch.parallel.pool import StageClock, support_objective
 from clipper_tpu_torch.solvers import msrc, msrc_flat
 from clipper_tpu_torch.types import Params, Rounding, Solution, as_association
 
-# candidate columns one kernel block takes (the mma A-tile height)
+# candidate columns one kernel block takes (two mma n8 groups)
 _KERNEL_ROWS = 16
+# a work unit of the int8 / bf16 kernels: R row blocks (their f64 sums live
+# in registers; csrc/sym_tile_mma.cuh's kUnitRows) by S column blocks
+_UNIT_ROWS = 8
+_UNIT_COLS = 32
+# a plan entry's meta bits (csrc/sym_tile_mma.cuh): the unit row in bits
+# 0-3, then these flags, the column's slot in the kernel's ring of
+# _COL_RING blocks of u (bits 8-11), and its sum's workspace slot
+_META_TRANSPOSED = 1 << 4
+_META_COL_START = 1 << 5
+_META_COL_END = 1 << 6
+_META_COL_WRITE = 1 << 7
+_META_RING_SHIFT = 8
+_META_SLOT_SHIFT = 12
+_COL_RING = 8
 
 
 def tile_coords(nt: int) -> Tuple[np.ndarray, np.ndarray]:
@@ -153,6 +174,173 @@ def exact_objective(invariant: PairwiseInvariant, P1, P2, A, u, m_true,
         # an off-diagonal tile stands for itself and its transpose
         F = F + torch.where(r == c, q, 2.0 * q).sum()
     return F if partial else F + _identity_term(u, nt, t)
+
+
+# ----------------------------------------------------------------------
+# the int8 / bf16 kernels' plan: units of the stored triangle
+# ----------------------------------------------------------------------
+
+class UnitPlan(NamedTuple):
+    """The walk of the int8 / bf16 kernels over one storage (or a rank's
+    slice of it), built on the host by :func:`unit_plan`; int32 arrays.
+
+    entries (E, 4): one stored tile each, (x, y, c, meta): its element
+    column and row in the storage's 2-D view (the row of its M half), its
+    column block c, and meta: the unit row i = r - r0 (bits 0-3),
+    _META_TRANSPOSED when r != c, _META_COL_START / _META_COL_END at the
+    column's first / last tile in its unit, _META_COL_WRITE where the
+    column's transposed sum is written, into slot meta >> _META_SLOT_SHIFT,
+    and the column's ordinal in its unit modulo _COL_RING (its block of u's
+    slot in the kernel's ring) in bits _META_RING_SHIFT on.
+    units (U, 4): (e0, e1, r0, 0), a unit's entries [e0, e1) and its first
+    row block r0, the largest unit first (the launch order).
+    fslots (U, _UNIT_ROWS): the slot of each unit row's forward sum, -1
+    for a row with no tile in the unit.
+    red_off (nt + 1,), red_slots (n_slots,): output block j is the sum of
+    slots red_slots[red_off[j]:red_off[j + 1]], in that order.
+    slot_block (n_slots,): the output block each slot adds to."""
+    entries: np.ndarray
+    units: np.ndarray
+    fslots: np.ndarray
+    red_off: np.ndarray
+    red_slots: np.ndarray
+    slot_block: np.ndarray
+
+    @property
+    def n_slots(self) -> int:
+        return len(self.slot_block)
+
+
+def unit_plan(nt: int, r, c, x, y) -> UnitPlan:
+    """The plan over the stored tiles (r[k], c[k]), c >= r, which sit at
+    (x[k], y[k]) in the storage's 2-D view. Unit (b, s) holds the tiles
+    with r // R == b and c // S == s (R = _UNIT_ROWS, S = _UNIT_COLS),
+    walked column by column (c outer, r inner). It writes one forward
+    partial for each of its rows and one transposed partial for each of
+    its columns with an off-diagonal tile; each output block sums its
+    partials in slot order."""
+    R, S = _UNIT_ROWS, _UNIT_COLS
+    r, c, x, y = (np.asarray(a, np.int64).ravel() for a in (r, c, x, y))
+    if len(y) and y.max() >= (1 << 31) - 256:
+        raise ValueError("the storage's 2-D view has more rows than the "
+                         "kernel's int32 copy coordinates reach")
+    key = (r // R) * (-(-nt // S)) + c // S
+    order = np.lexsort((r, c, key))
+    r, c, x, y, key = (a[order] for a in (r, c, x, y, key))
+    n = len(r)
+    i = r % R
+    tr = r != c
+    # column runs: the entries of one unit and column
+    start = np.ones(n, bool)
+    start[1:] = (key[1:] != key[:-1]) | (c[1:] != c[:-1])
+    end = np.ones(n, bool)
+    end[:-1] = start[1:]
+    run = np.cumsum(start) - 1
+    unit_start = np.ones(n, bool)
+    unit_start[1:] = key[1:] != key[:-1]
+    first_run = np.maximum.accumulate(np.where(unit_start, run, 0))
+    run_tr = np.bincount(run, weights=tr,
+                         minlength=run[-1] + 1 if n else 0) > 0
+    # slots: a unit's rows (forward sums), then its columns' transposed sums
+    fkey = key * R + i
+    funiq, ffirst = np.unique(fkey, return_index=True)
+    n_f = len(funiq)
+    col_runs = np.flatnonzero(run_tr)
+    run_slot = np.full(len(run_tr), -1, np.int64)
+    run_slot[col_runs] = n_f + np.arange(len(col_runs))
+    slot_block = np.concatenate([r[ffirst], c[start][col_runs]])
+    n_slots = len(slot_block)
+    if n_slots >= 1 << (31 - _META_SLOT_SHIFT):
+        raise ValueError(f"{n_slots} partial slots: the plan's meta holds "
+                         f"fewer than {1 << (31 - _META_SLOT_SHIFT)}")
+    write = end & run_tr[run]
+    meta = (i | tr * _META_TRANSPOSED | start * _META_COL_START
+            | end * _META_COL_END
+            | (run - first_run) % _COL_RING << _META_RING_SHIFT
+            | write * (_META_COL_WRITE
+                       | np.maximum(run_slot[run], 0) << _META_SLOT_SHIFT))
+    entries = np.stack([x, y, c, meta], 1)
+    ukeys, ustart, ucount = np.unique(key, return_index=True,
+                                      return_counts=True)
+    fslots = np.full((len(ukeys), R), -1, np.int64)
+    fslots[np.searchsorted(ukeys, funiq // R), funiq % R] = np.arange(n_f)
+    launch = np.lexsort((ukeys, -ucount))
+    units = np.stack([ustart, ustart + ucount, (ukeys // (-(-nt // S))) * R,
+                      np.zeros_like(ukeys)], 1)[launch]
+    red = np.lexsort((np.arange(n_slots), slot_block))
+    red_off = np.searchsorted(slot_block[red], np.arange(nt + 1))
+    return UnitPlan(*(a.astype(np.int32) for a in (
+        entries, units, fslots[launch], red_off, red, slot_block)))
+
+
+def tiles_plan(nt: int, rows, cols, t: int = 128) -> UnitPlan:
+    """:func:`unit_plan` over tile-list storage (T, 2t, t) at coordinates
+    (rows, cols), viewed as T 2t rows of t: tile k's M half starts at row
+    2t k. Inert slots (nt, nt) are in no unit. The plan depends on the
+    layout alone: it is cached by it, so a warm solve reuses it."""
+    return _tiles_plan(nt, np.asarray(rows, np.int32).tobytes(),
+                       np.asarray(cols, np.int32).tobytes(), t, _UNIT_ROWS,
+                       _UNIT_COLS)
+
+
+# R, S: the unit shape (_UNIT_ROWS, _UNIT_COLS) a cached plan was made
+# with, a part of its key
+@functools.lru_cache(maxsize=8)
+def _tiles_plan(nt, rows, cols, t, R, S) -> UnitPlan:
+    rows = np.frombuffer(rows, np.int32).astype(np.int64)
+    cols = np.frombuffer(cols, np.int32).astype(np.int64)
+    k = np.flatnonzero(rows < nt)
+    return unit_plan(nt, rows[k], cols[k], np.zeros_like(k), 2 * t * k)
+
+
+def rows_plan(nt: int, G: int, n: int, chunk_base: int = 0,
+              t: int = 128) -> UnitPlan:
+    """:func:`unit_plan` over the chunk slice [chunk_base, chunk_base + n)
+    of row-chunked storage, viewed as n 2t rows of G t: tile (r, c) sits
+    in chunk first(r) + (c - r) // G (:func:`row_first_chunk`) at column
+    ((c - r) % G) t. Tiles outside the slice, pad tiles and pad chunks are
+    in no unit. Cached by the layout, as :func:`tiles_plan` is."""
+    return _rows_plan(nt, G, n, chunk_base, t, _UNIT_ROWS, _UNIT_COLS)
+
+
+@functools.lru_cache(maxsize=8)
+def _rows_plan(nt, G, n, chunk_base, t, R, S) -> UnitPlan:
+    r, c = np.triu_indices(nt)
+    k = row_first_chunk(nt, G)[r] + (c - r) // G
+    keep = (k >= chunk_base) & (k < chunk_base + n)
+    r, c, k = r[keep], c[keep], k[keep]
+    return unit_plan(nt, r, c, (c - r) % G * t, (k - chunk_base) * 2 * t)
+
+
+class DevicePlan:
+    """A :class:`UnitPlan` on the card, with the kernel's workspace of f64
+    partials: allocated with torch.empty at the first call that needs it
+    and kept for the next (a closure's plan caches it)."""
+
+    def __init__(self, plan: UnitPlan, t: int, device):
+        self.plan = plan
+        self.t = t
+        self.arrays = [torch.as_tensor(a, device=device) for a in (
+            plan.entries, plan.units, plan.fslots, plan.red_off,
+            plan.red_slots)]
+        self._ws = None
+
+    def workspace(self, K: int) -> torch.Tensor:
+        """The partials of K candidates: ceil(K / 16) groups of n_slots x
+        2 halves x min(K, 16) x t doubles."""
+        n = (-(-K // _KERNEL_ROWS) * self.plan.n_slots * 2
+             * min(K, _KERNEL_ROWS) * self.t)
+        if self._ws is None or self._ws.numel() < max(n, 1):
+            self._ws = None
+            self._ws = torch.empty(max(n, 1), dtype=torch.float64,
+                                   device=self.arrays[0].device)
+        return self._ws
+
+    def args(self) -> tuple:
+        """The C entry points' plan arguments: entries, units, fslots, the
+        unit count, red_off, red_slots, the slot count."""
+        e, u, f, ro, rs = (a.data_ptr() for a in self.arrays)
+        return (e, u, f, len(self.plan.units), ro, rs, self.plan.n_slots)
 
 
 # ----------------------------------------------------------------------
@@ -313,19 +501,37 @@ def sym_tiles_matvec_plain(tiles: torch.Tensor, nt: int, U: torch.Tensor,
     return y if raw else _finish(y, scale)
 
 
-def _device_walks(nt: int, rows, cols, device):
+def tiles_device_plan(tiles: torch.Tensor, nt: int, rows=None, cols=None):
+    """The walk of csrc/sym_tiles_matvec.cu over this tile list, on its
+    device: a :class:`DevicePlan` of :func:`tiles_plan` for int8 and bf16
+    storage, the (walks, offsets) of :func:`tile_walks` for f32 and f64."""
+    t, rows, cols = _tiles_layout(tiles, nt, rows, cols)
+    if tiles.dtype in (torch.int8, torch.bfloat16):
+        return DevicePlan(tiles_plan(nt, rows, cols, t), t, tiles.device)
     walks, offsets = tile_walks(nt, rows, cols)
-    return (torch.as_tensor(walks, device=device).contiguous(),
-            torch.as_tensor(offsets, device=device))
+    return (torch.as_tensor(walks, device=tiles.device).contiguous(),
+            torch.as_tensor(offsets, device=tiles.device))
+
+
+def _count_launches(name: str, plan) -> None:
+    """Count one C call's launches: with a unit plan, the unit pass under
+    ``name`` (not launched when the plan has no unit) and the reduction
+    under its own key; else the float kernel under ``name``."""
+    if plan is None or len(plan.plan.units):
+        _kernels.LAUNCHES[name] += 1
+    if plan is not None:
+        _kernels.LAUNCHES[_kernels.REDUCTIONS[name]] += 1
 
 
 def sym_tiles_matvec_cuda(tiles: torch.Tensor, nt: int, U: torch.Tensor,
                           rows=None, cols=None, raw: bool = False,
-                          walks=None) -> torch.Tensor:
+                          plan=None) -> torch.Tensor:
     """Launch csrc/sym_tiles_matvec.cu: U (K, m) on the card -> (K, 2m),
-    f32 scaled or (raw=True) the f64 sums; one launch, a block per (output
-    block, 16 columns of U). walks: the device copy of :func:`tile_walks`
-    (made here when not given)."""
+    f32 scaled or (raw=True) the f64 sums, from one C call. int8 and bf16
+    storage: the unit kernel (each stored tile read once per 16 columns of
+    U) and its fixed-order reduction, two launches; f32 and f64: a block per
+    (output block, 16 columns of U). plan: :func:`tiles_device_plan` of
+    this storage (made here when not given)."""
     t, rows, cols = _tiles_layout(tiles, nt, rows, cols)
     m = nt * t
     K = U.shape[0]
@@ -335,27 +541,34 @@ def sym_tiles_matvec_cuda(tiles: torch.Tensor, nt: int, U: torch.Tensor,
                          "the card, the storage contiguous")
     if U.shape[1] != m:
         raise ValueError(f"U has {U.shape[1]} columns, storage m={m}")
-    if walks is None:
-        walks = _device_walks(nt, rows, cols, tiles.device)
-    wk, offsets = walks
+    if plan is None:
+        plan = tiles_device_plan(tiles, nt, rows, cols)
     lib = _kernels.lib("sym_tiles_matvec")
     Uc, scale = _operand(tiles.dtype, U)
     Uc = Uc.contiguous()
     out = torch.empty(K, 2 * m, dtype=torch.float64 if raw else torch.float32,
                       device=tiles.device)
-    args = (tiles.data_ptr(), wk.data_ptr(), offsets.data_ptr(),
-            Uc.data_ptr(), out.data_ptr(), K, nt, t, int(raw))
     stream = _kernels.stream_ptr(tiles.device)
-    if tiles.dtype == torch.int8:
-        code = lib.sym_tiles_matvec_int8(*args, scale, stream)
-    elif tiles.dtype == torch.bfloat16:
-        code = lib.sym_tiles_matvec_bf16(*args, stream)
-    elif tiles.dtype == torch.float32:
-        code = lib.sym_tiles_matvec_f32(*args, stream)
+    units = tiles.dtype in (torch.int8, torch.bfloat16)
+    if units:
+        ws = plan.workspace(K)
+        args = (tiles.data_ptr(), tiles.shape[0] * 2 * t, t, *plan.args(),
+                Uc.data_ptr(), out.data_ptr(), ws.data_ptr(), K, nt, t,
+                int(raw))
+        if tiles.dtype == torch.int8:
+            code = lib.sym_tiles_matvec_int8(*args, scale, stream)
+        else:
+            code = lib.sym_tiles_matvec_bf16(*args, stream)
     else:
-        code = lib.sym_tiles_matvec_f64(*args, stream)
+        wk, offsets = plan
+        args = (tiles.data_ptr(), wk.data_ptr(), offsets.data_ptr(),
+                Uc.data_ptr(), out.data_ptr(), K, nt, t, int(raw))
+        if tiles.dtype == torch.float32:
+            code = lib.sym_tiles_matvec_f32(*args, stream)
+        else:
+            code = lib.sym_tiles_matvec_f64(*args, stream)
     _kernels.check(code, "sym_tiles_matvec")
-    _kernels.LAUNCHES["sym_tiles_matvec"] += 1
+    _count_launches("sym_tiles_matvec", plan if units else None)
     return out
 
 
@@ -388,17 +601,17 @@ def make_sym_dual_matvec(tiles: torch.Tensor, nt: int, out_dtype, rows=None,
 
     Takes (m,) vectors or (m, K) candidate columns and returns the same
     shape in out_dtype, with f32 results for every storage type. CUDA
-    storage launches csrc/sym_tiles_matvec.cu (its walks built once,
-    here), CPU storage takes the plain version. rows/cols: the storage's
-    coordinates (default :func:`tile_coords`). group: the process group
-    over whose ranks the tile list is split (see :func:`solve_sharded_sym`);
-    u must be the same on every rank."""
+    storage launches csrc/sym_tiles_matvec.cu (its plan built once, here,
+    and its workspace kept with it), CPU storage takes the plain version.
+    rows/cols: the storage's coordinates (default :func:`tile_coords`).
+    group: the process group over whose ranks the tile list is split (see
+    :func:`solve_sharded_sym`); u must be the same on every rank."""
     t, rows, cols = _tiles_layout(tiles, nt, rows, cols)
     if tiles.is_cuda:
-        walks = _device_walks(nt, rows, cols, tiles.device)
+        plan = tiles_device_plan(tiles, nt, rows, cols)
 
         def fn(U, raw):
-            return sym_tiles_matvec_cuda(tiles, nt, U, rows, cols, raw, walks)
+            return sym_tiles_matvec_cuda(tiles, nt, U, rows, cols, raw, plan)
     else:
         def fn(U, raw):
             return sym_tiles_matvec_plain(tiles, nt, U, rows, cols, raw)
@@ -545,12 +758,27 @@ def sym_rows_matvec_plain(chunks: torch.Tensor, nt: int, U: torch.Tensor,
     return y if raw else _finish(y, scale)
 
 
+def rows_device_plan(chunks: torch.Tensor, nt: int,
+                     chunk_base: Optional[int] = None):
+    """The walk of csrc/sym_rows_matvec.cu over this storage (or chunk
+    slice), on its device: a :class:`DevicePlan` of :func:`rows_plan` for
+    int8 and bf16 storage; None for f32 and f64, whose kernel computes its
+    walk from the closed form."""
+    t, G, _ = _layout(chunks, nt, chunk_base)
+    if chunks.dtype not in (torch.int8, torch.bfloat16):
+        return None
+    return DevicePlan(rows_plan(nt, G, chunks.shape[0], chunk_base or 0, t),
+                      t, chunks.device)
+
+
 def sym_rows_matvec_cuda(chunks: torch.Tensor, nt: int, U: torch.Tensor,
                          chunk_base: Optional[int] = None,
-                         raw: bool = False) -> torch.Tensor:
+                         raw: bool = False, plan=None) -> torch.Tensor:
     """Launch csrc/sym_rows_matvec.cu: U (K, m) on the card -> (K, 2m),
     f32 scaled or (raw=True) the f64 sums, K split into launches of at most
-    16 columns; chunk_base as for :func:`sym_rows_matvec_plain`."""
+    16 columns (each reads the storage again); chunk_base as for
+    :func:`sym_rows_matvec_plain`. plan: :func:`rows_device_plan` of this
+    storage and slice (made here when not given)."""
     t, G, _ = _layout(chunks, nt, chunk_base)
     m = nt * t
     K = U.shape[0]
@@ -560,6 +788,8 @@ def sym_rows_matvec_cuda(chunks: torch.Tensor, nt: int, U: torch.Tensor,
                          "card, the storage contiguous")
     if U.shape[1] != m:
         raise ValueError(f"U has {U.shape[1]} columns, storage m={m}")
+    if plan is None:
+        plan = rows_device_plan(chunks, nt, chunk_base)
     lib = _kernels.lib("sym_rows_matvec")
     Uc, scale = _operand(chunks.dtype, U)
     Uc = Uc.contiguous()
@@ -568,18 +798,26 @@ def sym_rows_matvec_cuda(chunks: torch.Tensor, nt: int, U: torch.Tensor,
     stream = _kernels.stream_ptr(chunks.device)
     for k0 in range(0, K, _KERNEL_ROWS):
         k1 = min(K, k0 + _KERNEL_ROWS)
-        args = (chunks.data_ptr(), Uc[k0:k1].data_ptr(), out[k0:k1].data_ptr(),
-                k1 - k0, nt, t, G, chunk_base or 0, chunks.shape[0], int(raw))
-        if chunks.dtype == torch.int8:
-            code = lib.sym_rows_matvec_int8(*args, scale, stream)
-        elif chunks.dtype == torch.bfloat16:
-            code = lib.sym_rows_matvec_bf16(*args, stream)
-        elif chunks.dtype == torch.float32:
-            code = lib.sym_rows_matvec_f32(*args, stream)
+        if plan is not None:
+            ws = plan.workspace(k1 - k0)
+            args = (chunks.data_ptr(), chunks.shape[0] * 2 * t, G * t,
+                    *plan.args(), Uc[k0:k1].data_ptr(),
+                    out[k0:k1].data_ptr(), ws.data_ptr(), k1 - k0, nt, t,
+                    int(raw))
+            if chunks.dtype == torch.int8:
+                code = lib.sym_rows_matvec_int8(*args, scale, stream)
+            else:
+                code = lib.sym_rows_matvec_bf16(*args, stream)
         else:
-            code = lib.sym_rows_matvec_f64(*args, stream)
+            args = (chunks.data_ptr(), Uc[k0:k1].data_ptr(),
+                    out[k0:k1].data_ptr(), k1 - k0, nt, t, G,
+                    chunk_base or 0, chunks.shape[0], int(raw))
+            if chunks.dtype == torch.float32:
+                code = lib.sym_rows_matvec_f32(*args, stream)
+            else:
+                code = lib.sym_rows_matvec_f64(*args, stream)
         _kernels.check(code, "sym_rows_matvec")
-        _kernels.LAUNCHES["sym_rows_matvec"] += 1
+        _count_launches("sym_rows_matvec", plan)
     return out
 
 
@@ -590,14 +828,19 @@ def make_sym_dual_matvec_rows(chunks: torch.Tensor, nt: int, out_dtype,
 
     Takes (m,) vectors or (m, K) candidate columns and returns the same
     shape in out_dtype, with f32 results for every storage type. CUDA
-    storage launches the kernel, CPU storage takes the plain version.
-    chunk_base and group: a sharded rank's slice of the chunk list and the
-    process group that sums the slices (see :func:`make_sym_dual_matvec`)."""
+    storage launches the kernel (its plan built once, here), CPU storage
+    takes the plain version. chunk_base and group: a sharded rank's slice
+    of the chunk list and the process group that sums the slices (see
+    :func:`make_sym_dual_matvec`)."""
     t, _, _ = _layout(chunks, nt, chunk_base)
-    kernel = sym_rows_matvec_cuda if chunks.is_cuda else sym_rows_matvec_plain
+    if chunks.is_cuda:
+        plan = rows_device_plan(chunks, nt, chunk_base)
 
-    def fn(U, raw):
-        return kernel(chunks, nt, U, chunk_base, raw)
+        def fn(U, raw):
+            return sym_rows_matvec_cuda(chunks, nt, U, chunk_base, raw, plan)
+    else:
+        def fn(U, raw):
+            return sym_rows_matvec_plain(chunks, nt, U, chunk_base, raw)
     return _dual_matvec(fn, nt * t, out_dtype, _scale(chunks.dtype), group)
 
 
@@ -882,9 +1125,10 @@ def solve_sharded_sym(invariant: PairwiseInvariant, D1, D2, A, u0,
 
 
 __all__ = ["tile_coords", "shard_tile_coords", "exact_objective",
+           "UnitPlan", "unit_plan", "tiles_plan", "rows_plan", "DevicePlan",
            "build_symtiles", "tile_walks", "sym_tiles_matvec_plain",
-           "sym_tiles_matvec_cuda", "make_sym_dual_matvec",
-           "row_chunk_coords", "row_first_chunk", "build_symchunks",
-           "sym_rows_matvec_plain", "sym_rows_matvec_cuda",
-           "make_sym_dual_matvec_rows", "solve_single",
-           "build_symshard_pipeline", "solve_sharded_sym"]
+           "tiles_device_plan", "sym_tiles_matvec_cuda",
+           "make_sym_dual_matvec", "row_chunk_coords", "row_first_chunk",
+           "build_symchunks", "sym_rows_matvec_plain", "rows_device_plan",
+           "sym_rows_matvec_cuda", "make_sym_dual_matvec_rows",
+           "solve_single", "build_symshard_pipeline", "solve_sharded_sym"]

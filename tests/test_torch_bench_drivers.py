@@ -19,7 +19,8 @@ from clipper_tpu.ops import affinity as jaffinity
 from clipper_tpu.solvers import msrc_flat as jmsrc_flat
 from clipper_tpu.types import Params as JParams
 from clipper_tpu_torch import _kernels
-from clipper_tpu_torch.bench import (build_probe, cpu_mesh_run, grid_tpu,
+from clipper_tpu_torch.bench import (build_probe, capacity_stages,
+                                     cpu_mesh_run, grid_tpu,
                                      gridcell_probe, mixed_bench,
                                      multistart_bench, pool_ab,
                                      symshard_bench, symstore_bench,
@@ -142,6 +143,18 @@ def test_symstore_bench_main():
         "sym rows (plain) K=1"]
 
 
+@pytest.mark.parametrize("layout", ["rows", "tiles"])
+def test_capacity_stages_main(layout):
+    """One warm-up and two timed calls of the triangle engine in either
+    layout, each with its four stage times and wall time."""
+    rows = capacity_stages.main(["512", "--calls=2", f"--layout={layout}",
+                                 CPU])
+    assert len(rows) == 2
+    for row in rows:
+        assert set(row) == {"wall_s", *capacity_stages.STAGES}
+        assert all(np.isfinite(v) and v >= 0 for v in row.values())
+
+
 def test_symshard_bench_main():
     out = symshard_bench.main(["256", "--rho=0.9", "--matvec=xla", CPU])
     assert out["ranks"] == 1 and len(out["times"]) == 1
@@ -171,6 +184,7 @@ DRIVERS = {
     "gridcell_probe": (gridcell_probe, ["2", "128"]),
     "symstore_bench": (symstore_bench, ["128"]),
     "symshard_bench": (symshard_bench, ["128"]),
+    "capacity_stages": (capacity_stages, ["128"]),
 }
 
 

@@ -41,7 +41,12 @@ def _problems(W, m, seed):
 
 def test_every_source_is_built():
     on_disk = {p.stem for p in _kernels.CSRC.glob("*.cu")}
-    assert on_disk == set(_kernels.SOURCES) == set(_kernels.LAUNCHES)
+    assert on_disk == set(_kernels.SOURCES)
+    # every source's launches are counted, and the capacity matvecs'
+    # reductions under their own keys
+    assert set(_kernels.REDUCTIONS) <= set(_kernels.SOURCES)
+    assert set(_kernels.LAUNCHES) == (set(_kernels.SOURCES)
+                                      | set(_kernels.REDUCTIONS.values()))
     # the build kernels are compiled without FMA contraction
     for name in ("tri_build", "tri_build_fused", "stored_build",
                  "affinity_build", "build_probe"):
@@ -78,6 +83,25 @@ def test_tri_matvec_probe_edits_apply():
     assert src["nocompute"].count("if (false) {") == 2
     for name in ("noforward", "notransposed"):
         assert src[name].count("if (false) {") == 1
+
+
+def test_sym_unit_probe_edits_apply():
+    """The capacity kernels' probe variants are edits of the current
+    header: each applies, and each differs from the header as built."""
+    from clipper_tpu_torch.bench import sym_unit_probe
+    src = sym_unit_probe.variant_sources()
+    assert set(src) == set(sym_unit_probe.VARIANTS) and src["full"] == {}
+    for name in sym_unit_probe.VARIANTS[1:]:
+        (fname, text), = src[name].items()
+        assert text != (_kernels.CSRC / fname).read_text()
+    header = {name: files.get("sym_tile_mma.cuh", "")
+              for name, files in src.items()}
+    assert header["nocompute"].count("if (false) bf16mma::") == 2
+    for name in ("noforward", "notransposed"):
+        assert header[name].count("if (false) bf16mma::") == 1
+    assert header["nof64"].count("== -1e30f)") == 2
+    assert header["reduceonly"].count("if (false) {") == 1
+    assert "0x43434343u" not in src["noconv"]["bf16_mma.cuh"]
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
@@ -140,37 +164,50 @@ def test_pipeline_cuda_matches_cpu(cuda):
     assert (masks[0] == masks[1]).all(1).sum() >= W - 1
 
 
+# the capacity kernels' shapes: nt = 8, 5, 9 and 36 (none but 8 a multiple
+# of the unit's R = 8 row blocks; 36 past its S = 32 column blocks)
+SYM_SHAPES = [(1024, 8), (640, 2), (1152, 4), (4608, 32)]
+
+
+def _unit_rows(gen, K, m, dtype=torch.float32):
+    U = torch.rand(K, m, generator=gen, device=gen.device, dtype=dtype)
+    return U / torch.linalg.vector_norm(U, dim=-1, keepdim=True)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("m,G", [(1024, 8), (640, 2)])
-def test_sym_rows_kernel_matches_plain(cuda, m, G):
-    """Kernel 3 against its plain version on bunny storage at K=1 and 16
-    (and 20, two launches), within 1e-4; a rerun is bit-identical."""
+@pytest.mark.parametrize("storage", [torch.int8, torch.bfloat16])
+@pytest.mark.parametrize("m,G", SYM_SHAPES)
+def test_sym_rows_kernel_matches_plain(cuda, m, G, storage):
+    """Kernel 3 against its plain version on bunny storage, int8 and bf16,
+    at K = 1, 5, 16 and 20 (two launches), within 1e-4; a rerun (its device
+    plan made anew) is bit-identical; one launch per 16 columns, and as
+    many of the reduction. With int8, the f32 and f64 storage kinds too."""
     t = 128
-    pcd0, D2s, As, _ = _problems(1, m, seed=7)
-    P1, P2 = gather_endpoints(torch.from_numpy(pcd0).to(cuda),
-                              torch.from_numpy(D2s[0]).to(cuda),
-                              torch.from_numpy(As[0]).to(cuda))
-    A = torch.from_numpy(As[0]).to(cuda)
-    chunks = symstore.build_symchunks(harness.default_invariant(), P1, P2, A,
-                                      m, tile=t, G=G)
     nt = m // t
+    inv = harness.default_invariant()
+    P1, P2, A = _capacity_endpoints(cuda, m, seed=7)
+    chunks = symstore.build_symchunks(inv, P1, P2, A, m, tile=t, G=G,
+                                      storage_dtype=storage)
+    plan = symstore.rows_device_plan(chunks, nt)
     gen = torch.Generator(device=cuda).manual_seed(0)
     before = _kernels.LAUNCHES["sym_rows_matvec"]
-    for K in (1, 16, 20):
-        U = torch.rand(K, m, generator=gen, device=cuda)
-        U /= torch.linalg.vector_norm(U, dim=-1, keepdim=True)
-        a = symstore.sym_rows_matvec_cuda(chunks, nt, U)
+    before_red = _kernels.LAUNCHES["sym_rows_reduce"]
+    for K in (1, 5, 16, 20):
+        U = _unit_rows(gen, K, m)
+        a = symstore.sym_rows_matvec_cuda(chunks, nt, U, plan=plan)
         b = symstore.sym_rows_matvec_plain(chunks, nt, U)
+        assert a.dtype == torch.float32 and a.shape == (K, 2 * m)
         assert float((a - b).abs().max()) <= 1e-4
         assert torch.equal(a, symstore.sym_rows_matvec_cuda(chunks, nt, U))
-    assert _kernels.LAUNCHES["sym_rows_matvec"] == before + 2 * (1 + 1 + 2)
-    for dtype in (torch.bfloat16, torch.float32, torch.float64):
-        wdt = torch.float32 if dtype == torch.bfloat16 else dtype
-        cf = symstore.build_symchunks(harness.default_invariant(),
-                                      P1.to(wdt), P2.to(wdt), A, m,
+    assert _kernels.LAUNCHES["sym_rows_matvec"] == before + 2 * (1 + 1 + 1 + 2)
+    assert _kernels.LAUNCHES["sym_rows_reduce"] == (before_red
+                                                    + 2 * (1 + 1 + 1 + 2))
+    if storage != torch.int8:
+        return
+    for dtype in (torch.float32, torch.float64):
+        cf = symstore.build_symchunks(inv, P1.to(dtype), P2.to(dtype), A, m,
                                       tile=t, G=G, storage_dtype=dtype)
-        U = torch.rand(4, m, generator=gen, device=cuda, dtype=wdt)
-        U /= torch.linalg.vector_norm(U, dim=-1, keepdim=True)
+        U = _unit_rows(gen, 4, m, dtype)
         a = symstore.sym_rows_matvec_cuda(cf, nt, U)
         b = symstore.sym_rows_matvec_plain(cf, nt, U)
         assert float((a - b).abs().max()) <= 1e-4
@@ -248,35 +285,44 @@ def _capacity_endpoints(cuda, m, seed, dtype=torch.float32):
 @pytest.mark.cuda
 @pytest.mark.parametrize("storage", [torch.int8, torch.bfloat16,
                                      torch.float32, torch.float64])
-def test_sym_tiles_kernel_matches_plain(cuda, storage):
-    """Kernel 7 against its plain version at t=128, K=1 and 16 (and 20,
-    two column groups), on the whole list and on D=3 slices summed, within
-    1e-4; a rerun is bit-identical; one launch a call."""
-    m, t = 1024, 128
+@pytest.mark.parametrize("m", [m for m, _ in SYM_SHAPES])
+def test_sym_tiles_kernel_matches_plain(cuda, m, storage):
+    """Kernel 7 against its plain version at t=128, K = 1, 5, 16 and 20
+    (two column groups), on the whole list and on D=3 slices (their raw
+    sums added, then rounded once), within 1e-4; a rerun (its device plan
+    made anew) is bit-identical; one launch a call, and one of the
+    reduction for int8 and bf16 storage."""
+    t = 128
     nt = m // t
     inv = harness.default_invariant()
     fdt = torch.float64 if storage == torch.float64 else torch.float32
     P1, P2, A = _capacity_endpoints(cuda, m, seed=9, dtype=fdt)
     tiles = symstore.build_symtiles(inv, P1, P2, A, m, tile=t,
                                     storage_dtype=storage)
+    plan = symstore.tiles_device_plan(tiles, nt)
     slices = []
     for rank in range(3):
         rows, cols = symstore._shard_coords(nt, 3, rank, "xla", 32)
-        slices.append((symstore._build_tiles_at(
-            inv, P1, P2, A, rows, cols, m, t, 1e-4, storage, 64), rows, cols))
+        tl = symstore._build_tiles_at(inv, P1, P2, A, rows, cols, m, t, 1e-4,
+                                      storage, 64)
+        slices.append((tl, rows, cols,
+                       symstore.tiles_device_plan(tl, nt, rows, cols)))
     gen = torch.Generator(device=cuda).manual_seed(2)
-    for K in (1, 16, 20):
-        U = torch.rand(K, m, generator=gen, device=cuda, dtype=fdt)
-        U /= torch.linalg.vector_norm(U, dim=-1, keepdim=True)
+    for K in (1, 5, 16, 20):
+        U = _unit_rows(gen, K, m, fdt)
         before = _kernels.LAUNCHES["sym_tiles_matvec"]
-        a = symstore.sym_tiles_matvec_cuda(tiles, nt, U)
+        before_red = _kernels.LAUNCHES["sym_tiles_reduce"]
+        a = symstore.sym_tiles_matvec_cuda(tiles, nt, U, plan=plan)
         assert _kernels.LAUNCHES["sym_tiles_matvec"] == before + 1
+        assert _kernels.LAUNCHES["sym_tiles_reduce"] == before_red + int(
+            storage in (torch.int8, torch.bfloat16))
         b = symstore.sym_tiles_matvec_plain(tiles, nt, U)
         assert a.dtype == torch.float32 and a.shape == (K, 2 * m)
         assert float((a - b).abs().max()) <= 1e-4
         assert torch.equal(a, symstore.sym_tiles_matvec_cuda(tiles, nt, U))
-        acc = sum(symstore.sym_tiles_matvec_cuda(tl, nt, U, r, c, raw=True)
-                  for tl, r, c in slices)
+        acc = sum(symstore.sym_tiles_matvec_cuda(tl, nt, U, r, c, raw=True,
+                                                 plan=p)
+                  for tl, r, c, p in slices)
         summed = symstore._finish(acc, symstore._scale(storage))
         assert float((summed - b).abs().max()) <= 1e-4
 
@@ -284,10 +330,12 @@ def test_sym_tiles_kernel_matches_plain(cuda, storage):
 @pytest.mark.cuda
 @pytest.mark.parametrize("storage", [torch.int8, torch.bfloat16,
                                      torch.float64])
-def test_sym_rows_kernel_on_slices(cuda, storage):
-    """Kernel 3 over D=3 chunk slices (G=8) against its plain version on
-    the same slices, and their sum against the whole list, within 1e-4."""
-    m, t, G = 1024, 128, 8
+@pytest.mark.parametrize("m,G", [(1024, 8), (1152, 4)])
+def test_sym_rows_kernel_on_slices(cuda, storage, m, G):
+    """Kernel 3 over D=3 chunk slices against its plain version on the same
+    slices, and their raw sums against the whole list's (kernel and plain),
+    within 1e-4 after the one rounding; reruns bit-identical."""
+    t = 128
     nt = m // t
     inv = harness.default_invariant()
     fdt = torch.float64 if storage == torch.float64 else torch.float32
@@ -295,9 +343,9 @@ def test_sym_rows_kernel_on_slices(cuda, storage):
     whole = symstore.build_symchunks(inv, P1, P2, A, m, tile=t, G=G,
                                      storage_dtype=storage)
     gen = torch.Generator(device=cuda).manual_seed(3)
-    U = torch.rand(16, m, generator=gen, device=cuda, dtype=fdt)
-    U /= torch.linalg.vector_norm(U, dim=-1, keepdim=True)
+    U = _unit_rows(gen, 16, m, fdt)
     ref = symstore.sym_rows_matvec_plain(whole, nt, U)
+    raw_whole = symstore.sym_rows_matvec_cuda(whole, nt, U, raw=True)
     scale = symstore._scale(storage)
     acc = 0
     for rank in range(3):
@@ -306,6 +354,8 @@ def test_sym_rows_kernel_on_slices(cuda, storage):
                                       storage_dtype=storage,
                                       chunk_coords=(crs, cc0))
         k = symstore.sym_rows_matvec_cuda(ch, nt, U, base, raw=True)
+        assert torch.equal(k, symstore.sym_rows_matvec_cuda(ch, nt, U, base,
+                                                            raw=True))
         p = symstore.sym_rows_matvec_plain(ch, nt, U, base, raw=True)
         assert k.dtype == torch.float64
         err = symstore._finish(k, scale) - symstore._finish(p, scale)
@@ -313,6 +363,8 @@ def test_sym_rows_kernel_on_slices(cuda, storage):
         acc = acc + k
     summed = symstore._finish(acc, scale)
     assert float((summed - ref).abs().max()) <= 1e-4
+    assert float((summed - symstore._finish(raw_whole, scale)).abs().max()) \
+        <= 1e-4
 
 
 def _pointnormal_problems(W, m, seed):

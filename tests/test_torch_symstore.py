@@ -23,6 +23,8 @@ from clipper_tpu_torch.solvers import msrc
 from clipper_tpu_torch.types import Params, Rounding
 
 from test_symstore import make_problem
+from test_torch_symtiles import (check_slot_lists, emulate_plan, plan_tiles,
+                                  unit_shape)
 
 JINV = jharness.default_invariant()
 INV = harness.default_invariant()
@@ -163,6 +165,104 @@ def test_rows_matvec_rejects_bad_layout():
     with pytest.raises(TypeError, match="tensors"):
         symstore.solve_single(INV, np.zeros((4, 3)), np.zeros((4, 3)),
                               np.zeros((2, 2), np.int32), np.ones(2))
+
+
+def _chunk_slices(nt, G, D):
+    """(base, n) of each rank's chunk slice in the sharded 'pallas' mode
+    (D = 1: the whole list)."""
+    if D == 1:
+        return [(0, int(symstore.row_first_chunk(nt, G)[-1]))]
+    out = []
+    for rank in range(D):
+        base, crs, _, _, _ = symstore._shard_coords(nt, D, rank, "pallas", G)
+        out.append((base, len(crs)))
+    return out
+
+
+@pytest.mark.parametrize("R,S", [(8, 32), (2, 3)])
+@pytest.mark.parametrize("nt,G", [(5, 2), (9, 3)])
+@pytest.mark.parametrize("D", [1, 2, 3, 8])
+def test_rows_plan_covers_each_tile_once(nt, G, D, R, S, monkeypatch):
+    """Every tile (r, c) of the triangle whose chunk lies in a rank's slice
+    lies in exactly one unit of that slice's plan, at its place in the
+    (n 2t, G t) view (chunk first(r) + (c - r) // G, lanes (c - r) % G);
+    pad tiles and pad chunks lie in none; a unit's tiles are one unit's,
+    column by column; the slot lists cover every contribution; at the
+    kernel's unit shape and a small one (set on the module)."""
+    unit_shape(monkeypatch, R, S)
+    t = 32
+    first = symstore.row_first_chunk(nt, G)
+    seen = []
+    for base, n in _chunk_slices(nt, G, D):
+        plan = symstore.rows_plan(nt, G, n, base, t)
+        r, c = plan_tiles(plan)
+        x, y = plan.entries[:, 0], plan.entries[:, 1]
+        assert (y % (2 * t) == 0).all() and (x % t == 0).all()
+        np.testing.assert_array_equal(y // (2 * t) + base,
+                                      first[r] + (c - r) // G)
+        np.testing.assert_array_equal(x // t, (c - r) % G)
+        assert ((y // (2 * t) < n) & (c >= r) & (c < nt)).all()
+        for e0, e1, r0, _ in plan.units:
+            assert len({(a // R, b // S) for a, b in zip(r[e0:e1],
+                                                         c[e0:e1])}) == 1
+            walk = list(zip(c[e0:e1], r[e0:e1]))
+            assert walk == sorted(walk)
+        check_slot_lists(plan, nt)
+        seen += list(zip(r, c))
+    assert sorted(seen) == sorted(zip(*np.triu_indices(nt)))
+
+
+@pytest.mark.parametrize("R,S", [(8, 32), (2, 3)])
+@pytest.mark.parametrize("storage", [torch.int8, torch.float64])
+@pytest.mark.parametrize("m,G", [(160, 2), (288, 4)])
+def test_rows_plan_emulation_matches_plain(m, G, storage, R, S,
+                                           monkeypatch):
+    """The two passes as the rows plan walks them, emulated in f64, equal
+    sym_rows_matvec_plain's raw sums within 1e-12 relative, on the whole
+    list and on the D=3 chunk slices summed; the unit shape as above."""
+    unit_shape(monkeypatch, R, S)
+    t, D = 32, 3
+    nt = m // t
+    dt = np.float64 if storage == torch.float64 else np.float32
+    P1, P2, A, *_ = _bunny(m, 0.7, seed=m, dtype=dt)
+    args = (INV, *[torch.from_numpy(x) for x in (P1, P2, A)], m)
+    U = torch.from_numpy(np.random.default_rng(G).random((5, m)).astype(dt))
+    U64 = symstore._operand(storage, U)[0].double().numpy()
+    whole = symstore.build_symchunks(*args, tile=t, G=G, storage_dtype=storage)
+    ref = symstore.sym_rows_matvec_plain(whole, nt, U, raw=True).numpy()
+    scale = np.abs(ref).max()
+    plan = symstore.rows_plan(nt, G, whole.shape[0], 0, t)
+    got = emulate_plan(whole.double().numpy().reshape(-1, G * t), plan, U64,
+                       nt, t)
+    assert np.abs(got - ref).max() <= 1e-12 * scale
+    acc = 0
+    for rank in range(D):
+        base, crs, cc0, _, _ = symstore._shard_coords(nt, D, rank, "pallas",
+                                                      G)
+        ch = symstore.build_symchunks(*args, tile=t, G=G,
+                                      storage_dtype=storage,
+                                      chunk_coords=(crs, cc0))
+        plan = symstore.rows_plan(nt, G, len(crs), base, t)
+        acc = acc + emulate_plan(ch.double().numpy().reshape(-1, G * t), plan,
+                                 U64, nt, t)
+    assert np.abs(acc - ref).max() <= 1e-12 * scale
+
+
+def test_plans_are_cached_by_layout(monkeypatch):
+    """A layout's plan is made once: the same layout returns the same
+    plan (a warm solve builds none), another slice, coordinates or unit
+    shape another one."""
+    nt, G, t = 9, 3, 32
+    a = symstore.rows_plan(nt, G, 12, 0, t)
+    assert symstore.rows_plan(nt, G, 12, 0, t) is a
+    assert symstore.rows_plan(nt, G, 6, 6, t) is not a
+    rows, cols = symstore.tile_coords(nt)
+    b = symstore.tiles_plan(nt, rows, cols, t)
+    assert symstore.tiles_plan(nt, rows.copy(), list(cols), t) is b
+    assert symstore.tiles_plan(nt, rows[::-1], cols[::-1], t) is not b
+    unit_shape(monkeypatch, 2, 3)
+    small = symstore.rows_plan(nt, G, 12, 0, t)
+    assert small is not a and len(small.units) > len(a.units)
 
 
 def test_exact_objective_matches_jax():

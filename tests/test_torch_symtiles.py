@@ -245,6 +245,196 @@ def test_rows_matvec_slices_match_jax(D):
     assert float((got - ref).abs().max()) <= 1e-6
 
 
+def unit_shape(monkeypatch, R, S):
+    """Plan units of R x S blocks for the rest of a test (the kernel's
+    are symstore._UNIT_ROWS x _UNIT_COLS); plans are cached by the shape."""
+    monkeypatch.setattr(symstore, "_UNIT_ROWS", R)
+    monkeypatch.setattr(symstore, "_UNIT_COLS", S)
+
+
+def emulate_plan(view, plan, U, nt, t):
+    """The int8 / bf16 kernels' two passes in plain f64, as ``plan`` walks
+    the storage's 2-D ``view`` (numpy, f64): each unit's row sums and
+    column sums, tile by tile in entry order, written to their slots at
+    the unit's end and the column's end; then each output block's slots
+    added in list order. U (K, m) f64, the kernel's operand. Returns the
+    raw (K, 2m) sums."""
+    K = U.shape[0]
+    Ub = U.reshape(K, nt, t)
+    ws = np.full((plan.n_slots, 2, K, t), np.nan)
+    for n_unit, (e0, e1, r0, _) in enumerate(plan.units):
+        fwd = np.zeros((plan.fslots.shape[1], 2, K, t))
+        col = np.zeros((2, K, t))
+        for x, y, c, meta in plan.entries[e0:e1]:
+            i = meta & 0xF
+            tile = view[y:y + 2 * t, x:x + t].reshape(2, t, t)
+            fwd[i] += Ub[:, c] @ tile.transpose(0, 2, 1)
+            if meta & symstore._META_TRANSPOSED:
+                col += Ub[:, r0 + i] @ tile
+            if meta & symstore._META_COL_END:
+                if meta & symstore._META_COL_WRITE:
+                    ws[meta >> symstore._META_SLOT_SHIFT] = col
+                col = np.zeros((2, K, t))
+        for i, slot in enumerate(plan.fslots[n_unit]):
+            if slot >= 0:
+                ws[slot] = fwd[i]
+    out = np.zeros((K, 2, nt, t))
+    for j in range(nt):
+        for slot in plan.red_slots[plan.red_off[j]:plan.red_off[j + 1]]:
+            out[:, :, j] += ws[slot].transpose(1, 0, 2)
+    assert not np.isnan(out).any()
+    return out.reshape(K, 2 * nt * t)
+
+
+def plan_tiles(plan):
+    """(r, c) of every entry of a plan, in entry order."""
+    r = np.concatenate([r0 + (plan.entries[e0:e1, 3] & 0xF)
+                        for e0, e1, r0, _ in plan.units]) if len(
+                            plan.units) else np.zeros(0, int)
+    order = np.concatenate([np.arange(e0, e1) for e0, e1, _, _ in
+                            plan.units]) if len(plan.units) else r
+    rr = np.empty(len(plan.entries), int)
+    rr[order] = r
+    return rr, plan.entries[:, 2].astype(int)
+
+
+def check_slot_lists(plan, nt):
+    """Every slot is written once (a unit row's forward sum or a column's
+    transposed sum) and listed once, in the list of the block it adds to;
+    each tile's row has its unit row's slot in its list, and an
+    off-diagonal tile's column has its column's slot in its list; the
+    lists are in slot order; every entry names its column's ring slot."""
+    fs = plan.fslots[plan.fslots >= 0]
+    meta = plan.entries[:, 3]
+    wr = meta[(meta & symstore._META_COL_WRITE) > 0] >> \
+        symstore._META_SLOT_SHIFT
+    written = np.sort(np.concatenate([fs, wr]))
+    np.testing.assert_array_equal(written, np.arange(plan.n_slots))
+    np.testing.assert_array_equal(np.sort(plan.red_slots),
+                                  np.arange(plan.n_slots))
+    listed = {j: list(plan.red_slots[plan.red_off[j]:plan.red_off[j + 1]])
+              for j in range(nt)}
+    for j, slots in listed.items():
+        assert slots == sorted(slots)
+        assert all(plan.slot_block[s] == j for s in slots)
+    for n_unit, (e0, e1, r0, _) in enumerate(plan.units):
+        ordinal = -1
+        for x, y, c, m in plan.entries[e0:e1]:
+            i = m & 0xF
+            assert plan.fslots[n_unit, i] in listed[r0 + i]
+            if m & symstore._META_COL_START:
+                tr = False
+                ordinal += 1
+            # the column's block of u: its ordinal's slot in the ring
+            assert (m >> symstore._META_RING_SHIFT) & 0xF == \
+                ordinal % symstore._COL_RING
+            tr |= bool(m & symstore._META_TRANSPOSED)
+            if m & symstore._META_COL_END:
+                assert bool(m & symstore._META_COL_WRITE) == tr
+                if tr:
+                    slot = m >> symstore._META_SLOT_SHIFT
+                    assert slot in listed[c]
+
+
+def test_plan_meta_bits_match_kernel():
+    """The plan's meta bits and unit height are the kernel's
+    (csrc/sym_tile_mma.cuh), and a plan's row slots are the kernel's."""
+    import re
+    from clipper_tpu_torch import _kernels
+    src = (_kernels.CSRC / "sym_tile_mma.cuh").read_text()
+    consts = dict(re.findall(r"constexpr int (k\w+) = ([^;]+);", src))
+    assert eval(consts["kMetaTransposed"]) == symstore._META_TRANSPOSED
+    assert eval(consts["kMetaColStart"]) == symstore._META_COL_START
+    assert eval(consts["kMetaColEnd"]) == symstore._META_COL_END
+    assert eval(consts["kMetaColWrite"]) == symstore._META_COL_WRITE
+    assert int(consts["kMetaSlotShift"]) == symstore._META_SLOT_SHIFT
+    assert int(consts["kMetaRingShift"]) == symstore._META_RING_SHIFT
+    assert int(consts["kColSlots"]) == symstore._COL_RING
+    assert int(consts["kMetaRow"], 16) == 0xF
+    assert symstore._UNIT_ROWS == int(consts["kUnitRows"]) <= 16
+    assert int(consts["kMaxK"]) == symstore._KERNEL_ROWS
+    plan = symstore.tiles_plan(4, *symstore.tile_coords(4))
+    assert plan.fslots.shape == (len(plan.units), int(consts["kUnitRows"]))
+
+
+@pytest.mark.parametrize("R,S", [(8, 32), (2, 3)])
+@pytest.mark.parametrize("nt", [5, 9])
+@pytest.mark.parametrize("D", [1, 2, 3, 8])
+def test_tiles_plan_covers_each_tile_once(nt, D, R, S, monkeypatch):
+    """Every real tile of a slice of shard_tile_coords(nt, D) lies in
+    exactly one unit, at its own place in the (T 2t, t) view; inert slots
+    lie in none; a unit's tiles are one unit's (r // R, c // S), column by
+    column, rows ascending; the slot lists cover every contribution. The
+    kernel's unit shape (8, 32), and a small one (set on the module) that
+    cuts these lists into many units."""
+    unit_shape(monkeypatch, R, S)
+    t = 32
+    rows, cols = symstore.shard_tile_coords(nt, D)
+    n = len(rows) // D
+    seen = []
+    for rank in range(D):
+        r_sl = rows[rank * n:(rank + 1) * n]
+        c_sl = cols[rank * n:(rank + 1) * n]
+        plan = symstore.tiles_plan(nt, r_sl, c_sl, t)
+        r, c = plan_tiles(plan)
+        k = plan.entries[:, 1] // (2 * t)
+        assert (plan.entries[:, 1] % (2 * t) == 0).all()
+        assert (plan.entries[:, 0] == 0).all()
+        np.testing.assert_array_equal(r_sl[k], r)
+        np.testing.assert_array_equal(c_sl[k], c)
+        assert sorted(k) == list(np.flatnonzero(r_sl < nt))
+        for e0, e1, r0, _ in plan.units:
+            assert len({(a // R, b // S) for a, b in zip(r[e0:e1],
+                                                         c[e0:e1])}) == 1
+            assert r0 == r[e0] // R * R
+            walk = list(zip(c[e0:e1], r[e0:e1]))
+            assert walk == sorted(walk)
+        sizes = plan.units[:, 1] - plan.units[:, 0]
+        assert (np.diff(sizes) <= 0).all()     # the largest unit first
+        check_slot_lists(plan, nt)
+        seen += list(zip(r, c))
+    assert sorted(seen) == sorted(zip(*symstore.tile_coords(nt)))
+
+
+@pytest.mark.parametrize("R,S", [(8, 32), (2, 3)])
+@pytest.mark.parametrize("storage", ["int8", "float64"])
+@pytest.mark.parametrize("m", [160, 288])
+def test_tiles_plan_emulation_matches_plain(m, storage, R, S, monkeypatch):
+    """The two passes as the plan walks them, emulated in f64, equal
+    sym_tiles_matvec_plain's raw sums within 1e-12 relative (the same
+    exact products summed in another order), on the whole list and on its
+    D=3 slices summed; the unit shape as in the test above."""
+    unit_shape(monkeypatch, R, S)
+    t, D = 32, 3
+    nt = m // t
+    _, tst, dt = STORAGE[storage]
+    P1, P2, A, *_ = _bunny(m, 0.7, seed=m, dt=dt)
+    args = (INV, *_torch(P1, P2, A))
+    U = torch.from_numpy(np.random.default_rng(m).random((5, m)).astype(dt))
+    Uc, _ = symstore._operand(tst, U)
+    U64 = Uc.double().numpy()
+    rows, cols = symstore.shard_tile_coords(nt, D)
+    n = len(rows) // D
+    whole = symstore.build_symtiles(*args, m, tile=t, storage_dtype=tst)
+    ref = symstore.sym_tiles_matvec_plain(whole, nt, U, raw=True).numpy()
+    scale = np.abs(ref).max()
+    parts = [(whole, *symstore.tile_coords(nt))]
+    for rank in range(D):
+        r, c = rows[rank * n:(rank + 1) * n], cols[rank * n:(rank + 1) * n]
+        parts.append((symstore._build_tiles_at(*args, r, c, m, t, 1e-4, tst,
+                                               7), r, c))
+    acc = 0
+    for d, (tl, r, c) in enumerate(parts):
+        plan = symstore.tiles_plan(nt, r, c, t)
+        view = tl.double().numpy().reshape(-1, t)
+        got = emulate_plan(view, plan, U64, nt, t)
+        if d == 0:
+            assert np.abs(got - ref).max() <= 1e-12 * scale
+        else:
+            acc = acc + got
+    assert np.abs(acc - ref).max() <= 1e-12 * scale
+
+
 def test_tile_walks():
     """Each output block's walk holds its row's forward tiles, then its
     column's transposed tiles, in increasing k; inert slots are in none."""
