@@ -29,12 +29,15 @@ Phases, each of which must pass (any failure exits non-zero):
               f32 M and its bf16 cast (<= 1e-4 against the plain version
               and an f64 oracle); the dense build on one bunny problem
               (m=1024) and one point-normal problem cut to m=1000, f32
-              and f64 (C exact, no M entry differing); the tri and stacked
-              builds on 16 point-normal problems (C exact, no M code
-              differing); the fused tri build byte-equal to the tri build
-              (both invariants); and the tiles matvec on the tile-major
-              form of the check storage, int8, f32 and f64 (<= 1e-4
-              against its plain version and the tri matvec at K=1,
+              and f64 (C exact, no M entry differing); the tri build on
+              16 point-normal problems and the stacked build on them in
+              int8 and bf16, at m=1024 and at their first 1000
+              associations, m_true < m on four (C exact, no M code
+              differing, output equal to its transpose); the fused tri
+              build byte-equal to the tri build (both invariants); and the
+              tiles matvec on the tile-major form of the check storage,
+              int8, f32 and f64 (<= 1e-4 against its plain version and the
+              tri matvec at K=1, bit-equal to the latter in int8 and bf16,
               <= 1.1e-5 against an f64 oracle, all three <= 1e-12 for f64
               storage, a rerun bit-identical). In bf16 storage (the JAX
               package's default): the tri build and the fused build (both
@@ -84,7 +87,8 @@ Phases, each of which must pass (any failure exits non-zero):
               (solve_pool_tri(matvec="tiles")) beside the flat storage
               (matvec="pallas"), one probe a tick (window 12): both at the
               bench bars, tri_build_fused and tri_tiles_matvec launched;
-              prints each call's ms and stage ms.
+              prints each call's ms and stage ms, and whether the two
+              pools' masks, ifinal, windows and ticks are equal.
 4. capacity — one problem through the Clipper facade in f32: m=65,536,
               95% outliers, the bunny (seed 0), u0 from numpy
               default_rng(0), four ways: engine="auto" (the triangle
@@ -124,20 +128,23 @@ Phases, each of which must pass (any failure exits non-zero):
               design's time, and the bytes its design moves a call printed
               against the stored tiles': at most 1.4x in int8 at K=16,
               1.25x in bf16, 1.05x at K=1, with the rate reached), the
-              pattern
-              matvec at
-              B=512 in f32 and bf16, the fused tri build beside the tri
+              pattern matvec at B=512 in f32 and bf16 (each beside one bmm
+              over the dense [M; C] in its type), the stacked build at
+              W=512 in int8 and bf16, the fused tri build beside the tri
               build at W=512, the tiles matvec at B=128 and B=512 beside the
               tri matvec at K=1, the dense build at m=5000 point-normal and
-              m=1024 bunny, the point-normal tri and stacked builds at
-              W=512) held against its plain version as in phase 2, then
+              m=1024 bunny, the point-normal tri build and the point-normal
+              stacked build (int8 and bf16) at W=512) held against its
+              plain version as in phase 2, then
               timed beside its bound, its plain version and, where one
               exists, one PyTorch call computing the same function. The
               tri matvec, the tri and fused builds and the tiles matvec
-              again over bf16 storage, and the rows and tile-list matvecs
-              over the m=65,536 problem's bf16 storage at K=16: their
-              numbers go into a "bf16" field of each row of the kernels'
-              line.
+              again over bf16 storage, the stacked build and the pattern
+              matvec in bf16, and the rows and tile-list matvecs over the
+              m=65,536 problem's bf16 storage at K=16: their numbers go
+              into a "bf16" field of each row of the kernels' line (the
+              point-normal stacked builds into "pointnormal" and
+              "pointnormal_bf16" of its row).
 7. probe    — the build-anatomy probe (csrc/build_probe.cu) on the JAX
               probe's inputs at B=512, m=1024 and at an edge tile (B=16,
               m=1000): full byte-equal to the stacked build, writeonly all
@@ -145,7 +152,9 @@ Phases, each of which must pass (any failure exits non-zero):
               codes within one of their plain versions (the count of
               differing codes printed, 0 expected); then
               bench/build_probe.main(["512", "1024"]), which prints each
-              variant's ms beside the stacked build's and the write bound.
+              variant's ms beside the stacked build's (kernel 4 scores each
+              pair once; the probe's variants, like the JAX kernel, score
+              it for each triangle) and the write bound.
 8. drivers  — each ported bench driver's main() in-process on the card at
               a small setting: grid_tpu (4 trials a cell, the whole 5 x 5
               grid), pool_ab (W=128, all five configurations), tickstats
@@ -1289,9 +1298,11 @@ def phase_timing(inv, main, dev):
 
 
 def time_stacked_and_pattern(inv, main, dev):
-    """The stacked build at W=512 int8 and the pattern matvec at B=512
-    (f32 and bf16 M), held against their plain versions, then timed.
-    Returns their rows of the kernels' JSON line and max errors."""
+    """The stacked build at W=512 (int8, and bf16 in the row's "bf16"
+    field) and the pattern matvec at B=512 (f32 and bf16 M, each beside
+    one bmm over the dense [M; C] in its type), held against their plain
+    versions, then timed. Returns their rows of the kernels' JSON line
+    and max errors."""
     import torch
     from clipper_tpu_torch.bench.harness import time_ms
     from clipper_tpu_torch.ops import affinity_pallas, fused_matvec
@@ -1304,18 +1315,32 @@ def time_stacked_and_pattern(inv, main, dev):
     At = torch.as_tensor(As, device=dev)
     mts = torch.full((W,), M, dtype=torch.int32, device=dev)
     rows, errs = {}, {}
-    store, errs["stored_build"] = check_stored(
-        inv, P1s, P2s, At, mts, torch.int8, f"int8, W={W}, m={M}")
-    del store
-    b_bytes = W * 2 * M * M + 2 * W * M * 3 * 4 + W * M * 2 * 4 + W * 4
-    bound_ms, bound_by = build_bound(b_bytes, W, M, BUILD_OPS_PER_PAIR)
-    rows["stored_build"] = dict(
-        ms=time_ms(lambda: affinity_pallas.stored_build_cuda(
-            inv, P1s, P2s, At, mts), dev, 10),
-        plain_ms=time_ms(lambda: stored_from_endpoints(
-            inv, P1s, P2s, At, m_true=mts), dev, 2),
-        bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
-    torch.cuda.empty_cache()
+    in_bytes = 2 * W * M * 3 * 4 + W * M * 2 * 4 + W * 4
+    errs["stored_build"] = 0.0
+    for storage in (torch.int8, torch.bfloat16):
+        name = str(storage).split(".")[-1]
+        store, e = check_stored(inv, P1s, P2s, At, mts, storage,
+                                f"{name}, W={W}, m={M}")
+        errs["stored_build"] = max(errs["stored_build"], e)
+        del store
+        bound_ms, bound_by = build_bound(
+            W * 2 * M * M * storage.itemsize + in_bytes,
+            W, M, BUILD_OPS_PER_PAIR)
+        r = dict(ms=time_ms(lambda: affinity_pallas.stored_build_cuda(
+                     inv, P1s, P2s, At, mts, storage_dtype=storage), dev, 10),
+                 plain_ms=time_ms(lambda: stored_from_endpoints(
+                     inv, P1s, P2s, At, m_true=mts, storage_dtype=storage),
+                     dev, 2),
+                 bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+        torch.cuda.empty_cache()
+        if storage == torch.int8:
+            rows["stored_build"] = r
+        else:
+            rows["stored_build"]["bf16"] = r
+        print(f"timing stored_build W={W} m={M} {name}: kernel "
+              f"{r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}), plain {r['plain_ms']:.4f} ms, library "
+              "None", flush=True)
 
     Md, _ = pairwise_from_endpoints(inv, P1s, P2s, At)
     gen = torch.Generator(device=dev).manual_seed(4)
@@ -1337,21 +1362,20 @@ def time_stacked_and_pattern(inv, main, dev):
                  bound_by=("bytes" if p_bytes / HBM_BYTES_PER_S
                            > p_ops / F32_FLOPS else "operations"),
                  library_ms=None)
+        # the yardstick: one bmm over the dense [M; C] in M's type (f32
+        # with TF32 off, or bf16 with u rounded to bf16)
+        MC = torch.cat([Mx, (Mx > 0).to(Mx.dtype)], dim=1)
+        ux = u.to(Mx.dtype)[..., None]
+        r["library_ms"] = time_ms(lambda: torch.bmm(MC, ux), dev, 10)
+        del MC
         if Mx.dtype == torch.float32:
-            # the yardstick: one bmm over the dense f32 [M; C], TF32 off
-            MC = torch.cat([Md, (Md > 0).float()], dim=1)
-            r["library_ms"] = time_ms(lambda: torch.bmm(MC, u[..., None]),
-                                      dev, 10)
-            del MC
             rows["pattern_matvec"] = r
+        else:
+            rows["pattern_matvec"]["bf16"] = r
         print(f"timing pattern_matvec {label}: kernel {r['ms']:.4f} ms, "
               f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), plain "
-              f"{r['plain_ms']:.4f} ms, bmm over dense f32 [M; C] "
-              f"{r['library_ms']}", flush=True)
-    r = rows["stored_build"]
-    print(f"timing stored_build W={W} m={M} int8: kernel {r['ms']:.4f} ms, "
-          f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), plain "
-          f"{r['plain_ms']:.4f} ms, library None", flush=True)
+              f"{r['plain_ms']:.4f} ms, bmm over dense {Mx.dtype} [M; C] "
+              f"{r['library_ms']:.4f} ms", flush=True)
     del Md
     torch.cuda.empty_cache()
     return rows, errs
@@ -1855,9 +1879,10 @@ def flat_tiles(tri, nt):
 def check_tiles_matvec(tri, nt, idx, U, label):
     """tri_tiles_matvec on the tile-major form of flat storage ``tri``
     against its plain version (<= 1e-4), an f64 oracle on the same content
-    (<= 1.1e-5) and tri_matvec at K=1 on the flat storage (<= 1e-4); all
-    three <= 1e-12 for f64 storage; a rerun bit-identical. Returns the max
-    |kernel - plain|."""
+    (<= 1.1e-5) and tri_matvec at K=1 on the flat storage (<= 1e-4, and
+    bit-equal for int8 and bf16 storage: the two run one kernel over two
+    address maps); all three <= 1e-12 for f64 storage; a rerun
+    bit-identical. Returns the max |kernel - plain|."""
     import torch
     from clipper_tpu_torch.ops import flattri
     tiles = flat_tiles(tri, nt)
@@ -1879,9 +1904,14 @@ def check_tiles_matvec(tri, nt, idx, U, label):
     e_o = max(float((x.double() - y[:, 0] / scale).abs().max())
               for x, y in zip(a, o))
     e_1 = max(float((x - y[:, 0]).abs().max()) for x, y in zip(a, c))
+    bits = all(bool(torch.equal(x, y[:, 0])) for x, y in zip(a, c))
     print(f"tri_tiles_matvec ({label}): max|kernel - plain|={err:.3e}, "
           f"max|kernel - f64 oracle|={e_o:.3e}, max|kernel - tri_matvec "
-          f"K=1|={e_1:.3e}; rerun bit-identical", flush=True)
+          f"K=1|={e_1:.3e}, bit-equal to tri_matvec K=1: {bits}; rerun "
+          "bit-identical", flush=True)
+    if tri.dtype in (torch.int8, torch.bfloat16):
+        require(bits, f"tri_tiles_matvec {label}: not bit-equal to "
+                "tri_matvec at K=1 on the same content")
     f64 = tri.dtype == torch.float64
     tol = F64_MATVEC_TOL if f64 else MATVEC_TOL
     require(err <= tol, f"tri_tiles_matvec {label} disagrees with plain")
@@ -1927,11 +1957,18 @@ def phase_kernels_pn(inv, pn_inv, check, pn_check, dev):
     tri_pn_p = flattri.build_tri_plain(pn_inv, Q1s, Q2s, Apt, mts, t=t)
     errs["tri_build"] = check_build(tri_pn, tri_pn_p, t,
                                     f"point-normal, W={W_CHECK}, m={M}")
-    mts_e = mts.clone()
-    mts_e[:4] = torch.tensor([M - 1, M - 24, 700, 513], device=dev)
-    _, errs["stored_build"] = check_stored(
-        pn_inv, Q1s, Q2s, Apt, mts_e, torch.int8,
-        f"point-normal int8, W={W_CHECK}, m={M}, m_true < m on 4")
+    # kernel 4 on point-normal problems, int8 and bf16, at m=1024 and at
+    # their first M_EDGE associations (no tile divides M_EDGE), m_true < m
+    # on four
+    for me in (M, M_EDGE):
+        mts_e = torch.full((W_CHECK,), me, dtype=torch.int32, device=dev)
+        mts_e[:4] = torch.tensor([me - 1, me - 24, 700, 513], device=dev)
+        for storage in (torch.int8, torch.bfloat16):
+            _, e = check_stored(
+                pn_inv, Q1s[:, :me], Q2s[:, :me], Apt[:, :me], mts_e,
+                storage, f"point-normal {str(storage).split('.')[-1]}, "
+                f"W={W_CHECK}, m={me}, m_true < m on 4")
+            errs["stored_build"] = max(errs["stored_build"], e)
 
     for label, (iv, X1, X2, XA, ref) in (
             ("bunny", (inv, P1s, P2s, At, None)),
@@ -2152,13 +2189,14 @@ def phase_pointnormal(pn_inv, pn_main, dev):
     return out
 
 
-def run_tri_variant(inv, data_, dev, W, variant, timings=None):
+def run_tri_variant(inv, data_, dev, W, variant, timings=None, stats=None):
     """The bunny pool problems over the flat storage's two builds and two
     layouts, one probe a tick: variant "tiles" builds with
     build_tri_pallas_fused and solves over its tile-major form through
     solve_pool_tri(matvec="tiles"); "pallas" builds with build_tri and
     solves the flat storage through matvec="pallas". Inits through the
-    same matvec, the pool's polish and rounding. Returns a Solution."""
+    same matvec, the pool's polish and rounding; ``stats`` gets the pool's
+    windows and ticks. Returns a Solution."""
     import torch
     from clipper_tpu_torch.ops import flattri
     from clipper_tpu_torch.parallel import pool
@@ -2185,7 +2223,8 @@ def run_tri_variant(inv, data_, dev, W, variant, timings=None):
     clock.mark("init")
     u, F, ifinal = pool.solve_pool_tri(store, nt, inits, Params(), lanes=128,
                                        window=STACKED["window"],
-                                       matvec=variant, d_scale=0.15)
+                                       matvec=variant, d_scale=0.15,
+                                       stats=stats)
     clock.mark("solve")
     Fp = pool._polish_batch(inv, P1s, P2s, At, u, 256, 1e-4)
     mask = msrc.round_solution(u, Fp, Params().rounding)
@@ -2198,7 +2237,9 @@ def phase_tri_variants(inv, main, dev):
     """3f: the tri pool's kernel variants on the 512 bunny problems: the
     fused build's bytes against build_tri's, then the tile-major pool
     (matvec="tiles") beside the flat one (matvec="pallas"), one probe a
-    tick each. Returns the tile-major call's launches."""
+    tick each, printing whether their masks, ifinal and windows are equal
+    (kernel 9 runs kernel 1's instructions at K=1, so they should be).
+    Returns the tile-major call's launches."""
     import torch
     from clipper_tpu_torch.ops import flattri
 
@@ -2212,10 +2253,11 @@ def phase_tri_variants(inv, main, dev):
     print(f"tri_build_fused vs tri_build (W={W_MAIN}, m={M}): byte-equal="
           f"{same}", flush=True)
     require(same, "tri_build_fused differs from tri_build at W=512")
-    out = {}
+    out, sols, stats = {}, {}, {}
     for variant in ("tiles", "pallas"):
-        sol, launches = counted_call(lambda: run_tri_variant(
-            inv, main, dev, W_MAIN, variant))
+        stats[variant] = {}
+        sols[variant], launches = counted_call(lambda: run_tri_variant(
+            inv, main, dev, W_MAIN, variant, stats=stats[variant]))
         timings = {}
         reps = 2
         sol, wall = timed_calls(lambda: run_tri_variant(
@@ -2229,6 +2271,14 @@ def phase_tri_variants(inv, main, dev):
                   f"{k}={v:.3f}" for k, v in timings.items()), flush=True)
         print(f"{label} kernel launches (one call): {launches}", flush=True)
         out[variant] = launches
+    a, b = sols["tiles"], sols["pallas"]
+    same = (a.mask == b.mask).all(dim=1)
+    ta, tb = stats["tiles"], stats["pallas"]
+    print(f"tile-major vs flat pool (one probe a tick, W={W_MAIN}): masks "
+          f"equal on {int(same.sum())} of {W_MAIN}, ifinal equal "
+          f"{bool(torch.equal(a.ifinal, b.ifinal))}, windows {ta['windows']}"
+          f" vs {tb['windows']}, ticks equal "
+          f"{bool(torch.equal(ta['ticks'], tb['ticks']))}", flush=True)
     need = {"tiles": ("tri_build_fused", "tri_tiles_matvec"),
             "pallas": ("tri_build", "tri_matvec")}
     for variant, names in need.items():
@@ -2285,12 +2335,13 @@ def phase_parity_pn(inv, pn_inv, check, pn_check, dev):
             "masks differ")
 
 
-def time_pn_and_dense(inv, pn_inv, check, pn_main, dev):
+def time_pn_and_dense(inv, pn_inv, check, pn_main, dev, stored_row):
     """Phase 6's new rows: the dense build at m=5000 (point-normal, f32)
     and m=1024 (bunny), and the point-normal tri and stacked builds at
-    W=512, each first held to its plain version (C exact, no M code
-    differing). Returns the dense build's row of the kernels' JSON line
-    and its max error."""
+    W=512 (the stacked one in int8 and bf16, into stored_row's
+    "pointnormal" and "pointnormal_bf16" fields), each first held to its
+    plain version (C exact, no M code differing). Returns the dense
+    build's row of the kernels' JSON line and its max error."""
     import torch
     from clipper_tpu_torch.bench import harness
     from clipper_tpu_torch.bench.harness import time_ms
@@ -2341,25 +2392,35 @@ def time_pn_and_dense(inv, pn_inv, check, pn_main, dev):
                 flattri.build_tri_plain(pn_inv, P1s, P2s, At, mts, t=t), t,
                 label)
     torch.cuda.empty_cache()
-    check_stored(pn_inv, P1s, P2s, At, mts, torch.int8, f"{label}, int8")
-    torch.cuda.empty_cache()
+    for storage in (torch.int8, torch.bfloat16):
+        check_stored(pn_inv, P1s, P2s, At, mts, storage,
+                     f"{label}, {str(storage).split('.')[-1]}")
+        torch.cuda.empty_cache()
     in_bytes = 2 * W_MAIN * M * 6 * 4 + W_MAIN * M * 2 * 4 + W_MAIN * 4
-    for name, out_bytes, kernel, plain in (
-            ("tri_build", W_MAIN * 2 * t * S,
-             lambda: flattri.build_tri_cuda(pn_inv, P1s, P2s, At, mts, t=t),
-             lambda: flattri.build_tri_plain(pn_inv, P1s, P2s, At, mts,
-                                             t=t)),
-            ("stored_build", W_MAIN * 2 * M * M,
-             lambda: affinity_pallas.stored_build_cuda(pn_inv, P1s, P2s, At,
-                                                       mts),
-             lambda: stored_from_endpoints(pn_inv, P1s, P2s, At,
-                                           m_true=mts))):
+    cases = [("tri_build", torch.int8, W_MAIN * 2 * t * S,
+              lambda: flattri.build_tri_cuda(pn_inv, P1s, P2s, At, mts, t=t),
+              lambda: flattri.build_tri_plain(pn_inv, P1s, P2s, At, mts,
+                                              t=t))]
+    for sd in (torch.int8, torch.bfloat16):
+        cases.append((
+            "stored_build", sd, W_MAIN * 2 * M * M * sd.itemsize,
+            lambda sd=sd: affinity_pallas.stored_build_cuda(
+                pn_inv, P1s, P2s, At, mts, storage_dtype=sd),
+            lambda sd=sd: stored_from_endpoints(
+                pn_inv, P1s, P2s, At, m_true=mts, storage_dtype=sd)))
+    for name, storage, out_bytes, kernel, plain in cases:
         bound, by = build_bound(out_bytes + in_bytes, W_MAIN, M,
                                 PN_OPS_PER_PAIR)
         ms = time_ms(kernel, dev, 10)
         pms = time_ms(plain, dev, 1)
         torch.cuda.empty_cache()
-        print(f"timing {name} point-normal W={W_MAIN} m={M} int8: kernel "
+        sname = str(storage).split(".")[-1]
+        if name == "stored_build":
+            key = "pointnormal" + ("_bf16" if storage.is_floating_point
+                                   else "")
+            stored_row[key] = dict(ms=ms, plain_ms=pms, bound_ms=bound,
+                                   bound_by=by, library_ms=None)
+        print(f"timing {name} point-normal W={W_MAIN} m={M} {sname}: kernel "
               f"{ms:.4f} ms, bound {bound:.4f} ms ({by}), plain {pms:.4f} ms",
               flush=True)
     return rows["affinity_build"], err
@@ -2639,8 +2700,8 @@ def main() -> None:
     rows.update(rows_sp)
     for name, e in errs_sp.items():
         errs[name] = max(errs[name], e)
-    rows["affinity_build"], e = time_pn_and_dense(inv, pn_inv, check,
-                                                  pn_main, dev)
+    rows["affinity_build"], e = time_pn_and_dense(
+        inv, pn_inv, check, pn_main, dev, rows["stored_build"])
     errs["affinity_build"] = max(errs["affinity_build"], e)
     (rows["build_probe"], launches["build_probe"],
      errs["build_probe"]) = phase_probe(dev)

@@ -69,8 +69,8 @@ _SIGNATURES = {
                              _P],
     "affinity_build_f32": [_P, _P, _P, _P, _P, _I, *_SCORE, _P],
     "affinity_build_f64": [_P, _P, _P, _P, _P, _I, *_SCORE, _P],
-    "tri_tiles_matvec_int8": [_P, _P, _P, _P, _I, _I, _I, _F, _P],
-    "tri_tiles_matvec_bf16": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "tri_tiles_matvec_int8": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    "tri_tiles_matvec_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "tri_tiles_matvec_f32": [_P, _P, _P, _P, _I, _I, _I, _P],
     "tri_tiles_matvec_f64": [_P, _P, _P, _P, _I, _I, _I, _P],
     "sym_rows_matvec_int8": [*_UNITS, _I, _I, _I, _I, _F, _P],

@@ -13,7 +13,10 @@ arithmetic classes:
 
 and prints each beside kernel 4's time (``ops.affinity_pallas.
 stored_build``) on the same inputs and the write bound, 2 B m^2 bytes
-over 3.35 TB/s. The JAX probe's ``.jax_cache`` settings and its tile have
+over 3.35 TB/s. The variants share the two-pass body
+(csrc/stored_build_body.cuh: every pair scored once for each triangle, as
+the JAX kernel does); kernel 4 scores each unordered pair once and writes
+``full``'s bytes, so ``full`` beside it shows what the halving bought. The JAX probe's ``.jax_cache`` settings and its tile have
 no counterpart here: the kernel checks its edge blocks instead of needing
 m to divide by a tile.
 

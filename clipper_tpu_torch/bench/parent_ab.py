@@ -1,0 +1,304 @@
+"""Kernels 9 and 4 beside their builds from another checkout, on the card.
+
+Builds csrc/tri_tiles_matvec.cu (kernel 9) and csrc/stored_build.cu
+(kernel 4) from the sources of another checkout of the repo at DIR (for
+example the parent commit unpacked with ``git archive``) into
+build/clipper_tpu_torch/probe/parent_ab/, with the package's flags, and
+times each beside the package's own build in one process, in turns
+(parent, change, change, parent; each the mean of its two turns), through
+the C entry points (no wrapper):
+
+- kernel 9 at B=128 and B=512 lanes, one probe a lane, int8 and bf16
+  storage, on the tile-major form of P=512 random problems (m=1024,
+  t=256, 10% of pairs kept): the parent's ms, the change's, kernel 1 at
+  K=1 on the flat form of the same content, one ``torch.bmm`` over the
+  dense bf16 [M; C] and the bound; whether the change's output is
+  bit-equal to kernel 1's at K=1, and its max distance to the parent's
+  (which sums in another order);
+- kernel 4 on the W=512, m=1024 problems of ``chip_smoke.py``'s main path
+  (the bunny at rho=0.9 and the point-normal scans, both from numpy
+  default_rng(0)), int8 and bf16 storage: the parent's ms, the change's,
+  the bound, and whether the two outputs are byte-equal.
+
+Kernel 1 is compared first, by ``tri_matvec_probe.main(["--parent",
+DIR])`` (its ablations and the parent's build, bit equality at its four
+shapes). Run on a machine with the card:
+
+    python -m clipper_tpu_torch.bench.parent_ab DIR
+
+It prints the card's name and power limit first and returns its rows.
+The parent's kernel-9 entry points are taken as they were before kernel 9
+ran kernel 1's design: (tri, idx, U, out, B, nt, t[, scale], stream),
+with no pool size.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import subprocess
+import sys
+from pathlib import Path
+from typing import Dict, List
+
+import numpy as np
+
+from clipper_tpu_torch import _kernels
+
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS = 67e12
+BF16_FLOPS = 989e12
+# f32 operations a pair of each score (chip_smoke.py's counts)
+OPS_PER_PAIR = {"euclidean": 30, "pointnormal": 56}
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_PARENT_SIGNATURES = {
+    "tri_tiles_matvec_int8": [_P, _P, _P, _P, _I, _I, _I, _F, _P],
+    "tri_tiles_matvec_bf16": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "stored_build_int8": _kernels._SIGNATURES["stored_build_int8"],
+    "stored_build_bf16": _kernels._SIGNATURES["stored_build_bf16"],
+}
+_SOURCES = {"tri_tiles_matvec": ("tri_tiles_matvec_int8",
+                                 "tri_tiles_matvec_bf16"),
+            "stored_build": ("stored_build_int8", "stored_build_bf16")}
+
+
+def build_parent(parent: str) -> Dict[str, ctypes.CDLL]:
+    """Compile the parent checkout's kernel 9 and kernel 4 sources, one
+    nvcc each, both started together; returns the loaded libraries."""
+    csrc = Path(parent) / "clipper_tpu_torch" / "csrc"
+    if not all((csrc / f"{cu}.cu").exists() for cu in _SOURCES):
+        raise SystemExit(f"parent_ab: {csrc} lacks {sorted(_SOURCES)}")
+    d = _kernels.BUILD_DIR / "probe" / "parent_ab"
+    d.mkdir(parents=True, exist_ok=True)
+    for p in csrc.glob("*.cu*"):
+        (d / p.name).write_bytes(p.read_bytes())
+    procs = {cu: subprocess.Popen(
+        [_kernels._nvcc(), *_kernels._ARCH, *_kernels._COMMON,
+         *_kernels.SOURCES[cu], "-o", str(d / f"lib{cu}.so"),
+         str(d / f"{cu}.cu")], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for cu in _SOURCES}
+    libs = {}
+    for cu, p in procs.items():
+        log, _ = p.communicate()
+        if p.returncode != 0:
+            raise RuntimeError(f"parent_ab: the parent's {cu} failed to "
+                               f"build:\n{log}")
+        lib = ctypes.CDLL(os.path.abspath(d / f"lib{cu}.so"))
+        for fn in _SOURCES[cu]:
+            getattr(lib, fn).argtypes = _PARENT_SIGNATURES[fn]
+            getattr(lib, fn).restype = ctypes.c_int
+        libs[cu] = lib
+    return libs
+
+
+def in_turns(parent, change, dev, reps):
+    """(parent ms, change ms): parent, change, change, parent, each the
+    mean of its two turns."""
+    from clipper_tpu_torch.bench.harness import time_ms
+    p0 = time_ms(parent, dev, reps)
+    c0 = time_ms(change, dev, reps)
+    c1 = time_ms(change, dev, reps)
+    p1 = time_ms(parent, dev, reps)
+    return (p0 + p1) / 2, (c0 + c1) / 2
+
+
+def tiles_rows(parent_lib, dev) -> list:
+    """Kernel 9, parent against change, beside kernel 1 at K=1."""
+    import torch
+
+    from clipper_tpu_torch.bench.harness import time_ms
+    from clipper_tpu_torch.ops import flattri
+
+    t, nt, P = 256, 4, 512
+    m, T = t * nt, nt * (nt + 1) // 2
+    S = flattri.tri_ncols(nt, t)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    content = torch.rand(P, 2 * t, S, generator=gen, device=dev)
+    content = torch.where(content > 0.9, content, 0.0)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    k9 = _kernels.lib("tri_tiles_matvec")
+    k1 = _kernels.lib("tri_matvec")
+    rows = []
+    for storage in (torch.int8, torch.bfloat16):
+        flat = ((content * 127).round().to(torch.int8)
+                if storage == torch.int8 else content.to(storage))
+        tiles = flat.view(P, 2 * t, T, t).permute(0, 2, 1, 3).contiguous()
+        int8 = storage == torch.int8
+        for B in (128, 512):
+            idx = torch.randperm(P, generator=gen, device=dev)[:B].to(
+                torch.int32)
+            U = torch.rand(B, m, generator=gen, device=dev).bfloat16()
+            outs = {k: torch.empty(B, 2 * m, device=dev)
+                    for k in ("parent", "change", "k1")}
+            ptr = (tiles.data_ptr(), idx.data_ptr(), U.data_ptr())
+            if int8:
+                def parent():
+                    return parent_lib.tri_tiles_matvec_int8(
+                        *ptr, outs["parent"].data_ptr(), B, nt, t, 1 / 127,
+                        stream)
+
+                def change():
+                    return k9.tri_tiles_matvec_int8(
+                        *ptr, outs["change"].data_ptr(), P, B, nt, t,
+                        1 / 127, stream)
+
+                def kernel1():
+                    return k1.tri_matvec_int8(
+                        flat.data_ptr(), idx.data_ptr(), U.data_ptr(),
+                        outs["k1"].data_ptr(), P, B, 1, nt, t, S, 1 / 127,
+                        stream)
+            else:
+                def parent():
+                    return parent_lib.tri_tiles_matvec_bf16(
+                        *ptr, outs["parent"].data_ptr(), B, nt, t, stream)
+
+                def change():
+                    return k9.tri_tiles_matvec_bf16(
+                        *ptr, outs["change"].data_ptr(), P, B, nt, t,
+                        stream)
+
+                def kernel1():
+                    return k1.tri_matvec_bf16(
+                        flat.data_ptr(), idx.data_ptr(), U.data_ptr(),
+                        outs["k1"].data_ptr(), P, B, 1, nt, t, S, stream)
+            for name, fn in (("parent", parent), ("change", change),
+                             ("kernel 1", kernel1)):
+                _kernels.check(fn(), f"parent_ab kernel 9 {name}")
+            torch.cuda.synchronize()
+            p_ms, c_ms = in_turns(parent, change, dev, 50)
+            dense = flattri.dense_stacked(flat[idx.long()], nt).to(
+                torch.bfloat16)
+            Ub = U[..., None]
+            lib_ms = time_ms(lambda: torch.bmm(dense, Ub), dev, 20)
+            del dense
+            n_bytes = (B * T * 2 * t * t * tiles.element_size() + B * m * 2
+                       + B * 2 * m * 4 + B * 4)
+            n_ops = 2 * B * 2 * t * t * (2 * T - nt)
+            row = dict(
+                kernel="tri_tiles_matvec", storage=str(storage).split(".")[-1],
+                B=B, parent_ms=p_ms, ms=c_ms,
+                k1_ms=time_ms(kernel1, dev, 50), library_ms=lib_ms,
+                bound_ms=max(n_bytes / HBM_BYTES_PER_S,
+                             n_ops / BF16_FLOPS) * 1e3,
+                equal_to_k1=bool(torch.equal(outs["change"], outs["k1"])),
+                max_diff_parent=float((outs["change"] - outs["parent"])
+                                      .abs().max()))
+            rows.append(row)
+            print(f"kernel 9 {row['storage']} B={B} one probe: parent "
+                  f"{p_ms:.4f} ms, change {c_ms:.4f} ms, kernel 1 K=1 "
+                  f"{row['k1_ms']:.4f} ms, bmm over dense bf16 [M; C] "
+                  f"{lib_ms:.4f} ms, bound {row['bound_ms']:.4f} ms (bytes);"
+                  f" bit-equal to kernel 1 K=1: {row['equal_to_k1']}, max "
+                  f"|change - parent| {row['max_diff_parent']:.3e}",
+                  flush=True)
+        del tiles, flat
+    return rows
+
+
+def stored_inputs(kind: str, W: int, m: int, dev):
+    """chip_smoke.py's main-path problems: (P1, P2, A) gathered on the
+    card, bunny (kind "euclidean") or point-normal scans, rho=0.9, numpy
+    default_rng(0)."""
+    import torch
+
+    from clipper_tpu_torch.bench import harness
+    from clipper_tpu_torch.ops.affinity import gather_endpoints
+    rng = np.random.default_rng(0)
+    if kind == "euclidean":
+        pcd0 = harness.load_bunny()
+        probs = [harness.make_problem(pcd0, m, 0.9, rng) for _ in range(W)]
+        D1 = torch.as_tensor(pcd0.astype(np.float32), device=dev)
+        D2 = np.stack([p[0] for p in probs]).astype(np.float32)
+        A = np.stack([p[1] for p in probs]).astype(np.int32)
+    else:
+        probs = [harness.make_pointnormal_problem(rng, n=2000, m=m, rho=0.9)
+                 for _ in range(W)]
+        D1 = torch.as_tensor(np.stack([p[0] for p in probs]).astype(
+            np.float32), device=dev)
+        D2 = np.stack([p[1] for p in probs]).astype(np.float32)
+        A = np.stack([p[2] for p in probs]).astype(np.int32)
+    At = torch.as_tensor(A, device=dev)
+    P1, P2 = gather_endpoints(D1, torch.as_tensor(D2, device=dev), At)
+    return P1.contiguous(), P2.contiguous(), At
+
+
+def stored_rows(parent_lib, dev, W: int = 512, m: int = 1024) -> list:
+    """Kernel 4, parent against change: times and byte equality."""
+    import torch
+
+    from clipper_tpu_torch.bench import harness
+    from clipper_tpu_torch.invariants import kernel_score
+
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    k4 = _kernels.lib("stored_build")
+    mts = torch.full((W,), m, dtype=torch.int32, device=dev)
+    rows = []
+    for kind, inv in (("euclidean", harness.default_invariant()),
+                      ("pointnormal", harness.pointnormal_invariant())):
+        P1, P2, A = stored_inputs(kind, W, m, dev)
+        code, d, params = kernel_score(inv)
+        args = (P1.data_ptr(), P2.data_ptr(), A.data_ptr(), mts.data_ptr())
+        for storage in (torch.int8, torch.bfloat16):
+            name = "stored_build_" + ("int8" if storage == torch.int8
+                                      else "bf16")
+            outs = {k: torch.empty(W, 2 * m, m, dtype=storage, device=dev)
+                    for k in ("parent", "change")}
+
+            def parent():
+                return getattr(parent_lib, name)(
+                    *args, outs["parent"].data_ptr(), W, m, code, *params,
+                    1e-4, stream)
+
+            def change():
+                return getattr(k4, name)(
+                    *args, outs["change"].data_ptr(), W, m, code, *params,
+                    1e-4, stream)
+            _kernels.check(parent(), "parent_ab kernel 4 parent")
+            _kernels.check(change(), "parent_ab kernel 4 change")
+            torch.cuda.synchronize()
+            equal = bool(torch.equal(outs["parent"], outs["change"]))
+            p_ms, c_ms = in_turns(parent, change, dev, 10)
+            n_bytes = (W * 2 * m * m * outs["change"].element_size()
+                       + 2 * W * m * d * 4 + W * m * 2 * 4 + W * 4)
+            n_ops = W * (m * (m - 1) // 2) * OPS_PER_PAIR[kind]
+            row = dict(kernel="stored_build", kind=kind,
+                       storage=str(storage).split(".")[-1], W=W, m=m,
+                       parent_ms=p_ms, ms=c_ms,
+                       bound_ms=max(n_bytes / HBM_BYTES_PER_S,
+                                    n_ops / F32_FLOPS) * 1e3,
+                       equal_to_parent=equal)
+            rows.append(row)
+            print(f"kernel 4 {kind} {row['storage']} W={W} m={m}: parent "
+                  f"{p_ms:.4f} ms, change {c_ms:.4f} ms, bound "
+                  f"{row['bound_ms']:.4f} ms; output byte-equal to the "
+                  f"parent's: {equal}", flush=True)
+            del outs
+            torch.cuda.empty_cache()
+    return rows
+
+
+def main(argv: List[str] = None) -> list:
+    import torch
+
+    from clipper_tpu_torch.bench import tri_matvec_probe
+
+    argv = sys.argv[1:] if argv is None else argv
+    if len(argv) != 1:
+        raise SystemExit("usage: python -m clipper_tpu_torch.bench.parent_ab"
+                         " DIR")
+    if not torch.cuda.is_available():
+        raise SystemExit("parent_ab needs a CUDA device")
+    dev = torch.device("cuda")
+    print("kernel 1 against the parent (tri_matvec_probe --parent):",
+          flush=True)
+    rows = [dict(kernel="tri_matvec", **r)
+            for r in tri_matvec_probe.main(["--parent", argv[0]])]
+    _kernels.build_all()
+    libs = build_parent(argv[0])
+    rows += tiles_rows(libs["tri_tiles_matvec"], dev)
+    rows += stored_rows(libs["stored_build"], dev)
+    return rows
+
+
+if __name__ == "__main__":
+    main()

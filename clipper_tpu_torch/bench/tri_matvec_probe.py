@@ -1,8 +1,9 @@
 """Ablations of the tri pool matvec (kernel 1, csrc/tri_matvec.cu) on the
 card: where its time goes.
 
-Each variant is the kernel's own source with one part switched off by a
-text edit, compiled by its own nvcc into
+Each variant is the kernel's body (csrc/tri_matvec_mma.cuh, which kernel 9
+shares) with one part switched off by a text edit, compiled into
+csrc/tri_matvec.cu by its own nvcc under
 build/clipper_tpu_torch/probe/tri_matvec/<variant>/ and timed through its
 C entry point (no wrapper) at the main path's shapes: m=1024, t=256,
 P=512 stored problems of random content (10% of pairs kept), B=128 lanes
@@ -38,6 +39,7 @@ from typing import Dict, List
 
 from clipper_tpu_torch import _kernels
 
+_HEADER = "tri_matvec_mma.cuh"
 _FORWARD = "if ((warp >> 2) == (p & 1)) {"
 _TRANSPOSED = ("        if (!diag) {\n#pragma unroll\n"
                "          for (int f = 0; f < F; ++f) {")
@@ -46,14 +48,14 @@ VARIANTS = ("full", "nocompute", "noforward", "notransposed")
 
 def _edit(src: str, old: str, new: str) -> str:
     if old not in src:
-        raise RuntimeError(f"tri_matvec_probe: {old!r} is not in "
-                           "csrc/tri_matvec.cu; update the probe's edits")
+        raise RuntimeError(f"probe edit: {old!r} is not in the kernel's "
+                           "source; update the probe's edits")
     return src.replace(old, new, 1)
 
 
 def variant_sources() -> Dict[str, str]:
-    """The source text of every variant."""
-    src = (_kernels.CSRC / "tri_matvec.cu").read_text()
+    """The text of every variant's kernel body (csrc/tri_matvec_mma.cuh)."""
+    src = (_kernels.CSRC / _HEADER).read_text()
     no_fwd = _edit(src, _FORWARD, "if (false) {")
     no_tr = _edit(src, _TRANSPOSED, _TRANSPOSED.replace("!diag", "false"))
     return {"full": src, "nocompute": _edit(no_fwd, _TRANSPOSED,
@@ -66,9 +68,10 @@ def build_edited(probe: str, cu: str, edited: Dict[str, Dict[str, str]],
                  fns) -> Dict[str, ctypes.CDLL]:
     """Compile csrc/<cu>.cu once for each variant, in its own copy of csrc/
     (build/clipper_tpu_torch/probe/<probe>/<variant>/) where the variant's
-    edited files (file name -> text) replace the package's: one nvcc per
-    variant, all started together. Returns the loaded libraries with their
-    C entry points ``fns`` bound."""
+    edited files (file name -> text) replace the package's, with the
+    package's flags for <cu>: one nvcc per variant, all started together.
+    Returns the loaded libraries with their C entry points ``fns``
+    bound."""
     out_dir = _kernels.BUILD_DIR / "probe" / probe
     procs = {}
     for name, files in edited.items():
@@ -79,7 +82,8 @@ def build_edited(probe: str, cu: str, edited: Dict[str, Dict[str, str]],
         for fname, text in files.items():
             (d / fname).write_text(text)
         cmd = [_kernels._nvcc(), *_kernels._ARCH, *_kernels._COMMON,
-               "-o", str(d / "lib.so"), str(d / f"{cu}.cu")]
+               *_kernels.SOURCES[cu], "-o", str(d / "lib.so"),
+               str(d / f"{cu}.cu")]
         procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                        stderr=subprocess.STDOUT, text=True)
     libs = {}
@@ -99,7 +103,7 @@ def build_edited(probe: str, cu: str, edited: Dict[str, Dict[str, str]],
 def build_variants(parent: str = None) -> Dict[str, ctypes.CDLL]:
     """Compile every variant and load it; with ``parent``, also the kernel
     from the csrc/ of the checkout at that path."""
-    edited = {name: {"tri_matvec.cu": src}
+    edited = {name: {_HEADER: src}
               for name, src in variant_sources().items()}
     if parent is not None:
         csrc = Path(parent) / "clipper_tpu_torch" / "csrc"

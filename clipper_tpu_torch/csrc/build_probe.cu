@@ -27,12 +27,13 @@
 //
 // What bounds it on this card: at B=512, m=1024 the 1.07 GB of int8
 // output, 0.32 ms at 3.35 TB/s, against ~30 f32 operations on each of the
-// 537 M entries, 0.24 ms at 67 TFLOP/s: bytes. Design: the port's own
-// stacked build (stored_build_body.cuh: one block per (256 columns, 64
-// rows, problem), one step writing both halves), with the score functor
-// swapped; not the TPU's (nT, nT, 2) grid with its C-scratch pass, nor its
-// tile = min(1024, m) that needed m to divide by the tile: edge blocks
-// check their bounds.
+// 537 M entries, 0.24 ms at 67 TFLOP/s: bytes. Design: the stacked
+// build's two-pass body (stored_build_body.cuh: one block per (256
+// columns, 64 rows, problem), one step writing both halves, every pair
+// scored for each triangle as the JAX probe's kernel does; kernel 4 now
+// scores each pair once), with the score functor swapped; not the TPU's
+// (nT, nT, 2) grid with its C-scratch pass, nor its tile = min(1024, m)
+// that needed m to divide by the tile: edge blocks check their bounds.
 
 #include <cuda_runtime.h>
 #include <stdint.h>

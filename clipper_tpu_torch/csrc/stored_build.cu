@@ -3,9 +3,9 @@
 //
 // Replaces the TPU kernel clipper_tpu/ops/affinity_pallas.py:
 // score_consistency_stored_pallas (:107-242). Like it, it evaluates the
-// score, the masks and the quantization of every (row, column) pair of
-// each problem and writes the (2m, m) storage of problem w: rows 0..m-1
-// hold M, rows m..2m-1 hold C, both triangles.
+// score, the masks and the quantization of every pair of each problem and
+// writes the (2m, m) storage of problem w: rows 0..m-1 hold M, rows
+// m..2m-1 hold C, both triangles.
 //
 //   int8: M = clip(rint(127 s), 0, 127) (round half to even, as
 //         jnp.round), C = 127;
@@ -17,20 +17,38 @@
 // The score is a functor of euclid_score.cuh ((W, m, 3) endpoints) or
 // pointnormal_score.cuh ((W, m, 6)), the arithmetic of tri_build.cu,
 // built with --fmad=false as well: its int8 codes equal the plain
-// build's. The score of (b, a) equals that of (a, b) bit for bit, so the
-// output equals its transpose. Other invariants raise on CUDA, as for
-// tri_build.cu.
+// build's. Other invariants raise on CUDA, as for tri_build.cu.
 //
 // What bounds it on this card: at W=512, m=1024 the 1.07 GB of int8
 // output (0.32 ms at 3.35 TB/s) against ~30 f32 operations on each of the
-// 537 M entries (0.24 ms at 67 TFLOP/s): bytes (the point-normal score's
-// ~60 operations and four transcendentals: operations). Design, the
-// simple one of tri_build.cu: one block per (column tile, row tile,
-// problem), its body in stored_build_body.cuh (shared with the ablations
-// of build_probe.cu). m need not divide by a tile: the edge tiles check
-// their bounds instead of the TPU kernel's padding. Every pair
-// is computed twice, once for each triangle; computing it once and writing
-// the tile and its transpose is later work.
+// 268 M distinct pairs (0.12 ms at 67 TFLOP/s): bytes on paper (the
+// point-normal score's ~56 operations and four transcendentals: still
+// bytes). In practice the unfused IEEE mul/add chain, the correctly
+// rounded division and sqrt and the library exp / acos take more issue
+// slots than those counts say, and the pairs' arithmetic, not the
+// writes, set the time (build_probe.cu measures the split).
+//
+// Design: each pair scored once. The score of (b, a) equals that of
+// (a, b) bit for bit (the coordinate differences of one order are the
+// exact negations of the other's; x y and y x round alike), and so do the
+// masks, so the output is symmetric and one evaluation serves both
+// triangles. The grid enumerates the unordered pairs (I <= J) of 64 x 64
+// tiles of each problem, row-major, by a closed form of the block index
+// (tile_pair; ops/affinity_pallas.stored_tile_pair mirrors it). A block
+// of 128 threads stages its row tile's and its column tile's endpoints in
+// shared memory; each thread holds one column's endpoints in registers
+// and scores 32 consecutive rows of it, four a step. It leaves each M
+// code, with C's in its top bit, in shared memory twice: in place (row i,
+// column j) and transposed (row j: a step's four values as one 4- or
+// 8-byte store), then writes tile (I, J) and its transpose at (J, I),
+// both halves, as 16-byte row chunks, consecutive threads on consecutive
+// chunks (coalesced). A diagonal tile (I = J) scores its pairs in both
+// orders (1/n of the work) and writes once. m
+// need not divide by the tile: edge tiles check their bounds, and where
+// m is not a multiple of a 16-byte chunk the rows are written element by
+// element. The two-pass body it replaced (every pair scored once for
+// each triangle) is stored_build_body.cuh, which build_probe.cu (kernel
+// 10) still ablates.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -38,18 +56,204 @@
 
 #include "euclid_score.cuh"
 #include "pointnormal_score.cuh"
-#include "stored_build_body.cuh"
+#include "store_put.cuh"
 
 namespace {
+
+constexpr int kTile = 64;                         // rows and columns a tile
+constexpr int kThreads = 128;                     // one column, 32 rows each
+constexpr int kRowsPer = kTile * kTile / kThreads;  // 32
+constexpr int kStep = 4;  // rows a step scores (unrolled; the loop is not)
+
+// One staged tile of T: kTile rows of kTile values, rows kPitch bytes
+// apart (16 bytes of padding: a row stays 16-byte aligned for the write's
+// chunks, and the in-place stores of a warp meet no bank twice). A staged
+// value is M's code with C's in its top bit, which M's own never sets
+// (M >= 0: an int8 code in 0..127, or a bf16 of sign 0).
+template <typename T>
+struct Staged {
+  static constexpr int kRowBytes = kTile * (int)sizeof(T);
+  static constexpr int kPitch = kRowBytes + 16;
+  static constexpr int kBytes = kTile * kPitch;
+  static constexpr int kChunk = 16 / (int)sizeof(T);  // values a chunk
+  static constexpr int kWords = kStep * (int)sizeof(T) / 4;  // of a step
+  static constexpr uint32_t kFlag = sizeof(T) == 1 ? 0x80u : 0x8000u;
+  // of a word: M's bits, C's flags at bit 0 of each value, C's code (127,
+  // or bf16 1.0) when kept
+  static constexpr uint32_t kMask = sizeof(T) == 1 ? 0x7f7f7f7fu : 0x7fff7fffu;
+  static constexpr uint32_t kLsb = sizeof(T) == 1 ? 0x01010101u : 0x00010001u;
+  static constexpr int kShift = sizeof(T) == 1 ? 7 : 15;
+  static constexpr uint32_t kOne = sizeof(T) == 1 ? 0x7fu : 0x3f80u;
+};
+
+__device__ __forceinline__ uint32_t bits_of(int8_t v) {
+  return (uint32_t)(uint8_t)v;
+}
+__device__ __forceinline__ uint32_t bits_of(__nv_bfloat16 v) {
+  return (uint32_t)__bfloat16_as_ushort(v);
+}
+__device__ __forceinline__ void from_bits(int8_t* d, uint32_t b) {
+  *d = (int8_t)b;
+}
+__device__ __forceinline__ void from_bits(__nv_bfloat16* d, uint32_t b) {
+  *d = __ushort_as_bfloat16((unsigned short)b);
+}
+
+// Unordered tile pair k of n x n tiles, row-major over I <= J: row I of
+// the upper triangle starts at off(I) = I n - I (I - 1) / 2, so I is the
+// largest with off(I) <= k, the floor of ((2n + 1) - sqrt((2n + 1)^2 -
+// 8k)) / 2, corrected by one step where the square root rounds across an
+// integer.
+__device__ __forceinline__ int2 tile_pair(int k, int n) {
+  const double b = 2.0 * n + 1.0;
+  int I = (int)((b - sqrt(b * b - 8.0 * k)) * 0.5);
+  if (I * n - I * (I - 1) / 2 > k)
+    --I;
+  else if ((I + 1) * n - (I + 1) * I / 2 <= k)
+    ++I;
+  return make_int2(I, k - (I * n - I * (I - 1) / 2) + I);
+}
+
+// A staged tile into rows r0.. and columns c0.. of M and of C, 16 bytes
+// of each a thread, row by row; vec: m is a multiple of a chunk, so every
+// in-bounds chunk is one aligned 16-byte store.
+template <typename T>
+__device__ __forceinline__ void write_tile(const uint8_t* src, T* M, T* C,
+                                           int r0, int c0, int m, bool vec) {
+  using St = Staged<T>;
+  constexpr int kChunks = kTile / St::kChunk;  // chunks a row
+  for (int q = threadIdx.x; q < kTile * kChunks; q += kThreads) {
+    const int i = q / kChunks, c = (q % kChunks) * St::kChunk;
+    const int gr = r0 + i, gc = c0 + c;
+    if (gr >= m || gc >= m) continue;
+    const uint8_t* s = src + i * St::kPitch + c * (int)sizeof(T);
+    const size_t at = (size_t)gr * m + gc;
+    if (vec) {
+      const uint4 x = *reinterpret_cast<const uint4*>(s);
+      *reinterpret_cast<uint4*>(M + at) =
+          make_uint4(x.x & St::kMask, x.y & St::kMask, x.z & St::kMask,
+                     x.w & St::kMask);
+      *reinterpret_cast<uint4*>(C + at) =
+          make_uint4(((x.x >> St::kShift) & St::kLsb) * St::kOne,
+                     ((x.y >> St::kShift) & St::kLsb) * St::kOne,
+                     ((x.z >> St::kShift) & St::kLsb) * St::kOne,
+                     ((x.w >> St::kShift) & St::kLsb) * St::kOne);
+    } else {
+      for (int e = 0; e < St::kChunk && gc + e < m; ++e) {
+        const uint32_t b = sizeof(T) == 1
+            ? (uint32_t)s[e]
+            : (uint32_t)reinterpret_cast<const uint16_t*>(s)[e];
+        from_bits(M + at + e, b & ~St::kFlag);
+        from_bits(C + at + e, (b & St::kFlag) ? St::kOne : 0u);
+      }
+    }
+  }
+}
+
+template <typename Score, typename T>
+__global__ void __launch_bounds__(kThreads) stored_build_kernel(
+    const Score score, const float* __restrict__ P1,
+    const float* __restrict__ P2, const int* __restrict__ A,
+    const int* __restrict__ m_trues, T* __restrict__ out, int m, int n,
+    float affeps, bool vec) {
+  constexpr int D = Score::D;
+  using St = Staged<T>;
+  // staged codes: [0] in place, [1] transposed
+  __shared__ __align__(16) uint8_t stage[2][St::kBytes];
+  // endpoints of the row tile [0] and the column tile [1]
+  __shared__ __align__(16) float e1[2][kTile * D];
+  __shared__ __align__(16) float e2[2][kTile * D];
+  __shared__ __align__(16) int ea[2][kTile * 2];
+
+  const int2 ij = tile_pair(blockIdx.x, n);
+  const int r0 = ij.x * kTile, c0 = ij.y * kTile;
+  const bool diag = ij.x == ij.y;
+  const int w = blockIdx.y;
+  const int lim = m_trues[w];
+  const float* p1 = P1 + (size_t)w * m * D;
+  const float* p2 = P2 + (size_t)w * m * D;
+  const int* a = A + (size_t)w * m * 2;
+#pragma unroll
+  for (int t = 0; t < 2; ++t) {
+    const int base = t ? c0 : r0;
+    const int rows = min(kTile, m - base);
+    for (int q = threadIdx.x; q < rows * D; q += kThreads) {
+      e1[t][q] = p1[(size_t)base * D + q];
+      e2[t][q] = p2[(size_t)base * D + q];
+    }
+    for (int q = threadIdx.x; q < rows * 2; q += kThreads)
+      ea[t][q] = a[(size_t)base * 2 + q];
+  }
+  __syncthreads();
+
+  const int j = threadIdx.x % kTile;
+  const int i0 = threadIdx.x / kTile * kRowsPer;
+  const int gc = c0 + j;
+  float c1[D], c2[D];
+#pragma unroll
+  for (int e = 0; e < D; ++e) {
+    c1[e] = e1[1][j * D + e];
+    c2[e] = e2[1][j * D + e];
+  }
+  const int ca0 = ea[1][j * 2], ca1 = ea[1][j * 2 + 1];
+  constexpr int kPerWord = 4 / (int)sizeof(T);
+  // kStep rows at a time: a draft that unrolled all of a thread's rows
+  // (sixteen, 256 threads a block) ran the point-normal build a third
+  // slower on the H100
+#pragma unroll 1
+  for (int e0 = 0; e0 < kRowsPer; e0 += kStep) {
+    uint32_t wm[St::kWords];  // the step's codes, packed
+#pragma unroll
+    for (int q = 0; q < St::kWords; ++q) wm[q] = 0u;
+#pragma unroll
+    for (int k = 0; k < kStep; ++k) {
+      const int i = i0 + e0 + k, gr = r0 + i;
+      float s = 0.f;
+      bool keep = false;
+      if (gr < m && gc < m) {
+        s = score(e1[0] + i * D, c1, e2[0] + i * D, c2);
+        const bool distinct =
+            !(ea[0][i * 2] == ca0 || ea[0][i * 2 + 1] == ca1);
+        keep = distinct && gr != gc && gr < lim && gc < lim && s > affeps;
+      }
+      T mv, cv;  // C's code travels as the flag
+      put(&mv, &cv, keep, s);
+      const uint32_t p = bits_of(mv) | (keep ? St::kFlag : 0u);
+      T pv;
+      from_bits(&pv, p);
+      reinterpret_cast<T*>(stage[0] + i * St::kPitch)[j] = pv;
+      const int sh = 8 * (int)sizeof(T) * (k % kPerWord);
+      wm[k / kPerWord] |= p << sh;
+    }
+    if (!diag) {
+      // row j of the transposed tile, columns i0 + e0 .. + kStep - 1
+      const int at = j * St::kPitch + (i0 + e0) * (int)sizeof(T);
+      if constexpr (St::kWords == 1)
+        *reinterpret_cast<uint32_t*>(stage[1] + at) = wm[0];
+      else
+        *reinterpret_cast<uint2*>(stage[1] + at) = make_uint2(wm[0], wm[1]);
+    }
+  }
+  __syncthreads();
+
+  T* M = out + (size_t)w * 2 * m * m;
+  T* C = M + (size_t)m * m;
+  write_tile<T>(stage[0], M, C, r0, c0, m, vec);
+  if (!diag) write_tile<T>(stage[1], M, C, c0, r0, m, vec);
+}
 
 template <typename T, typename Score>
 int launch(const Score& score, const void* P1, const void* P2, const void* A,
            const void* m_trues, void* out, int W, int m, float affeps,
            void* stream) {
-  stored_build_kernel<Score, T><<<stored_build_grid(W, m), kCols, 0,
+  const int n = (m + kTile - 1) / kTile;
+  const long long pairs = (long long)n * (n + 1) / 2;
+  if (pairs > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const bool vec = m % Staged<T>::kChunk == 0;
+  stored_build_kernel<Score, T><<<dim3((unsigned)pairs, W), kThreads, 0,
                                   (cudaStream_t)stream>>>(
       score, (const float*)P1, (const float*)P2, (const int*)A,
-      (const int*)m_trues, (T*)out, m, affeps);
+      (const int*)m_trues, (T*)out, m, n, affeps, vec);
   return (int)cudaGetLastError();
 }
 
@@ -75,7 +279,8 @@ extern "C" {
 
 // P1, P2 (W, m, D) f32 with D = 3 (kind 0, Euclidean) or 6 (kind 1,
 // point-normal); A (W, m, 2) int32; m_trues (W,) int32; out (W, 2m, m)
-// int8 or bf16. p0..p3: the score's parameters (invariants.kernel_score).
+// int8 or bf16, 16-byte aligned. p0..p3: the score's parameters
+// (invariants.kernel_score).
 int stored_build_int8(const void* P1, const void* P2, const void* A,
                       const void* m_trues, void* out, int W, int m, int kind,
                       double p0, double p1, double p2, double p3,

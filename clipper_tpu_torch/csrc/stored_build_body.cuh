@@ -1,10 +1,14 @@
-// The block body of the stacked [M; C] build, shared by stored_build.cu
-// (kernel 4) and build_probe.cu (its five ablations): one block per
-// (kCols columns, kRows rows, problem). The block's row endpoints sit in
-// shared memory, each thread holds one output column's endpoints in
-// registers and walks the rows, so each output row is written as
-// consecutive elements by consecutive threads (coalesced). Each step
-// writes both halves: row gr of M and row m + gr of C.
+// The two-pass block body of the stacked [M; C] build: every pair scored
+// once for each triangle. The build-anatomy probe (build_probe.cu, kernel
+// 10) runs its five ablations on it, as the JAX probe ablates the JAX
+// kernel, which also scores every pair twice; kernel 4 (stored_build.cu)
+// scores each unordered pair once and writes the same bytes as this
+// body's `full` variant. One block per (kCols columns, kRows rows,
+// problem). The block's row endpoints sit in shared memory, each thread
+// holds one output column's endpoints in registers and walks the rows, so
+// each output row is written as consecutive elements by consecutive
+// threads (coalesced). Each step writes both halves: row gr of M and row
+// m + gr of C.
 //
 // A score functor takes a row's and a column's endpoints in both sets,
 // (r1, c1) and (r2, c2), each Score::D values, and returns the score s:

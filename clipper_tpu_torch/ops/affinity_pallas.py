@@ -23,6 +23,7 @@ their edge tiles instead of padding. A failed build or launch raises.
 
 from __future__ import annotations
 
+import math
 from typing import Tuple
 
 import torch
@@ -80,6 +81,22 @@ def build_affinity_pallas(invariant: PairwiseInvariant, P1, P2, A, *,
                                    affinityeps=affinityeps)
     return pairwise_from_endpoints(invariant, P1, P2, A,
                                    affinityeps=affinityeps)
+
+
+def stored_tile_pair(k: int, n: int) -> Tuple[int, int]:
+    """Block k's unordered tile pair (I, J), I <= J, of n x n 64 x 64
+    tiles in the stacked build kernel (csrc/stored_build.cu: tile_pair),
+    step for step: row I of the upper triangle starts at off(I) = I n -
+    I (I - 1) / 2, so I is the floor of ((2n + 1) - sqrt((2n + 1)^2 -
+    8k)) / 2 in double, corrected by one step where the square root
+    rounds across an integer."""
+    b = 2.0 * n + 1.0
+    i = int((b - math.sqrt(b * b - 8.0 * k)) * 0.5)
+    if i * n - i * (i - 1) // 2 > k:
+        i -= 1
+    elif (i + 1) * n - (i + 1) * i // 2 <= k:
+        i += 1
+    return i, k - (i * n - i * (i - 1) // 2) + i
 
 
 def stored_build_cuda(invariant: PairwiseInvariant, P1s, P2s, As, m_trues,
@@ -162,4 +179,5 @@ def score_consistency_stored_pallas(invariant: PairwiseInvariant, D1, D2, A,
 
 
 __all__ = ["affinity_build_cuda", "build_affinity_pallas", "stored_build",
-           "stored_build_cuda", "score_consistency_stored_pallas"]
+           "stored_build_cuda", "stored_tile_pair",
+           "score_consistency_stored_pallas"]

@@ -429,20 +429,24 @@ def tri_tiles_matvec_cuda(tri: torch.Tensor, nt: int, idx: torch.Tensor,
             and tri.is_contiguous()):
         raise ValueError("tiles matvec kernel: storage, idx and U must lie "
                          "on the card, the storage contiguous")
-    if tri.data_ptr() % 64:
-        raise ValueError("tiles matvec kernel: the storage must be 64-byte "
-                         "aligned (its vector loads)")
+    # int8 / bf16: the tensor map's base (16 bytes); f32 / f64: the
+    # CUDA-core kernel's vector loads
+    mma = tri.dtype in (torch.int8, torch.bfloat16)
+    align = 16 if mma else 64
+    if tri.data_ptr() % align:
+        raise ValueError(f"tiles matvec kernel: the storage must be "
+                         f"{align}-byte aligned")
     idx32 = idx.to(torch.int32).contiguous()
     Uc = U.to(cdt).contiguous()
     out = torch.empty(B, 2 * m, dtype=acc, device=tri.device)
     lib = _kernels.lib("tri_tiles_matvec")
-    args = (tri.data_ptr(), idx32.data_ptr(), Uc.data_ptr(), out.data_ptr(),
-            B, nt, t)
+    ptrs = (tri.data_ptr(), idx32.data_ptr(), Uc.data_ptr(), out.data_ptr())
+    args = (*ptrs, B, nt, t)
     stream = _kernels.stream_ptr(tri.device)
     if tri.dtype == torch.int8:
-        code = lib.tri_tiles_matvec_int8(*args, scale, stream)
+        code = lib.tri_tiles_matvec_int8(*ptrs, P, B, nt, t, scale, stream)
     elif tri.dtype == torch.bfloat16:
-        code = lib.tri_tiles_matvec_bf16(*args, stream)
+        code = lib.tri_tiles_matvec_bf16(*ptrs, P, B, nt, t, stream)
     elif tri.dtype == torch.float32:
         code = lib.tri_tiles_matvec_f32(*args, stream)
     else:

@@ -112,25 +112,33 @@ def test_build_affinity_f64():
     np.testing.assert_allclose(M.numpy(), np.asarray(Mj), rtol=0, atol=1e-12)
 
 
-@pytest.mark.parametrize("m_true", [None, 150])
-def test_stored_pointnormal_matches_jax(m_true):
-    """The point-normal stacked int8 build (tests/test_affinity_pallas.py
-    :112-134's scene, m=200, which no tile divides) against the JAX
-    kernel: every code equal; the output equals its transpose."""
+@pytest.mark.parametrize("m_true,storage", [
+    pytest.param(None, "int8", id="None"),
+    pytest.param(150, "int8", id="150"),
+    pytest.param(150, "bfloat16", id="150-bfloat16")])
+def test_stored_pointnormal_matches_jax(m_true, storage):
+    """The point-normal stacked build (tests/test_affinity_pallas.py
+    :112-134's scene, m=200, which no tile divides), int8 codes or bf16
+    values, against the JAX kernel: every entry equal; the output equals
+    its transpose; rows and columns at or past m_true are zero."""
     rng = np.random.default_rng(1)
     D1, D2, A = _pointnormal_inputs(rng, 200)
     inv_j, inv_t = _invariants("pointnormal")
     ref = jap.score_consistency_stored_pallas(
         inv_j, jnp.asarray(D1), jnp.asarray(D2), jnp.asarray(A),
-        m_true=m_true, storage_dtype=jnp.int8, tile=128)
+        m_true=m_true, storage_dtype=getattr(jnp, storage), tile=128)
     got = affinity_pallas.score_consistency_stored_pallas(
         inv_t, torch.from_numpy(D1), torch.from_numpy(D2),
-        torch.from_numpy(A), m_true=m_true, storage_dtype=torch.int8)
-    assert got.dtype == torch.int8 and got.shape == (400, 200)
+        torch.from_numpy(A), m_true=m_true,
+        storage_dtype=getattr(torch, storage))
+    assert got.dtype == getattr(torch, storage) and got.shape == (400, 200)
     assert (got[200:] > 0).sum() > 200
-    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+    np.testing.assert_array_equal(got.float().numpy(),
+                                  np.asarray(ref, np.float32))
     for half in (got[:200], got[200:]):
         assert torch.equal(half, half.T)
+    if m_true is not None:
+        assert not got[:, m_true:].any() and not got[m_true:200].any()
 
 
 def test_dense_build_guards():

@@ -107,3 +107,13 @@ def test_guards():
     with pytest.raises(NotImplementedError, match="int8 or bf16"):
         affinity_pallas.stored_build_cuda(inv, P1, P2, A[None], mts,
                                           storage_dtype=torch.float32)
+
+
+@pytest.mark.parametrize("nt", range(1, 18))
+def test_stored_tile_pair_enumerates_upper_triangle(nt):
+    """The stacked build kernel's block -> tile pair map (its Python
+    mirror, step for step) walks the unordered tile pairs I <= J of nt x
+    nt tiles row-major, each once: block k of nt (nt + 1) / 2."""
+    pairs = [(i, j) for i in range(nt) for j in range(i, nt)]
+    assert [affinity_pallas.stored_tile_pair(k, nt)
+            for k in range(len(pairs))] == pairs

@@ -72,12 +72,15 @@ def test_wrappers_reject_cpu_tensors():
 
 
 def test_tri_matvec_probe_edits_apply():
-    """The kernel 1 probe's variants are edits of the current source: each
-    applies, and each differs from the kernel as built."""
+    """The kernel 1 probe's variants are edits of the current kernel body
+    (the header kernels 1 and 9 share): each applies, and each differs
+    from the kernel as built."""
     from clipper_tpu_torch.bench import tri_matvec_probe
     src = tri_matvec_probe.variant_sources()
     assert set(src) == set(tri_matvec_probe.VARIANTS)
-    assert src["full"] == (_kernels.CSRC / "tri_matvec.cu").read_text()
+    assert src["full"] == (_kernels.CSRC / "tri_matvec_mma.cuh").read_text()
+    assert '#include "tri_matvec_mma.cuh"' in (
+        _kernels.CSRC / "tri_matvec.cu").read_text()
     for name in ("nocompute", "noforward", "notransposed"):
         assert src[name] != src["full"]
     assert src["nocompute"].count("if (false) {") == 2
@@ -102,6 +105,14 @@ def test_sym_unit_probe_edits_apply():
     assert header["nof64"].count("== -1e30f)") == 2
     assert header["reduceonly"].count("if (false) {") == 1
     assert "0x43434343u" not in src["noconv"]["bf16_mma.cuh"]
+
+
+def test_parent_ab_refuses_a_checkout_without_the_sources(tmp_path):
+    """The parent comparison of kernels 9 and 4 stops before any build
+    where the other checkout lacks their sources."""
+    from clipper_tpu_torch.bench import parent_ab
+    with pytest.raises(SystemExit, match="lacks"):
+        parent_ab.build_parent(str(tmp_path))
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
@@ -586,3 +597,72 @@ def test_tri_builds_bf16_match_plain(cuda, kind):
         assert bool(tp[:, t:].any()) and torch.equal(tk[:, t:], tp[:, t:])
         assert int((tk[:, :t] != tp[:, :t]).sum()) == 0
         assert torch.equal(tk, tf)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage", [torch.int8, torch.bfloat16])
+@pytest.mark.parametrize("t,nt", [(128, 4), (256, 4), (128, 9), (256, 9)])
+def test_tri_tiles_kernel_equals_tri_matvec_k1(cuda, storage, t, nt):
+    """Kernel 9 runs kernel 1's kernel over the tile-major address map: on
+    the tile-major form of some content its output is bit-equal to kernel
+    1's at K=1 on the flat form, within 1e-4 of its plain version and
+    1.1e-5 of an f64 oracle on the same content and bf16-rounded u; one
+    launch a call."""
+    P, B = 3, 7
+    m = t * nt
+    T = nt * (nt + 1) // 2
+    tri = _random_tri(P, t, nt, storage, cuda, seed=t + nt)
+    tiles = tri.view(P, 2 * t, T, t).permute(0, 2, 1, 3).contiguous()
+    scale = 1 / 127 if storage == torch.int8 else 1.0
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    U = torch.rand(B, m, generator=gen, device=cuda)
+    U /= torch.linalg.vector_norm(U, dim=-1, keepdim=True)
+    idx = torch.tensor([2, 0, 1, 2, 0, 1, 1], device=cuda, dtype=torch.int32)
+    before = _kernels.LAUNCHES["tri_tiles_matvec"]
+    a = flattri.tri_tiles_matvec_cuda(tiles, nt, idx, U, torch.float32)
+    assert _kernels.LAUNCHES["tri_tiles_matvec"] == before + 1
+    c = flattri.tri_pool_matvec_cuda(tri, nt, idx, U[:, None],
+                                     torch.float32)
+    b = flattri.tri_tiles_matvec_plain(tiles, nt, idx, U, torch.float32)
+    o = flattri.tri_pool_matvec_plain(tri.double(), nt, idx,
+                                      U.bfloat16().double()[:, None],
+                                      torch.float64)
+    for x, y, z, w in zip(a, c, b, o):
+        assert x.shape == (B, m) and x.dtype == torch.float32
+        assert torch.equal(x, y[:, 0])
+        assert float((x - z).abs().max()) <= 1e-4
+        assert float((x.double() - w[:, 0] * scale).abs().max()) <= 1.1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage", [torch.int8, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["euclidean", "pointnormal"])
+@pytest.mark.parametrize("m", [1000, 1024])
+def test_stored_build_kernel_edge_tiles(cuda, kind, storage, m):
+    """Kernel 4, each unordered pair scored once, at m=1000 (no 64-row
+    tile divides it; in int8 no 16-byte chunk either) and m=1024, with
+    m_true < m on three problems: C exact, no M value differing from the
+    plain build, the output equal to its transpose; one launch."""
+    W = 4
+    if kind == "euclidean":
+        pcd0, D2s, As, _ = _problems(W, m, seed=14)
+        D1 = torch.from_numpy(pcd0).to(cuda)
+        inv = harness.default_invariant()
+    else:
+        D1s, D2s, As = _pointnormal_problems(W, m, seed=14)
+        D1 = torch.from_numpy(D1s).to(cuda)
+        inv = harness.pointnormal_invariant()
+    A = torch.from_numpy(As).to(cuda)
+    P1, P2 = gather_endpoints(D1, torch.from_numpy(D2s).to(cuda), A)
+    mts = torch.tensor([m, m - 1, 700, 513], device=cuda)
+    before = _kernels.LAUNCHES["stored_build"]
+    got = affinity_pallas.stored_build(inv, P1, P2, A, mts,
+                                       storage_dtype=storage)
+    assert _kernels.LAUNCHES["stored_build"] == before + 1
+    ref = affinity_pallas.stored_from_endpoints(inv, P1, P2, A, m_true=mts,
+                                                storage_dtype=storage)
+    assert got.shape == (W, 2 * m, m) and got.dtype == storage
+    assert bool(ref[:, m:].any()) and torch.equal(got[:, m:], ref[:, m:])
+    assert int((got[:, :m] != ref[:, :m]).sum()) == 0
+    for half in (got[:, :m], got[:, m:]):
+        assert torch.equal(half, half.transpose(1, 2))
