@@ -34,7 +34,10 @@ Phases, each of which must pass (any failure exits non-zero):
               int8 and bf16, at m=1024 and at their first 1000
               associations, m_true < m on four (C exact, no M code
               differing, output equal to its transpose); the fused tri
-              build byte-equal to the tri build (both invariants); and the
+              build byte-equal to the tri build (both invariants), and
+              both at the first 1000 associations with t=200 (no 64-row
+              sub-tile divides it), m_true < m on four, int8 and bf16,
+              held to the plain build too; and the
               tiles matvec on the tile-major form of the check storage,
               int8, f32 and f64 (<= 1e-4 against its plain version and the
               tri matvec at K=1, bit-equal to the latter in int8 and bf16,
@@ -133,8 +136,11 @@ Phases, each of which must pass (any failure exits non-zero):
               W=512 in int8 and bf16, the fused tri build beside the tri
               build at W=512, the tiles matvec at B=128 and B=512 beside the
               tri matvec at K=1, the dense build at m=5000 point-normal and
-              m=1024 bunny, the point-normal tri build and the point-normal
-              stacked build (int8 and bf16) at W=512) held against its
+              m=1024 bunny, the point-normal tri and fused tri builds
+              (int8 and bf16, the fused one byte-equal to the tri build)
+              and the point-normal stacked build (int8 and bf16) at W=512;
+              the tri builds beside each problem set's survivor shares,
+              harness.gate_shares) held against its
               plain version as in phase 2, then
               timed beside its bound, its plain version and, where one
               exists, one PyTorch call computing the same function. The
@@ -143,8 +149,9 @@ Phases, each of which must pass (any failure exits non-zero):
               matvec in bf16, and the rows and tile-list matvecs over the
               m=65,536 problem's bf16 storage at K=16: their numbers go
               into a "bf16" field of each row of the kernels' line (the
-              point-normal stacked builds into "pointnormal" and
-              "pointnormal_bf16" of its row).
+              point-normal tri, fused tri and stacked builds into
+              "pointnormal" and "pointnormal_bf16" of their rows, the
+              survivor shares into "gate_shares").
 7. probe    — the build-anatomy probe (csrc/build_probe.cu) on the JAX
               probe's inputs at B=512, m=1024 and at an edge tile (B=16,
               m=1000): full byte-equal to the stacked build, writeonly all
@@ -1093,13 +1100,21 @@ def phase_parity(inv, check, dev):
                     W - 1, restarts=True)
 
 
+def shares_text(shares):
+    """harness.gate_shares' shares as percentages of the distinct pairs."""
+    return "survivor shares of the distinct pairs: " + ", ".join(
+        f"{k} {100 * v:.2f}%" for k, v in shares.items())
+
+
 def phase_timing(inv, main, dev):
     """Per-kernel checks and times at the main path's shapes: the tri
-    build and matvec, the fused build beside the tri build, the tiles
-    matvec beside the tri matvec at K=1. Returns the rows of the kernels'
-    JSON line and the max errors at these shapes (build code diff, tri
-    matvec and tiles matvec abs errors)."""
+    build and matvec, the fused build beside the tri build (with the
+    shares of pairs their screen and gate pass), the tiles matvec beside
+    the tri matvec at K=1. Returns the rows of the kernels' JSON line and
+    the max errors at these shapes (build code diff, tri matvec and tiles
+    matvec abs errors)."""
     import torch
+    from clipper_tpu_torch.bench import harness
     from clipper_tpu_torch.bench.harness import time_ms
     from clipper_tpu_torch.ops import flattri
 
@@ -1165,13 +1180,15 @@ def phase_timing(inv, main, dev):
               f"bmm over dense bf16 [M; C] {r['library_ms']:.4f} ms",
               flush=True)
 
-    # kernel 8 beside kernel 2 on the same problems
+    # kernel 8 beside kernel 2 on the same problems, and the shares of
+    # pairs their screen and gate pass
     def fused():
         return flattri.build_tri_fused_cuda(inv, P1s, P2s, At, mts, t=t)
 
     require(bool(torch.equal(fused(), tri)), "tri_build_fused differs from "
             "tri_build at W=512")
     r2 = rows["tri_build"]
+    r2["gate_shares"] = harness.gate_shares(inv, P1s, P2s, At, mts)
     rows["tri_build_fused"] = dict(
         r2, ms=time_ms(fused, dev, 10), plain_ms=time_ms(
             lambda: flattri.build_tri_plain(inv, P1s, P2s, At, mts, t=t),
@@ -1179,7 +1196,8 @@ def phase_timing(inv, main, dev):
     print(f"timing tri_build_fused W={W_MAIN} m={M} t={t}: kernel "
           f"{rows['tri_build_fused']['ms']:.4f} ms beside tri_build "
           f"{time_ms(build, dev, 10):.4f} ms (bound {r2['bound_ms']:.4f} ms), "
-          f"plain {rows['tri_build_fused']['plain_ms']:.4f} ms", flush=True)
+          f"plain {rows['tri_build_fused']['plain_ms']:.4f} ms; "
+          f"{shares_text(r2['gate_shares'])}", flush=True)
 
     # kernel 9 on the tile-major form, one probe a lane, beside kernel 1
     # at K=1 on the same content
@@ -1927,8 +1945,9 @@ def phase_kernels_pn(inv, pn_inv, check, pn_check, dev):
     """Phase 2's checks of this configuration's kernels: the dense build
     (bunny m=1024 and point-normal m=1000, f32 and f64), the point-normal
     tri and stacked builds (W=16, m=1024), the fused build against the
-    per-tile build (both invariants), and the tiles matvec on the check
-    storage (int8, f32, f64). Returns the max errors by kernel."""
+    per-tile build (both invariants), both at m=1000 and t=200 (m_true <
+    m on four, int8 and bf16), and the tiles matvec on the check storage
+    (int8, f32, f64). Returns the max errors by kernel."""
     import torch
     from clipper_tpu_torch.ops import flattri
 
@@ -1980,6 +1999,31 @@ def phase_kernels_pn(inv, pn_inv, check, pn_check, dev):
         print(f"tri_build_fused vs tri_build ({label}, W={W_CHECK}, m={M}): "
               f"byte-equal={same}", flush=True)
         require(same, f"tri_build_fused ({label}) differs from tri_build")
+
+    # kernels 2 and 8 at a t that 64 does not divide (a short sub-tile,
+    # int8 rows of no 16-byte multiple): the first M_EDGE associations at
+    # t=200, m_true < m on four, int8 and bf16, both invariants
+    me, te = M_EDGE, 200
+    mts_e = torch.full((W_CHECK,), me, dtype=torch.int32, device=dev)
+    mts_e[:4] = torch.tensor([me - 1, me - 24, 700, 513], device=dev)
+    for label, (iv, X1, X2, XA) in (
+            ("bunny", (inv, P1s, P2s, At)),
+            ("point-normal", (pn_inv, Q1s, Q2s, Apt))):
+        X1, X2, XA = X1[:, :me], X2[:, :me], XA[:, :me]
+        for sd in (torch.int8, torch.bfloat16):
+            sname = str(sd).split(".")[-1]
+            what = (f"{label} {sname}, W={W_CHECK}, m={me}, t={te}, m_true "
+                    "< m on 4")
+            k = flattri.build_tri_cuda(iv, X1, X2, XA, mts_e, t=te,
+                                       storage_dtype=sd)
+            errs["tri_build"] = max(errs["tri_build"], check_build(
+                k, flattri.build_tri_plain(iv, X1, X2, XA, mts_e, t=te,
+                                           storage_dtype=sd), te, what))
+            same = bool(torch.equal(flattri.build_tri_fused_cuda(
+                iv, X1, X2, XA, mts_e, t=te, storage_dtype=sd), k))
+            print(f"tri_build_fused vs tri_build ({what}): byte-equal="
+                  f"{same}", flush=True)
+            require(same, f"tri_build_fused ({what}) differs from tri_build")
 
     tri = flattri.build_tri_cuda(inv, P1s, P2s, At, mts, t=t)
     gen = torch.Generator(device=dev).manual_seed(6)
@@ -2335,13 +2379,16 @@ def phase_parity_pn(inv, pn_inv, check, pn_check, dev):
             "masks differ")
 
 
-def time_pn_and_dense(inv, pn_inv, check, pn_main, dev, stored_row):
-    """Phase 6's new rows: the dense build at m=5000 (point-normal, f32)
-    and m=1024 (bunny), and the point-normal tri and stacked builds at
-    W=512 (the stacked one in int8 and bf16, into stored_row's
-    "pointnormal" and "pointnormal_bf16" fields), each first held to its
-    plain version (C exact, no M code differing). Returns the dense
-    build's row of the kernels' JSON line and its max error."""
+def time_pn_and_dense(inv, pn_inv, check, pn_main, dev, rows_in):
+    """Phase 6's point-normal and dense rows: the dense build at m=5000
+    (point-normal, f32) and m=1024 (bunny); the point-normal tri build and
+    the fused tri build (kernels 2 and 8, int8 and bf16, kernel 8
+    byte-equal to kernel 2, beside the problems' survivor shares) and the
+    stacked build (int8 and bf16) at W=512, into the "pointnormal" and
+    "pointnormal_bf16" fields of the rows_in rows of tri_build,
+    tri_build_fused and stored_build, each first held to its plain
+    version (C exact, no M code differing). Returns the dense build's row
+    of the kernels' JSON line and its max error."""
     import torch
     from clipper_tpu_torch.bench import harness
     from clipper_tpu_torch.bench.harness import time_ms
@@ -2388,19 +2435,39 @@ def time_pn_and_dense(inv, pn_inv, check, pn_main, dev, stored_row):
     t, nt = 256, M // 256
     S = flattri.tri_ncols(nt, t)
     label = f"point-normal, W={W_MAIN}, m={M}"
-    check_build(flattri.build_tri_cuda(pn_inv, P1s, P2s, At, mts, t=t),
-                flattri.build_tri_plain(pn_inv, P1s, P2s, At, mts, t=t), t,
-                label)
-    torch.cuda.empty_cache()
+    shares = harness.gate_shares(pn_inv, P1s, P2s, At, mts)
+    print(f"point-normal W={W_MAIN} m={M}: {shares_text(shares)}",
+          flush=True)
+    for sd in (torch.int8, torch.bfloat16):
+        sname = str(sd).split(".")[-1]
+        k2 = flattri.build_tri_cuda(pn_inv, P1s, P2s, At, mts, t=t,
+                                    storage_dtype=sd)
+        check_build(k2, flattri.build_tri_plain(pn_inv, P1s, P2s, At, mts,
+                                                t=t, storage_dtype=sd), t,
+                    f"{label}, {sname}")
+        same = bool(torch.equal(flattri.build_tri_fused_cuda(
+            pn_inv, P1s, P2s, At, mts, t=t, storage_dtype=sd), k2))
+        print(f"tri_build_fused vs tri_build ({label}, {sname}): "
+              f"byte-equal={same}", flush=True)
+        require(same, f"tri_build_fused ({label}, {sname}) differs from "
+                "tri_build")
+        del k2
+        torch.cuda.empty_cache()
     for storage in (torch.int8, torch.bfloat16):
         check_stored(pn_inv, P1s, P2s, At, mts, storage,
                      f"{label}, {str(storage).split('.')[-1]}")
         torch.cuda.empty_cache()
     in_bytes = 2 * W_MAIN * M * 6 * 4 + W_MAIN * M * 2 * 4 + W_MAIN * 4
-    cases = [("tri_build", torch.int8, W_MAIN * 2 * t * S,
-              lambda: flattri.build_tri_cuda(pn_inv, P1s, P2s, At, mts, t=t),
-              lambda: flattri.build_tri_plain(pn_inv, P1s, P2s, At, mts,
-                                              t=t))]
+    cases = []
+    for sd in (torch.int8, torch.bfloat16):
+        for name, fn in (("tri_build", flattri.build_tri_cuda),
+                         ("tri_build_fused", flattri.build_tri_fused_cuda)):
+            cases.append((
+                name, sd, W_MAIN * 2 * t * S * sd.itemsize,
+                lambda fn=fn, sd=sd: fn(pn_inv, P1s, P2s, At, mts, t=t,
+                                        storage_dtype=sd),
+                lambda sd=sd: flattri.build_tri_plain(
+                    pn_inv, P1s, P2s, At, mts, t=t, storage_dtype=sd)))
     for sd in (torch.int8, torch.bfloat16):
         cases.append((
             "stored_build", sd, W_MAIN * 2 * M * M * sd.itemsize,
@@ -2415,14 +2482,16 @@ def time_pn_and_dense(inv, pn_inv, check, pn_main, dev, stored_row):
         pms = time_ms(plain, dev, 1)
         torch.cuda.empty_cache()
         sname = str(storage).split(".")[-1]
-        if name == "stored_build":
-            key = "pointnormal" + ("_bf16" if storage.is_floating_point
-                                   else "")
-            stored_row[key] = dict(ms=ms, plain_ms=pms, bound_ms=bound,
-                                   bound_by=by, library_ms=None)
+        key = "pointnormal" + ("_bf16" if storage.is_floating_point else "")
+        rows_in[name][key] = dict(ms=ms, plain_ms=pms, bound_ms=bound,
+                                  bound_by=by, library_ms=None)
+        note = ""
+        if name != "stored_build":
+            rows_in[name][key]["gate_shares"] = shares
+            note = f"; {shares_text(shares)}"
         print(f"timing {name} point-normal W={W_MAIN} m={M} {sname}: kernel "
-              f"{ms:.4f} ms, bound {bound:.4f} ms ({by}), plain {pms:.4f} ms",
-              flush=True)
+              f"{ms:.4f} ms, bound {bound:.4f} ms ({by}), plain {pms:.4f} ms"
+              f"{note}", flush=True)
     return rows["affinity_build"], err
 
 
@@ -2701,7 +2770,7 @@ def main() -> None:
     for name, e in errs_sp.items():
         errs[name] = max(errs[name], e)
     rows["affinity_build"], e = time_pn_and_dense(
-        inv, pn_inv, check, pn_main, dev, rows["stored_build"])
+        inv, pn_inv, check, pn_main, dev, rows)
     errs["affinity_build"] = max(errs["affinity_build"], e)
     (rows["build_probe"], launches["build_probe"],
      errs["build_probe"]) = phase_probe(dev)

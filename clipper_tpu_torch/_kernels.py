@@ -67,6 +67,7 @@ _SIGNATURES = {
                              _P],
     "tri_build_fused_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _LL, *_SCORE,
                              _P],
+    "tri_build_fused_whole": [_I, _I, _I],
     "affinity_build_f32": [_P, _P, _P, _P, _P, _I, *_SCORE, _P],
     "affinity_build_f64": [_P, _P, _P, _P, _P, _I, *_SCORE, _P],
     "tri_tiles_matvec_int8": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],

@@ -41,8 +41,11 @@ from clipper_tpu_torch.invariants.euclidean import (EuclideanDistance,
                                                     EuclideanDistanceParams)
 from clipper_tpu_torch.invariants.pointnormal import (
     PointNormalDistance, PointNormalDistanceParams)
-from clipper_tpu_torch.ops.affinity import gather_endpoints
+from clipper_tpu_torch.ops.affinity import (distinctness_mask,
+                                            gather_endpoints)
 from clipper_tpu_torch.ops.affinity_pallas import build_affinity_pallas
+from clipper_tpu_torch.ops.pairwise import (cross_distance_matrix,
+                                            cross_inner_matrix)
 from clipper_tpu_torch.parallel import batched as batched_mod
 from clipper_tpu_torch.solvers import msrc
 from clipper_tpu_torch.types import Params, resolve_device
@@ -184,6 +187,129 @@ def make_pointnormal_problem(rng: np.random.Generator, n: int = 2000,
     Agood = np.stack([np.arange(n), np.arange(n)], axis=1).astype(np.int32)
     A, Agt = data.generate_synthetic_correspondences(rng, n, n, Agood, m, rho)
     return D1, D2, A, Agt
+
+
+# row pairs that gate_boundary_endpoints plants, before those past m drop:
+# in one sub-tile, across sub-tiles and t-tiles of 16 to 256, the last row
+_PLANT_ROWS = ((0, 1), (2, 3), (10, 70), (63, 64), (100, 199), (127, 128),
+               (20, 21), (30, 90), (40, 41), (50, 200), (150, 300),
+               (255, 256), (190, 260), (400, 401), (511, 512), (600, 999),
+               (700, 800), (900, 901))
+
+
+def gate_boundary_endpoints(invariant, W: int, m: int, seed: int):
+    """Gathered endpoints whose pairs sit on the edges of the built-in
+    scores' gates, for holding the build kernels to their plain version:
+    random problems with planted pairs, as numpy f32 (P1, P2) (W, m, d)
+    and int32 A (W, m, 2), and the planted pairs' list of (i, j, what).
+
+    The plants, one row pair each (the pairs of ``_PLANT_ROWS`` below m,
+    taking the kinds below in turn): the gate's difference (c of a
+    Euclidean score, dp of a point-normal one) exactly at the gate's f32
+    bound ("at"), one ulp under it ("below") and one ulp over ("above"),
+    planted as a length x in set 1 against coincident endpoints in set 2
+    (sqrt(fl(x x)) = x in IEEE arithmetic, and l = 0), and again as
+    lengths 2^-10 + x and 2^-10 ("at_both", "below_both", "above_both":
+    both lengths exact and non-zero, their difference exact); both sets
+    coincident ("coincident", l1 = l2 = 0). Point-normal rows carry the
+    same normal on both rows of a plant, so dn = 0 ("at" scores 0 whatever
+    dn), and two more kinds take normals whose dot is -1
+    ("antiparallel") and a unit normal whose f32 dot with itself rounds
+    to 1 + 2^-23 ("clamp"). Other rows: set-1 points in a cube of side 0.2
+    (Euclidean) or 1, set 2 the same points moved by 0.01 noise on half
+    the rows (so many pairs pass the gates), random unit normals, and
+    associations drawn from m / 2 ids, so some pairs are not distinct;
+    planted rows get ids of their own."""
+    pn = isinstance(invariant, PointNormalDistance)
+    bound = np.float32(invariant.params.epsp if pn
+                       else invariant.params.epsilon)
+    rng = np.random.default_rng(seed)
+    d = 6 if pn else 3
+    side = 1.0 if pn else 0.2
+    P1 = np.zeros((W, m, d), np.float32)
+    P1[..., :3] = rng.uniform(0, side, (W, m, 3))
+    P2 = P1.copy()
+    moved = rng.random((W, m)) < 0.5
+    P2[..., :3] += np.where(moved[..., None],
+                            rng.normal(0, 0.01, (W, m, 3)), 0.0)
+    P2[..., :3][~moved] = rng.uniform(0, side, (int((~moved).sum()), 3))
+    if pn:
+        nrm = rng.normal(size=(W, m, 3))
+        nrm /= np.linalg.norm(nrm, axis=-1, keepdims=True)
+        P1[..., 3:] = nrm
+        P2[..., 3:] = nrm
+    A = rng.integers(0, max(m // 2, 1), (W, m, 2)).astype(np.int32)
+    edge = {"at": bound, "below": np.nextafter(bound, np.float32(0)),
+            "above": np.nextafter(bound, np.float32(1))}
+    kinds = [*edge, *(f"{k}_both" for k in edge), "coincident"]
+    if pn:
+        kinds += ["antiparallel", "clamp"]
+    normals = {"antiparallel": np.float32([0, 1, 0]),
+               "clamp": np.float32([0.96672255, -0.04501169, -0.25183624])}
+    base = np.float32(2.0 ** -10)
+    plants = []
+    for k, (i, j) in enumerate(ij for ij in _PLANT_ROWS if ij[1] < m):
+        what = kinds[k % len(kinds)]
+        for P in (P1, P2):
+            P[:, i, :3] = P[:, j, :3] = rng.uniform(0, side, (W, 3))
+        x = edge.get(what.replace("_both", ""))
+        if x is not None:
+            both = what.endswith("_both")
+            for P, length in ((P1, x + base if both else x),
+                              (P2, base if both else None)):
+                if length is not None:
+                    P[:, i, :3] = 0.0
+                    P[:, j, :3] = (length, 0.0, 0.0)
+        if pn:
+            nv = normals.get(what, np.float32([1, 0, 0]))
+            for P in (P1, P2):
+                P[:, i, 3:] = nv
+                P[:, j, 3:] = -nv if what == "antiparallel" else nv
+        A[:, i] = (m + 2 * i, m + 2 * i)
+        A[:, j] = (m + 2 * j, m + 2 * j)
+        plants.append((i, j, what))
+    return P1, P2, A, plants
+
+
+def gate_shares(invariant, P1, P2, A, m_trues,
+                chunk: int = 32) -> Dict[str, float]:
+    """Shares of a build's distinct pairs (i < j, W m (m - 1) / 2 of
+    them) that reach each stage of the build kernels' gated score (csrc/
+    tri_pair_build.cuh), counted by plain PyTorch on the endpoints'
+    device: ``gate``, the gate passes (Euclidean |l1 - l2| < epsilon and
+    no length under mindist; point-normal dp < epsp); ``queued``, the
+    cheap masks (distinct, below m_true) and the gate pass: the pairs
+    whose tail runs; point-normal ``both``, queued and dn < epsn too.
+    P1, P2 (W, m, d) gathered endpoints, A (W, m, 2), m_trues (W,)."""
+    pn = isinstance(invariant, PointNormalDistance)
+    p = invariant.params
+    W, m, _ = P1.shape
+    dev = P1.device
+    upper = torch.triu(torch.ones(m, m, dtype=torch.bool, device=dev), 1)
+    lim = torch.as_tensor(m_trues, device=dev).reshape(-1)
+    idx = torch.arange(m, device=dev)
+    counts = dict(gate=0, queued=0, **({"both": 0} if pn else {}))
+    for s in range(0, W, chunk):
+        X1, X2 = P1[s:s + chunk], P2[s:s + chunk]
+        l1 = cross_distance_matrix(X1[..., :3], X1[..., :3])
+        l2 = cross_distance_matrix(X2[..., :3], X2[..., :3])
+        gate = (l1 - l2).abs() < (p.epsp if pn else p.epsilon)
+        if not pn and p.mindist > 0:
+            gate &= (l1 >= p.mindist) & (l2 >= p.mindist)
+        live = idx < lim[s:s + chunk, None]
+        queued = (gate & upper & distinctness_mask(A[s:s + chunk])
+                  & live[:, :, None] & live[:, None, :])
+        counts["gate"] += int((gate & upper).sum())
+        counts["queued"] += int(queued.sum())
+        if pn:
+            a1 = torch.arccos(torch.clamp(cross_inner_matrix(
+                X1[..., 3:6], X1[..., 3:6]), -1.0, 1.0))
+            a2 = torch.arccos(torch.clamp(cross_inner_matrix(
+                X2[..., 3:6], X2[..., 3:6]), -1.0, 1.0))
+            counts["both"] += int((queued & ((a1 - a2).abs()
+                                             < p.epsn)).sum())
+    pairs = W * m * (m - 1) // 2
+    return {k: v / pairs for k, v in counts.items()}
 
 
 # ----------------------------------------------------------------------

@@ -43,16 +43,6 @@
 
 namespace {
 
-// ((0 + dx^2) + dy^2) + dz^2: dist3 without its square root
-__device__ __forceinline__ float sqdist3(const float* a, const float* b) {
-  const float dx = rn_sub(a[0], b[0]);
-  const float dy = rn_sub(a[1], b[1]);
-  const float dz = rn_sub(a[2], b[2]);
-  float sq = rn_mul(dx, dx);
-  sq = rn_add(sq, rn_mul(dy, dy));
-  return rn_add(sq, rn_mul(dz, dz));
-}
-
 // c2 = max((q1 + q2) - 2 sqrt(q1 q2), 0): one sqrt where full takes two
 __device__ __forceinline__ float one_sqrt_c2(float q1, float q2) {
   const float r = m_sqrt(rn_mul(q1, q2));

@@ -60,16 +60,57 @@ __device__ __forceinline__ double m_clamp(double x, double lo, double hi) {
   return fmin(fmax(x, lo), hi);
 }
 
-// ||a - b|| over 3 coordinates, summed in coordinate order
+// ||a - b||^2 over 3 coordinates, summed in coordinate order
 template <typename T>
-__device__ __forceinline__ T dist3(const T* a, const T* b) {
+__device__ __forceinline__ T sqdist3(const T* a, const T* b) {
   const T dx = rn_sub(a[0], b[0]);
   const T dy = rn_sub(a[1], b[1]);
   const T dz = rn_sub(a[2], b[2]);
   T sq = rn_mul(dx, dx);
   sq = rn_add(sq, rn_mul(dy, dy));
-  sq = rn_add(sq, rn_mul(dz, dz));
-  return m_sqrt(sq);
+  return rn_add(sq, rn_mul(dz, dz));
+}
+
+// ||a - b||, correctly rounded from sqdist3
+template <typename T>
+__device__ __forceinline__ T dist3(const T* a, const T* b) {
+  return m_sqrt(sqdist3(a, b));
+}
+
+// sqdist3 with the last two steps fused (two FMAs): within 2^-21 of
+// sqdist3's value (no cancellation: all terms are squares), for
+// screen_sq only
+__device__ __forceinline__ float sqdist3_fused(const float* a,
+                                               const float* b) {
+  const float dx = __fsub_rn(a[0], b[0]);
+  const float dy = __fsub_rn(a[1], b[1]);
+  const float dz = __fsub_rn(a[2], b[2]);
+  return __fmaf_rn(dz, dz, __fmaf_rn(dy, dy, __fmul_rn(dx, dx)));
+}
+
+// A screen of the gate |l1 - l2| < e of both scores, l = dist3 =
+// sqrt(q) correctly rounded, from sqdist3_fused's q1, q2 (no square
+// root): false only where the gate fails for certain. With s = q1 + q2
+// and d = |q1 - q2| exact, |sqrt(q1) - sqrt(q2)| = d / (sqrt(q1) +
+// sqrt(q2)) >= d / sqrt(2 s), and rounding moves each length by 2^-24 of
+// itself, so |l1 - l2| >= e wherever d^2 >= (e sqrt(2 s) + 2^-23 s)^2.
+// Here d is taken 2^-19 s low (sqdist3_fused's q are within 2^-21 of
+// sqdist3's) and the bound as k s + 2^-34 s^2 with k = 2 e^2 (1 + 2^-9),
+// which covers that square with room for the roundings. Zero, infinite
+// or NaN lengths make it true: the exact gate decides. The bound is tight
+// where the gate matters (l1 near l2, where d / sqrt(2 s) is nearly |l1 -
+// l2|), so it passes little more than the gate does.
+__device__ __forceinline__ bool screen_sq(float q1, float q2, float k) {
+  const float s = __fadd_rn(q1, q2);
+  const float d = __fmaf_rn(-0x1p-19f, s, fabsf(__fsub_rn(q1, q2)));
+  const float thr = __fmaf_rn(k, s, __fmul_rn(__fmul_rn(s, s), 0x1p-34f));
+  return !((d > 0.f) & (__fmul_rn(d, d) > thr));  // &: no branch
+}
+
+// screen_sq's k for the f32 bound e of a gate
+__host__ __device__ inline float screen_k(double bound) {
+  const double e = (double)(float)bound;
+  return (float)(2.0 * e * e * (1.0 + 1.0 / 512.0));
 }
 
 // exp(((-0.5 d) d) / s2)
@@ -82,10 +123,12 @@ template <typename T>
 struct EuclidScore {
   static constexpr int D = 3;
   T s2, eps, mindist;
+  float sk;  // screen_sq's k for eps
 
   // p: (s2, epsilon, mindist, unused), formed in double on the host
   __host__ __device__ EuclidScore(const double (&p)[4])
-      : s2((T)p[0]), eps((T)p[1]), mindist((T)p[2]) {}
+      : s2((T)p[0]), eps((T)p[1]), mindist((T)p[2]),
+        sk(screen_k(p[1])) {}
 
   __device__ __forceinline__ T operator()(const T* r1, const T* c1,
                                           const T* r2, const T* c2) const {
@@ -96,5 +139,31 @@ struct EuclidScore {
     if (cc < eps) s = gauss(cc, s2);
     if (mindist > (T)0 && (l1 < mindist || l2 < mindist)) s = (T)0;
     return s;
+  }
+
+  // operator() in stages, for builds that run the exact score only
+  // where it can be non-zero (tri_pair_build.cuh), on points and normals
+  // apart (3 values each): screen() (float only) takes the two squared
+  // lengths, sqdist3_fused of set 1's and set 2's points, and is false only
+  // where gate() fails for certain; gate() is the score's first part, the
+  // two lengths and c, and is false where the score is 0 whatever follows
+  // (c >= eps, or a length under mindist), v getting c; tail() is the
+  // rest for a pair that passed with v (Euclidean: no normals). Where
+  // gate() passes, tail() returns operator()'s value bit for bit; where
+  // it fails, operator() returns 0.
+  __device__ __forceinline__ bool screen(float q1, float q2) const {
+    return screen_sq(q1, q2, sk);
+  }
+  __device__ __forceinline__ bool gate(const T* r1, const T* c1,
+                                       const T* r2, const T* c2,
+                                       T& v) const {
+    const T l1 = dist3(r1, c1);
+    const T l2 = dist3(r2, c2);
+    v = m_abs(rn_sub(l1, l2));
+    return v < eps && !(mindist > (T)0 && (l1 < mindist || l2 < mindist));
+  }
+  __device__ __forceinline__ T tail(const T*, const T*, const T*, const T*,
+                                    T v) const {
+    return gauss(v, s2);
   }
 };

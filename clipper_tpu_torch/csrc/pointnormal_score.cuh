@@ -26,10 +26,12 @@ template <typename T>
 struct PointNormalScore {
   static constexpr int D = 6;
   T sp2, epsp, sn2, epsn;
+  float sk;  // screen_sq's k for epsp
 
   // p: (sigp^2, epsp, sign^2, epsn), formed in double on the host
   __host__ __device__ PointNormalScore(const double (&p)[4])
-      : sp2((T)p[0]), epsp((T)p[1]), sn2((T)p[2]), epsn((T)p[3]) {}
+      : sp2((T)p[0]), epsp((T)p[1]), sn2((T)p[2]), epsn((T)p[3]),
+        sk(screen_k(p[1])) {}
 
   __device__ __forceinline__ T operator()(const T* r1, const T* c1,
                                           const T* r2, const T* c2) const {
@@ -41,5 +43,30 @@ struct PointNormalScore {
     const T dn = m_abs(rn_sub(a1, a2));
     const T s = rn_mul(gauss(dp, sp2), gauss(dn, sn2));
     return (dp < epsp && dn < epsn) ? s : (T)0;
+  }
+
+  // operator() in stages (see EuclidScore::gate): the screen and the gate
+  // take the two point distances and dp < epsp (v gets dp); the tail the
+  // normals' two angles, dn < epsn and the product of the two gaussians,
+  // which it forms only where dn < epsn (elsewhere operator() selects 0
+  // too).
+  __device__ __forceinline__ bool screen(float q1, float q2) const {
+    return screen_sq(q1, q2, sk);
+  }
+  __device__ __forceinline__ bool gate(const T* r1, const T* c1,
+                                       const T* r2, const T* c2,
+                                       T& v) const {
+    const T l1 = dist3(r1, c1);
+    const T l2 = dist3(r2, c2);
+    v = m_abs(rn_sub(l1, l2));
+    return v < epsp;
+  }
+  __device__ __forceinline__ T tail(const T* n1r, const T* n1c,
+                                    const T* n2r, const T* n2c,
+                                    T dp) const {
+    const T a1 = angle3(n1r, n1c);
+    const T a2 = angle3(n2r, n2c);
+    const T dn = m_abs(rn_sub(a1, a2));
+    return dn < epsn ? rn_mul(gauss(dp, sp2), gauss(dn, sn2)) : (T)0;
   }
 };

@@ -34,7 +34,9 @@
 // masks, so the output is symmetric and one evaluation serves both
 // triangles. The grid enumerates the unordered pairs (I <= J) of 64 x 64
 // tiles of each problem, row-major, by a closed form of the block index
-// (tile_pair; ops/affinity_pallas.stored_tile_pair mirrors it). A block
+// (tile_pair; ops/affinity_pallas.stored_tile_pair mirrors it; the
+// tiling, the staged codes and their write are staged_codes.cuh's, which
+// the triangle builds share). A block
 // of 128 threads stages its row tile's and its column tile's endpoints in
 // shared memory; each thread holds one column's endpoints in registers
 // and scores 32 consecutive rows of it, four a step. It leaves each M
@@ -56,99 +58,10 @@
 
 #include "euclid_score.cuh"
 #include "pointnormal_score.cuh"
+#include "staged_codes.cuh"
 #include "store_put.cuh"
 
 namespace {
-
-constexpr int kTile = 64;                         // rows and columns a tile
-constexpr int kThreads = 128;                     // one column, 32 rows each
-constexpr int kRowsPer = kTile * kTile / kThreads;  // 32
-constexpr int kStep = 4;  // rows a step scores (unrolled; the loop is not)
-
-// One staged tile of T: kTile rows of kTile values, rows kPitch bytes
-// apart (16 bytes of padding: a row stays 16-byte aligned for the write's
-// chunks, and the in-place stores of a warp meet no bank twice). A staged
-// value is M's code with C's in its top bit, which M's own never sets
-// (M >= 0: an int8 code in 0..127, or a bf16 of sign 0).
-template <typename T>
-struct Staged {
-  static constexpr int kRowBytes = kTile * (int)sizeof(T);
-  static constexpr int kPitch = kRowBytes + 16;
-  static constexpr int kBytes = kTile * kPitch;
-  static constexpr int kChunk = 16 / (int)sizeof(T);  // values a chunk
-  static constexpr int kWords = kStep * (int)sizeof(T) / 4;  // of a step
-  static constexpr uint32_t kFlag = sizeof(T) == 1 ? 0x80u : 0x8000u;
-  // of a word: M's bits, C's flags at bit 0 of each value, C's code (127,
-  // or bf16 1.0) when kept
-  static constexpr uint32_t kMask = sizeof(T) == 1 ? 0x7f7f7f7fu : 0x7fff7fffu;
-  static constexpr uint32_t kLsb = sizeof(T) == 1 ? 0x01010101u : 0x00010001u;
-  static constexpr int kShift = sizeof(T) == 1 ? 7 : 15;
-  static constexpr uint32_t kOne = sizeof(T) == 1 ? 0x7fu : 0x3f80u;
-};
-
-__device__ __forceinline__ uint32_t bits_of(int8_t v) {
-  return (uint32_t)(uint8_t)v;
-}
-__device__ __forceinline__ uint32_t bits_of(__nv_bfloat16 v) {
-  return (uint32_t)__bfloat16_as_ushort(v);
-}
-__device__ __forceinline__ void from_bits(int8_t* d, uint32_t b) {
-  *d = (int8_t)b;
-}
-__device__ __forceinline__ void from_bits(__nv_bfloat16* d, uint32_t b) {
-  *d = __ushort_as_bfloat16((unsigned short)b);
-}
-
-// Unordered tile pair k of n x n tiles, row-major over I <= J: row I of
-// the upper triangle starts at off(I) = I n - I (I - 1) / 2, so I is the
-// largest with off(I) <= k, the floor of ((2n + 1) - sqrt((2n + 1)^2 -
-// 8k)) / 2, corrected by one step where the square root rounds across an
-// integer.
-__device__ __forceinline__ int2 tile_pair(int k, int n) {
-  const double b = 2.0 * n + 1.0;
-  int I = (int)((b - sqrt(b * b - 8.0 * k)) * 0.5);
-  if (I * n - I * (I - 1) / 2 > k)
-    --I;
-  else if ((I + 1) * n - (I + 1) * I / 2 <= k)
-    ++I;
-  return make_int2(I, k - (I * n - I * (I - 1) / 2) + I);
-}
-
-// A staged tile into rows r0.. and columns c0.. of M and of C, 16 bytes
-// of each a thread, row by row; vec: m is a multiple of a chunk, so every
-// in-bounds chunk is one aligned 16-byte store.
-template <typename T>
-__device__ __forceinline__ void write_tile(const uint8_t* src, T* M, T* C,
-                                           int r0, int c0, int m, bool vec) {
-  using St = Staged<T>;
-  constexpr int kChunks = kTile / St::kChunk;  // chunks a row
-  for (int q = threadIdx.x; q < kTile * kChunks; q += kThreads) {
-    const int i = q / kChunks, c = (q % kChunks) * St::kChunk;
-    const int gr = r0 + i, gc = c0 + c;
-    if (gr >= m || gc >= m) continue;
-    const uint8_t* s = src + i * St::kPitch + c * (int)sizeof(T);
-    const size_t at = (size_t)gr * m + gc;
-    if (vec) {
-      const uint4 x = *reinterpret_cast<const uint4*>(s);
-      *reinterpret_cast<uint4*>(M + at) =
-          make_uint4(x.x & St::kMask, x.y & St::kMask, x.z & St::kMask,
-                     x.w & St::kMask);
-      *reinterpret_cast<uint4*>(C + at) =
-          make_uint4(((x.x >> St::kShift) & St::kLsb) * St::kOne,
-                     ((x.y >> St::kShift) & St::kLsb) * St::kOne,
-                     ((x.z >> St::kShift) & St::kLsb) * St::kOne,
-                     ((x.w >> St::kShift) & St::kLsb) * St::kOne);
-    } else {
-      for (int e = 0; e < St::kChunk && gc + e < m; ++e) {
-        const uint32_t b = sizeof(T) == 1
-            ? (uint32_t)s[e]
-            : (uint32_t)reinterpret_cast<const uint16_t*>(s)[e];
-        from_bits(M + at + e, b & ~St::kFlag);
-        from_bits(C + at + e, (b & St::kFlag) ? St::kOne : 0u);
-      }
-    }
-  }
-}
 
 template <typename Score, typename T>
 __global__ void __launch_bounds__(kThreads) stored_build_kernel(
@@ -238,8 +151,12 @@ __global__ void __launch_bounds__(kThreads) stored_build_kernel(
 
   T* M = out + (size_t)w * 2 * m * m;
   T* C = M + (size_t)m * m;
-  write_tile<T>(stage[0], M, C, r0, c0, m, vec);
-  if (!diag) write_tile<T>(stage[1], M, C, c0, r0, m, vec);
+  const int rows = min(kTile, m - r0), cols = min(kTile, m - c0);
+  const size_t at = (size_t)r0 * m + c0, at_t = (size_t)c0 * m + r0;
+  write_staged<T>(stage[0], M + at, C + at, m, rows, cols, vec, threadIdx.x);
+  if (!diag)
+    write_staged<T>(stage[1], M + at_t, C + at_t, m, cols, rows, vec,
+                    threadIdx.x);
 }
 
 template <typename T, typename Score>

@@ -29,7 +29,7 @@ the two built-in invariants (invariants.kernel_score) on the card.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -37,12 +37,15 @@ import torch
 from clipper_tpu_torch import _kernels
 from clipper_tpu_torch.invariants import kernel_score
 from clipper_tpu_torch.invariants.base import PairwiseInvariant
+from clipper_tpu_torch.ops.affinity_pallas import stored_tile_pair
 from clipper_tpu_torch.ops.affinity import (pairwise_from_endpoints,
                                             stored_from_endpoints)
 from clipper_tpu_torch.solvers.msrc_flat import _INT8_SCALE
 
 # candidate rows one kernel launch takes (the mma A-tile height)
 _KERNEL_ROWS = 16
+# the builds' sub-tile: kernels 2 and 8 score pairs of 64-row sub-tiles
+_SUB = 64
 
 
 def tri_tile_offsets(nt: int) -> list:
@@ -254,6 +257,61 @@ def build_tri_plain(invariant: PairwiseInvariant, P1s, P2s, As, m_trues, *,
                 storage_dtype=storage_dtype)
         parts.append(repack_stacked(MC, t))
     return torch.cat(parts) if len(parts) > 1 else parts[0]
+
+
+class SubPair(NamedTuple):
+    """Where one pair of sub-tiles goes in a problem's (2t, S) storage:
+    ``rows`` of sub-tile I by ``cols`` of sub-tile J starting at
+    association ``gr0`` / ``gc0``; ``diag`` (I = J: its pairs i < j, both
+    orders written); ``mirror`` (I < J inside one t-tile: its transpose is
+    written too); ``at`` / ``at_t``: flat offsets of (row 0, column 0) and
+    of the transpose's in the M half."""
+    rows: int
+    cols: int
+    gr0: int
+    gc0: int
+    diag: bool
+    mirror: bool
+    at: int
+    at_t: int
+
+
+def tri_sub_tiles(t: int) -> int:
+    """q: 64-row sub-tiles a t-tile (the last shorter where 64 does not
+    divide t)."""
+    return -(-t // _SUB)
+
+
+def tri_sub_pair(k: int, nt: int, t: int) -> SubPair:
+    """Sub-tile pair k of a problem of nt t-tiles a side, as the build
+    kernels place it (csrc/tri_pair_build.cuh: sub_pair), step for step:
+    the unordered pair (I <= J) of the n = nt q sub-tiles a side
+    (:func:`affinity_pallas.stored_tile_pair`'s closed form), in upper
+    t-tile (I // q, J // q)."""
+    q = tri_sub_tiles(t)
+    S = tri_ncols(nt, t)
+    i, j = stored_tile_pair(k, nt * q)
+    r, a, c, b = i // q, i % q, j // q, j % q
+    col = (r * nt - r * (r - 1) // 2 + c - r) * t
+    return SubPair(rows=min(_SUB, t - a * _SUB), cols=min(_SUB, t - b * _SUB),
+                   gr0=r * t + a * _SUB, gc0=c * t + b * _SUB, diag=i == j,
+                   mirror=r == c and a != b, at=a * _SUB * S + col + b * _SUB,
+                   at_t=b * _SUB * S + col + a * _SUB)
+
+
+def tri_build_fused_whole(m: int, invariant: PairwiseInvariant,
+                          storage_dtype=torch.int8) -> bool:
+    """True where kernel 8 (csrc/tri_build_fused.cu) stages a problem's
+    m endpoints whole in shared memory on the current card, False where
+    each of its units stages the two sub-tiles of every pair it takes.
+    Asks the card (the limit is the device's)."""
+    kind, _, _ = kernel_score(invariant)
+    code = _kernels.lib("tri_build_fused").tri_build_fused_whole(
+        m, kind, int(storage_dtype == torch.bfloat16))
+    if code < 0:
+        raise RuntimeError("tri_build_fused_whole: the device cannot be "
+                           "asked")
+    return bool(code)
 
 
 def _launch_tri_build(kernel: str, invariant: PairwiseInvariant, P1s, P2s,
@@ -517,7 +575,8 @@ __all__ = ["tri_tile_offsets", "tri_ncols", "tri_coords", "repack_stacked",
            "tri_pool_matvec_plain", "tri_pool_matvec_cuda",
            "make_tri_pool_matvec", "make_tri_pool_matvec_xla",
            "build_tri_plain", "build_tri_cuda", "build_tri_fused_cuda",
-           "build_tri", "build_tri_pallas_fused", "repack_stacked_tiles",
+           "build_tri", "build_tri_pallas_fused", "SubPair", "tri_sub_tiles",
+           "tri_sub_pair", "tri_build_fused_whole", "repack_stacked_tiles",
            "tri_tiles_matvec_plain", "tri_tiles_matvec_cuda",
            "make_tri_pool_matvec_tiles", "make_tri_pool_matvec_tiles_xla",
            "dense_stacked"]

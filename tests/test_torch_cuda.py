@@ -108,8 +108,8 @@ def test_sym_unit_probe_edits_apply():
 
 
 def test_parent_ab_refuses_a_checkout_without_the_sources(tmp_path):
-    """The parent comparison of kernels 9 and 4 stops before any build
-    where the other checkout lacks their sources."""
+    """The parent comparison of kernel 9 and the build kernels stops
+    before any build where the other checkout lacks their sources."""
     from clipper_tpu_torch.bench import parent_ab
     with pytest.raises(SystemExit, match="lacks"):
         parent_ab.build_parent(str(tmp_path))
@@ -666,3 +666,118 @@ def test_stored_build_kernel_edge_tiles(cuda, kind, storage, m):
     assert int((got[:, :m] != ref[:, :m]).sum()) == 0
     for half in (got[:, :m], got[:, m:]):
         assert torch.equal(half, half.transpose(1, 2))
+
+
+def _endpoints(kind, W, m, seed, cuda):
+    """(invariant, P1, P2, A) on the card: W bunny problems at rho=0.9 or
+    point-normal ones (per-problem datasets)."""
+    if kind == "euclidean":
+        pcd0, D2s, As, _ = _problems(W, m, seed)
+        D1 = torch.from_numpy(pcd0).to(cuda)
+        inv = harness.default_invariant()
+    else:
+        D1s, D2s, As = _pointnormal_problems(W, m, seed)
+        D1 = torch.from_numpy(D1s).to(cuda)
+        inv = harness.pointnormal_invariant()
+    A = torch.from_numpy(As).to(cuda)
+    P1, P2 = gather_endpoints(D1, torch.from_numpy(D2s).to(cuda), A)
+    return inv, P1, P2, A
+
+
+def _hold_tri_builds(inv, P1, P2, A, mts, t, storage):
+    """Kernels 2 and 8, one launch each, against the plain build (C exact,
+    no M value differing) and byte-equal to each other. Returns kernel
+    2's output."""
+    before = dict(_kernels.LAUNCHES)
+    tk = flattri.build_tri(inv, P1, P2, A, mts, t=t, storage_dtype=storage)
+    tf = flattri.build_tri_pallas_fused(inv, P1, P2, A, mts, t=t,
+                                        storage_dtype=storage)
+    for name in ("tri_build", "tri_build_fused"):
+        assert _kernels.LAUNCHES[name] == before[name] + 1
+    tp = flattri.build_tri_plain(inv, P1, P2, A, mts, t=t,
+                                 storage_dtype=storage)
+    assert tk.dtype == storage and tk.shape == tp.shape
+    assert bool(tp[:, t:].any()) and torch.equal(tk[:, t:], tp[:, t:])
+    assert int((tk[:, :t] != tp[:, :t]).sum()) == 0
+    assert torch.equal(tk, tf)
+    return tk
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage", [torch.int8, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["euclidean", "pointnormal"])
+@pytest.mark.parametrize("t,nt", [(64, 8), (128, 4), (256, 2), (256, 4),
+                                  (200, 5), (100, 5), (16, 6)])
+def test_tri_builds_every_tile(cuda, kind, storage, t, nt):
+    """Kernels 2 and 8, each distinct pair scored once over 64-row
+    sub-tiles, at t a multiple of 64 and not (t=200 and 100 leave a short
+    sub-tile; t=100 and 16 give int8 rows that are no 16-byte multiple,
+    written value by value), m_true < m on two problems: equal to the
+    plain build and to each other."""
+    W, m = 3, t * nt
+    inv, P1, P2, A = _endpoints(kind, W, m, t + nt, cuda)
+    mts = torch.tensor([m, m - 1, m // 2 + 7], device=cuda)
+    _hold_tri_builds(inv, P1, P2, A, mts, t, storage)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage", [torch.int8, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["euclidean", "pointnormal"])
+@pytest.mark.parametrize("t,m", [(200, 1000), (128, 512)])
+def test_tri_builds_at_the_gate(cuda, kind, storage, t, m):
+    """Kernels 2 and 8 on pairs planted at the score gate's edges
+    (harness.gate_boundary_endpoints: the gate's difference at its f32
+    bound and one ulp either side, with one length 0 and with both
+    non-zero, coincident endpoints, normals whose dot is -1 or rounds
+    above 1), m_true < m on one problem: equal to the plain build and to
+    each other, the plants kept or dropped as planted."""
+    inv = (harness.default_invariant() if kind == "euclidean"
+           else harness.pointnormal_invariant())
+    P1, P2, A, plants = harness.gate_boundary_endpoints(inv, 3, m, 9)
+    P1, P2, A = (torch.from_numpy(x).to(cuda) for x in (P1, P2, A))
+    mts = torch.tensor([m, m, m - 3], device=cuda)
+    tk = _hold_tri_builds(inv, P1, P2, A, mts, t, storage)
+    C = flattri.dense_stacked(tk, m // t)[:, m:]
+    kept = {"below", "below_both", "coincident", "antiparallel", "clamp"}
+    for i, j, what in plants:
+        for w in range(2):
+            assert bool(C[w, i, j] > 0) == (what in kept), what
+            assert bool(C[w, j, i] > 0) == (what in kept), what
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage", [torch.int8, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["euclidean", "pointnormal"])
+def test_tri_build_fused_stages_by_tile(cuda, kind, storage):
+    """Kernel 8's other branch: where a problem's endpoints do not fit in
+    shared memory beside its units' stages, each unit stages the two
+    sub-tiles of every pair it takes. At the smallest m a multiple of 256
+    past the card's limit (m_true < m on one problem), equal to the plain
+    build and to kernel 2; at m=1024 the endpoints are staged whole."""
+    inv = (harness.default_invariant() if kind == "euclidean"
+           else harness.pointnormal_invariant())
+    assert flattri.tri_build_fused_whole(1024, inv, storage)
+    m = 256
+    while flattri.tri_build_fused_whole(m, inv, storage):
+        m += 256
+    inv, P1, P2, A = _endpoints(kind, 2, m, 3, cuda)
+    mts = torch.tensor([m, m - 200], device=cuda)
+    _hold_tri_builds(inv, P1, P2, A, mts, 256, storage)
+
+
+def test_tri_build_probe_edits_apply():
+    """The build probe's variants are edits of the current body of
+    kernels 2 and 8: each applies, differs from the body as built, and
+    keeps its braces balanced."""
+    from clipper_tpu_torch.bench import tri_build_probe
+    src = tri_build_probe.variant_sources()
+    assert set(src) == set(tri_build_probe.VARIANTS)
+    assert src["full"] == (_kernels.CSRC / "tri_pair_build.cuh").read_text()
+    for name in ("firstpass", "nowrite"):
+        assert src[name] != src["full"]
+        assert src[name].count("{") == src[name].count("}")
+    assert "__shfl_sync" not in src["firstpass"]
+    assert "write_staged<T, kStream>(here" not in src["nowrite"]
+    for cu in ("tri_build.cu", "tri_build_fused.cu"):
+        assert '#include "tri_pair_build.cuh"' in (_kernels.CSRC
+                                                   / cu).read_text()
