@@ -136,8 +136,14 @@ Phases, each of which must pass (any failure exits non-zero):
               W=512 in int8 and bf16, the fused tri build beside the tri
               build at W=512, the tiles matvec at B=128 and B=512 beside the
               tri matvec at K=1, the dense build at m=5000 point-normal and
-              m=1024 bunny, the point-normal tri and fused tri builds
-              (int8 and bf16, the fused one byte-equal to the tri build)
+              m=1024 bunny in f32 and f64 (held to its plain version at
+              m=5000 in both, a rerun bit-identical; the m=5000 problem's
+              survivor shares printed; the kernel timed through its
+              wrapper as the facade calls it, the C entry's time beside
+              it; the f64 operations over
+              the f64 peak, 34 TFLOP/s), the point-normal tri and fused
+              tri builds (int8 and bf16, the fused one byte-equal to the
+              tri build)
               and the point-normal stacked build (int8 and bf16) at W=512;
               the tri builds beside each problem set's survivor shares,
               harness.gate_shares) held against its
@@ -151,7 +157,8 @@ Phases, each of which must pass (any failure exits non-zero):
               into a "bf16" field of each row of the kernels' line (the
               point-normal tri, fused tri and stacked builds into
               "pointnormal" and "pointnormal_bf16" of their rows, the
-              survivor shares into "gate_shares").
+              survivor shares into "gate_shares"; the dense build's bunny
+              and f64 times into "shapes" of its row).
 7. probe    — the build-anatomy probe (csrc/build_probe.cu) on the JAX
               probe's inputs at B=512, m=1024 and at an edge tile (B=16,
               m=1000): full byte-equal to the stacked build, writeonly all
@@ -159,9 +166,10 @@ Phases, each of which must pass (any failure exits non-zero):
               codes within one of their plain versions (the count of
               differing codes printed, 0 expected); then
               bench/build_probe.main(["512", "1024"]), which prints each
-              variant's ms beside the stacked build's (kernel 4 scores each
-              pair once; the probe's variants, like the JAX kernel, score
-              it for each triangle) and the write bound.
+              variant's ms beside the stacked build's and the write bound
+              (every variant is the stacked build's own kernel with its
+              score swapped, so full is kernel 4 and writeonly its write
+              floor).
 8. drivers  — each ported bench driver's main() in-process on the card at
               a small setting: grid_tpu (4 trials a cell, the whole 5 x 5
               grid), pool_ab (W=128, all five configurations), tickstats
@@ -207,6 +215,7 @@ W_CHECK = 16        # problems for the kernel and CPU-parity checks
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 BF16_FLOPS = 989e12           # dense bf16 tensor-core peak
 F32_FLOPS = 67e12             # f32 outside the tensor cores
+F64_FLOPS = 34e12             # f64 outside the tensor cores (data sheet)
 BUILD_OPS_PER_PAIR = 30       # f32 operations a Euclidean pair (tri_build.cu)
 MATVEC_TOL = 1e-4             # max |kernel - plain| of the matvecs
 CAP_M = 65536       # the capacity path: one problem at m=65,536 ...
@@ -1861,11 +1870,15 @@ def make_pn_problems(W: int, seed: int, m: int = M, rho: float = RHO):
 def check_dense(inv, P1, P2, A, label):
     """affinity_build against its plain version on the card: C exact, a
     zero diagonal and no M entry differing (the same IEEE steps and CUDA
-    library functions). Returns the max |kernel - plain|."""
+    library functions); a rerun bit-identical. Returns the max |kernel -
+    plain|."""
     import torch
     from clipper_tpu_torch.ops import affinity_pallas
     from clipper_tpu_torch.ops.affinity import pairwise_from_endpoints
     Mk, Ck = affinity_pallas.affinity_build_cuda(inv, P1, P2, A)
+    Mr, Cr = affinity_pallas.affinity_build_cuda(inv, P1, P2, A)
+    rerun = bool(torch.equal(Mk, Mr) and torch.equal(Ck, Cr))
+    del Mr, Cr
     Mp, Cp = pairwise_from_endpoints(inv, P1, P2, A)
     m = P1.shape[0]
     require(Mk.shape == Ck.shape == (m, m) and Mk.dtype == P1.dtype,
@@ -1876,7 +1889,8 @@ def check_dense(inv, P1, P2, A, label):
     nnz = int((Cp > 0).sum())
     print(f"affinity_build vs plain ({label}): C exact={c_exact}, M entries "
           f"differing={n_diff} of {nnz} edges, max|kernel - plain|="
-          f"{err:.3e}", flush=True)
+          f"{err:.3e}; rerun bit-identical={rerun}", flush=True)
+    require(rerun, f"affinity_build {label}: a rerun differs")
     require(c_exact, f"affinity_build {label}: C differs from the plain build")
     require(not bool(Mk.diagonal().any()), f"affinity_build {label}: "
             "nonzero diagonal")
@@ -2381,7 +2395,9 @@ def phase_parity_pn(inv, pn_inv, check, pn_check, dev):
 
 def time_pn_and_dense(inv, pn_inv, check, pn_main, dev, rows_in):
     """Phase 6's point-normal and dense rows: the dense build at m=5000
-    (point-normal, f32) and m=1024 (bunny); the point-normal tri build and
+    (point-normal) and m=1024 (bunny), f32 and f64 (held to its plain
+    version at m=5000 in both first, the m=5000 problem's survivor shares
+    printed); the point-normal tri build and
     the fused tri build (kernels 2 and 8, int8 and bf16, kernel 8
     byte-equal to kernel 2, beside the problems' survivor shares) and the
     stacked build (int8 and bf16) at W=512, into the "pointnormal" and
@@ -2390,8 +2406,10 @@ def time_pn_and_dense(inv, pn_inv, check, pn_main, dev, rows_in):
     version (C exact, no M code differing). Returns the dense build's row
     of the kernels' JSON line and its max error."""
     import torch
+    from clipper_tpu_torch import _kernels
     from clipper_tpu_torch.bench import harness
     from clipper_tpu_torch.bench.harness import time_ms
+    from clipper_tpu_torch.invariants import kernel_score
     from clipper_tpu_torch.ops import affinity_pallas, flattri
     from clipper_tpu_torch.ops.affinity import (gather_endpoints,
                                                 pairwise_from_endpoints,
@@ -2400,33 +2418,70 @@ def time_pn_and_dense(inv, pn_inv, check, pn_main, dev, rows_in):
     D1, D2, A, _ = harness.make_pointnormal_problem(
         np.random.default_rng(0), n=PN_N, m=PN_M, rho=PN_RHO)
     At = torch.as_tensor(A, device=dev)
-    P1, P2 = gather_endpoints(torch.as_tensor(D1, dtype=torch.float32,
-                                              device=dev),
-                              torch.as_tensor(D2, dtype=torch.float32,
-                                              device=dev), At)
-    err = check_dense(pn_inv, P1, P2, At, f"point-normal, m={PN_M}, f32")
-    rows = {}
     B1, B2, BA, _, _ = check
     Q1, Q2 = endpoints(B1, B2[:1], BA[:1], dev)
-    for label, (iv, X1, X2, XA) in (
-            (f"point-normal m={PN_M}", (pn_inv, P1, P2, At)),
-            (f"bunny m={M}", (inv, Q1[0], Q2[0],
-                              torch.as_tensor(BA[0], device=dev)))):
-        m, d = X1.shape
-        bound_ms, bound_by = build_bound(
-            2 * m * m * 4 + 2 * m * d * 4 + m * 2 * 4, 1, m,
-            PN_OPS_PER_PAIR if d == 6 else BUILD_OPS_PER_PAIR)
-        r = dict(ms=time_ms(lambda: affinity_pallas.affinity_build_cuda(
-                     iv, X1, X2, XA), dev, 10),
-                 plain_ms=time_ms(lambda: pairwise_from_endpoints(
-                     iv, X1, X2, XA), dev, 2),
-                 bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
-        rows.setdefault("affinity_build", r)
-        print(f"timing affinity_build {label} f32: kernel {r['ms']:.4f} ms, "
-              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), plain "
-              f"{r['plain_ms']:.4f} ms, library None", flush=True)
-    del P1, P2
-    torch.cuda.empty_cache()
+    QA = torch.as_tensor(BA[0], device=dev)
+    shares = None
+    rows, err = {}, 0.0
+    for dtype in (torch.float32, torch.float64):
+        name = str(dtype).split(".")[-1]
+        P1, P2 = gather_endpoints(torch.as_tensor(D1, dtype=dtype,
+                                                  device=dev),
+                                  torch.as_tensor(D2, dtype=dtype,
+                                                  device=dev), At)
+        if shares is None:
+            shares = harness.gate_shares(pn_inv, P1[None], P2[None],
+                                         At[None], [PN_M])
+            print(f"point-normal m={PN_M} (the facade's problem): "
+                  f"{shares_text(shares)}", flush=True)
+        err = max(err, check_dense(pn_inv, P1, P2, At,
+                                   f"point-normal, m={PN_M}, {name}"))
+        for label, (iv, X1, X2, XA) in (
+                (f"point-normal m={PN_M}", (pn_inv, P1, P2, At)),
+                (f"bunny m={M}", (inv, Q1[0].to(dtype), Q2[0].to(dtype),
+                                  QA))):
+            m, d = X1.shape
+            size = dtype.itemsize
+            # M and C written once, the endpoints and ids read once; the
+            # operations over the distinct pairs at the type's peak
+            bound = bound_of(
+                2 * m * m * size + 2 * m * d * size + m * 2 * 4,
+                (m * (m - 1) // 2) * (PN_OPS_PER_PAIR if d == 6
+                                      else BUILD_OPS_PER_PAIR),
+                F32_FLOPS if dtype == torch.float32 else F64_FLOPS)
+            # the kernel through its wrapper, as the facade and the grid
+            # trials call it; beside it through its C entry on inputs made
+            # once, as bench/parent_ab times it (at m=1024 the wrapper's
+            # host time, not the kernel, can set the wrapper's reading)
+            kind, _, params = kernel_score(iv)
+            X1c, X2c = X1.contiguous(), X2.contiguous()
+            XA32 = XA.to(torch.int32).contiguous()
+            Mo, Co = (torch.empty(m, m, dtype=dtype, device=dev)
+                      for _ in range(2))
+            entry = getattr(_kernels.lib("affinity_build"),
+                            f"affinity_build_{'f32' if size == 4 else 'f64'}")
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            r = dict(ms=time_ms(
+                         lambda: affinity_pallas.affinity_build_cuda(
+                             iv, X1, X2, XA), dev, 10),
+                     entry_ms=time_ms(lambda: entry(
+                         X1c.data_ptr(), X2c.data_ptr(), XA32.data_ptr(),
+                         Mo.data_ptr(), Co.data_ptr(), m, kind, *params,
+                         1e-4, stream), dev, 20),
+                     plain_ms=time_ms(lambda: pairwise_from_endpoints(
+                         iv, X1, X2, XA), dev, 2),
+                     library_ms=None, **bound)
+            del Mo, Co
+            rows[f"{label} {name}"] = r
+            print(f"timing affinity_build {label} {name}: kernel "
+                  f"{r['ms']:.4f} ms (the C entry {r['entry_ms']:.4f} ms),"
+                  f" bound {r['bound_ms']:.4f} ms ({r['bound_by']}), plain "
+                  f"{r['plain_ms']:.4f} ms, library None", flush=True)
+        del P1, P2
+        torch.cuda.empty_cache()
+    # the row: point-normal m=5000 in f32, the other shapes beside it
+    row = dict(rows.pop(f"point-normal m={PN_M} float32"), shapes=rows,
+               gate_shares=shares)
 
     D1s, D2s, As, _, _ = pn_main
     P1s, P2s = endpoints(D1s, D2s, As, dev)
@@ -2492,7 +2547,7 @@ def time_pn_and_dense(inv, pn_inv, check, pn_main, dev, rows_in):
         print(f"timing {name} point-normal W={W_MAIN} m={M} {sname}: kernel "
               f"{ms:.4f} ms, bound {bound:.4f} ms ({by}), plain {pms:.4f} ms"
               f"{note}", flush=True)
-    return rows["affinity_build"], err
+    return row, err
 
 
 # ---------------------------------------------------------------------------
@@ -2560,7 +2615,9 @@ def phase_probe(dev):
     import torch
     from clipper_tpu_torch import _kernels
     from clipper_tpu_torch.bench import build_probe as bp
+    from clipper_tpu_torch.bench import harness
     from clipper_tpu_torch.bench.harness import time_ms
+    from clipper_tpu_torch.ops import affinity_pallas
 
     err = max(check_probe(PROBE_B, PROBE_M, dev),
               check_probe(PROBE_EDGE_B, PROBE_EDGE_M, dev))
@@ -2582,13 +2639,19 @@ def phase_probe(dev):
         2 * PROBE_B * PROBE_M * PROBE_M + in_bytes, PROBE_B, PROBE_M,
         BUILD_OPS_PER_PAIR)
     plain_ms = time_ms(lambda: bp.build_probe_plain("full", P1, P2, A), dev, 2)
+    # kernel 4, whose kernel full runs, on the same inputs
+    mts = torch.full((PROBE_B,), PROBE_M, dtype=torch.int32, device=dev)
+    k4_ms = time_ms(lambda: affinity_pallas.stored_build_cuda(
+        harness.default_invariant(), P1, P2, A, mts), dev, 10)
     del P1, P2, A
     torch.cuda.empty_cache()
     row = dict(ms=variants["full"], plain_ms=plain_ms, bound_ms=bound_ms,
                bound_by=bound_by, library_ms=None,
-               variants_ms={v: float(variants[v]) for v in bp.VARIANTS})
+               variants_ms={v: float(variants[v]) for v in bp.VARIANTS},
+               kernel4_ms=k4_ms)
     print(f"timing build_probe B={PROBE_B} m={PROBE_M}: full {row['ms']:.4f}"
-          f" ms, bound {bound_ms:.4f} ms ({bound_by}; write bound "
+          f" ms ({row['ms'] / k4_ms:.3f}x kernel 4's {k4_ms:.4f} ms), bound "
+          f"{bound_ms:.4f} ms ({bound_by}; write bound "
           f"{bp.write_bound_ms(PROBE_B, PROBE_M):.4f} ms), plain "
           f"{plain_ms:.4f} ms, variants {row['variants_ms']}", flush=True)
     return row, launches["build_probe"], err

@@ -13,12 +13,13 @@ arithmetic classes:
 
 and prints each beside kernel 4's time (``ops.affinity_pallas.
 stored_build``) on the same inputs and the write bound, 2 B m^2 bytes
-over 3.35 TB/s. The variants share the two-pass body
-(csrc/stored_build_body.cuh: every pair scored once for each triangle, as
-the JAX kernel does); kernel 4 scores each unordered pair once and writes
-``full``'s bytes, so ``full`` beside it shows what the halving bought. The JAX probe's ``.jax_cache`` settings and its tile have
-no counterpart here: the kernel checks its edge blocks instead of needing
-m to divide by a tile.
+over 3.35 TB/s. Every variant runs kernel 4's own kernel
+(csrc/stored_pair_build.cuh: each unordered pair of 64 x 64 tiles scored
+once, the tile and its transpose written as 16-byte chunks) with its
+score swapped, so ``full`` is kernel 4 and the others say where kernel
+4's time goes; ``writeonly`` is its write floor. The JAX probe's
+``.jax_cache`` settings and its tile have no counterpart here: the
+kernel checks its edge tiles instead of needing m to divide by a tile.
 
 Usage: python -m clipper_tpu_torch.bench.build_probe [B] [m] \\
            [--device=cuda|cpu]

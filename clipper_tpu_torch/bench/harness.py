@@ -197,21 +197,25 @@ _PLANT_ROWS = ((0, 1), (2, 3), (10, 70), (63, 64), (100, 199), (127, 128),
                (700, 800), (900, 901))
 
 
-def gate_boundary_endpoints(invariant, W: int, m: int, seed: int):
+def gate_boundary_endpoints(invariant, W: int, m: int, seed: int,
+                            dtype=np.float32):
     """Gathered endpoints whose pairs sit on the edges of the built-in
     scores' gates, for holding the build kernels to their plain version:
-    random problems with planted pairs, as numpy f32 (P1, P2) (W, m, d)
-    and int32 A (W, m, 2), and the planted pairs' list of (i, j, what).
+    random problems with planted pairs, as numpy (P1, P2) (W, m, d) in
+    ``dtype`` (f32, or f64 for the f64 builds, whose gate compares in
+    f64) and int32 A (W, m, 2), and the planted pairs' list of (i, j,
+    what). The draws do not depend on ``dtype``.
 
     The plants, one row pair each (the pairs of ``_PLANT_ROWS`` below m,
     taking the kinds below in turn): the gate's difference (c of a
-    Euclidean score, dp of a point-normal one) exactly at the gate's f32
-    bound ("at"), one ulp under it ("below") and one ulp over ("above"),
-    planted as a length x in set 1 against coincident endpoints in set 2
-    (sqrt(fl(x x)) = x in IEEE arithmetic, and l = 0), and again as
-    lengths 2^-10 + x and 2^-10 ("at_both", "below_both", "above_both":
-    both lengths exact and non-zero, their difference exact); both sets
-    coincident ("coincident", l1 = l2 = 0). Point-normal rows carry the
+    Euclidean score, dp of a point-normal one) exactly at the gate's bound
+    in ``dtype`` ("at"), one ulp under it ("below") and one ulp over
+    ("above"), planted as a length x in set 1 against coincident
+    endpoints in set 2 (sqrt(fl(x x)) = x in IEEE arithmetic, and l = 0),
+    and again as lengths 2^-10 + x and 2^-10 ("at_both", "below_both",
+    "above_both": both lengths exact and non-zero, their difference
+    exact); both sets coincident ("coincident", l1 = l2 = 0). Point-normal
+    rows carry the
     same normal on both rows of a plant, so dn = 0 ("at" scores 0 whatever
     dn), and two more kinds take normals whose dot is -1
     ("antiparallel") and a unit normal whose f32 dot with itself rounds
@@ -221,12 +225,12 @@ def gate_boundary_endpoints(invariant, W: int, m: int, seed: int):
     associations drawn from m / 2 ids, so some pairs are not distinct;
     planted rows get ids of their own."""
     pn = isinstance(invariant, PointNormalDistance)
-    bound = np.float32(invariant.params.epsp if pn
-                       else invariant.params.epsilon)
+    dtype = np.dtype(dtype).type
+    bound = dtype(invariant.params.epsp if pn else invariant.params.epsilon)
     rng = np.random.default_rng(seed)
     d = 6 if pn else 3
     side = 1.0 if pn else 0.2
-    P1 = np.zeros((W, m, d), np.float32)
+    P1 = np.zeros((W, m, d), dtype)
     P1[..., :3] = rng.uniform(0, side, (W, m, 3))
     P2 = P1.copy()
     moved = rng.random((W, m)) < 0.5
@@ -239,14 +243,14 @@ def gate_boundary_endpoints(invariant, W: int, m: int, seed: int):
         P1[..., 3:] = nrm
         P2[..., 3:] = nrm
     A = rng.integers(0, max(m // 2, 1), (W, m, 2)).astype(np.int32)
-    edge = {"at": bound, "below": np.nextafter(bound, np.float32(0)),
-            "above": np.nextafter(bound, np.float32(1))}
+    edge = {"at": bound, "below": np.nextafter(bound, dtype(0)),
+            "above": np.nextafter(bound, dtype(1))}
     kinds = [*edge, *(f"{k}_both" for k in edge), "coincident"]
     if pn:
         kinds += ["antiparallel", "clamp"]
     normals = {"antiparallel": np.float32([0, 1, 0]),
                "clamp": np.float32([0.96672255, -0.04501169, -0.25183624])}
-    base = np.float32(2.0 ** -10)
+    base = dtype(2.0 ** -10)
     plants = []
     for k, (i, j) in enumerate(ij for ij in _PLANT_ROWS if ij[1] < m):
         what = kinds[k % len(kinds)]

@@ -26,8 +26,11 @@ must share:
   distinct pairs whose gate passes, whose tail runs, and, point-normal,
   that pass both gates);
 - kernel 6 on one point-normal problem at m=5000 (rho=0.8) and one bunny
-  problem at m=1024, f32, as ``chip_smoke.py`` phase 6 times it;
-- kernel 10's five variants on the build probe's inputs (B=512, m=1024).
+  problem at m=1024, f32 and f64, through the C entry (``chip_smoke.py``
+  phase 6's ``entry_ms``), beside its bound;
+- kernel 10's five variants on the build probe's inputs (B=512, m=1024),
+  and the change's ``full`` beside kernel 4 (whose kernel it runs) on
+  them, in turns, with whether the two are byte-equal.
 
 Kernel 1 is compared first, by ``tri_matvec_probe.main(["--parent",
 DIR])`` (its ablations and the parent's build, bit equality at its four
@@ -53,6 +56,7 @@ from clipper_tpu_torch import _kernels
 
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
+F64_FLOPS = 34e12     # f64 outside the tensor cores (data sheet)
 BF16_FLOPS = 989e12
 # f32 operations a pair of each score (chip_smoke.py's counts)
 OPS_PER_PAIR = {"euclidean": 30, "pointnormal": 56}
@@ -62,7 +66,7 @@ _SOURCES = {
     "tri_build": ("tri_build_int8", "tri_build_bf16"),
     "tri_build_fused": ("tri_build_fused_int8", "tri_build_fused_bf16"),
     "stored_build": ("stored_build_int8", "stored_build_bf16"),
-    "affinity_build": ("affinity_build_f32",),
+    "affinity_build": ("affinity_build_f32", "affinity_build_f64"),
     "build_probe": ("build_probe_int8",),
 }
 
@@ -326,7 +330,8 @@ def build_rows(libs, dev, W: int = 512, m: int = 1024,
 def affinity_rows(parent_lib, dev) -> list:
     """Kernel 6, parent against change: chip_smoke.py phase 6's two
     problems (point-normal m=5000 at rho=0.8, the first bunny problem at
-    m=1024), f32."""
+    m=1024), f32 and f64, beside the bound (M and C written once, the
+    endpoints read once; the operations over the type's peak)."""
     import torch
 
     from clipper_tpu_torch.bench import harness
@@ -337,35 +342,50 @@ def affinity_rows(parent_lib, dev) -> list:
     D1, D2, A, _ = harness.make_pointnormal_problem(
         np.random.default_rng(0), n=2000, m=5000, rho=0.8)
     At = torch.as_tensor(A, dtype=torch.int32, device=dev)
-    pn = gather_endpoints(torch.as_tensor(D1, dtype=torch.float32,
-                                          device=dev),
-                          torch.as_tensor(D2, dtype=torch.float32,
-                                          device=dev), At) + (At,)
     B1, B2, BA = stored_inputs("euclidean", 1, 1024, dev)
     rows = []
-    for kind, inv, (P1, P2, A) in (
-            ("pointnormal", harness.pointnormal_invariant(), pn),
-            ("euclidean", harness.default_invariant(),
-             (B1[0], B2[0], BA[0]))):
-        code, d, params = kernel_score(inv)
-        m = P1.shape[0]
-        outs = {k: tuple(torch.empty(m, m, device=dev) for _ in range(2))
-                for k in ("parent", "change")}
+    for dtype in (torch.float32, torch.float64):
+        name = "f32" if dtype == torch.float32 else "f64"
+        pn = gather_endpoints(torch.as_tensor(D1, dtype=dtype, device=dev),
+                              torch.as_tensor(D2, dtype=dtype, device=dev),
+                              At) + (At,)
+        for kind, inv, (P1, P2, A) in (
+                ("pointnormal", harness.pointnormal_invariant(), pn),
+                ("euclidean", harness.default_invariant(),
+                 (B1[0].to(dtype), B2[0].to(dtype), BA[0]))):
+            code, d, params = kernel_score(inv)
+            m = P1.shape[0]
+            outs = {k: tuple(torch.empty(m, m, dtype=dtype, device=dev)
+                             for _ in range(2))
+                    for k in ("parent", "change")}
+            fn = f"affinity_build_{name}"
 
-        def launch(lib, out):
-            return lib.affinity_build_f32(
-                P1.data_ptr(), P2.data_ptr(), A.data_ptr(), out[0].data_ptr(),
-                out[1].data_ptr(), m, code, *params, 1e-4, stream)
-        p_ms, c_ms, equal = compare(
-            f"affinity_build {kind}",
-            lambda: launch(parent_lib, outs["parent"]),
-            lambda: launch(_kernels.lib("affinity_build"), outs["change"]),
-            outs, dev, 10)
-        rows.append(dict(kernel="affinity_build", kind=kind, m=m,
-                         parent_ms=p_ms, ms=c_ms, equal_to_parent=equal))
-        print(f"affinity_build {kind} m={m} f32: parent {p_ms:.4f} ms, "
-              f"change {c_ms:.4f} ms; M and C byte-equal to the parent's: "
-              f"{equal}", flush=True)
+            def launch(lib, out):
+                return getattr(lib, fn)(
+                    P1.data_ptr(), P2.data_ptr(), A.data_ptr(),
+                    out[0].data_ptr(), out[1].data_ptr(), m, code, *params,
+                    1e-4, stream)
+            p_ms, c_ms, equal = compare(
+                f"affinity_build {kind} {name}",
+                lambda: launch(parent_lib, outs["parent"]),
+                lambda: launch(_kernels.lib("affinity_build"),
+                               outs["change"]), outs, dev, 10)
+            n_bytes = 2 * m * m * dtype.itemsize + 2 * m * d * \
+                dtype.itemsize + m * 2 * 4
+            n_ops = (m * (m - 1) // 2) * OPS_PER_PAIR[kind]
+            peak = F32_FLOPS if dtype == torch.float32 else F64_FLOPS
+            rows.append(dict(kernel="affinity_build", kind=kind, m=m,
+                             dtype=name, parent_ms=p_ms, ms=c_ms,
+                             bound_ms=max(n_bytes / HBM_BYTES_PER_S,
+                                          n_ops / peak) * 1e3,
+                             equal_to_parent=equal))
+            print(f"affinity_build {kind} m={m} {name}: parent {p_ms:.4f} "
+                  f"ms, change {c_ms:.4f} ms, bound "
+                  f"{rows[-1]['bound_ms']:.4f} ms; M and C byte-equal to "
+                  f"the parent's: {equal}", flush=True)
+            del outs
+        del pn
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -374,7 +394,8 @@ def probe_rows(parent_lib, dev, B: int = 512, m: int = 1024) -> list:
     inputs."""
     import torch
 
-    from clipper_tpu_torch.bench import build_probe
+    from clipper_tpu_torch.bench import build_probe, harness
+    from clipper_tpu_torch.invariants import kernel_score
 
     stream = torch.cuda.current_stream(dev).cuda_stream
     P1, P2, A = (torch.as_tensor(x, device=dev)
@@ -401,6 +422,27 @@ def probe_rows(parent_lib, dev, B: int = 512, m: int = 1024) -> list:
               f"change {c_ms:.4f} ms; byte-equal to the parent's: {equal}",
               flush=True)
         del outs
+    # the change's full beside kernel 4 on the same inputs, in turns
+    # (kernel 4, full, full, kernel 4), and whether the two are byte-equal
+    inv = harness.default_invariant()
+    code, _, params = kernel_score(inv)
+    outs = {k: (torch.empty(B, 2 * m, m, dtype=torch.int8, device=dev),)
+            for k in ("parent", "change")}
+    k4, full, equal = compare(
+        "build_probe full against kernel 4",
+        lambda: _kernels.lib("stored_build").stored_build_int8(
+            P1.data_ptr(), P2.data_ptr(), A.data_ptr(), mts.data_ptr(),
+            outs["parent"][0].data_ptr(), B, m, code, *params,
+            build_probe.AFFEPS, stream),
+        lambda: _kernels.lib("build_probe").build_probe_int8(
+            0, P1.data_ptr(), P2.data_ptr(), A.data_ptr(), mts.data_ptr(),
+            outs["change"][0].data_ptr(), B, m, build_probe.SIGMA,
+            build_probe.EPS, build_probe.AFFEPS, stream), outs, dev, 10)
+    rows.append(dict(kernel="build_probe", variant="full", B=B, m=m,
+                     kernel4_ms=k4, ms=full, equal_to_kernel4=equal))
+    print(f"build_probe full B={B} m={m}: {full:.4f} ms beside kernel 4's "
+          f"{k4:.4f} ms ({full / k4:.3f}x); byte-equal to kernel 4: {equal}",
+          flush=True)
     return rows
 
 

@@ -1,13 +1,16 @@
-"""Ablations of the flat-triangle builds (kernels 2 and 8, csrc/tri_build.cu
-and csrc/tri_build_fused.cu) on the card: where their time goes.
+"""Ablations of the builds on the pair body (kernels 2 and 8, csrc/
+tri_build.cu and csrc/tri_build_fused.cu; kernel 6, csrc/affinity_build.cu)
+on the card: where their time goes.
 
 Each variant is the builds' shared body (csrc/tri_pair_build.cuh) with one
-part switched off by a text edit, compiled into both kernels by their own
+part switched off by a text edit, compiled into each kernel by its own
 nvcc under build/clipper_tpu_torch/probe/tri_build/<kernel>/<variant>/,
-and timed through their C entry points (no wrapper) on
+and timed through its C entry points (no wrapper): kernels 2 and 8 on
 the W=512, m=1024 problems of ``chip_smoke.py``'s main path (the bunny at
 rho=0.9 and the point-normal scans; ``parent_ab.stored_inputs``), t=256,
-int8 and bf16 storage:
+int8 and bf16 storage; kernel 6 on ``chip_smoke.py`` phase 6's two
+problems (point-normal m=5000 at rho=0.8, the first bunny problem at
+m=1024), f32 and f64:
 
 - ``full``: the kernels as the package builds them;
 - ``firstpass``: the first pass alone (masks and the screen of the gate
@@ -20,7 +23,7 @@ anything. Run on a machine with the card:
     python -m clipper_tpu_torch.bench.tri_build_probe
 
 It prints the card's name and power limit, then one line per problem set
-and storage with each variant's ms, for kernel 2 and kernel 8.
+and storage with each variant's ms, for kernels 2, 8 and 6.
 """
 
 from __future__ import annotations
@@ -37,7 +40,7 @@ _SECOND = "  // the second pass:"
 _WRITE = "  write_staged<T, kStream>(here, M + p.at"
 _END = "}\n\n}  // namespace"
 # keeps the first pass's marks alive where the second pass is cut
-_KEEP = "  if (passed == 0x12345678u) here[0] = 1;\n  unit_sync(bar);\n"
+_KEEP = "  if (passed == 0x12345678u) here[0] = 1;\n  unit_sync<kN>(bar);\n"
 VARIANTS = ("full", "firstpass", "nowrite")
 
 
@@ -50,6 +53,61 @@ def variant_sources() -> Dict[str, str]:
     return {"full": src,
             "firstpass": _edit(src, cut, _KEEP),
             "nowrite": src[:src.index(_WRITE)] + src[src.index(_END):]}
+
+
+def dense_variant_files() -> Dict[str, Dict[str, str]]:
+    """Kernel 6's variants: the files (name -> text) each replaces."""
+    return {name: {_HEADER: src} for name, src in variant_sources().items()}
+
+
+def dense_rows(dev) -> list:
+    """Kernel 6's variants on chip_smoke.py phase 6's two problems, f32
+    and f64."""
+    import numpy as np
+    import torch
+
+    from clipper_tpu_torch.bench import harness, parent_ab
+    from clipper_tpu_torch.bench.harness import time_ms
+    from clipper_tpu_torch.invariants import kernel_score
+    from clipper_tpu_torch.ops.affinity import gather_endpoints
+
+    libs = build_edited("tri_build/affinity_build", "affinity_build",
+                        dense_variant_files(),
+                        ("affinity_build_f32", "affinity_build_f64"))
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    D1, D2, A, _ = harness.make_pointnormal_problem(
+        np.random.default_rng(0), n=2000, m=5000, rho=0.8)
+    At = torch.as_tensor(A, dtype=torch.int32, device=dev)
+    B1, B2, BA = parent_ab.stored_inputs("euclidean", 1, 1024, dev)
+    rows = []
+    for dtype, name in ((torch.float32, "f32"), (torch.float64, "f64")):
+        pn = gather_endpoints(torch.as_tensor(D1, dtype=dtype, device=dev),
+                              torch.as_tensor(D2, dtype=dtype, device=dev),
+                              At) + (At,)
+        for kind, inv, (P1, P2, Ak) in (
+                ("pointnormal", harness.pointnormal_invariant(), pn),
+                ("euclidean", harness.default_invariant(),
+                 (B1[0].to(dtype), B2[0].to(dtype), BA[0]))):
+            code, _, params = kernel_score(inv)
+            m = P1.shape[0]
+            M, C = (torch.empty(m, m, dtype=dtype, device=dev)
+                    for _ in range(2))
+            row = dict(kernel="affinity_build", kind=kind, dtype=name, m=m)
+            for v, lib in libs.items():
+                fn = getattr(lib, f"affinity_build_{name}")
+
+                def call(fn=fn):
+                    return fn(P1.data_ptr(), P2.data_ptr(), Ak.data_ptr(),
+                              M.data_ptr(), C.data_ptr(), m, code, *params,
+                              1e-4, stream)
+                _kernels.check(call(), f"tri_build_probe affinity_build {v}")
+                row[v] = time_ms(call, dev, 20)
+            rows.append(row)
+            print(f"affinity_build {kind} {name} m={m}: " + " | ".join(
+                f"{n} {row[n]:.4f} ms" for n in VARIANTS), flush=True)
+            del M, C
+        del pn
+    return rows
 
 
 def main(argv: List[str] = None) -> list:
@@ -103,7 +161,7 @@ def main(argv: List[str] = None) -> list:
                 print(f"{cu} {kind} {sname} W={W} m={m}: " + " | ".join(
                     f"{n} {row[n]:.4f} ms" for n in VARIANTS), flush=True)
             del out
-    return rows
+    return rows + dense_rows(dev)
 
 
 if __name__ == "__main__":

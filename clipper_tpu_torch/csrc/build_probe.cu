@@ -8,38 +8,42 @@
 // their gathered endpoints P1, P2 (B, m, 3) f32 and associations A
 // (B, m, 2) int32, with the masks of :100-115 (distinct, off-diagonal,
 // inside m, score > affeps), M = clip(rint(127 s), 0, 127) and C = 127
-// where kept. The variants (template instantiations of one body):
+// where kept. The variants, each the stacked build's kernel
+// (stored_pair_build.cuh, the kernel of kernel 4) with its score functor
+// swapped:
 //
 //   full      two sqrt, c = |l1 - l2|, exp(((-0.5 c) c) / s2) gated on
-//             c < eps: the production math, through EuclidScore<float>
-//             (euclid_score.cuh), so its output equals kernel 4's
-//             (stored_build.cu) byte for byte;
+//             c < eps: the production math, EuclidScore<float>
+//             (euclid_score.cuh), so this is kernel 4 (stored_build.cu)
+//             itself, byte for byte and launch for launch;
 //   sqrt1     c2 = max((q1 + q2) - 2 sqrt(q1 q2), 0), exp(c2 k) with
 //             k = -0.5 / s2, gated on c2 < eps^2;
 //   noexp     sqrt1's gate, writing the quantized c2;
 //   nosqrt    gated on (q1 - q2)^2 < eps^2, writing q1 - q2;
-//   writeonly zero tiles on the same grid and store pattern: the floor.
+//   writeonly NoScore: zero tiles through the same grid, staging and
+//             16-byte stores, no endpoint read: kernel 4's write floor.
 //
 // Only full's values mean anything; the others exist for their times. q1
 // and q2 are the squared distances summed in coordinate order, as in
 // ops/pairwise.py; built with --fmad=false, so the plain version
-// (bench/build_probe.build_probe_plain) repeats every rounding.
+// (bench/build_probe.build_probe_plain) repeats every rounding. Each
+// score is symmetric in (i, j) bit for bit (q1 and q2 are), so one
+// evaluation serves both triangles, as the kernel needs.
 //
 // What bounds it on this card: at B=512, m=1024 the 1.07 GB of int8
 // output, 0.32 ms at 3.35 TB/s, against ~30 f32 operations on each of the
-// 537 M entries, 0.24 ms at 67 TFLOP/s: bytes. Design: the stacked
-// build's two-pass body (stored_build_body.cuh: one block per (256
-// columns, 64 rows, problem), one step writing both halves, every pair
-// scored for each triangle as the JAX probe's kernel does; kernel 4 now
-// scores each pair once), with the score functor swapped; not the TPU's
-// (nT, nT, 2) grid with its C-scratch pass, nor its tile = min(1024, m)
-// that needed m to divide by the tile: edge blocks check their bounds.
+// 268 M distinct pairs, 0.12 ms at 67 TFLOP/s: bytes. Design: kernel 4's
+// (stored_pair_build.cuh: one block per unordered pair of 64 x 64 tiles,
+// each pair scored once, the tile and its transpose written as 16-byte
+// chunks); not the TPU's (nT, nT, 2) grid with its C-scratch pass, nor
+// its tile = min(1024, m) that needed m to divide by the tile: edge tiles
+// check their bounds.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "euclid_score.cuh"
-#include "stored_build_body.cuh"
+#include "stored_pair_build.cuh"
 
 namespace {
 
@@ -90,36 +94,6 @@ struct NosqrtScore {
   }
 };
 
-// writeonly: both halves of the block's rows set to 0, one byte a thread
-// a row, as the build body stores them
-__global__ void __launch_bounds__(kCols) zero_kernel(int8_t* __restrict__ out,
-                                                     int m) {
-  const int c0 = blockIdx.x * kCols;
-  const int r0 = blockIdx.y * kRows;
-  const int w = blockIdx.z;
-  const int rows = min(kRows, m - r0);
-  const int gc = c0 + threadIdx.x;
-  if (gc >= m) return;
-  int8_t* ob = out + (size_t)w * 2 * m * m;
-#pragma unroll 4
-  for (int i = 0; i < rows; ++i) {
-    const int gr = r0 + i;
-    ob[(size_t)gr * m + gc] = 0;
-    ob[(size_t)(m + gr) * m + gc] = 0;
-  }
-}
-
-template <typename Score>
-int launch(const Score& score, const void* P1, const void* P2, const void* A,
-           const void* m_trues, void* out, int B, int m, float affeps,
-           cudaStream_t stream) {
-  stored_build_kernel<Score, int8_t>
-      <<<stored_build_grid(B, m), kCols, 0, stream>>>(
-          score, (const float*)P1, (const float*)P2, (const int*)A,
-          (const int*)m_trues, (int8_t*)out, m, affeps);
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 
 extern "C" {
@@ -127,8 +101,9 @@ extern "C" {
 // variant: 0 full, 1 sqrt1, 2 noexp, 3 nosqrt, 4 writeonly (the order of
 // bench/build_probe.VARIANTS). P1, P2 (B, m, 3) f32; A (B, m, 2) int32;
 // m_trues (B,) int32 (m for every problem in the probe); out (B, 2m, m)
-// int8. sigma, eps, affeps as the JAX probe's constants; the squares and
-// the quotient are formed in double here, as the plain version forms them.
+// int8, 16-byte aligned. sigma, eps, affeps as the JAX probe's constants;
+// the squares and the quotient are formed in double here, as the plain
+// version forms them.
 int build_probe_int8(int variant, const void* P1, const void* P2,
                      const void* A, const void* m_trues, void* out, int B,
                      int m, double sigma, double eps, double affeps,
@@ -140,19 +115,21 @@ int build_probe_int8(int variant, const void* P1, const void* P2,
   switch (variant) {
     case 0: {
       const double p[4] = {sigma * sigma, eps, 0.0, 0.0};
-      return launch(EuclidScore<float>(p), P1, P2, A, m_trues, out, B, m, ae,
-                    st);
+      return launch_stored<int8_t>(EuclidScore<float>(p), P1, P2, A,
+                                   m_trues, out, B, m, ae, st);
     }
     case 1:
-      return launch(Sqrt1Score{pp}, P1, P2, A, m_trues, out, B, m, ae, st);
+      return launch_stored<int8_t>(Sqrt1Score{pp}, P1, P2, A, m_trues, out,
+                                   B, m, ae, st);
     case 2:
-      return launch(NoexpScore{pp}, P1, P2, A, m_trues, out, B, m, ae, st);
+      return launch_stored<int8_t>(NoexpScore{pp}, P1, P2, A, m_trues, out,
+                                   B, m, ae, st);
     case 3:
-      return launch(NosqrtScore{pp}, P1, P2, A, m_trues, out, B, m, ae, st);
+      return launch_stored<int8_t>(NosqrtScore{pp}, P1, P2, A, m_trues, out,
+                                   B, m, ae, st);
     case 4:
-      zero_kernel<<<stored_build_grid(B, m), kCols, 0, st>>>((int8_t*)out,
-                                                              m);
-      return (int)cudaGetLastError();
+      return launch_stored<int8_t>(NoScore{}, P1, P2, A, m_trues, out, B, m,
+                                   ae, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

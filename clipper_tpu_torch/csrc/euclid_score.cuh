@@ -122,6 +122,7 @@ __device__ __forceinline__ T gauss(T d, T s2) {
 template <typename T>
 struct EuclidScore {
   static constexpr int D = 3;
+  using Value = T;
   T s2, eps, mindist;
   float sk;  // screen_sq's k for eps
 
@@ -143,16 +144,25 @@ struct EuclidScore {
 
   // operator() in stages, for builds that run the exact score only
   // where it can be non-zero (tri_pair_build.cuh), on points and normals
-  // apart (3 values each): screen() (float only) takes the two squared
-  // lengths, sqdist3_fused of set 1's and set 2's points, and is false only
-  // where gate() fails for certain; gate() is the score's first part, the
-  // two lengths and c, and is false where the score is 0 whatever follows
-  // (c >= eps, or a length under mindist), v getting c; tail() is the
-  // rest for a pair that passed with v (Euclidean: no normals). Where
-  // gate() passes, tail() returns operator()'s value bit for bit; where
-  // it fails, operator() returns 0.
-  __device__ __forceinline__ bool screen(float q1, float q2) const {
-    return screen_sq(q1, q2, sk);
+  // apart (3 values each): screen() takes the pair's points and is false
+  // only where gate() fails for certain: in f32 screen_sq of the two
+  // squared lengths (sqdist3_fused, no square root), v untouched; in f64
+  // gate() itself, v getting gate()'s v (screen_sq's margin is derived
+  // for f32 lengths), so that a pair it passes needs no second gate
+  // (kExactScreen); gate() is the score's first part, the two lengths
+  // and c, and is false where the score is 0 whatever follows (c >= eps,
+  // or a length under mindist), v getting c; tail() is the rest for a
+  // pair that passed with v (Euclidean: no normals). Where gate()
+  // passes, tail() returns operator()'s value bit for bit; where it
+  // fails, operator() returns 0.
+  static constexpr bool kExactScreen = sizeof(T) == 8;
+  __device__ __forceinline__ bool screen(const T* r1, const T* c1,
+                                         const T* r2, const T* c2,
+                                         T& v) const {
+    if constexpr (kExactScreen)
+      return gate(r1, c1, r2, c2, v);
+    else
+      return screen_sq(sqdist3_fused(r1, c1), sqdist3_fused(r2, c2), sk);
   }
   __device__ __forceinline__ bool gate(const T* r1, const T* c1,
                                        const T* r2, const T* c2,

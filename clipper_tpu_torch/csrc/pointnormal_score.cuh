@@ -25,6 +25,7 @@ __device__ __forceinline__ T angle3(const T* a, const T* b) {
 template <typename T>
 struct PointNormalScore {
   static constexpr int D = 6;
+  using Value = T;
   T sp2, epsp, sn2, epsn;
   float sk;  // screen_sq's k for epsp
 
@@ -45,13 +46,19 @@ struct PointNormalScore {
     return (dp < epsp && dn < epsn) ? s : (T)0;
   }
 
-  // operator() in stages (see EuclidScore::gate): the screen and the gate
+  // operator() in stages (see EuclidScore::screen): the screen and the gate
   // take the two point distances and dp < epsp (v gets dp); the tail the
   // normals' two angles, dn < epsn and the product of the two gaussians,
   // which it forms only where dn < epsn (elsewhere operator() selects 0
   // too).
-  __device__ __forceinline__ bool screen(float q1, float q2) const {
-    return screen_sq(q1, q2, sk);
+  static constexpr bool kExactScreen = sizeof(T) == 8;
+  __device__ __forceinline__ bool screen(const T* r1, const T* c1,
+                                         const T* r2, const T* c2,
+                                         T& v) const {
+    if constexpr (kExactScreen)
+      return gate(r1, c1, r2, c2, v);
+    else
+      return screen_sq(sqdist3_fused(r1, c1), sqdist3_fused(r2, c2), sk);
   }
   __device__ __forceinline__ bool gate(const T* r1, const T* c1,
                                        const T* r2, const T* c2,

@@ -50,7 +50,7 @@ __global__ void __launch_bounds__(kThreads) tri_build_kernel(
     const int* __restrict__ m_trues, T* __restrict__ out, int m, int t,
     int n, int q, long long S, float affeps, bool vec) {
   constexpr int D = Score::D;
-  constexpr int R = Ends<D>::kFloats;
+  constexpr int R = Ends<D>::kVals;
   __shared__ __align__(16) PairStage<T> st;
   // endpoint records of the row sub-tile [0] and the column sub-tile [1]
   __shared__ __align__(16) float ends[2][kTile * R];
@@ -69,9 +69,10 @@ __global__ void __launch_bounds__(kThreads) tri_build_kernel(
     stage_ends<D>(p1, p2, a, p.gc0, p.cols, ends[1], tid, kTile);
   clear_stage(st, p.mirror, threadIdx.x);
   __syncthreads();
+  T* M = out + (size_t)w * (size_t)(2 * t) * (size_t)S;
   build_sub_pair<false>(score, ends[0], ends[p.diag ? 0 : 1], p, m_trues[w],
-                        affeps, out + (size_t)w * (size_t)(2 * t) * (size_t)S,
-                        S, t, vec, st, threadIdx.x, 0);
+                        affeps, M, M + (long long)t * S, S, vec, st,
+                        threadIdx.x, 0);
 }
 
 template <typename T, typename Score>

@@ -46,7 +46,7 @@ constexpr int kUnits = 8;  // units of kThreads threads a block
 template <typename T, int D>
 size_t fused_smem(int m, bool whole) {
   const size_t rows = whole ? (size_t)m + kTile : (size_t)kUnits * 2 * kTile;
-  return kUnits * sizeof(PairStage<T>) + rows * Ends<D>::kFloats * 4;
+  return kUnits * sizeof(PairStage<T>) + rows * Ends<D>::kVals * 4;
 }
 
 template <typename Score, typename T, bool kWhole>
@@ -68,10 +68,11 @@ __global__ void __launch_bounds__(kThreads * kUnits, 1)
   const float* p2 = P2 + (size_t)w * m * D;
   const int* a = A + (size_t)w * m * 2;
   T* M = out + (size_t)w * (size_t)(2 * t) * (size_t)S;
+  T* C = M + (long long)t * S;
   const int lim = m_trues[w];
   // the endpoint records: whole, m of them; else the unit's, its pair's
   // row sub-tile [0 .. kTile) and column sub-tile [kTile .. 2 kTile)
-  constexpr int R = Ends<D>::kFloats;
+  constexpr int R = Ends<D>::kVals;
   float* e = kWhole ? ends : ends + (size_t)unit * 2 * kTile * R;
   // the units claim pairs as they finish them (a mirrored pair writes
   // twice the bytes, a diagonal one scores half the pairs): unit u takes
@@ -87,7 +88,7 @@ __global__ void __launch_bounds__(kThreads * kUnits, 1)
     const SubPair p = sub_pair(k, n, q, t, m / t, S);
     if (kWhole) {
       build_sub_pair<true>(score, e + (size_t)p.gr0 * R,
-                           e + (size_t)p.gc0 * R, p, lim, affeps, M, S, t,
+                           e + (size_t)p.gc0 * R, p, lim, affeps, M, C, S,
                            vec, st, tid, bar);
     } else {
       // one row a thread, as tri_build.cu stages them
@@ -98,7 +99,7 @@ __global__ void __launch_bounds__(kThreads * kUnits, 1)
         stage_ends<D>(p1, p2, a, p.gc0, p.cols, e + kTile * R, row, kTile);
       unit_sync(bar);
       build_sub_pair<true>(score, e, e + (p.diag ? 0 : kTile * R), p, lim,
-                           affeps, M, S, t, vec, st, tid, bar);
+                           affeps, M, C, S, vec, st, tid, bar);
     }
     // the chunks this thread wrote out, zeroed for the next pair
     clear_written<T>(st.codes[0], tid);

@@ -1,17 +1,23 @@
-// The flat-triangle [M; C] build body that tri_build.cu (kernel 2, one
-// block per sub-tile pair) and tri_build_fused.cu (kernel 8, one block
-// per problem) both run, so that their outputs are identical by
-// construction.
+// The [M; C] build body of one pair of 64-row sub-tiles, which
+// tri_build.cu (kernel 2, one block per sub-tile pair) and
+// tri_build_fused.cu (kernel 8, one block per problem) run over the flat
+// triangle's address map, so that their outputs are identical by
+// construction, and affinity_build.cu (kernel 6) over the dense (m, m)
+// map of its own (dense_pair there).
 //
-// A problem's storage is (2t, S): upper t-tile (r, c) sits at column k t
-// (k its index in storage order), rows 0..t-1 of M, t..2t-1 of C. Numerics
-// follow the JAX build step by step, because they decide the +-1 int8
-// codes and the 0/127 C codes: the score functor's value s
+// A problem's flat storage is (2t, S): upper t-tile (r, c) sits at column
+// k t (k its index in storage order), rows 0..t-1 of M, t..2t-1 of C.
+// Numerics follow the JAX build step by step, because they decide the
+// +-1 int8 codes and the 0/127 C codes: the score functor's value s
 // (euclid_score.cuh, pointnormal_score.cuh), then
-//   keep = distinct & off-diagonal & row, col < m_true & s > (float)affeps;
+//   keep = distinct & off-diagonal & row, col < m_true & s > (V)affeps;
 // then store_put.cuh's step for the storage type: int8 M = clip(rint(127
 // s), 0, 127) (round half to even, as torch.round) and C = 127, or bf16
-// M = bf16(s) and C = 1 (flattri.py:529-533 of the JAX package).
+// M = bf16(s) and C = 1 (flattri.py:529-533 of the JAX package), or the
+// dense build's M = s and C = 1 in the score's own type V (f32 or f64,
+// affinity_pallas.py:68-81 of the JAX package). The endpoints, the score
+// and affeps are in V: f32 for the stored builds, f32 or f64 for the
+// dense one.
 //
 // Each distinct pair is scored once. Every t-tile is cut into q =
 // ceil(t / 64) sub-tiles of 64 rows (the last shorter where 64 does not
@@ -21,36 +27,39 @@
 // written once; inside one (I < J) its transpose, which lies in the same
 // t-tile, is written too; a diagonal sub-tile (I = J) scores i < j only
 // and writes (i, j) and (j, i), and its diagonal is 0 (keep needs
-// off-diagonal). This is exact: the score, the distinct mask and the
-// quantization are symmetric bit for bit (the coordinate differences of
-// one order are the exact negations of the other's; x y and y x round
-// alike).
+// off-diagonal). The dense map has no t-tiles: every pair I < J is
+// written in place and transposed. This is exact: the score, the distinct
+// mask and the quantization are symmetric bit for bit (the coordinate
+// differences of one order are the exact negations of the other's; x y
+// and y x round alike).
 //
 // The exact score runs only where it can be non-zero. A unit of 128
-// threads scores a pair of sub-tiles, each thread one column and 32 rows,
-// four a step, reading each row's endpoints and associations as two
-// broadcast 16-byte loads (Ends). A first pass tests the cheap masks
-// (distinct, i < j on a diagonal sub-tile, < m_true) and the functor's
-// screen of its gate, from the two squared lengths alone (no square
-// root; euclid_score.cuh, screen_sq), false only where the gate fails for
-// certain. A pair that fails either keeps the stage's cleared code, M =
-// C = 0 (or gets C's code alone where 0 > affeps keeps a zero score); a
-// bit a row marks the rest. A second pass, apart from the first's
-// arithmetic, hands the warp's marked pairs out 32 at a time, one a lane,
-// in a fixed order (a
-// prefix sum of the lanes' counts by shuffles; no atomics), and each lane
-// runs the exact score in stages: the gate (the two correctly rounded
-// lengths and their bound) and, where it passes, the tail (exp, the IEEE
-// division and, point-normal, the two acos), reading both endpoints of
-// the pair from shared memory. So the exact score's cost follows the
-// share of pairs that pass the screen, not the share of warps holding
-// one. The stages run the same functions on the same f32 values as
+// threads (kernels 2 and 8; 512 in kernel 6, 8 rows each) scores a pair of
+// sub-tiles, each thread one column and 32 rows, four a step, reading each
+// row's endpoints and associations as two broadcast 16-byte loads in f32
+// (four in f64; Ends). A first pass tests the cheap masks (distinct, i < j
+// on a diagonal sub-tile, < m_true) and the functor's screen of its gate,
+// false only where the gate fails for certain: in f32 from the two squared
+// lengths alone (no square root; euclid_score.cuh, screen_sq), in f64 the
+// exact gate itself, whose value the pair's stage cell keeps for the
+// second pass (kExactScreen). A pair that fails either keeps the stage's
+// cleared
+// code, M = C = 0 (or gets C's code alone where 0 > affeps keeps a zero
+// score); a bit a row marks the rest. A second pass, apart from the
+// first's arithmetic, hands the warp's marked pairs out 32 at a time, one
+// a lane, in a fixed order (a prefix sum of the lanes' counts by shuffles;
+// no atomics), and each lane runs the exact score in stages: the gate (the
+// two correctly rounded lengths and their bound; in f64 already run) and,
+// where it passes, the tail (exp, the IEEE division and, point-normal, the two acos), reading
+// both endpoints of the pair from shared memory. So the exact score's cost
+// follows the share of pairs that pass the screen, not the share of warps
+// holding one. The stages run the same functions on the same values as
 // operator() (built with --fmad=false), so the codes are its codes. Each
 // code, with C's in its top bit, is staged in shared memory (and
 // transposed where mirrored), then written as 16-byte chunks of M and C,
 // consecutive threads on consecutive chunks (staged_codes.cuh's
-// write_staged); where t gives rows of another length the write goes
-// value by value.
+// write_staged); where rows are of another length the write goes value by
+// value.
 
 #pragma once
 
@@ -63,15 +72,15 @@
 namespace {
 
 constexpr int kMaxTile = 256;  // the largest t the kernels take
-static_assert(kRowsPer == 32, "a thread's rows take a bit each of a word");
 
 // Where sub-tile pair (I, J) of a problem goes.
 struct SubPair {
   int rows, cols;  // rows of sub-tile I, columns of sub-tile J
   int gr0, gc0;    // their first associations
   bool diag;       // I = J
-  bool mirror;     // I < J inside one t-tile: the transpose is stored too
-  long long at;    // (row 0, column 0) in the problem's M half
+  bool mirror;     // the transpose is stored too (flat: I < J inside one
+                   // t-tile; dense: I < J)
+  long long at;    // (row 0, column 0) in the problem's M and C halves
   long long at_t;  // (row 0, column 0) of the transpose (mirror only)
 };
 
@@ -94,42 +103,54 @@ __device__ __forceinline__ SubPair sub_pair(int k, int n, int q, int t,
   return p;
 }
 
-// How a build keeps endpoints in shared memory: one record of kFloats
-// floats a row, 16-byte aligned, [x1 y1 z1 x2 | y2 z2 a0 a1] (set 1's
-// point at 0, set 2's at 3, the association's two ids at 6 as int bits),
-// and for point-normal scores (D = 6) [n1 | n2 0 0] after it (set 1's
-// normal at 8, set 2's at 11).
+// How a build keeps endpoints in shared memory: one record of kVals
+// values (f32 or f64) a row, 16-byte aligned, [x1 y1 z1 x2 y2 z2 a0 a1]
+// (set 1's point at 0, set 2's at 3, the association's two ids at 6 as
+// int bits), and for point-normal scores (D = 6) [n1 n2 0 0] after it
+// (set 1's normal at 8, set 2's at 11).
 template <int D>
 struct Ends {
-  static constexpr int kFloats = D == 3 ? 8 : 16;
+  static constexpr int kVals = D == 3 ? 8 : 16;
   static constexpr int kNormal = D == 3 ? 0 : 8;  // 0: no normals
 };
 
-// Copy rows [g0, g0 + n) of a problem's endpoints (D floats each, in
+// an association id in a record's slot, as int bits, and back
+__device__ __forceinline__ float id_slot(int a, float) {
+  return __int_as_float(a);
+}
+__device__ __forceinline__ double id_slot(int a, double) {
+  return __longlong_as_double((long long)a);
+}
+__device__ __forceinline__ int id_of(float x) { return __float_as_int(x); }
+__device__ __forceinline__ int id_of(double x) {
+  return (int)__double_as_longlong(x);
+}
+
+// Copy rows [g0, g0 + n) of a problem's endpoints (D values each, in
 // p1 and p2) and associations (a) into records at e, one row a thread
 // (tid of nthreads).
-template <int D>
-__device__ __forceinline__ void stage_ends(const float* p1, const float* p2,
+template <int D, typename V>
+__device__ __forceinline__ void stage_ends(const V* p1, const V* p2,
                                            const int* a, int g0, int n,
-                                           float* e, int tid, int nthreads) {
-  constexpr int R = Ends<D>::kFloats;
+                                           V* e, int tid, int nthreads) {
+  constexpr int R = Ends<D>::kVals;
   for (int q = tid; q < n; q += nthreads) {
     const size_t g = (size_t)(g0 + q);
-    float* r = e + q * R;
+    V* r = e + q * R;
 #pragma unroll
     for (int k = 0; k < 3; ++k) {
       r[k] = p1[g * D + k];
       r[3 + k] = p2[g * D + k];
     }
-    r[6] = __int_as_float(a[g * 2]);
-    r[7] = __int_as_float(a[g * 2 + 1]);
+    r[6] = id_slot(a[g * 2], V());
+    r[7] = id_slot(a[g * 2 + 1], V());
     if constexpr (D == 6) {
 #pragma unroll
       for (int k = 0; k < 3; ++k) {
         r[8 + k] = p1[g * D + 3 + k];
         r[11 + k] = p2[g * D + 3 + k];
       }
-      r[14] = r[15] = 0.f;
+      r[14] = r[15] = V(0);
     }
   }
 }
@@ -141,14 +162,15 @@ struct PairStage {
 };
 
 // Zero the unit's staged codes, the in-place half or both, by its threads
-// (tid of kThreads). The caller puts a unit barrier between it and
+// (tid of nthreads). The caller puts a unit barrier between it and
 // build_sub_pair.
 template <typename T>
 __device__ __forceinline__ void clear_stage(PairStage<T>& st, bool both,
-                                            int tid) {
+                                            int tid,
+                                            int nthreads = kThreads) {
   constexpr int kQuads = Staged<T>::kBytes / 16;
   uint4* c = reinterpret_cast<uint4*>(st.codes[0]);
-  for (int q = tid; q < (both ? 2 : 1) * kQuads; q += kThreads)
+  for (int q = tid; q < (both ? 2 : 1) * kQuads; q += nthreads)
     c[q] = make_uint4(0u, 0u, 0u, 0u);
 }
 
@@ -164,16 +186,22 @@ __device__ __forceinline__ void clear_written(uint8_t* src, int tid) {
                               q % kChunks * 16) = make_uint4(0u, 0u, 0u, 0u);
 }
 
-// the barrier of the unit's kThreads threads (id 0 where a block is one
-// unit)
+// the barrier of the unit's kN threads (id 0 where a block is one unit)
+template <int kN = kThreads>
 __device__ __forceinline__ void unit_sync(int id) {
-  asm volatile("bar.sync %0, %1;" ::"r"(id), "n"(kThreads) : "memory");
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "n"(kN) : "memory");
 }
 
-// two 16-byte quads from shared memory at e into registers at r
+// eight values of a record from shared memory at e into registers at r,
+// as 16-byte loads: two in f32, four in f64
 __device__ __forceinline__ void load_quads(float* r, const float* e) {
   reinterpret_cast<float4*>(r)[0] = reinterpret_cast<const float4*>(e)[0];
   reinterpret_cast<float4*>(r)[1] = reinterpret_cast<const float4*>(e)[1];
+}
+__device__ __forceinline__ void load_quads(double* r, const double* e) {
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    reinterpret_cast<double2*>(r)[k] = reinterpret_cast<const double2*>(e)[k];
 }
 
 // the place of the r-th set bit (from 0) of x, which has more than r
@@ -194,20 +222,28 @@ __device__ __forceinline__ int nth_bit(uint32_t x, int r) {
 // Score, stage and write sub-tile pair p. rows, cols: the Ends records of
 // its rows and of its columns, in shared memory, kTile records readable
 // from each (only the first p.rows and p.cols are read for their values);
-// M: the problem's M half (C is t rows below); st: all zero, and no
-// thread still reading it, as of the unit's last barrier. Every thread of
-// the unit calls it (tid its index in the unit, bar the unit's barrier;
-// kStream: write_staged's); it leaves the stage free for the next pair
-// only after the caller's next unit_sync.
-template <bool kStream, typename Score, typename T>
+// M, C: the problem's M and C halves, rows ld values apart (p.at and
+// p.at_t are offsets into both); st: all zero, and no thread still
+// reading it, as of the unit's last barrier. Every thread of the unit
+// calls it (tid its index in the unit, bar the unit's barrier; kStream:
+// write_staged's); it leaves the stage free for the next pair only after
+// the caller's next unit_sync. kN: the unit's threads, each taking one
+// column and kTile * kTile / kN of its rows (32 in a unit of 128).
+template <bool kStream, typename Score, typename T, int kN = kThreads>
 __device__ __forceinline__ void build_sub_pair(
-    const Score& score, const float* rows, const float* cols,
-    const SubPair& p, int lim, float affeps, T* __restrict__ M, long long S,
-    int t, bool vec, PairStage<T>& st, int tid, int bar) {
+    const Score& score, const typename Score::Value* rows,
+    const typename Score::Value* cols, const SubPair& p, int lim,
+    typename Score::Value affeps, T* __restrict__ M, T* __restrict__ C,
+    long long ld, bool vec, PairStage<T>& st, int tid, int bar) {
+  using V = typename Score::Value;
   using St = Staged<T>;
-  constexpr int R = Ends<Score::D>::kFloats;
+  using Bits = typename St::Bits;
+  constexpr int R = Ends<Score::D>::kVals;
   constexpr int kNormal = Ends<Score::D>::kNormal;
-  const int j = tid % kTile, i0 = tid / kTile * kRowsPer;
+  constexpr int kRows = kTile * kTile / kN;  // a thread's rows
+  static_assert(kRows <= 32 && kRows % kStep == 0,
+                "a thread's rows take a bit each of a word, kStep a step");
+  const int j = tid % kTile, i0 = tid / kTile * kRows;
   const int lane = tid % 32;
   uint8_t* here = st.codes[0];
   uint8_t* there = p.diag ? st.codes[0] : st.codes[1];
@@ -215,19 +251,19 @@ __device__ __forceinline__ void build_sub_pair(
   // the rows below it are live: in the sub-tile, below m_true, and on a
   // diagonal sub-tile above the diagonal (i < j)
   const int row_lim = min(min(p.rows, lim - p.gr0), p.diag ? j : kTile);
-  // the column's points and ids (its record's first two quads)
-  float c1[3] = {0.f, 0.f, 0.f}, c2[3] = {0.f, 0.f, 0.f};
+  // the column's points and ids (its record's first eight values)
+  V c1[3] = {V(0), V(0), V(0)}, c2[3] = {V(0), V(0), V(0)};
   int ca0 = 0, ca1 = 0;
   if (j < p.cols) {
-    const float4 a = reinterpret_cast<const float4*>(cols + j * R)[0];
-    const float4 b = reinterpret_cast<const float4*>(cols + j * R)[1];
-    c1[0] = a.x, c1[1] = a.y, c1[2] = a.z;
-    c2[0] = a.w, c2[1] = b.x, c2[2] = b.y;
-    ca0 = __float_as_int(b.z), ca1 = __float_as_int(b.w);
+    V c[8];
+    load_quads(c, cols + j * R);
+    c1[0] = c[0], c1[1] = c[1], c1[2] = c[2];
+    c2[0] = c[3], c2[1] = c[4], c2[2] = c[5];
+    ca0 = id_of(c[6]), ca1 = id_of(c[7]);
   }
   // the code of a pair the masks keep whose score is 0: put(keep = 0 >
   // affeps, 0) gives M = 0 and C's code alone
-  const uint32_t zero = 0.f > affeps ? St::kFlag : 0u;
+  const Bits zero = V(0) > affeps ? St::kFlag : Bits(0);
 
   // the first pass: masks and screen; passed: the rows whose pair the
   // screen passed, bit e for row i0 + e. The stage holds 0 (clear_stage),
@@ -235,20 +271,22 @@ __device__ __forceinline__ void build_sub_pair(
   // until its exact score stages its code.
   uint32_t passed = 0u;
 #pragma unroll 1
-  for (int e0 = 0; e0 < kRowsPer; e0 += kStep) {
+  for (int e0 = 0; e0 < kRows; e0 += kStep) {
 #pragma unroll
     for (int k = 0; k < kStep; ++k) {
       const int i = i0 + e0 + k;
       // (rows past p.rows hold stale records, which live rules out)
-      const float4 a = reinterpret_cast<const float4*>(rows + i * R)[0];
-      const float4 b = reinterpret_cast<const float4*>(rows + i * R)[1];
+      V r[8];
+      load_quads(r, rows + i * R);
       const bool live = col_live && i < row_lim &&
-                        !(__float_as_int(b.z) == ca0 ||
-                          __float_as_int(b.w) == ca1);
-      const float r1[3] = {a.x, a.y, a.z}, r2[3] = {a.w, b.x, b.y};
-      const bool pass = live && score.screen(sqdist3_fused(r1, c1),
-                                             sqdist3_fused(r2, c2));
+                        !(id_of(r[6]) == ca0 || id_of(r[7]) == ca1);
+      const V r1[3] = {r[0], r[1], r[2]}, r2[3] = {r[3], r[4], r[5]};
+      V v;
+      const bool pass = live && score.screen(r1, c1, r2, c2, v);
       passed |= (uint32_t)pass << (e0 + k);
+      // an exact screen's v waits in the pair's own cell for the tail
+      if constexpr (Score::kExactScreen)
+        if (pass) reinterpret_cast<V*>(here + i * St::kPitch)[j] = v;
       if (zero && live && !pass) {
         T pv;
         from_bits(&pv, zero);
@@ -262,6 +300,7 @@ __device__ __forceinline__ void build_sub_pair(
   // the second pass: the warp's marked pairs in order (lane by lane, row
   // by row), 32 at a time; lane x takes number b0 + x, whose owner is the
   // last lane with at most b0 + x marked pairs before it
+  if constexpr (Score::kExactScreen) __syncwarp();  // the owners' v
   const int mine = __popc(passed);
   int upto = mine;  // the marked pairs of the lanes up to this one
 #pragma unroll
@@ -284,12 +323,21 @@ __device__ __forceinline__ void build_sub_pair(
     if (g >= total) continue;
     const int i = i0 + nth_bit(bits, g - from), jj = j0 + owner;
     // the quads of the pair's records that the score reads, as 16-byte
-    // loads: points first, normals where the gate passes
-    float ri[8], cj[8];
-    load_quads(ri, rows + i * R);
-    load_quads(cj, cols + jj * R);
-    float v, s = 0.f;
-    if (score.gate(ri, cj, ri + 3, cj + 3, v)) {
+    // loads: points first, normals where the gate passes; after an exact
+    // screen the gate has passed, and v is the pair's staged value
+    V ri[8], cj[8];
+    V v, s = V(0);
+    bool gated;
+    if constexpr (Score::kExactScreen) {
+      static_assert(sizeof(T) == sizeof(V), "v is staged in a code's cell");
+      v = reinterpret_cast<const V*>(here + i * St::kPitch)[jj];
+      gated = true;
+    } else {
+      load_quads(ri, rows + i * R);
+      load_quads(cj, cols + jj * R);
+      gated = score.gate(ri, cj, ri + 3, cj + 3, v);
+    }
+    if (gated) {
       if constexpr (kNormal != 0) {
         load_quads(ri, rows + i * R + kNormal);
         load_quads(cj, cols + jj * R + kNormal);
@@ -300,19 +348,18 @@ __device__ __forceinline__ void build_sub_pair(
     T mv, cv;
     put(&mv, &cv, keep, s);
     T pv;
-    from_bits(&pv, bits_of(mv) | (keep ? St::kFlag : 0u));
+    from_bits(&pv, bits_of(mv) | (keep ? St::kFlag : Bits(0)));
     reinterpret_cast<T*>(here + i * St::kPitch)[jj] = pv;
     if (p.diag || p.mirror)
       reinterpret_cast<T*>(there + jj * St::kPitch)[i] = pv;
   }
-  unit_sync(bar);
+  unit_sync<kN>(bar);
 
-  write_staged<T, kStream>(here, M + p.at, M + p.at + (long long)t * S,
-                           (size_t)S, p.rows, p.cols, vec, tid);
+  write_staged<T, kStream>(here, M + p.at, C + p.at, (size_t)ld, p.rows,
+                           p.cols, vec, tid, kN);
   if (p.mirror)
-    write_staged<T, kStream>(st.codes[1], M + p.at_t,
-                             M + p.at_t + (long long)t * S, (size_t)S,
-                             p.cols, p.rows, vec, tid);
+    write_staged<T, kStream>(st.codes[1], M + p.at_t, C + p.at_t,
+                             (size_t)ld, p.cols, p.rows, vec, tid, kN);
 }
 
 }  // namespace

@@ -4,7 +4,8 @@ Counterpart of ``clipper_tpu/ops/affinity_pallas.py``:
 
 - :func:`build_affinity_pallas` (:42-104): one problem's dense (m, m) M
   (zero diagonal) and 0/1 C in the working precision, from gathered
-  endpoints; csrc/affinity_build.cu on the card, and
+  endpoints; csrc/affinity_build.cu on the card (each distinct pair
+  scored once, :func:`dense_tile_pair` its placement), and
   ``ops.affinity.pairwise_from_endpoints`` as its plain version;
 - :func:`score_consistency_stored_pallas` (:107-242): the (2m, m) [M; C]
   storage of each problem in int8 codes (C = 127) or bf16 (C = 1), both
@@ -24,7 +25,7 @@ their edge tiles instead of padding. A failed build or launch raises.
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -34,6 +35,8 @@ from clipper_tpu_torch.invariants.base import PairwiseInvariant
 from clipper_tpu_torch.ops.affinity import (gather_endpoints,
                                             pairwise_from_endpoints,
                                             stored_from_endpoints)
+
+_TILE = 64      # rows and columns of the build kernels' tiles
 
 
 def affinity_build_cuda(invariant: PairwiseInvariant, P1, P2, A, *,
@@ -97,6 +100,38 @@ def stored_tile_pair(k: int, n: int) -> Tuple[int, int]:
     elif (i + 1) * n - (i + 1) * i // 2 <= k:
         i += 1
     return i, k - (i * n - i * (i - 1) // 2) + i
+
+
+class SubPair(NamedTuple):
+    """Where one pair of 64-row tiles goes in a build kernel's output
+    (csrc/tri_pair_build.cuh: SubPair): ``rows`` of tile I by ``cols``
+    of tile J starting at association ``gr0`` / ``gc0``; ``diag`` (I = J:
+    its pairs i < j, both orders written); ``mirror`` (its transpose is
+    written too); ``at`` / ``at_t``: flat offsets of (row 0, column 0)
+    and of the transpose's in the M half (the flat triangle's (t, S), or
+    the dense (m, m))."""
+    rows: int
+    cols: int
+    gr0: int
+    gc0: int
+    diag: bool
+    mirror: bool
+    at: int
+    at_t: int
+
+
+def dense_tile_pair(k: int, m: int) -> SubPair:
+    """Block k's tile pair in the dense build kernel (csrc/
+    affinity_build.cu: dense_pair), step for step: the unordered pair (I
+    <= J) of the n = ceil(m / 64) tiles a side (:func:`stored_tile_pair`),
+    written in place and, off the diagonal, transposed into the (m, m) M
+    and C."""
+    n = -(-m // _TILE)
+    i, j = stored_tile_pair(k, n)
+    gr0, gc0 = i * _TILE, j * _TILE
+    return SubPair(rows=min(_TILE, m - gr0), cols=min(_TILE, m - gc0),
+                   gr0=gr0, gc0=gc0, diag=i == j, mirror=i != j,
+                   at=gr0 * m + gc0, at_t=gc0 * m + gr0)
 
 
 def stored_build_cuda(invariant: PairwiseInvariant, P1s, P2s, As, m_trues,
@@ -178,6 +213,6 @@ def score_consistency_stored_pallas(invariant: PairwiseInvariant, D1, D2, A,
     return out[0] if single else out
 
 
-__all__ = ["affinity_build_cuda", "build_affinity_pallas", "stored_build",
-           "stored_build_cuda", "stored_tile_pair",
-           "score_consistency_stored_pallas"]
+__all__ = ["SubPair", "affinity_build_cuda", "build_affinity_pallas",
+           "dense_tile_pair", "stored_build", "stored_build_cuda",
+           "stored_tile_pair", "score_consistency_stored_pallas"]

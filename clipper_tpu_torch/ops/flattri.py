@@ -37,7 +37,8 @@ import torch
 from clipper_tpu_torch import _kernels
 from clipper_tpu_torch.invariants import kernel_score
 from clipper_tpu_torch.invariants.base import PairwiseInvariant
-from clipper_tpu_torch.ops.affinity_pallas import stored_tile_pair
+from clipper_tpu_torch.ops.affinity_pallas import (SubPair,
+                                                   stored_tile_pair)
 from clipper_tpu_torch.ops.affinity import (pairwise_from_endpoints,
                                             stored_from_endpoints)
 from clipper_tpu_torch.solvers.msrc_flat import _INT8_SCALE
@@ -257,23 +258,6 @@ def build_tri_plain(invariant: PairwiseInvariant, P1s, P2s, As, m_trues, *,
                 storage_dtype=storage_dtype)
         parts.append(repack_stacked(MC, t))
     return torch.cat(parts) if len(parts) > 1 else parts[0]
-
-
-class SubPair(NamedTuple):
-    """Where one pair of sub-tiles goes in a problem's (2t, S) storage:
-    ``rows`` of sub-tile I by ``cols`` of sub-tile J starting at
-    association ``gr0`` / ``gc0``; ``diag`` (I = J: its pairs i < j, both
-    orders written); ``mirror`` (I < J inside one t-tile: its transpose is
-    written too); ``at`` / ``at_t``: flat offsets of (row 0, column 0) and
-    of the transpose's in the M half."""
-    rows: int
-    cols: int
-    gr0: int
-    gc0: int
-    diag: bool
-    mirror: bool
-    at: int
-    at_t: int
 
 
 def tri_sub_tiles(t: int) -> int:

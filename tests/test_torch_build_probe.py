@@ -143,3 +143,20 @@ def test_cuda_wrapper_rejects_cpu_and_unknown_variants():
         bp.build_probe_cuda("full", P1, P2, A)
     with pytest.raises(ValueError, match="unknown variant"):
         bp.build_probe_plain("fast", P1, P2, A)
+
+
+@pytest.mark.parametrize("variant", bp.VARIANTS)
+def test_plain_halves_symmetric_bit_for_bit(variant):
+    """Every variant's M and C halves equal their transposes bit for bit,
+    on the probe's own draws and on bunny problems (m = 200, no tile
+    divides it): the premise of the kernel's scoring each pair once and
+    writing the tile and its transpose from one score."""
+    m = 200
+    probe = [torch.from_numpy(x) for x in bp.make_inputs(2, m, seed=4)]
+    _, _, As, P1, P2 = _bunny(m, seed=11)
+    bunny = [torch.from_numpy(x) for x in (P1, P2, As)]
+    for P1t, P2t, At in (probe, bunny):
+        out = bp.build_probe_plain(variant, P1t, P2t, At)
+        for half in (out[:, :m], out[:, m:]):
+            assert torch.equal(half, half.transpose(1, 2))
+        assert bool(out[:, m:].any()) == (variant != "writeonly")

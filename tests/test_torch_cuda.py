@@ -417,33 +417,62 @@ def test_pointnormal_builds_match_plain(cuda):
         assert torch.equal(h, h.transpose(1, 2))
 
 
+def _bits(x):
+    """A float tensor's bits, for byte equality (-0.0 and NaN included)."""
+    return x.view(torch.int32 if x.dtype == torch.float32 else torch.int64)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind", ["euclidean", "pointnormal"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("m", [256, 203])
+@pytest.mark.parametrize("m", [1, 63, 64, 65, 203, 256, 1000])
 def test_affinity_build_kernel_matches_plain(cuda, kind, dtype, m):
-    """Kernel 6 against its plain version on the card (m=203: ragged edge
-    tiles): M and C equal (the same IEEE steps and CUDA library
-    functions), zero diagonal; one launch."""
+    """Kernel 6 against its plain version on the card, M and C byte-equal
+    (the same IEEE steps and CUDA library functions), a zero diagonal,
+    one launch a call, a rerun bit-identical: on the gate-edge plants in
+    the working precision (harness.gate_boundary_endpoints) and, from
+    m=203, on a bunny or point-normal problem, with affinityeps 1e-4, 0
+    and -1 (C = 1 on the zero-score distinct pairs); m=1, 63, 64, 65 and
+    203 put the tiles' edges and the unaligned rows (m % 4, m odd) to
+    work."""
     if kind == "euclidean":
-        pcd0, D2s, As, _ = _problems(1, m, seed=12)
-        D1, D2, A = pcd0, D2s[0], As[0]
         inv = harness.default_invariant()
     else:
-        D1s, D2s, As = _pointnormal_problems(1, m, seed=12)
-        D1, D2, A = D1s[0], D2s[0], As[0]
         inv = harness.pointnormal_invariant()
-    At = torch.from_numpy(A).to(cuda)
-    P1, P2 = gather_endpoints(torch.from_numpy(D1).to(cuda, dtype),
-                              torch.from_numpy(D2).to(cuda, dtype), At)
-    before = _kernels.LAUNCHES["affinity_build"]
-    M, C = affinity_pallas.build_affinity_pallas(inv, P1, P2, At)
-    assert _kernels.LAUNCHES["affinity_build"] == before + 1
-    Mp, Cp = affinity_pallas.pairwise_from_endpoints(inv, P1, P2, At)
-    assert M.dtype == C.dtype == dtype and M.shape == (m, m)
-    assert torch.equal(C, Cp) and int((C > 0).sum()) > m
-    assert not M.diagonal().any()
-    assert torch.equal(M, Mp)
+    P1, P2, A, plants = harness.gate_boundary_endpoints(
+        inv, 1, m, 12 + m, dtype=np.float64 if dtype == torch.float64
+        else np.float32)
+    inputs = [tuple(torch.from_numpy(x[0]).to(cuda) for x in (P1, P2, A))]
+    if m >= 203:
+        if kind == "euclidean":
+            pcd0, D2s, As, _ = _problems(1, m, seed=12)
+            D1, D2, A = pcd0, D2s[0], As[0]
+        else:
+            D1s, D2s, As = _pointnormal_problems(1, m, seed=12)
+            D1, D2, A = D1s[0], D2s[0], As[0]
+        At = torch.from_numpy(A).to(cuda)
+        inputs.append(gather_endpoints(torch.from_numpy(D1).to(cuda, dtype),
+                                       torch.from_numpy(D2).to(cuda, dtype),
+                                       At) + (At,))
+    for P1, P2, At in inputs:
+        for affeps in (1e-4, 0.0, -1.0):
+            before = _kernels.LAUNCHES["affinity_build"]
+            M, C = affinity_pallas.build_affinity_pallas(
+                inv, P1, P2, At, affinityeps=affeps)
+            assert _kernels.LAUNCHES["affinity_build"] == before + 1
+            Mp, Cp = affinity_pallas.pairwise_from_endpoints(
+                inv, P1, P2, At, affinityeps=affeps)
+            assert M.dtype == C.dtype == dtype and M.shape == (m, m)
+            assert torch.equal(_bits(C), _bits(Cp))
+            assert torch.equal(_bits(M), _bits(Mp))
+            assert not M.diagonal().any() and not C.diagonal().any()
+            if m >= 203:
+                assert int((C > 0).sum()) > m
+            M2, C2 = affinity_pallas.affinity_build_cuda(
+                inv, P1, P2, At, affinityeps=affeps)
+            assert torch.equal(_bits(M2), _bits(M))
+            assert torch.equal(_bits(C2), _bits(C))
+    assert m < 203 or len(plants) >= 10
 
 
 @pytest.mark.cuda
@@ -489,13 +518,14 @@ def test_tri_tiles_kernel_matches_plain(cuda, storage, t):
 
 
 @pytest.mark.cuda
-def test_build_probe_kernel_matches_plain(cuda):
-    """The five variants of the build probe at B=4, m=1000 (an edge tile):
-    full byte-equal to kernel 4 and to its plain version, writeonly all
-    zeros, sqrt1, noexp and nosqrt with the C half exact and M codes
-    within one of their plain versions (0 expected: the same IEEE f32
-    steps); one launch a call."""
-    B, m = 4, 1000
+@pytest.mark.parametrize("m", [65, 1000, 1024])
+def test_build_probe_kernel_matches_plain(cuda, m):
+    """The five variants of the build probe at B=4 (m=65 and 1000: edge
+    tiles, rows of no 16-byte multiple): full byte-equal to kernel 4 and
+    to its plain version, writeonly all zeros, and every variant with the
+    C half byte-equal to its plain version and M codes within one (0
+    expected: the same IEEE f32 steps); one launch a call."""
+    B = 4
     P1, P2, A = (torch.from_numpy(x).to(cuda)
                  for x in build_probe.make_inputs(B, m, seed=2))
     ref = affinity_pallas.stored_build_cuda(
@@ -513,6 +543,8 @@ def test_build_probe_kernel_matches_plain(cuda):
             assert torch.equal(got, ref) and torch.equal(got, plain)
         if variant == "writeonly":
             assert not got.any()
+        else:
+            assert bool(got[:, m:].any())
 
 
 def _random_tri(P, t, nt, storage, cuda, seed):
@@ -781,3 +813,17 @@ def test_tri_build_probe_edits_apply():
     for cu in ("tri_build.cu", "tri_build_fused.cu"):
         assert '#include "tri_pair_build.cuh"' in (_kernels.CSRC
                                                    / cu).read_text()
+
+
+def test_dense_build_probe_edits_apply():
+    """Kernel 6's probe variants are the body's edits, in the header the
+    kernel builds from."""
+    from clipper_tpu_torch.bench import tri_build_probe
+    files = tri_build_probe.dense_variant_files()
+    assert set(files) == set(tri_build_probe.VARIANTS)
+    cu = (_kernels.CSRC / "affinity_build.cu").read_text()
+    assert '#include "tri_pair_build.cuh"' in cu
+    body = (_kernels.CSRC / "tri_pair_build.cuh").read_text()
+    assert files["full"] == {"tri_pair_build.cuh": body}
+    for name in ("firstpass", "nowrite"):
+        assert files[name]["tri_pair_build.cuh"] != body
