@@ -175,13 +175,40 @@ Phases, each of which must pass (any failure exits non-zero):
               grid), pool_ab (W=128, all five configurations), tickstats
               (B=128), gridcell_probe (8 problems at m=2048), mixed_bench
               (8 a size, 1 rep), multistart_bench (W=32, K=4, 1 rep),
-              symstore_bench (m=8192, --mv-only) and symshard_bench
-              (m=8192 on a 1-rank NCCL group); then the harness's
+              symstore_bench (m=8192, --mv-only), symshard_bench
+              (m=8192 on a 1-rank NCCL group) and blocksparse_bench
+              (m=2048, k=4 objects); then the harness's
               run_grid at m=1024, rho=0.9 (4 trials, the dense build
               kernel launched) and one run_pointnormal_trial (m=5000).
               Each prints its launch counts and finite P/R; the rows at
               the bench protocol's point (m=1024, rho=0.9) meet
               P >= 0.995 and R >= 0.88 (the dense engine's R >= 0.85).
+9. surface  — the facade's remaining surface at full width: (a) the
+              point-normal facade (m=5000, rho=0.8, f32) with Rounding.DSD,
+              the dense build kernel launched once, the host DSD on M[S, S]
+              gathered on the card: P >= 0.99, R >= 0.85, the set inside
+              the support of u and at least as dense as the DSD_HEU mask of
+              the same u, a rerun of the DSD equal (prints the build, solve
+              and host-DSD times); (b) solve_as_maximum_clique on that
+              problem and on the bunny at m=2048, rho=0.9: a clique of C
+              (checked on the card), no smaller than the heuristic's, and
+              Method.KCORE's set equal to kcore_prune_mask on the card;
+              (c) the triangle engine (engine="auto", m=8192, rho=0.95)
+              with Rounding.DSD, the rows matvec launched, R >= 0.88
+              (prints |S|); (d) the multi-object scene (bunny, k=8 objects,
+              m=8192, rho=0.9) built by the dense build kernel, given to
+              set_sparse_matrix_data as scipy matrices (prints the tile
+              occupancy): the tile matvec at K=16 within 1e-4 of the dense
+              stacked int8 matvec and 1.1e-5 of an f64 oracle, a rerun
+              bit-identical, both timed; then solve(multistart=3) with
+              Rounding.DSD; (e) extract_cliques on the scene's dense M and
+              C (disjoint cliques; prints how many); (f) the tri pool at
+              stall_outers=1 on cuda and cpu (W=16, masks equal on >= 15).
+              Precision bars (b)-(e): P >= 0.995 against the labeled ground
+              truth, or every selected association outside the labels
+              consistent with every labeled inlier of its object (the
+              bunny problems hold outlier draws that are correct matches,
+              which exact roundings select: see precision_bar).
 
 The line before the last is a JSON object of the kernels' numbers (rows 3
 and 7 also carry reduce_launches, the main path's launches of their
@@ -799,7 +826,8 @@ def first(D1, W):
     return D1[:W] if np.ndim(D1) == 3 else D1
 
 
-def run_pipeline(inv, data_, dev, W, timings=None, storage=None):
+def run_pipeline(inv, data_, dev, W, timings=None, storage=None,
+                 stall_outers=0):
     """bench.py's tri pool (int8 storage unless ``storage`` says)."""
     import torch
     from clipper_tpu_torch.parallel import pool
@@ -808,7 +836,8 @@ def run_pipeline(inv, data_, dev, W, timings=None, storage=None):
     pipe = pool.make_pool_pipeline(inv, Params(), lanes=128, window=2,
                                    storage_dtype=storage or torch.int8,
                                    power_steps=4, layout="tri",
-                                   tri_probes=16, d_scale=0.15, device=dev)
+                                   tri_probes=16, d_scale=0.15,
+                                   stall_outers=stall_outers, device=dev)
     return pipe(first(D1, W), D2s[:W], As[:W], u0s[:W], timings=timings)
 
 
@@ -2696,7 +2725,8 @@ def check_bench_rows(label, rows, p_bar=BENCH_P, r_bar=BENCH_R):
 def phase_drivers(dev):
     """8: each ported driver's main() in-process on the card at a small
     setting, and the harness's trials through the dense build kernel."""
-    from clipper_tpu_torch.bench import (grid_tpu, gridcell_probe, harness,
+    from clipper_tpu_torch.bench import (blocksparse_bench, grid_tpu,
+                                         gridcell_probe, harness,
                                          mixed_bench, multistart_bench,
                                          pool_ab, symshard_bench,
                                          symstore_bench, tickstats)
@@ -2734,6 +2764,12 @@ def phase_drivers(dev):
                              ("sym_rows_matvec",))
     require(out["ranks"] == 1, "symshard_bench did not take the group")
     check_bench_rows("symshard_bench", [dict(out, m=None)])
+    out, _ = driver_call("blocksparse_bench m=2048 k=4",
+                         lambda: blocksparse_bench.main(["2048", "4", "2",
+                                                         cuda]))
+    quality = [out[k] for k in ("P_dense", "P_block", "R_dense", "R_block")]
+    require(out["occupancy"] <= 0.5 and bool(np.isfinite(quality).all()),
+            f"blocksparse_bench: {out}")
     # the harness's trials: the dense engine, its build on kernel 6
     rows, _ = driver_call(f"harness.run_grid m={M} rho={RHO} (4 trials)",
                           lambda: harness.run_grid((M,), (RHO,), n_trials=4,
@@ -2750,6 +2786,356 @@ def phase_drivers(dev):
           flush=True)
     check_bench_rows("run_pointnormal_trial", [dict(precision=trial.p,
                                               recall=trial.r, m=None)])
+
+
+# ---------------------------------------------------------------------------
+# the facade's remaining surface: exact DSD, the maximum clique, the
+# capacity engine's DSD, the block-sparse path, clique extraction and the
+# tri pool's stall_outers
+# ---------------------------------------------------------------------------
+
+SURF_CAP_M, SURF_CAP_RHO = 8192, 0.95     # (c) the capacity engine's DSD
+MC_M, MC_RHO = 2048, 0.9                  # (b) the bunny's max clique
+SCENE_M, SCENE_K, SCENE_RHO = 8192, 8, 0.9  # (d), (e) the multi-object scene
+MC_P = 0.995                              # (b)-(e) precision bar
+BS_TOL = 1e-4                             # (d) tiles vs dense stacked
+
+
+def dsd_density(M, mask):
+    """w(S') / |S'| of the mask's vertex set over the card's M (f64)."""
+    import torch
+    idx = torch.nonzero(mask).flatten()
+    sub = M.index_select(0, idx).index_select(1, idx).double()
+    return float(sub.sum() / 2 / max(1, idx.numel()))
+
+
+def precision_bar(label, inv, D1, D2, A, gts, mask, dev):
+    """Precision against the labeled ground truth (the union of ``gts``, one
+    array an object) at the MC_P bar, or, where an exact rounding (the
+    maximum clique, DSD) selects associations the labels call outliers,
+    each of those consistent with every ground-truth association of the
+    object it joined (score > affinityeps and no shared endpoint against
+    all of them, on the card): a correct match the synthetic labels miss.
+    The bunny problems hold such draws (m=2048, rho=0.9: 9; m=8192,
+    rho=0.95: 17), which any exact method must select. Returns (P, R of
+    the object won, the count of selected associations outside the
+    labels)."""
+    import torch
+    from clipper_tpu_torch.bench import data
+    gts = [g for g in gts if g.size]
+    Ain = A[np.asarray(mask)]
+    P, _ = data.get_precision_recall(Ain, np.concatenate(gts))
+    recalls = [data.get_precision_recall(Ain, g)[1] for g in gts]
+    won = gts[int(np.argmax(recalls))]
+    labeled = {(int(a), int(b)) for g in gts for a, b in g}
+    extra = np.array([a for a in Ain if (int(a[0]), int(a[1])) not in
+                      labeled], np.int64).reshape(-1, 2)
+    consistent = True
+    if len(extra) and P < MC_P:
+        X = torch.as_tensor(extra, device=dev)
+        G = torch.as_tensor(won, dtype=torch.int64, device=dev)
+        T1 = torch.as_tensor(D1, dtype=torch.float32, device=dev)
+        T2 = torch.as_tensor(D2, dtype=torch.float32, device=dev)
+        score = inv.score_block(T1[X[:, 0]], T1[G[:, 0]], T2[X[:, 1]],
+                                T2[G[:, 1]])
+        shared = ((X[:, None, 0] == G[None, :, 0])
+                  | (X[:, None, 1] == G[None, :, 1]))
+        consistent = bool(((score > 1e-4) & ~shared).all())
+    print(f"{label}: precision {P * 100:.2f}% against the labels, recall "
+          f"{max(recalls) * 100:.2f}% of the object won; {len(extra)} "
+          f"selected outside the labels, each consistent with every labeled "
+          f"inlier of its object: {consistent}", flush=True)
+    require(P >= MC_P or consistent, f"{label}: precision {P:.4f} < {MC_P} "
+            "with selected outliers inconsistent with the ground truth")
+    return P, max(recalls), len(extra)
+
+
+def check_clique(label, c, sol, prob, inv, dev):
+    """The set is a clique of C (checked on the card), no smaller than the
+    heuristic's, and at :func:`precision_bar`; Method.KCORE's set equals
+    kcore_prune_mask on the card. Returns the clique's size and the exact
+    solve's host ms."""
+    import torch
+    from clipper_tpu_torch.ops import kcore
+    from clipper_tpu_torch.solvers import maxclique
+    D1, D2, A, Agt = prob
+    C = c._C
+    idx = torch.nonzero(sol.mask).flatten()
+    sub = C.index_select(0, idx).index_select(1, idx)
+    eye = torch.eye(idx.numel(), dtype=torch.bool, device=dev)
+    require(bool((sub[~eye] == 1).all()), f"{label}: the maximum clique is "
+            "not a clique of C")
+    precision_bar(f"{label} maximum clique", inv, D1, D2, A, [Agt],
+                  sol.mask.cpu().numpy(), dev)
+    heu = c.solve_as_maximum_clique(maxclique.Params(
+        method=maxclique.Method.HEU))
+    require(int(sol.mask.sum()) >= int(heu.mask.sum()), f"{label}: the "
+            "exact clique is smaller than the heuristic's")
+    kc = c.solve_as_maximum_clique(maxclique.Params(
+        method=maxclique.Method.KCORE))
+    mask, maxcore = kcore.kcore_prune_mask(C)
+    require(mask.is_cuda and bool((kc.mask == mask).all()), f"{label}: "
+            "Method.KCORE's set differs from kcore_prune_mask on the card")
+    print(f"{label}: maximum clique |S|={idx.numel()} in {sol.t * 1e3:.2f} "
+          f"ms (host, exact B&B; the heuristic's {int(heu.mask.sum())}); "
+          f"KCORE set {int(mask.sum())} vertices (max core {int(maxcore)}) "
+          "equal to the card's k-core peel", flush=True)
+    return idx.numel(), sol.t * 1e3
+
+
+def surface_dsd_facade(pn_inv, dev):
+    """(a) BASELINE.json config 3 with Rounding.DSD; (b) its maximum clique.
+    Returns the launches of the counted build and solve, and a summary."""
+    import torch
+    from clipper_tpu_torch import Clipper
+    from clipper_tpu_torch.bench import data, harness
+    from clipper_tpu_torch.types import Params, Rounding
+
+    D1, D2, A, Agt = harness.make_pointnormal_problem(
+        np.random.default_rng(0), n=PN_N, m=PN_M, rho=PN_RHO)
+    D1, D2 = D1.astype(np.float32), D2.astype(np.float32)
+    u0 = np.random.default_rng(0).random(PN_M).astype(np.float32)
+    c = Clipper(pn_inv, Params(rounding=Rounding.DSD), dtype=torch.float32,
+                device=dev)
+
+    def call():
+        c.score_pairwise_consistency(D1.T, D2.T, A)
+        return c.solve(u0=u0)
+
+    t0 = time.perf_counter()
+    sol, launches = counted_call(call)
+    total_s = time.perf_counter() - t0
+    require(c._M is not None and launches["affinity_build"] == 1,
+            f"(a) DSD facade: the dense build kernel once expected, "
+            f"launches {launches}")
+    mask = sol.mask
+    S = sol.u > 0
+    require(mask.shape == (PN_M,) and bool(torch.isfinite(sol.u).all()),
+            "(a) DSD facade: bad shape or non-finite u")
+    require(bool((mask & ~S).sum() == 0), "(a) the DSD mask leaves the "
+            "support of u")
+    P, R = data.get_precision_recall(c.get_selected_associations(), Agt)
+    # the parts apart: the build, the dense solve (DSD_HEU rounding of the
+    # same u0) and the host DSD on the gathered block
+    build_ms = harness.time_ms(
+        lambda: c.score_pairwise_consistency(D1.T, D2.T, A), dev, 3)
+    c.params = Params()
+    t0 = time.perf_counter()
+    heu = c.solve(u0=u0)
+    torch.cuda.synchronize()
+    solve_ms = (time.perf_counter() - t0) * 1e3
+    require(bool(torch.equal(heu.u, sol.u)), "(a) the DSD_HEU solve's u "
+            "differs from the DSD solve's: the solve is not reproducible")
+    t0 = time.perf_counter()
+    again = c._dsd_dense(sol.u)
+    torch.cuda.synchronize()
+    dsd_s = time.perf_counter() - t0
+    require(bool(torch.equal(again, mask)), "(a) a rerun of the DSD gives "
+            "another set")
+    d_dsd, d_heu = dsd_density(c._M, mask), dsd_density(c._M, heu.mask)
+    print(f"(a) point-normal facade m={PN_M} rho={PN_RHO} f32 Rounding.DSD: "
+          f"precision={P * 100:.2f}% recall={R * 100:.2f}% |DSD set|="
+          f"{int(mask.sum())} |S|={int(S.sum())} (|Agt|={len(Agt)}); density "
+          f"w(S')/|S'| DSD {d_dsd:.6f} >= DSD_HEU mask's {d_heu:.6f} "
+          f"(|mask| {int(heu.mask.sum())}); build {build_ms:.3f} ms (CUDA "
+          f"events, mean of 3), solve {solve_ms:.3f} ms, host DSD on the "
+          f"gathered M[S, S] {dsd_s:.3f} s (gather, copy, max flow; host "
+          f"clock); the first call, build + solve + DSD, {total_s:.3f} s; "
+          f"launches {launches}", flush=True)
+    require(P >= 0.99, f"(a) DSD facade precision {P:.4f} < 0.99")
+    require(R >= 0.85, f"(a) DSD facade recall {R:.4f} < 0.85")
+    require(d_dsd >= d_heu - 1e-9 * abs(d_heu), "(a) the DSD set is less "
+            "dense than the DSD_HEU mask")
+    summary = dict(dsd_s=dsd_s, S=int(S.sum()), dsd_set=int(mask.sum()),
+                   build_ms=build_ms, solve_ms=solve_ms, P=P, R=R)
+
+    sol = c.solve_as_maximum_clique()
+    require(float(sol.score) == -1.0 and int(sol.ifinal) == 0,
+            "(b) the maximum clique's score -1 and ifinal 0 expected")
+    summary["pn_clique"], summary["pn_clique_ms"] = check_clique(
+        f"(b) point-normal m={PN_M}", c, sol, (D1, D2, A, Agt), pn_inv, dev)
+    return launches, summary
+
+
+def surface_bunny_clique(inv, dev):
+    """(b) the maximum clique of the bunny's C at m=2048, rho=0.9 (the
+    graph of BENCH.md:226, clique 213: all 205 labeled inliers and 8 of
+    the 9 outlier draws consistent with every one of them)."""
+    import torch
+    from clipper_tpu_torch import Clipper
+    from clipper_tpu_torch.types import Params
+    pcd0, pcd1, A, Agt, _ = one_problem(MC_M, MC_RHO, seed=0)
+    c = Clipper(inv, Params(), dtype=torch.float32, device=dev)
+    (sol, launches) = counted_call(lambda: (
+        c.score_pairwise_consistency(pcd0.T, pcd1.T, A),
+        c.solve_as_maximum_clique())[1])
+    require(launches["affinity_build"] == 1, f"(b) bunny: the dense build "
+            f"kernel once expected, launches {launches}")
+    return check_clique(f"(b) bunny m={MC_M} rho={MC_RHO}", c, sol,
+                        (pcd0, pcd1, A, Agt), inv, dev)
+
+
+def surface_capacity_dsd(inv, dev):
+    """(c) the triangle engine (engine="auto") with Rounding.DSD: the
+    engine rounds NONZERO, DSD runs on the support block rebuilt from the
+    invariant. Returns its launches and |S|."""
+    import torch
+    from clipper_tpu_torch import Clipper
+    from clipper_tpu_torch.bench import data
+    from clipper_tpu_torch.types import Params, Rounding
+    pcd0, pcd1, A, Agt, u0 = one_problem(SURF_CAP_M, SURF_CAP_RHO, seed=0)
+    c = Clipper(inv, Params(rounding=Rounding.DSD), dtype=torch.float32,
+                device=dev)
+    c.score_pairwise_consistency(pcd0.T, pcd1.T, A)
+    require(c._cap is not None, "(c) m=8192 did not take the triangle "
+            "engine")
+    t0 = time.perf_counter()
+    sol, launches = counted_call(lambda: c.solve(u0=u0))
+    wall = time.perf_counter() - t0
+    S = int((sol.u > 0).sum())
+    t0 = time.perf_counter()
+    again = c._dsd_on_support(sol.u)
+    torch.cuda.synchronize()
+    dsd_s = time.perf_counter() - t0
+    require(bool(torch.equal(again, sol.mask)), "(c) a rerun of the DSD "
+            "gives another set")
+    require(bool((sol.mask & ~(sol.u > 0)).sum() == 0), "(c) the DSD mask "
+            "leaves the support")
+    P, R = data.get_precision_recall(c.get_selected_associations(), Agt)
+    print(f"(c) capacity engine m={SURF_CAP_M} rho={SURF_CAP_RHO} f32 "
+          f"Rounding.DSD: precision={P * 100:.2f}% recall={R * 100:.2f}% "
+          f"|S|={S} |DSD set|={int(sol.mask.sum())} (|Agt|={len(Agt)}); "
+          f"solve with DSD {wall:.3f} s, the DSD on the rebuilt M[S, S] "
+          f"{dsd_s:.3f} s (host clock); launches {launches}", flush=True)
+    for name in ("sym_rows_matvec", "sym_rows_reduce"):
+        require(launches[name] > 0, f"(c) {name} was never launched")
+    precision_bar("(c) capacity DSD", inv, pcd0, pcd1, A, [Agt],
+                  sol.mask.cpu().numpy(), dev)
+    require(R >= 0.88, f"(c) recall {R:.4f} < 0.88")
+    return launches, dict(S=S, dsd_s=dsd_s, P=P, R=R)
+
+
+def surface_blocksparse(inv, dev):
+    """(d) the multi-object scene through set_sparse_matrix_data and the
+    occupied-tile solve; (e) extract_cliques on its dense M and C.
+    Returns the launches of the dense build and a summary."""
+    import scipy.sparse as sp
+    import torch
+    from clipper_tpu_torch import Clipper
+    from clipper_tpu_torch.bench import blocksparse_bench, harness
+    from clipper_tpu_torch.ops import blocksparse
+    from clipper_tpu_torch.solvers import extract_cliques, msrc_flat
+    from clipper_tpu_torch.types import Params, Rounding
+
+    pcd0 = harness.load_bunny().astype(np.float32)
+    D1, D2, A, gts = blocksparse_bench.build_scene(
+        pcd0, SCENE_M, SCENE_K, SCENE_RHO, np.random.default_rng(0))
+    m = A.shape[0]
+    dense = Clipper(inv, Params(), dtype=torch.float32, engine="dense",
+                    device=dev)
+    _, launches = counted_call(
+        lambda: dense.score_pairwise_consistency(D1.T, D2.T, A))
+    require(launches["affinity_build"] == 1, "(d) the scene's dense build "
+            f"kernel once expected, launches {launches}")
+    M, C = dense._M, dense._C
+    # the reference's sparse input: the strict upper triangle as scipy COO,
+    # taken from the card without a dense host copy
+    iu = torch.nonzero(torch.triu(M, diagonal=1))
+    r, cc = iu[:, 0], iu[:, 1]
+    vals = M[r, cc].cpu().numpy()
+    r, cc = r.cpu().numpy(), cc.cpu().numpy()
+    M_sp = sp.coo_matrix((vals, (r, cc)), shape=(m, m)).tocsr()
+    C_sp = sp.coo_matrix((np.ones_like(vals), (r, cc)), shape=(m, m)).tocsr()
+    c = Clipper(None, Params(rounding=Rounding.DSD), dtype=torch.float32,
+                device=dev)
+    c.set_sparse_matrix_data(M_sp, C_sp)
+    info = c._bs_info
+    require(c._bs is not None and c._M is None, "(d) the scene took the "
+            f"dense path (occupancy {info and info['occupancy']})")
+    _, dinfo = blocksparse.from_scipy(
+        (M_sp + M_sp.T).tocsr(), (C_sp + C_sp.T).tocsr(), tile=c._bs.tile,
+        storage_dtype=torch.int8, max_occupancy=-1.0, device=dev)
+    nt, m_pad = info["nt"], info["m_pad"]
+    gen = torch.Generator(device=dev).manual_seed(5)
+    U = torch.rand(m_pad, 16, generator=gen, device=dev)
+    U = U / torch.linalg.vector_norm(U, dim=0)
+    mv = blocksparse.make_matvec(c._bs, nt, torch.float32)
+    mvd = msrc_flat.make_stacked_matvec(dinfo["dense"], torch.float32)
+    Mu, Cu = mv(U)
+    Mu2, Cu2 = mv(U)
+    Md, Cd = mvd(U)
+    ref = (dinfo["dense"].double() / 127) @ U.to(torch.bfloat16).double()
+    err_d = max(float((Mu - Md).abs().max()), float((Cu - Cd).abs().max()))
+    err_o = max(float((Mu.double() - ref[:m_pad]).abs().max()),
+                float((Cu.double() - ref[m_pad:]).abs().max()))
+    rerun = bool(torch.equal(Mu, Mu2) and torch.equal(Cu, Cu2))
+    bs_ms = harness.time_ms(lambda: mv(U), dev, 20)
+    dense_ms = harness.time_ms(lambda: mvd(U), dev, 20)
+    print(f"(d) block-sparse scene m={m} k={SCENE_K} rho={SCENE_RHO}: tile "
+          f"{c._bs.tile}, occupancy {info['occupancy'] * 100:.2f}% "
+          f"({info['n_tiles']}/{nt * nt} tiles, storage "
+          f"{c._bs.tiles.numel() / 1e6:.1f} MB against "
+          f"{dinfo['dense'].numel() / 1e6:.1f} MB dense); the tile matvec at "
+          f"K=16: max |tiles - dense stacked| {err_d:.3e}, max |tiles - f64 "
+          f"oracle| {err_o:.3e}, rerun bit-identical {rerun}; "
+          f"{bs_ms:.4f} ms against the dense stacked int8 matvec's "
+          f"{dense_ms:.4f} ms (CUDA events, mean of 20)", flush=True)
+    require(err_d <= BS_TOL, f"(d) tiles vs dense stacked {err_d:.3e}")
+    require(err_o <= ORACLE_TOL, f"(d) tiles vs f64 oracle {err_o:.3e}")
+    require(rerun, "(d) a rerun of the tile matvec is not bit-identical")
+    t0 = time.perf_counter()
+    sol = c.solve(multistart=3)
+    torch.cuda.synchronize()
+    solve_s = time.perf_counter() - t0
+    mask = sol.mask.cpu().numpy()
+    print(f"(d) solve(multistart=3) with Rounding.DSD over the tiles: "
+          f"{solve_s:.3f} s (host clock, with the scipy polish and the "
+          f"host DSD), |set|={int(mask.sum())}", flush=True)
+    P, _, _ = precision_bar("(d) block-sparse DSD", inv, D1, D2, A, gts,
+                            mask, dev)
+
+    t0 = time.perf_counter()
+    res = extract_cliques(M, C, torch.Generator().manual_seed(0), Params(),
+                          max_cliques=SCENE_K, device=dev)
+    torch.cuda.synchronize()
+    ext_s = time.perf_counter() - t0
+    print(f"(e) extract_cliques: {len(res)} cliques for {SCENE_K} objects "
+          f"in {ext_s:.3f} s (host clock)", flush=True)
+    seen = np.zeros(m, bool)
+    for k, cl in enumerate(res):
+        require(not (seen & cl.mask).any(), f"(e) clique {k} overlaps an "
+                "earlier one")
+        seen |= cl.mask
+        precision_bar(f"(e) clique {k} (size {int(cl.mask.sum())})", inv,
+                      D1, D2, A, gts, cl.mask, dev)
+    require(len(res) > 0, "(e) no clique extracted")
+    return launches, dict(occupancy=info["occupancy"], bs_ms=bs_ms,
+                          dense_ms=dense_ms, solve_s=solve_s, P=P,
+                          objects=len(res), extract_s=ext_s)
+
+
+def phase_surface(inv, pn_inv, check, dev):
+    """9: the facade's remaining surface at full width on the card."""
+    import torch
+    _, _, As, Agts, _ = check
+    t0 = time.perf_counter()
+    out = {}
+    out["a"], summary = surface_dsd_facade(pn_inv, dev)
+    surface_bunny_clique(inv, dev)
+    out["c"], summary["capacity"] = surface_capacity_dsd(inv, dev)
+    out["d"], summary["blocksparse"] = surface_blocksparse(inv, dev)
+    # (f) the tri pool at stall_outers=1 on the card and on the CPU
+    compare_devices("tri pool stall_outers=1",
+                    run_pipeline(inv, check, dev, W_CHECK, stall_outers=1),
+                    run_pipeline(inv, check, "cpu", W_CHECK, stall_outers=1),
+                    As, Agts, W_CHECK, W_CHECK - 1)
+    torch.cuda.synchronize()
+    print(f"surface: launches of (a) {out['a']}, (c) {out['c']}, (d) "
+          f"{out['d']}; summary {json.dumps(summary)}; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    require(out["a"]["affinity_build"] > 0 and out["c"]["sym_rows_matvec"]
+            > 0, "surface: kernels 6 and 3 expected on its path")
+    return out
 
 
 def main() -> None:
@@ -2840,6 +3226,7 @@ def main() -> None:
     t0 = time.perf_counter()
     phase_drivers(dev)
     print(f"drivers: {time.perf_counter() - t0:.1f} s", flush=True)
+    phase_surface(inv, pn_inv, check, dev)
     if "--profile" in sys.argv[1:]:
         phase_profile(inv, main_data, cap, dev)
 

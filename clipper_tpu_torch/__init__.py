@@ -13,7 +13,10 @@ Hopper GPU. This package covers these paths end to end:
   engine (``make_batched_pipeline``);
 - the ``Clipper`` facade (one problem): the dense engine with the nested
   solver or multistart, and from m = 8192 the row-chunked
-  symmetric-triangle capacity engine.
+  symmetric-triangle capacity engine; exact DSD rounding on every engine
+  and the maximum clique (host solvers, native/), the sparse input path
+  over occupied-tile storage (ops/blocksparse.py), and successive clique
+  extraction (solvers/extract.py).
 
 The pool's triangle builds and matvecs (flat and tile-major), the stacked
 build, the facade's dense build, the batched engine's fused matvec and

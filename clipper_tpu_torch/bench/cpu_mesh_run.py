@@ -66,6 +66,7 @@ def _rank_main(rank: int, D: int, store_path: str, jobs: List[Dict],
     rank 0 (u of every rank) to the parent, leave the group."""
     import torch
 
+    from clipper_tpu_torch import Clipper
     from clipper_tpu_torch.bench import harness
     from clipper_tpu_torch.ops import symstore
     from clipper_tpu_torch.types import Params
@@ -79,10 +80,18 @@ def _rank_main(rank: int, D: int, store_path: str, jobs: List[Dict],
                         for k in ("D1", "D2", "A", "u0")]
                 inv = job.pop("invariant", None) or \
                     harness.default_invariant()
+                params = job.pop("params", None) or Params()
                 stats = {}
-                sol = symstore.solve_sharded_sym(
-                    inv, *data, job.pop("params", None) or Params(), None,
-                    stats=stats, **job)
+                if job.pop("facade", False):
+                    c = Clipper(inv, params, dtype=data[3].dtype,
+                                engine="sharded", device="cpu",
+                                engine_opts=dict(job, stats=stats))
+                    c.score_pairwise_consistency(data[0].T, data[1].T,
+                                                 data[2])
+                    sol = c.solve(u0=data[3])
+                else:
+                    sol = symstore.solve_sharded_sym(
+                        inv, *data, params, None, stats=stats, **job)
                 results.append(dict(u=sol.u.numpy(), mask=sol.mask.numpy(),
                                     score=float(sol.score),
                                     ifinal=int(sol.ifinal), stats=stats))
@@ -155,9 +164,10 @@ def _spawn(target, D: int, payload, threads: int, timeout: float) -> Dict:
 def run(D: int, jobs: List[Dict], *, threads: int = 1,
         timeout: float = 120.0) -> List[Dict]:
     """Solve each job (solve_sharded_sym's keyword arguments, with the
-    numpy arrays D1, D2 (n, d), A (m, 2) and u0 (m,)) on D gloo ranks.
-    Returns rank 0's result of each job (u, mask, score, ifinal, stats)
-    with ``ranks_agree``. Raises if a rank fails, or if the ranks do not
+    numpy arrays D1, D2 (n, d), A (m, 2) and u0 (m,)) on D gloo ranks; a
+    job with ``facade=True`` goes through ``Clipper(engine="sharded")``
+    instead, its other keywords the engine_opts. Returns rank 0's result
+    of each job (u, mask, score, ifinal, stats) with ``ranks_agree``. Raises if a rank fails, or if the ranks do not
     all finish within ``timeout`` seconds."""
     got = _spawn(_rank_main, D, jobs, threads, timeout)
     results = got[0]

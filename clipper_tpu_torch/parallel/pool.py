@@ -137,7 +137,8 @@ def solve_pool_tri(tri: torch.Tensor, nt: int, inits: msrc_flat._FlatState,
                    params: Params = Params(), *, lanes: int = 128,
                    window: int = 8, matvec: str = "auto",
                    warm_alpha: bool = False, probes: int = 1,
-                   d_scale: float = 1.0, return_windows: bool = False,
+                   stall_outers: int = 0, d_scale: float = 1.0,
+                   return_windows: bool = False,
                    stats: Optional[Dict] = None):
     """Solve W prepared lane instances over (P, 2t, S) flat-triangle or
     (P, T, 2t, t) tile-major storage (ops/flattri.py) with B=lanes
@@ -151,7 +152,9 @@ def solve_pool_tri(tri: torch.Tensor, nt: int, inits: msrc_flat._FlatState,
     'xla' is the plain version on every device. The JAX package's 'auto'
     raised for 4-D storage on the TPU only because Mosaic miscompiled the
     tile-major kernel there. The tile-major matvec takes one probe a lane,
-    so 4-D storage with probes > 1 raises."""
+    so 4-D storage with probes > 1 raises. stall_outers: the
+    stalled-homotopy guard's count of frozen outers (0, the default:
+    msrc._STALL_OUTERS)."""
     if matvec not in ("auto", "tiles", "pallas", "xla"):
         raise ValueError(f"unknown matvec {matvec!r}")
     dtype = inits.u.dtype
@@ -172,7 +175,8 @@ def solve_pool_tri(tri: torch.Tensor, nt: int, inits: msrc_flat._FlatState,
              ("xla", False): flattri.make_tri_pool_matvec_xla}
     bmv = maker[(matvec, tile_major)](tri, nt, dtype)
     btick = msrc_flat.make_tick(bmv, params, dtype, probes=probes,
-                                warm_alpha=warm_alpha, d_scale=d_scale)
+                                warm_alpha=warm_alpha, d_scale=d_scale,
+                                stall_outers=stall_outers)
     return _pool_schedule(btick, inits, m, lanes=lanes, window=window,
                           return_windows=return_windows, stats=stats)
 
@@ -372,6 +376,7 @@ def make_pool_pipeline(invariant: PairwiseInvariant,
                        tri_tile: int = 0,
                        tri_probes: int = 1,
                        warm_alpha: bool = False,
+                       stall_outers: int = 0,
                        d_scale: float = 1.0,
                        device="cuda"):
     """(D1, D2s, As, u0s) -> batched Solution through the pool engine.
@@ -387,7 +392,7 @@ def make_pool_pipeline(invariant: PairwiseInvariant,
     ``"stacked"``) stores the flat upper triangle, m divisible by the tile
     ``tri_tile`` (0, the default: 256 when it divides m, else 128; the
     card's kernels take 128 and 256), with the K=tri_probes multiprobe
-    tick and the warm_alpha and d_scale options. ``"stacked"`` stores the
+    tick and the warm_alpha, stall_outers and d_scale options. ``"stacked"`` stores the
     dense (2m, m) [M; C] of each problem, for any m, and runs the
     single-probe reference tick; the tri-only options raise there (the
     JAX package ignores them).
@@ -409,9 +414,10 @@ def make_pool_pipeline(invariant: PairwiseInvariant,
         raise NotImplementedError(
             "mesh= is not ported yet (ROADMAP.md Queue 1 item 13)")
     if layout == "stacked" and (tri_probes != 1 or warm_alpha
-                                or d_scale != 1.0 or tri_tile):
-        raise ValueError("tri_tile, tri_probes, warm_alpha and d_scale "
-                         "apply to layout='tri' only")
+                                or d_scale != 1.0 or tri_tile
+                                or stall_outers):
+        raise ValueError("tri_tile, tri_probes, warm_alpha, stall_outers "
+                         "and d_scale apply to layout='tri' only")
     dev = resolve_device(device)
     rounding = _pool_rounding(params)
     build = _resolve_build(build, storage_dtype, invariant, dev)
@@ -470,8 +476,8 @@ def make_pool_pipeline(invariant: PairwiseInvariant,
         if layout == "tri":
             u, F, ifinal = solve_pool_tri(
                 store, nt, inits, params, lanes=lanes, window=window,
-                probes=tri_probes, warm_alpha=warm_alpha, d_scale=d_scale,
-                stats=stats)
+                probes=tri_probes, warm_alpha=warm_alpha,
+                stall_outers=stall_outers, d_scale=d_scale, stats=stats)
         else:
             u, F, ifinal = solve_pool(store, inits, params, lanes=lanes,
                                       window=window, stats=stats)

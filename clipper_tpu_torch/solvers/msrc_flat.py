@@ -140,11 +140,14 @@ def _where(c, a, b):
 
 def _outer_and_freeze(s: _FlatState, unew, Mu, Cu, gradFnew, Fnew, deltaF,
                       accept, alpha_out, lsk_out, nback_add, params: Params,
-                      dtype, d_scale: float) -> _FlatState:
+                      dtype, d_scale: float,
+                      stall_outers: int = 0) -> _FlatState:
     """The accept / inner / outer transitions shared by the single-probe
     and multiprobe ticks (reference: clipper.cpp:253-280), then the freeze
-    of lanes that were already done."""
+    of lanes that were already done. stall_outers: the stalled-homotopy
+    guard's count of frozen outers (0: msrc._STALL_OUTERS)."""
     stall_guard = msrc._stall_guard_enabled(dtype)
+    stall_outers = stall_outers or msrc._STALL_OUTERS
 
     deltau = torch.linalg.vector_norm(unew - s.u, dim=-1)
     tol_u = msrc._eps_like(params.tol_u, 1.0, dtype)
@@ -167,7 +170,7 @@ def _outer_and_freeze(s: _FlatState, unew, Mu, Cu, gradFnew, Fnew, deltaF,
     stall_next = torch.where(inner_done,
                              torch.where(frozen, s.stall + 1, 0), s.stall)
     if stall_guard:
-        lane_done = lane_done | (inner_done & (stall_next >= msrc._STALL_OUTERS))
+        lane_done = lane_done | (inner_done & (stall_next >= stall_outers))
 
     grad_refresh = _grad_from_mv(unew, d_new, Mu, Cu)
     F_refresh = _dot(unew, grad_refresh)
@@ -202,10 +205,11 @@ def _outer_and_freeze(s: _FlatState, unew, Mu, Cu, gradFnew, Fnew, deltaF,
 
 
 def _tick_update(s: _FlatState, unew, Mu, Cu, params: Params, dtype,
-                 warm_alpha: bool = False,
-                 d_scale: float = 1.0) -> _FlatState:
+                 warm_alpha: bool = False, d_scale: float = 1.0,
+                 stall_outers: int = 0) -> _FlatState:
     """Everything after a single-probe tick's matvec (see the JAX module for
-    warm_alpha and d_scale; the defaults are the reference)."""
+    warm_alpha, d_scale and stall_outers; the defaults are the
+    reference)."""
     gradFnew = _grad_from_mv(unew, s.d, Mu, Cu)
     Fnew = _dot(unew, gradFnew)
     deltaF = Fnew - s.F
@@ -223,18 +227,19 @@ def _tick_update(s: _FlatState, unew, Mu, Cu, params: Params, dtype,
     nback_add = torch.where(accept, 0, 1)
     return _outer_and_freeze(s, unew, Mu, Cu, gradFnew, Fnew, deltaF,
                              accept, alpha_out, lsk_out, nback_add, params,
-                             dtype, d_scale)
+                             dtype, d_scale, stall_outers)
 
 
 def make_flat_tick_batched(batch_dual, params: Params, dtype,
-                           warm_alpha: bool = False, d_scale: float = 1.0):
+                           warm_alpha: bool = False, d_scale: float = 1.0,
+                           stall_outers: int = 0):
     """Batched single-probe tick: (idx, states) -> states, one batched
     dual matvec over all lanes' candidates."""
     def body(idx, ls: _FlatState) -> _FlatState:
         U = _tick_probe(ls)
         MU, CU = batch_dual(idx, U)
         return _tick_update(ls, U, MU, CU, params, dtype, warm_alpha,
-                            d_scale)
+                            d_scale, stall_outers)
 
     return body
 
@@ -254,8 +259,8 @@ def _mp_probe(s: _FlatState, K: int, beta: torch.Tensor):
 
 
 def _mp_update(s: _FlatState, U, MU, CU, alphas, params: Params, dtype,
-               warm_alpha: bool = False,
-               d_scale: float = 1.0) -> _FlatState:
+               warm_alpha: bool = False, d_scale: float = 1.0,
+               stall_outers: int = 0) -> _FlatState:
     """Multiprobe tick tail: the first acceptable candidate of each lane
     (reference: clipper.cpp:246-251), then the standard transitions."""
     B, K, _ = U.shape
@@ -290,12 +295,13 @@ def _mp_update(s: _FlatState, U, MU, CU, alphas, params: Params, dtype,
     nback_add = torch.where(accept, q.to(torch.int32), K)
     return _outer_and_freeze(s, unew, Mu_q, Cu_q, gradFnew, Fnew, deltaF,
                              accept, alpha_out, lsk_out, nback_add, params,
-                             dtype, d_scale)
+                             dtype, d_scale, stall_outers)
 
 
 def make_flat_tick_multiprobe_batched(batch_dual, params: Params, dtype,
                                       probes: int, warm_alpha: bool = False,
-                                      d_scale: float = 1.0):
+                                      d_scale: float = 1.0,
+                                      stall_outers: int = 0):
     """Batched K-wide multiprobe tick: (idx, states) -> states. Each tick
     evaluates K backtracking candidates per lane in ONE batched matvec
     over (B, K, m) rows; the semantics are the sequential reference line
@@ -307,13 +313,14 @@ def make_flat_tick_multiprobe_batched(batch_dual, params: Params, dtype,
         U, alphas = _mp_probe(ls, K, beta)
         MU, CU = batch_dual(idx, U)
         return _mp_update(ls, U, MU, CU, alphas, params, dtype, warm_alpha,
-                          d_scale)
+                          d_scale, stall_outers)
 
     return body
 
 
 def make_tick(batch_dual, params: Params, dtype, *, probes: int = 1,
-              warm_alpha: bool = False, d_scale: float = 1.0):
+              warm_alpha: bool = False, d_scale: float = 1.0,
+              stall_outers: int = 0):
     """The single-probe tick at probes=1, else the K-wide multiprobe tick."""
     K = int(probes)
     if K < 1:
@@ -321,9 +328,10 @@ def make_tick(batch_dual, params: Params, dtype, *, probes: int = 1,
     if K > 1:
         return make_flat_tick_multiprobe_batched(
             batch_dual, params, dtype, K, warm_alpha=warm_alpha,
-            d_scale=d_scale)
+            d_scale=d_scale, stall_outers=stall_outers)
     return make_flat_tick_batched(batch_dual, params, dtype,
-                                  warm_alpha=warm_alpha, d_scale=d_scale)
+                                  warm_alpha=warm_alpha, d_scale=d_scale,
+                                  stall_outers=stall_outers)
 
 
 # the host loop reads ``done`` once per this many ticks; a done lane is

@@ -827,3 +827,95 @@ def test_dense_build_probe_edits_apply():
     assert files["full"] == {"tri_pair_build.cuh": body}
     for name in ("firstpass", "nowrite"):
         assert files[name]["tri_pair_build.cuh"] != body
+
+
+def _block_scene(m, k, rho, seed):
+    from clipper_tpu_torch.bench import blocksparse_bench
+    pcd0 = harness.load_bunny().astype(np.float32)
+    return blocksparse_bench.build_scene(pcd0, m, k, rho,
+                                         np.random.default_rng(seed))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage", [torch.int8, torch.bfloat16])
+def test_blocksparse_matvec_on_the_card(cuda, storage):
+    """The occupied-tile matvec on the card, m=2048, k=4 objects, t=128:
+    within 1.1e-5 of an f64 oracle over the same stored values (f32
+    products of exact operands, summed in f32), within 1e-4 of the dense
+    stacked matvec over the same codes, and a rerun bit-identical (the
+    row sums run in a fixed order, no atomics)."""
+    from clipper_tpu_torch.ops import blocksparse
+    from clipper_tpu_torch.ops.affinity import score_pairwise_consistency
+    from clipper_tpu_torch.solvers import msrc_flat
+    D1, D2, A, _ = _block_scene(2048, 4, 0.9, seed=0)
+    M, C = score_pairwise_consistency(
+        harness.default_invariant(), torch.as_tensor(D1, device=cuda),
+        torch.as_tensor(D2, device=cuda),
+        torch.as_tensor(A, dtype=torch.int32, device=cuda))
+    bs, info = blocksparse.from_dense(M, C, tile=128, storage_dtype=storage,
+                                      device=cuda)
+    assert bs is not None and info["occupancy"] <= 0.5
+    _, dense = blocksparse.from_dense(M, C, tile=128, storage_dtype=storage,
+                                      max_occupancy=-1.0, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    U = torch.rand(info["m_pad"], 16, generator=gen, device=cuda)
+    U = U / torch.linalg.vector_norm(U, dim=0)
+    mv = blocksparse.make_matvec(bs, info["nt"], torch.float32)
+    Mu, Cu = mv(U)
+    Mu2, Cu2 = mv(U)
+    assert torch.equal(Mu, Mu2) and torch.equal(Cu, Cu2)
+    Md, Cd = msrc_flat.make_stacked_matvec(dense["dense"], torch.float32)(U)
+    assert float((Mu - Md).abs().max()) <= 1e-4
+    assert float((Cu - Cd).abs().max()) <= 1e-4
+    scale = 1.0 / 127 if storage == torch.int8 else 1.0
+    MC = dense["dense"].double() * scale
+    Ur = U.to(torch.bfloat16).double()
+    m = info["m_pad"]
+    ref = MC @ Ur
+    assert float((Mu.double() - ref[:m]).abs().max()) <= 1.1e-5
+    assert float((Cu.double() - ref[m:]).abs().max()) <= 1.1e-5
+
+
+@pytest.mark.cuda
+def test_kcore_on_the_card_equals_native(cuda):
+    """kcore.core_numbers on the card equals the native host peel, on a
+    random graph and on the bunny's constraint graph at m=1024."""
+    from clipper_tpu_torch.ops import kcore
+    from clipper_tpu_torch.ops.affinity import score_pairwise_consistency
+    from clipper_tpu_torch.solvers import maxclique
+    adj = np.random.default_rng(3).uniform(size=(500, 500)) < 0.2
+    adj = np.triu(adj, 1)
+    adj = adj | adj.T
+    pcd0, D2s, As, _ = _problems(1, 1024, seed=0)
+    _, C = score_pairwise_consistency(
+        harness.default_invariant(), torch.as_tensor(pcd0, device=cuda),
+        torch.as_tensor(D2s[0], device=cuda),
+        torch.as_tensor(As[0], device=cuda))
+    for g in (torch.as_tensor(adj, device=cuda), C):
+        core = kcore.core_numbers(g)
+        assert core.is_cuda
+        np.testing.assert_array_equal(core.cpu().numpy(),
+                                      maxclique.core_numbers(g.cpu().numpy()))
+        mask, _ = kcore.kcore_prune_mask(g)
+        assert list(np.flatnonzero(mask.cpu().numpy())) == maxclique.solve(
+            g, maxclique.Params(method=maxclique.Method.KCORE))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_gathered_block_dsd_equals_host_copy(cuda, dtype):
+    """The facade's exact DSD on the card, M[S, S] gathered on the device,
+    gives the node set of the DSD of the whole M copied to the host with
+    the same support S (bunny m=1024, rho=0.9)."""
+    from clipper_tpu_torch import Clipper
+    from clipper_tpu_torch.solvers import dsd
+    from clipper_tpu_torch.types import Rounding
+    pcd0, D2s, As, _ = _problems(1, 1024, seed=4)
+    u0 = np.random.default_rng(4).random(1024)
+    c = Clipper(harness.default_invariant(), Params(rounding=Rounding.DSD),
+                dtype=dtype, device=cuda)
+    c.score_pairwise_consistency(pcd0.T, D2s[0].T, As[0])
+    sol = c.solve(u0=u0)
+    S = np.flatnonzero(sol.u.cpu().numpy() > 0)
+    full = dsd.solve(c._M.cpu().numpy(), list(S))
+    np.testing.assert_array_equal(sol.nodes, full)

@@ -189,8 +189,9 @@ def test_unported_options_raise():
     assert sh._resolve_engine(64) == "sharded" and sh.mesh is None
     model, scene = make_scene()
     c = Clipper(EuclideanDistance(), dtype=torch.float64, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        c.set_sparse_matrix_data(np.eye(3), np.eye(3))
+    # the block-sparse path is ported: dense input takes the dense path
+    c.set_sparse_matrix_data(np.triu(np.ones((3, 3)), 1), np.eye(3))
+    assert c._M is not None and c._bs_info is None
     c.score_pairwise_consistency(model, scene)
     # multistart is ported on the dense engine; an explicit u0 with it is
     # contradictory, and the capacity engine refuses it, as in the JAX
@@ -206,8 +207,8 @@ def test_unported_options_raise():
     sh.score_pairwise_consistency(model, scene)
     with pytest.raises(NotImplementedError, match="capacity engines"):
         sh.solve(multistart=4)
-    with pytest.raises(NotImplementedError, match="item 15"):
-        c.solve_as_maximum_clique()
+    # the host solvers are ported: the maximum clique and exact DSD run
+    assert float(c.solve_as_maximum_clique().score) == -1.0
     with pytest.raises(NotImplementedError, match="item 14"):
         c.solve_as_msrc_sdr()
     with pytest.raises(NotImplementedError, match="item 14"):
@@ -215,8 +216,7 @@ def test_unported_options_raise():
     d = Clipper(EuclideanDistance(), Params(rounding=Rounding.DSD),
                 dtype=torch.float64, device="cpu")
     d.score_pairwise_consistency(model, scene)
-    with pytest.raises(NotImplementedError, match="item 15"):
-        d.solve()
+    assert d.solve().mask.sum() == 3
     with pytest.raises(RuntimeError, match="no affinity"):
         Clipper(None, device="cpu").solve()
 

@@ -11,6 +11,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -60,6 +61,13 @@ def test_import_pulls_in_no_jax():
         "import clipper_tpu_torch.bench.symstore_bench\n"
         "import clipper_tpu_torch.bench.tickstats\n"
         "import clipper_tpu_torch.invariants.pointnormal\n"
+        "import clipper_tpu_torch.native.build\n"
+        "import clipper_tpu_torch.solvers.dsd\n"
+        "import clipper_tpu_torch.solvers.maxclique\n"
+        "import clipper_tpu_torch.solvers.extract\n"
+        "import clipper_tpu_torch.ops.kcore\n"
+        "import clipper_tpu_torch.ops.blocksparse\n"
+        "import clipper_tpu_torch.bench.blocksparse_bench\n"
         "import chip_smoke\n"
         "bad = [k for k in sys.modules if k.split('.')[0] in "
         "('jax', 'jaxlib', 'clipper_tpu')]\n"
@@ -79,15 +87,28 @@ def test_default_device_raises_without_cuda():
                                    make_batched_pipeline,
                                    make_pool_multistart_pipeline,
                                    make_pool_pipeline)
+    from clipper_tpu_torch.bench import blocksparse_bench
     from clipper_tpu_torch.bench.harness import default_invariant
+    from clipper_tpu_torch.ops import blocksparse, kcore
+    from clipper_tpu_torch.solvers import extract_cliques
     from clipper_tpu_torch.types import resolve_device
+    import scipy.sparse as sp
     inv = default_invariant()
+    M = np.zeros((4, 4))
     for make in (lambda: make_pool_pipeline(inv, layout="tri"),
                  lambda: make_pool_pipeline(inv, layout="stacked"),
                  lambda: make_pool_multistart_pipeline(inv),
                  lambda: make_batched_pipeline(inv, matvec="fused"),
                  lambda: BucketedPipeline(inv),
-                 lambda: Clipper(inv, engine="sharded")):
+                 lambda: Clipper(inv, engine="sharded"),
+                 lambda: blocksparse.solve_single(M, M, np.ones(4)),
+                 lambda: blocksparse.from_dense(M, M),
+                 lambda: blocksparse.from_scipy(sp.csr_matrix(M),
+                                                sp.csr_matrix(M)),
+                 lambda: extract_cliques(M, M, None),
+                 lambda: kcore.core_numbers(M),
+                 lambda: kcore.kcore_prune_mask(M),
+                 lambda: blocksparse_bench.main(["64", "2", "1"])):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             make()
     with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -180,3 +201,41 @@ def test_kernel_wrappers_reject_cpu_tensors_and_tiles(storage):
         with pytest.raises(NotImplementedError, match="int8 or bf16"):
             build(inv, P, P, A, torch.tensor([128]), t=128,
                   storage_dtype=torch.float32)
+
+
+def _native_sources():
+    return sorted((PORT / "native").glob("*.cpp"))
+
+
+@pytest.mark.parametrize("path", _native_sources(), ids=lambda p: p.name)
+def test_native_source_is_shipped_and_built(path):
+    """Every C++ source of the port's native/ is in the package data and
+    in the loader's build list."""
+    import fnmatch
+    import tomllib
+
+    from clipper_tpu_torch.native import build
+    data = tomllib.loads((ROOT / "pyproject.toml").read_text())
+    globs = data["tool"]["setuptools"]["package-data"]["clipper_tpu_torch"]
+    rel = str(path.relative_to(PORT))
+    assert any(fnmatch.fnmatch(rel, g) for g in globs), (rel, globs)
+    assert path.name in build.SOURCES
+
+
+def test_native_loader_writes_only_its_build_dir(tmp_path, monkeypatch):
+    """The port's loader builds into build/clipper_tpu_torch/, never under
+    clipper_tpu/; a failed build raises (no fallback)."""
+    from clipper_tpu_torch.native import build
+    assert build.LIB.parent == ROOT / "build" / "clipper_tpu_torch"
+    jax_native = ROOT / "clipper_tpu" / "native"
+    before = {p: p.stat().st_mtime_ns for p in jax_native.iterdir()}
+    lib = build.load()
+    assert lib.dsd_solve.restype is not None
+    assert build.LIB.is_file() and not build.needs_build()
+    out = build.build(tmp_path / "lib.so")
+    assert out.is_file() and list(tmp_path.iterdir()) == [out]
+    assert {p: p.stat().st_mtime_ns for p in jax_native.iterdir()} == before
+    monkeypatch.setattr(build, "_FLAGS", build._FLAGS + ["-Werror=bogus"])
+    with pytest.raises(RuntimeError, match="native build failed"):
+        build.build(tmp_path / "bad.so")
+    assert not (tmp_path / "bad.so").exists()

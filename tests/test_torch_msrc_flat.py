@@ -153,3 +153,50 @@ def test_round_solution_matches_jax_with_ties():
     with pytest.raises(ValueError):
         msrc.round_solution(torch.from_numpy(u), torch.from_numpy(F),
                             Rounding.DSD)
+
+
+@pytest.mark.parametrize("dtype", ["f64", "f32"])
+@pytest.mark.parametrize("stall_outers", [0, 1, 5])
+def test_stall_outers_ticks_match_jax(dtype, stall_outers):
+    """The batched multiprobe tick with stall_outers (0: the default, 3
+    frozen outers) over the same tri storage and u0, driven until every
+    lane is done: each lane's support, ifinal and tick count equal JAX's.
+    In f64 the guard is off (exact storage, equal u to 1e-12); in f32 it
+    stops a lane after stall_outers frozen outers (supports, ifinal and
+    ticks exact; u to 1e-6, f32 sums in another order)."""
+    W, m, t = 4, 256, 128
+    nt = m // t
+    jdt, tdt = ((jnp.float64, torch.float64) if dtype == "f64"
+                else (jnp.float32, torch.float32))
+    tri_np = _bunny_tri_f64(W, m, t, seed=11).astype(
+        np.float64 if dtype == "f64" else np.float32)
+    u0 = np.random.default_rng(12).random((W, m))
+    params = Params()
+    jparams = JParams(**{k: v for k, v in
+                         interop.params_to_dict(params).items()
+                         if k != "rounding"})
+    jbmv = jflattri.make_tri_pool_matvec_xla(jnp.asarray(tri_np), nt, jdt)
+    jidx = jnp.arange(W, dtype=jnp.int32)
+    js = jmsrc_flat.flat_init_batched(jbmv, jidx, jnp.asarray(u0, jdt),
+                                      jparams)
+    jtick = jax.jit(jmsrc_flat.make_flat_tick_multiprobe_batched(
+        jbmv, jparams, jdt, 16, d_scale=0.15, stall_outers=stall_outers))
+    bmv = flattri.make_tri_pool_matvec(interop.tri_to_torch(tri_np), nt, tdt)
+    idx = torch.arange(W, dtype=torch.int32)
+    s = msrc_flat.flat_init_batched(bmv, idx, torch.as_tensor(u0, dtype=tdt),
+                                    params)
+    tick = msrc_flat.make_tick(bmv, params, tdt, probes=16, d_scale=0.15,
+                               stall_outers=stall_outers)
+    for _ in range(2000):
+        if bool(s.done.all()) and bool(np.asarray(js.done).all()):
+            break
+        js = jtick(jidx, js)
+        s = tick(idx, s)
+    got = interop.state_to_numpy(s)
+    assert got["done"].all()
+    np.testing.assert_array_equal(got["u"] > 0, np.asarray(js.u) > 0)
+    for name in ("i", "ticks"):
+        np.testing.assert_array_equal(got[name], np.asarray(
+            getattr(js, name)), err_msg=name)
+    np.testing.assert_allclose(got["u"], np.asarray(js.u), rtol=0,
+                               atol=1e-12 if dtype == "f64" else 1e-6)

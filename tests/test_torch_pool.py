@@ -179,3 +179,21 @@ def test_pipeline_rejects_unported_and_bad_shapes():
     with pytest.raises(ValueError, match="layout='tri' only"):
         pool.make_pool_pipeline(inv, layout="stacked", tri_tile=128,
                                 device="cpu")
+
+
+@pytest.mark.parametrize("dt, stall_outers", [
+    (np.float64, 0), (np.float64, 1), (np.float64, 5), (np.float32, 1)])
+def test_stall_outers_matches_jax(problems, dt, stall_outers):
+    """make_pool_pipeline(stall_outers=...) against the JAX pipeline from
+    the same u0: in f64 (full-precision storage; the stalled-homotopy guard
+    is off in f64) masks and ifinal equal on every problem; in f32 (int8
+    storage, where the guard stops a lane after one frozen outer) on all
+    but one, as the f32 pools' bar."""
+    f64 = dt == np.float64
+    storage_t, storage_j = (None, None) if f64 else (torch.int8, jnp.int8)
+    sj, st = _run_both(problems, dt, storage_t, storage_j,
+                       stall_outers=stall_outers)
+    same_mask = (st.mask.numpy() == np.asarray(sj.mask)).all(1)
+    same_i = st.ifinal.numpy() == np.asarray(sj.ifinal)
+    need = W if f64 else W - 1
+    assert same_mask.sum() >= need and same_i.sum() >= need
