@@ -177,7 +177,8 @@ Phases, each of which must pass (any failure exits non-zero):
               (8 a size, 1 rep), multistart_bench (W=32, K=4, 1 rep),
               symstore_bench (m=8192, --mv-only), symshard_bench
               (m=8192 on a 1-rank NCCL group) and blocksparse_bench
-              (m=2048, k=4 objects); then the harness's
+              (m=2048, k=4 objects), sdp_bench (--sizes=256
+              --batch=2); then the harness's
               run_grid at m=1024, rho=0.9 (4 trials, the dense build
               kernel launched) and one run_pointnormal_trial (m=5000).
               Each prints its launch counts and finite P/R; the rows at
@@ -209,6 +210,33 @@ Phases, each of which must pass (any failure exits non-zero):
               consistent with every labeled inlier of its object (the
               bunny problems hold outlier draws that are correct matches,
               which exact roundings select: see precision_bar).
+10. sdp     — the SDP relaxation (solvers/sdp.py) and the modules around
+              it, at full width: (a) Clipper.solve_as_msrc_sdr on the bunny
+              at m=1024, rho=0.9 (seed 0), f32, exact eigh, eps 1e-4: the
+              dense build kernel once, iters < max_iters and no warning,
+              |tr X - 1| <= 1e-4, lambdas.min() >= -1e-5, the nodes a
+              clique of C (on the card), weak duality at the rounded
+              clique (dobj >= <M, x x^T>, x its unit indicator; the
+              iterate's own gap is printed: Z meets the sign and zero
+              pattern only to r_prim, so it may read negative, in the JAX
+              package too), precision_bar and R >= 0.85; (b) the rank-r
+              route at m=4096 with default Params: auto_tune's three
+              warnings (eps 1e-4, z_rank=64, AA off at 2.5 GiB),
+              precision_bar and R >= 0.88; (c)
+              Clipper.solve_as_msrc_sdr_batched on B=8 problems at m=256,
+              each solution's nodes equal to its own single solve's; (d)
+              one of them in f64 on the card and on the CPU: nodes equal,
+              |pobj difference| <= 1e-8 max(1, |pobj|), both iteration
+              counts printed; (e) (a)'s problem at time_limit_secs=1e-9:
+              stopped within one chunk (<= 50 iterations), |tr X - 1| <=
+              1e-5; (f) compat.CLIPPER with (a)'s u0 selecting as the
+              facade does, compat.SDPParams through solve_as_msrc_sdr
+              giving (a)'s nodes, utils.profiling.device_trace around a
+              facade build naming the dense build's kernel, and an f64
+              flat solve at m=1024 killed and resumed through
+              utils.checkpoint bit-identical to the straight-through run;
+              (g) the examples ex1, ex3, ex4 and ex5 (m=16,384, the rows
+              kernel launched) in-process at their defaults.
 
 The line before the last is a JSON object of the kernels' numbers (rows 3
 and 7 also carry reduce_launches, the main path's launches of their
@@ -218,11 +246,12 @@ the measured ms); the last line is {"ok": true, "device": {...}}.
 Usage: python3 chip_smoke.py [--quick] [--profile]
   --quick    phases 1-2 only
   --profile  also run the pool path (int8 and bf16), the stacked pool,
-             the fused batched engine and the capacity path (row-chunked,
-             tile list, and sharded "xla" at D=1) once each under
-             torch.profiler and print the device's busy share and the
-             kernels that take its time (the capacity kernels' unit pass
-             and reduction as sym_unit_kernel and sym_reduce_kernel)
+             the fused batched engine, the capacity path (row-chunked,
+             tile list, and sharded "xla" at D=1) and phase 10's facade
+             SDR (a) once each under torch.profiler and print the
+             device's busy share and the kernels that take its time (the
+             capacity kernels' unit pass and reduction as sym_unit_kernel
+             and sym_reduce_kernel)
 """
 
 from __future__ import annotations
@@ -2728,7 +2757,7 @@ def phase_drivers(dev):
     from clipper_tpu_torch.bench import (blocksparse_bench, grid_tpu,
                                          gridcell_probe, harness,
                                          mixed_bench, multistart_bench,
-                                         pool_ab, symshard_bench,
+                                         pool_ab, sdp_bench, symshard_bench,
                                          symstore_bench, tickstats)
     cuda = f"--device={dev.type}"
     rows, _ = driver_call("grid_tpu (4 trials a cell)",
@@ -2770,6 +2799,13 @@ def phase_drivers(dev):
     quality = [out[k] for k in ("P_dense", "P_block", "R_dense", "R_block")]
     require(out["occupancy"] <= 0.5 and bool(np.isfinite(quality).all()),
             f"blocksparse_bench: {out}")
+    rows, _ = driver_call("sdp_bench m=256 B=2",
+                          lambda: sdp_bench.main(["--sizes=256", "--batch=2",
+                                                  cuda]), ("affinity_build",))
+    require([r["solver"] for r in rows] == ["sdp", "pga", "sdp_batched"]
+            and all(np.isfinite(r["ms"]) for r in rows),
+            f"sdp_bench: rows {rows}")
+    check_bench_rows("sdp_bench", [dict(r, m=None) for r in rows])
     # the harness's trials: the dense engine, its build on kernel 6
     rows, _ = driver_call(f"harness.run_grid m={M} rho={RHO} (4 trials)",
                           lambda: harness.run_grid((M,), (RHO,), n_trials=4,
@@ -3138,6 +3174,330 @@ def phase_surface(inv, pn_inv, check, dev):
     return out
 
 
+# ---------------------------------------------------------------------------
+# the SDP relaxation (solvers/sdp.py), the utils, the compat namespace and
+# the examples
+# ---------------------------------------------------------------------------
+
+SDP_EPS = 1e-4                 # (a) the exact-eigh solve's tolerance
+SDP_RANK_M = 4096              # (b) the rank-r route
+SDP_B, SDP_B_M = 8, 256        # (c) the batched solve (sdp_bench's default)
+SDP_TRACE_TOL = 1e-4           # (a) |tr X - 1|
+SDP_LAMBDA_MIN = -1e-5         # (a) lambdas.min()
+SDP_DUALITY_REL = 1e-9         # (a) weak duality at the rounded clique
+
+
+@contextlib.contextmanager
+def sdp_solutions():
+    """The sdp.Solution of every sdp.solve made inside the block (the
+    facade keeps only its mask)."""
+    from clipper_tpu_torch.solvers import sdp
+    seen, orig = [], sdp.solve
+
+    def spy(*args, **kwargs):
+        seen.append(orig(*args, **kwargs))
+        return seen[-1]
+
+    sdp.solve = spy
+    try:
+        yield seen
+    finally:
+        sdp.solve = orig
+
+
+def warned(run):
+    """(run(), the texts of the warnings it raised)."""
+    import warnings
+    with warnings.catch_warnings(record=True) as rec:
+        warnings.simplefilter("always")
+        out = run()
+    return out, [str(w.message) for w in rec]
+
+
+def clique_objective(M, nodes):
+    """<M, x x^T> in f64 for x the unit indicator of ``nodes``: the
+    objective of the rounded set's feasible point of the relaxation."""
+    import torch
+    idx = torch.as_tensor(nodes, device=M.device)
+    sub = M.index_select(0, idx).index_select(1, idx).double()
+    return float(sub.sum() / max(1, len(nodes)))
+
+
+def sdr_quality(label, c, soln, prob, inv, dev, r_bar):
+    """The facade's SDR selection: a clique of C (on the card), at
+    precision_bar and recall >= r_bar. Returns (P, R)."""
+    import torch
+    from clipper_tpu_torch.bench import data
+    pcd0, pcd1, A, Agt = prob
+    C = c.get_constraint_matrix()
+    idx = torch.as_tensor(soln.nodes, device=dev)
+    sub = C.index_select(0, idx).index_select(1, idx)
+    require(len(soln.nodes) > 0 and bool((sub == 1).all()),
+            f"{label}: the SDR's nodes are not a clique of C")
+    mask = np.zeros(len(A), bool)
+    mask[soln.nodes] = True
+    P, _, _ = precision_bar(label, inv, pcd0, pcd1, A, [Agt], mask, dev)
+    _, R = data.get_precision_recall(A[mask], Agt)
+    require(R >= r_bar, f"{label}: recall {R:.4f} < {r_bar}")
+    return P, R
+
+
+def sdp_facade(inv, dev):
+    """(a) the facade's exact-eigh SDR at m=1024 and (e) its time limit.
+    Returns the launches, the solution and the summary."""
+    import torch
+    from clipper_tpu_torch import Clipper
+    from clipper_tpu_torch.solvers import sdp
+    from clipper_tpu_torch.types import Params
+    pcd0, pcd1, A, Agt, u0 = one_problem(M, RHO, seed=0)
+    c = Clipper(inv, Params(), dtype=torch.float32, device=dev)
+    params = sdp.Params(eps_abs=SDP_EPS, eps_rel=SDP_EPS)
+    with sdp_solutions() as seen:
+        ((_, msgs), launches) = counted_call(lambda: warned(lambda: (
+            c.score_pairwise_consistency(pcd0.T, pcd1.T, A),
+            c.solve_as_msrc_sdr(params))))
+    soln = seen[0]
+    require(launches["affinity_build"] == 1, "(a) the dense build kernel "
+            f"once expected, launches {launches}")
+    require(soln.iters < params.max_iters and not msgs,
+            f"(a) iters {soln.iters}, warnings {msgs}")
+    Mi = c.get_affinity_matrix()
+    tr = float(torch.trace(soln.X))
+    lmin = float(soln.lambdas.min())
+    pclique = clique_objective(Mi, soln.nodes)
+    rel = soln.gap / max(1.0, abs(soln.pobj))
+    print(f"(a) facade SDR m={M} rho={RHO} f32, exact eigh, eps {SDP_EPS:g}: "
+          f"iters {soln.iters}, {soln.t_solve / soln.iters * 1e3:.3f} ms an "
+          f"iteration (host clock over the solve / iters), t_solve "
+          f"{soln.t_solve:.3f} s, t_extract {soln.t_extract:.3f} s; pobj "
+          f"{soln.pobj:.6f} dobj {soln.dobj:.6f} gap {soln.gap:.3e} ({rel:.3e} "
+          f"relative); the rounded clique's objective {pclique:.6f} "
+          f"(dobj - it: {soln.dobj - pclique:.3e}); tr X - 1 {tr - 1:.3e}, "
+          f"lambda_min {lmin:.3e}, |nodes| {len(soln.nodes)}; launches "
+          f"{launches}", flush=True)
+    require(abs(tr - 1.0) <= SDP_TRACE_TOL, f"(a) tr X = {tr}")
+    require(lmin >= SDP_LAMBDA_MIN, f"(a) lambdas.min() = {lmin}")
+    require(soln.dobj >= pclique - SDP_DUALITY_REL * max(1.0, pclique),
+            f"(a) dobj {soln.dobj} below the rounded clique's objective "
+            f"{pclique}: the dual bound is not a bound")
+    P, R = sdr_quality("(a) facade SDR", c, soln, (pcd0, pcd1, A, Agt), inv,
+                       dev, DENSE_R)
+    summary = dict(m=M, iters=soln.iters, ms_per_iter=soln.t_solve /
+                   soln.iters * 1e3, t_solve=soln.t_solve,
+                   t_extract=soln.t_extract, gap=soln.gap, pobj=soln.pobj,
+                   dobj=soln.dobj, clique_obj=pclique, P=P, R=R)
+
+    # (e) the time limit: one chunk (50 iterations), still feasible
+    lim, _ = warned(lambda: sdp.solve(Mi, c.get_constraint_matrix(),
+                                      sdp.Params(eps_abs=SDP_EPS,
+                                                 eps_rel=SDP_EPS,
+                                                 time_limit_secs=1e-9),
+                                      device=dev))
+    tr = float(torch.trace(lim.X))
+    print(f"(e) time_limit_secs=1e-9: stopped at iteration {lim.iters}, tr X "
+          f"- 1 {tr - 1:.3e}", flush=True)
+    require(lim.iters <= 50 and abs(tr - 1.0) <= 1e-5,
+            f"(e) iters {lim.iters}, tr X {tr}")
+    summary["time_limit_iters"] = lim.iters
+    return launches, c, (pcd0, pcd1, A, Agt, u0), soln, summary
+
+
+def sdp_rank(inv, dev):
+    """(b) the rank-r route at m=4096 with default Params (auto_tune)."""
+    import torch
+    from clipper_tpu_torch import Clipper
+    from clipper_tpu_torch.solvers import sdp
+    from clipper_tpu_torch.types import Params
+    pcd0, pcd1, A, Agt, _ = one_problem(SDP_RANK_M, RHO, seed=0)
+    c = Clipper(inv, Params(), dtype=torch.float32, device=dev)
+    t0 = time.perf_counter()
+    with sdp_solutions() as seen:
+        ((_, msgs), launches) = counted_call(lambda: warned(lambda: (
+            c.score_pairwise_consistency(pcd0.T, pcd1.T, A),
+            c.solve_as_msrc_sdr(sdp.Params()))))
+    total = time.perf_counter() - t0
+    soln = seen[0]
+    print(f"(b) rank-r SDR m={SDP_RANK_M} rho={RHO} f32, default Params: "
+          f"iters {soln.iters}, {soln.t_solve / soln.iters * 1e3:.3f} ms an "
+          f"iteration, t_solve {soln.t_solve:.3f} s, t_extract "
+          f"{soln.t_extract:.3f} s, build + solve {total:.3f} s (host clock); "
+          f"gap {soln.gap:.3e} (pobj {soln.pobj:.4f}); warnings {msgs}; "
+          f"launches {launches}", flush=True)
+    for text in ("eps tightened to 0.0001", "z_rank=64",
+                 "Anderson acceleration disabled at n=4096 — its difference "
+                 "history would hold 2.5 GiB"):
+        require(any(text in w for w in msgs), f"(b) auto_tune warning "
+                f"{text!r} missing: {msgs}")
+    require(launches["affinity_build"] == 1, f"(b) launches {launches}")
+    P, R = sdr_quality("(b) rank-r SDR", c, soln, (pcd0, pcd1, A, Agt), inv,
+                       dev, BENCH_R)
+    return dict(m=SDP_RANK_M, iters=soln.iters, ms_per_iter=soln.t_solve /
+                soln.iters * 1e3, t_solve=soln.t_solve, total_s=total,
+                gap=soln.gap, P=P, R=R)
+
+
+def sdp_batched_and_cpu(inv, dev):
+    """(c) B=8 problems at m=256 through solve_as_msrc_sdr_batched, each
+    against its own single solve on the card; (d) one of them in f64 on
+    the card and on the CPU."""
+    import torch
+    from clipper_tpu_torch import Clipper
+    from clipper_tpu_torch.bench import harness, sdp_bench
+    from clipper_tpu_torch.solvers import sdp
+    rng = np.random.default_rng(0)
+    pcd0 = harness.load_bunny().astype(np.float32)
+    D1 = torch.as_tensor(pcd0, device=dev)
+    built = []
+    for _ in range(SDP_B):
+        pcd1, A, _ = harness.make_problem(pcd0, SDP_B_M, RHO, rng)
+        built.append(sdp_bench._build(inv, D1, pcd1, A, dev)[2:])
+    Ms = torch.stack([b[0] for b in built])
+    Cs = torch.stack([b[1] for b in built])
+    (solns, launches) = counted_call(
+        lambda: Clipper.solve_as_msrc_sdr_batched(Ms, Cs, device=dev))
+    t0 = time.perf_counter()
+    Clipper.solve_as_msrc_sdr_batched(Ms, Cs, device=dev)
+    torch.cuda.synchronize()
+    tb = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    singles = [sdp.solve(Ms[b], Cs[b], device=dev) for b in range(SDP_B)]
+    torch.cuda.synchronize()
+    ts = time.perf_counter() - t0
+    same = [solns[b].nodes == singles[b].nodes for b in range(SDP_B)]
+    print(f"(c) batched SDR B={SDP_B} m={SDP_B_M}: {tb / SDP_B * 1e3:.3f} ms "
+          f"a problem (host clock over the batch) against {ts / SDP_B * 1e3:.3f}"
+          f" ms a single solve; iters batched {[s.iters for s in solns]} "
+          f"single {[s.iters for s in singles]}; nodes equal {sum(same)} of "
+          f"{SDP_B}", flush=True)
+    require(all(same), "(c) a batched solution's nodes differ from its own "
+            "single solve's")
+    out = dict(ms_per_problem=tb / SDP_B * 1e3,
+               single_ms=ts / SDP_B * 1e3)
+
+    M64, C64 = Ms[0].double(), Cs[0].double()
+    on_card = sdp.solve(M64, C64, device=dev)
+    on_cpu = sdp.solve(M64.cpu(), C64.cpu(), device="cpu")
+    dp = abs(on_card.pobj - on_cpu.pobj)
+    print(f"(d) f64 m={SDP_B_M} CUDA against CPU: iters {on_card.iters} and "
+          f"{on_cpu.iters}, nodes equal {on_card.nodes == on_cpu.nodes}, "
+          f"|pobj difference| {dp:.3e} (pobj {on_card.pobj:.12f}), dobj "
+          f"{on_card.dobj:.12f} and {on_cpu.dobj:.12f}", flush=True)
+    require(on_card.nodes == on_cpu.nodes, "(d) CUDA and CPU nodes differ")
+    require(dp <= 1e-8 * max(1.0, abs(on_cpu.pobj)),
+            f"(d) pobj {on_card.pobj} against {on_cpu.pobj}")
+    out.update(cuda_iters=on_card.iters, cpu_iters=on_cpu.iters, dpobj=dp)
+    return out
+
+
+def utils_compat(inv, c, prob, sdr_nodes, dev):
+    """(f) the compat namespace, the profiler and the checkpoint on the
+    card."""
+    import glob
+    import tempfile
+    import torch
+    import clipper_tpu_torch.compat as clipperpy
+    from clipper_tpu_torch import Clipper
+    from clipper_tpu_torch.ops.affinity import gather_endpoints
+    from clipper_tpu_torch.ops.affinity_pallas import build_affinity_pallas
+    from clipper_tpu_torch.solvers import msrc_flat
+    from clipper_tpu_torch.types import Params
+    from clipper_tpu_torch.utils import checkpoint, profiling
+    pcd0, pcd1, A, Agt, u0 = prob
+
+    cp = clipperpy.CLIPPER(inv, clipperpy.Params(), device=dev)
+    cp.score_pairwise_consistency(pcd0.T, pcd1.T, A)
+    cp.solve(u0)
+    ref = Clipper(inv, Params(), dtype=torch.float32, device=dev)
+    ref.score_pairwise_consistency(pcd0.T, pcd1.T, A)
+    ref.solve(u0=u0)
+    same_sel = np.array_equal(cp.get_selected_associations(),
+                              ref.get_selected_associations())
+    require(same_sel, "(f) compat.CLIPPER's selection differs from the "
+            "facade's on the same u0")
+    require(isinstance(cp.get_affinity_matrix(), np.ndarray),
+            "(f) compat matrices are not host arrays")
+    sp = clipperpy.SDPParams()
+    sp.eps_abs = sp.eps_rel = SDP_EPS
+    cp.solve_as_msrc_sdr(sp)
+    compat_nodes = cp.get_solution().nodes
+    require(compat_nodes == list(sdr_nodes), "(f) compat.SDPParams' SDR "
+            "nodes differ from (a)'s")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        with profiling.device_trace(tmp):
+            with profiling.annotate("facade build"):
+                ref.score_pairwise_consistency(pcd0.T, pcd1.T, A)
+        text = open(glob.glob(f"{tmp}/*.json")[0]).read()
+    named = "affinity_build_kernel" in text and "facade build" in text
+    require(named, "(f) the device trace does not name kernel 6's kernel")
+
+    # kill-and-resume of an f64 flat solve through the disk, on the card
+    D1 = torch.as_tensor(pcd0, dtype=torch.float64, device=dev)
+    D2 = torch.as_tensor(pcd1, dtype=torch.float64, device=dev)
+    At = torch.as_tensor(A, device=dev)
+    P1, P2 = gather_endpoints(D1, D2, At)
+    M64, C64 = build_affinity_pallas(inv, P1, P2, At, affinityeps=1e-4)
+    mv = msrc_flat.stacked_dual_matvec(M64, C64)
+    u = torch.as_tensor(u0, dtype=torch.float64, device=dev)
+    u_ref, F_ref, i_ref, ticks_ref, _ = msrc_flat.flat_solve_single(
+        mv, u, Params(), return_ticks=True)
+    state = msrc_flat.flat_init(mv, u, Params())
+    chunks = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/carry.npz"
+        while not bool(state.done):
+            state = msrc_flat.flat_solve_ticks(mv, state, Params(), ticks=7)
+            checkpoint.save_solver_state(path, state)
+            state = checkpoint.load_solver_state(path, device=dev)
+            chunks += 1
+    exact = (state.u.dtype == torch.float64 and state.u.is_cuda
+             and torch.equal(state.u, u_ref) and torch.equal(state.F, F_ref)
+             and int(state.i) == int(i_ref)
+             and int(state.ticks) == int(ticks_ref))
+    print(f"(f) compat.CLIPPER selection equal to the facade's: {same_sel}; "
+          f"compat.SDPParams SDR nodes equal to (a): "
+          f"{compat_nodes == list(sdr_nodes)}; device trace names "
+          f"affinity_build_kernel: {named}; f64 flat solve m={M} killed and "
+          f"resumed {chunks} times ({int(ticks_ref)} ticks): bit-identical "
+          f"{exact}", flush=True)
+    require(chunks > 2 and exact, "(f) the resumed f64 solve is not "
+            "bit-identical to the straight-through one")
+
+
+def run_examples(dev):
+    """(g) ex1, ex3, ex4 and ex5 in-process at their defaults."""
+    from clipper_tpu_torch.examples import (ex1_known_scale_registration,
+                                            ex3_plane_cloud, ex4_bunny,
+                                            ex5_large_scale)
+    arg = [f"--device={dev.type}"]
+    out = {}
+    for name, mod, need in (
+            ("ex1", ex1_known_scale_registration, ("affinity_build",)),
+            ("ex3", ex3_plane_cloud, ("affinity_build",)),
+            ("ex4", ex4_bunny, ("affinity_build",)),
+            ("ex5", ex5_large_scale, ("sym_rows_matvec",))):
+        _, out[name] = driver_call(f"example {name}", lambda: mod.main(arg),
+                                   need)
+    return out
+
+
+def phase_sdp(inv, dev):
+    """10: the SDP relaxation on the card, then the utils, the compat
+    namespace and the examples."""
+    import torch
+    t0 = time.perf_counter()
+    launches, c, prob, soln, summary = sdp_facade(inv, dev)
+    summary["rank"] = sdp_rank(inv, dev)
+    summary["batched"] = sdp_batched_and_cpu(inv, dev)
+    utils_compat(inv, c, prob, soln.nodes, dev)
+    ex = run_examples(dev)
+    torch.cuda.synchronize()
+    print(f"sdp: launches of (a) {launches}, examples {ex}; summary "
+          f"{json.dumps(summary)}; {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return launches, c, soln
+
+
 def main() -> None:
     quick = "--quick" in sys.argv[1:]
     t_start = time.perf_counter()
@@ -3227,8 +3587,12 @@ def main() -> None:
     phase_drivers(dev)
     print(f"drivers: {time.perf_counter() - t0:.1f} s", flush=True)
     phase_surface(inv, pn_inv, check, dev)
+    _, sdr_c, _ = phase_sdp(inv, dev)
     if "--profile" in sys.argv[1:]:
         phase_profile(inv, main_data, cap, dev)
+        from clipper_tpu_torch.solvers import sdp
+        profile_call(f"facade SDR m={M}", lambda: sdr_c.solve_as_msrc_sdr(
+            sdp.Params(eps_abs=SDP_EPS, eps_rel=SDP_EPS)))
 
     src = "clipper_tpu_torch/csrc/"
     replaces = {

@@ -15,8 +15,13 @@ Hopper GPU. This package covers these paths end to end:
   solver or multistart, and from m = 8192 the row-chunked
   symmetric-triangle capacity engine; exact DSD rounding on every engine
   and the maximum clique (host solvers, native/), the sparse input path
-  over occupied-tile storage (ops/blocksparse.py), and successive clique
-  extraction (solvers/extract.py).
+  over occupied-tile storage (ops/blocksparse.py), successive clique
+  extraction (solvers/extract.py), and the semidefinite relaxation
+  (solvers/sdp.py, plain PyTorch as the JAX solver is plain XLA), one
+  problem or a batch;
+- the clipperpy-style namespace (compat/), Kabsch, checkpoints and
+  profiling (utils/), the bench drivers (bench/) and the reference's
+  examples (examples/).
 
 The pool's triangle builds and matvecs (flat and tile-major), the stacked
 build, the facade's dense build, the batched engine's fused matvec and

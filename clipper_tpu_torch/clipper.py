@@ -39,9 +39,10 @@ the sparse path slices it from the scipy M. ``solve_as_maximum_clique``
 runs the host max-clique solver (solvers/maxclique.py) on C.
 ``set_sparse_matrix_data`` keeps scipy input sparse: occupied-tile storage
 (ops/blocksparse.py) and a solve that never makes a dense (m, m).
-
-Not ported yet, and raising NotImplementedError with its ROADMAP.md
-Queue 1 item: ``solve_as_msrc_sdr*`` (14, the SDP solver).
+``solve_as_msrc_sdr`` solves the semidefinite relaxation (solvers/sdp.py)
+on ``self.device`` over ``get_affinity_matrix()`` /
+``get_constraint_matrix()``, which densify on the capacity and sparse
+paths.
 """
 
 from __future__ import annotations
@@ -60,17 +61,12 @@ from clipper_tpu_torch.ops import affinity_pallas, blocksparse, symstore
 from clipper_tpu_torch.ops.affinity import (build_affinity, create_all_to_all,
                                             distinctness_mask,
                                             gather_endpoints)
-from clipper_tpu_torch.solvers import dsd, maxclique, msrc, msrc_flat
+from clipper_tpu_torch.solvers import dsd, maxclique, msrc, msrc_flat, sdp
 from clipper_tpu_torch.types import (Params, Rounding, Solution,
                                      as_association, resolve_device)
 
 _CAPACITY_M = 8192      # 'auto' switches to the triangle engine at this m
 _DENSIFY_CAP = 16384    # largest m the capacity path densifies on demand
-
-
-def _not_ported(what: str, item: int):
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md Queue 1 item {item})")
 
 
 class Clipper:
@@ -370,11 +366,34 @@ class Clipper:
         return self._soln
 
     def solve_as_msrc_sdr(self, params=None) -> Solution:
-        raise _not_ported("solve_as_msrc_sdr (the SDP solver)", 14)
+        """Solve the MSRC semidefinite relaxation (reference:
+        src/clipper.cpp:101-113, src/sdp.cpp:88-303) by the ADMM of
+        solvers/sdp.py on ``self.device``; the selected nodes become the
+        mask, with score -1 and ifinal 0 as in the JAX facade."""
+        self._require_matrices()
+        m = self._m()
+        M = self.get_affinity_matrix()
+        C = self.get_constraint_matrix()
+        t0 = time.perf_counter()
+        sdp_soln = sdp.solve(M, C, params or sdp.Params(), device=self.device)
+        t = time.perf_counter() - t0
+        zeros = torch.zeros(m, dtype=self.dtype, device=self.device)
+        self._soln = Solution(
+            ifinal=torch.tensor(0, dtype=torch.int32, device=self.device),
+            mask=self._mask_of(sdp_soln.nodes, m), u0=zeros, u=zeros.clone(),
+            score=self._tensor(-1.0), t=t)
+        return self._soln
 
     @staticmethod
-    def solve_as_msrc_sdr_batched(Ms, Cs, params=None) -> list:
-        raise _not_ported("solve_as_msrc_sdr_batched (the SDP solver)", 14)
+    def solve_as_msrc_sdr_batched(Ms, Cs, params=None, *,
+                                  device="cuda") -> list:
+        """Batched MSRC-SDR over (B, m, m) stacked affinity/constraint
+        matrices (identity diagonal, as get_affinity_matrix returns), all B
+        relaxations in one lock-step loop, each certified in f64 (an
+        extension: the reference's SCS path is one problem a call). Returns
+        a list of B ``sdp.Solution``."""
+        return sdp.solve_batched(Ms, Cs, params or sdp.Params(),
+                                 device=device)
 
     # ------------------------------------------------------------------
     # accessors (reference: src/clipper.cpp:117-166)

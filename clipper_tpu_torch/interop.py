@@ -18,6 +18,7 @@ import torch
 
 from clipper_tpu_torch.invariants import BUILTINS
 from clipper_tpu_torch.invariants.base import PairwiseInvariant
+from clipper_tpu_torch.solvers import sdp
 from clipper_tpu_torch.solvers.msrc_flat import _FlatState
 from clipper_tpu_torch.types import Params, Rounding
 
@@ -95,6 +96,21 @@ def state_to_torch(state: Dict[str, np.ndarray], device="cpu") -> _FlatState:
 def state_to_numpy(state: _FlatState) -> Dict[str, np.ndarray]:
     return {name: to_numpy(getattr(state, name))
             for name in _FlatState._fields}
+
+
+def sdp_state_to_torch(state: Dict[str, np.ndarray],
+                       device="cpu") -> sdp._State:
+    """The JAX SDP solver's ADMM carry (its ``_State._asdict()``, one
+    problem) as the port's :class:`sdp._State` with B = 1: the loop's
+    control (it, done, hist) on the host, the rest on ``device``."""
+    host = {"it": torch.int32, "done": torch.bool, "hist": torch.int32}
+    fields = {}
+    for name in sdp._State._fields:
+        if name in host:
+            fields[name] = to_torch(state[name]).to(host[name]).reshape(1)
+        else:
+            fields[name] = to_torch(state[name], device)[None]
+    return sdp._State(**fields)
 
 
 def params_from_dict(d: Dict) -> Params:

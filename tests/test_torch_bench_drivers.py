@@ -23,8 +23,8 @@ from clipper_tpu_torch.bench import (build_probe, capacity_stages,
                                      cpu_mesh_run, grid_tpu,
                                      gridcell_probe, mixed_bench,
                                      multistart_bench, pool_ab,
-                                     symshard_bench, symstore_bench,
-                                     harness, tickstats)
+                                     sdp_bench, symshard_bench,
+                                     symstore_bench, harness, tickstats)
 from clipper_tpu_torch.ops.affinity import score_pairwise_consistency
 
 CPU = "--device=cpu"
@@ -130,6 +130,18 @@ def test_gridcell_probe_main():
         assert {"build_ms", "init_ms", "solve_ms", "polish_ms"} <= set(row)
 
 
+def test_sdp_bench_main(capsys):
+    rows = sdp_bench.main(["--sizes=64,128", "--batch=2", CPU])
+    assert [(r["solver"], r["m"]) for r in rows] == [
+        ("sdp", 64), ("pga", 64), ("sdp_batched", 64),
+        ("sdp", 128), ("pga", 128), ("sdp_batched", 128)]
+    _finite_pr(rows)
+    sdp_rows = [r for r in rows if r["solver"] == "sdp"]
+    assert all(r["iters"] > 0 and np.isfinite(r["gap"]) for r in sdp_rows)
+    out = capsys.readouterr().out
+    assert "SDP    m=  128" in out and "SDPxB" in out
+
+
 def test_symstore_bench_main():
     before = dict(_kernels.LAUNCHES)
     out = symstore_bench.main(["200", "--probes=4", "--rho=0.9", CPU])
@@ -183,6 +195,7 @@ DRIVERS = {
     "tickstats": (tickstats, ["2", "128"]),
     "gridcell_probe": (gridcell_probe, ["2", "128"]),
     "symstore_bench": (symstore_bench, ["128"]),
+    "sdp_bench": (sdp_bench, ["--sizes=64", "--batch=2"]),
     "symshard_bench": (symshard_bench, ["128"]),
     "capacity_stages": (capacity_stages, ["128"]),
 }

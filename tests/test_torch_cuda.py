@@ -919,3 +919,50 @@ def test_gathered_block_dsd_equals_host_copy(cuda, dtype):
     S = np.flatnonzero(sol.u.cpu().numpy() > 0)
     full = dsd.solve(c._M.cpu().numpy(), list(S))
     np.testing.assert_array_equal(sol.nodes, full)
+
+
+def _planted_sdr(n=40, seed=0):
+    rng = np.random.default_rng(seed)
+    W = np.triu(rng.uniform(0, 0.2, size=(n, n)) *
+                (rng.uniform(size=(n, n)) < 0.2), 1)
+    clique = [4, 11, 19, 26, 33, 38]
+    for a in range(len(clique)):
+        for b in range(a + 1, len(clique)):
+            W[clique[a], clique[b]] = 1.0
+    M = W + W.T + np.eye(n)
+    return M, (M > 0).astype(float), clique
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("z_rank", [0, 8])
+def test_sdr_on_the_card_equals_cpu(cuda, z_rank):
+    """The SDR in f64 on the card and on the CPU (the planted clique of
+    tests/test_sdp.py, exact and rank-r Z-steps): equal iterations and
+    nodes, pobj and dobj within 1e-9; tensors stay on the card."""
+    from clipper_tpu_torch.solvers import sdp
+    M, C, clique = _planted_sdr()
+    p = sdp.Params(z_rank=z_rank)
+    on_card = sdp.solve(M, C, p, device=cuda)
+    on_cpu = sdp.solve(M, C, p, device="cpu")
+    assert on_card.X.is_cuda and on_card.evec1.is_cuda
+    assert on_card.iters == on_cpu.iters
+    assert on_card.nodes == on_cpu.nodes == clique
+    assert abs(on_card.pobj - on_cpu.pobj) <= 1e-9
+    assert abs(on_card.dobj - on_cpu.dobj) <= 1e-9
+
+
+@pytest.mark.cuda
+def test_sdr_refuses_tf32_on_the_card(cuda):
+    """An f32 SDR on the card raises while TF32 matmuls are allowed, and
+    leaves the flag as it found it."""
+    from clipper_tpu_torch.solvers import sdp
+    M, C, _ = _planted_sdr()
+    old = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        with pytest.raises(RuntimeError, match="allow_tf32"):
+            sdp.solve(M.astype(np.float32), C.astype(np.float32),
+                      device=cuda)
+        assert torch.backends.cuda.matmul.allow_tf32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old

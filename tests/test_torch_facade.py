@@ -209,10 +209,15 @@ def test_unported_options_raise():
         sh.solve(multistart=4)
     # the host solvers are ported: the maximum clique and exact DSD run
     assert float(c.solve_as_maximum_clique().score) == -1.0
-    with pytest.raises(NotImplementedError, match="item 14"):
-        c.solve_as_msrc_sdr()
-    with pytest.raises(NotImplementedError, match="item 14"):
-        Clipper.solve_as_msrc_sdr_batched(None, None)
+    # the SDP solver is ported: both SDR methods run on the toy scene
+    sol = c.solve_as_msrc_sdr()
+    assert int(sol.mask.sum()) == 3 and float(sol.score) == -1.0
+    Ain = c.get_selected_associations()
+    np.testing.assert_array_equal(Ain[:, 0], Ain[:, 1])
+    solns = Clipper.solve_as_msrc_sdr_batched(
+        c.get_affinity_matrix()[None], c.get_constraint_matrix()[None],
+        device="cpu")
+    assert solns[0].nodes == np.flatnonzero(sol.mask.numpy()).tolist()
     d = Clipper(EuclideanDistance(), Params(rounding=Rounding.DSD),
                 dtype=torch.float64, device="cpu")
     d.score_pairwise_consistency(model, scene)

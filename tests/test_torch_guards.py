@@ -68,6 +68,18 @@ def test_import_pulls_in_no_jax():
         "import clipper_tpu_torch.ops.kcore\n"
         "import clipper_tpu_torch.ops.blocksparse\n"
         "import clipper_tpu_torch.bench.blocksparse_bench\n"
+        "import clipper_tpu_torch.solvers.sdp\n"
+        "import clipper_tpu_torch.bench.sdp_bench\n"
+        "import clipper_tpu_torch.utils.transforms\n"
+        "import clipper_tpu_torch.utils.profiling\n"
+        "import clipper_tpu_torch.utils.checkpoint\n"
+        "import clipper_tpu_torch.compat, clipper_tpu_torch.compat.dsd\n"
+        "import clipper_tpu_torch.compat.invariants\n"
+        "import clipper_tpu_torch.compat.utils\n"
+        "import clipper_tpu_torch.examples.ex1_known_scale_registration\n"
+        "import clipper_tpu_torch.examples.ex3_plane_cloud\n"
+        "import clipper_tpu_torch.examples.ex4_bunny\n"
+        "import clipper_tpu_torch.examples.ex5_large_scale\n"
         "import chip_smoke\n"
         "bad = [k for k in sys.modules if k.split('.')[0] in "
         "('jax', 'jaxlib', 'clipper_tpu')]\n"
@@ -87,8 +99,14 @@ def test_default_device_raises_without_cuda():
                                    make_batched_pipeline,
                                    make_pool_multistart_pipeline,
                                    make_pool_pipeline)
-    from clipper_tpu_torch.bench import blocksparse_bench
+    import clipper_tpu_torch.compat as clipperpy
+    from clipper_tpu_torch.bench import blocksparse_bench, sdp_bench
     from clipper_tpu_torch.bench.harness import default_invariant
+    from clipper_tpu_torch.examples import (ex1_known_scale_registration,
+                                            ex3_plane_cloud, ex4_bunny,
+                                            ex5_large_scale)
+    from clipper_tpu_torch.solvers import sdp
+    from clipper_tpu_torch.utils import checkpoint
     from clipper_tpu_torch.ops import blocksparse, kcore
     from clipper_tpu_torch.solvers import extract_cliques
     from clipper_tpu_torch.types import resolve_device
@@ -108,7 +126,19 @@ def test_default_device_raises_without_cuda():
                  lambda: extract_cliques(M, M, None),
                  lambda: kcore.core_numbers(M),
                  lambda: kcore.kcore_prune_mask(M),
-                 lambda: blocksparse_bench.main(["64", "2", "1"])):
+                 lambda: blocksparse_bench.main(["64", "2", "1"]),
+                 lambda: sdp.solve(np.eye(4), np.eye(4)),
+                 lambda: sdp.solve_batched(np.eye(4)[None], np.eye(4)[None]),
+                 lambda: Clipper.solve_as_msrc_sdr_batched(
+                     np.eye(4)[None], np.eye(4)[None]),
+                 lambda: clipperpy.CLIPPER(inv, clipperpy.Params()),
+                 lambda: sdp_bench.main(["--sizes=64"]),
+                 lambda: checkpoint.load_solution("unread.npz"),
+                 lambda: checkpoint.load_solver_state("unread.npz"),
+                 lambda: ex1_known_scale_registration.main([]),
+                 lambda: ex3_plane_cloud.main([]),
+                 lambda: ex4_bunny.main([]),
+                 lambda: ex5_large_scale.main(["64"])):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             make()
     with pytest.raises(RuntimeError, match="CUDA is not available"):
