@@ -176,7 +176,9 @@ Phases, each of which must pass (any failure exits non-zero):
               (B=128), gridcell_probe (8 problems at m=2048), mixed_bench
               (8 a size, 1 rep), multistart_bench (W=32, K=4, 1 rep),
               symstore_bench (m=8192, --mv-only), symshard_bench
-              (m=8192 on a 1-rank NCCL group) and blocksparse_bench
+              (m=8192 on a 1-rank NCCL group), sharded_bench (m=4096 on
+              its own 1-rank NCCL group, the bench bars) and
+              blocksparse_bench
               (m=2048, k=4 objects), sdp_bench (--sizes=256
               --batch=2); then the harness's
               run_grid at m=1024, rho=0.9 (4 trials, the dense build
@@ -237,6 +239,31 @@ Phases, each of which must pass (any failure exits non-zero):
               utils.checkpoint bit-identical to the straight-through run;
               (g) the examples ex1, ex3, ex4 and ex5 (m=16,384, the rows
               kernel launched) in-process at their defaults.
+11. mesh    — the multi-rank paths (parallel/sharded.py, the pools'
+              mesh=, shard_batch, dryrun.py): (a) the 2D block-sharded
+              engine on a 1-rank NCCL group (a 1x1 mesh) at phase 4's
+              m=65,536 problem, int8 blocks built 512 rows at a time,
+              probes=16, power_steps=4, support=512 (the JAX
+              sharded_bench's defaults), the matvec cast 8192 rows at a
+              time: one counted call, 2 timed; P >= 0.995, R >= 0.88;
+              prints the stage ms, ticks, ifinal, F, the block's GB, the
+              peak allocated memory, the polish branch and the IoU with
+              phase 4's mask, then the stacked int8 matvec alone at K=16
+              and K=1 beside its bound; (b) the 1x1 block at m=8192 (bunny
+              seed 2, rho=0.95) byte-equal to kernel 4's storage and to the
+              plain stacked build, int8 and bf16; (c) the tri and stacked
+              pools (phase 3's and 3b's settings, W=512) on a 1-rank NCCL
+              mesh: the Solution of mesh=None bit for bit, their kernels
+              launched, the bench bars, problems/s beside mesh=None's in
+              turns; (d) gloo ranks sharing the card (NCCL takes one rank a
+              card): the 2D engine at (b)'s problem, int8, on 1x1, 1x2, 2x1
+              and 2x2 (4 ranks: every rank's u bit-identical, the bench
+              bars, IoU >= 0.95 with 1x1), then on 2 ranks the tri pool at
+              W=64 (the masks of mesh=None, kernels 1 and 2 launched on each
+              rank) and dryrun_multichip(2) (m=256, tiles of 128; its
+              convergent check in f64 with equal masks). Each group of
+              ranks runs under a 300 s timeout; a rank that fails fails
+              the phase.
 
 The line before the last is a JSON object of the kernels' numbers (rows 3
 and 7 also carry reduce_launches, the main path's launches of their
@@ -856,8 +883,9 @@ def first(D1, W):
 
 
 def run_pipeline(inv, data_, dev, W, timings=None, storage=None,
-                 stall_outers=0):
-    """bench.py's tri pool (int8 storage unless ``storage`` says)."""
+                 stall_outers=0, mesh=None):
+    """bench.py's tri pool (int8 storage unless ``storage`` says; over a
+    process group with ``mesh``)."""
     import torch
     from clipper_tpu_torch.parallel import pool
     from clipper_tpu_torch.types import Params
@@ -866,7 +894,8 @@ def run_pipeline(inv, data_, dev, W, timings=None, storage=None,
                                    storage_dtype=storage or torch.int8,
                                    power_steps=4, layout="tri",
                                    tri_probes=16, d_scale=0.15,
-                                   stall_outers=stall_outers, device=dev)
+                                   stall_outers=stall_outers, mesh=mesh,
+                                   device=dev)
     return pipe(first(D1, W), D2s[:W], As[:W], u0s[:W], timings=timings)
 
 
@@ -951,13 +980,13 @@ def check_quality(label, As, sol, Agts, W):
     return P.mean(), R.mean()
 
 
-def run_stacked(inv, data_, dev, W, timings=None, stats=None):
+def run_stacked(inv, data_, dev, W, timings=None, stats=None, mesh=None):
     import torch
     from clipper_tpu_torch.parallel import pool
     from clipper_tpu_torch.types import Params
     D1, D2s, As, _, u0s = data_
     pipe = pool.make_pool_pipeline(inv, Params(), storage_dtype=torch.int8,
-                                   device=dev, **STACKED)
+                                   mesh=mesh, device=dev, **STACKED)
     return pipe(first(D1, W), D2s[:W], As[:W], u0s[:W], timings=timings,
                 stats=stats)
 
@@ -1549,13 +1578,14 @@ def phase_capacity(inv, prob, dev):
     a 1-rank NCCL group in its 'xla' (tile list) and 'pallas' (row-chunked)
     modes, with the triangle engine's build chunk and support so that its
     'xla' mode must reproduce the tile-list solve. Returns the launches of
-    the auto and tile-list runs."""
+    the auto and tile-list runs, and the auto run's mask."""
     m, Agt = len(prob[2]), prob[3]
     run = capacity_solve(inv, prob, dev, "auto", {})
     engine = run[0]._resolve_engine(m)
     require(engine == "triangle" and run[0]._cap is not None,
             f"m={m} resolved to engine {engine!r}, not the triangle engine")
-    report_capacity("capacity path (auto)", run, Agt, "sym_rows_matvec")
+    mask_auto, _ = report_capacity("capacity path (auto)", run, Agt,
+                                   "sym_rows_matvec")
     launches = dict(run[3])
     run = capacity_solve(inv, prob, dev, "triangle", {"matvec": "xla"})
     mask_x, F_x = report_capacity("capacity path (tile list)", run, Agt,
@@ -1580,7 +1610,7 @@ def phase_capacity(inv, prob, dev):
                       f"relative difference {dF:.3e}", flush=True)
                 require(same and dF <= 1e-6, "the sharded engine at D=1 "
                         "differs from the single-device tile-list solve")
-    return launches
+    return launches, mask_auto
 
 
 def phase_facade_parity(inv, dev):
@@ -2757,8 +2787,9 @@ def phase_drivers(dev):
     from clipper_tpu_torch.bench import (blocksparse_bench, grid_tpu,
                                          gridcell_probe, harness,
                                          mixed_bench, multistart_bench,
-                                         pool_ab, sdp_bench, symshard_bench,
-                                         symstore_bench, tickstats)
+                                         pool_ab, sdp_bench, sharded_bench,
+                                         symshard_bench, symstore_bench,
+                                         tickstats)
     cuda = f"--device={dev.type}"
     rows, _ = driver_call("grid_tpu (4 trials a cell)",
                           lambda: grid_tpu.main(["4", cuda]),
@@ -2793,6 +2824,11 @@ def phase_drivers(dev):
                              ("sym_rows_matvec",))
     require(out["ranks"] == 1, "symshard_bench did not take the group")
     check_bench_rows("symshard_bench", [dict(out, m=None)])
+    out, _ = driver_call("sharded_bench m=4096 (its own 1-rank NCCL group)",
+                         lambda: sharded_bench.main(["4096", "1", cuda]))
+    require(out["ranks"] == 1 and [r["mesh"] for r in out["rows"]]
+            == [[1, 1]], f"sharded_bench: {out}")
+    check_bench_rows("sharded_bench", [dict(r, m=None) for r in out["rows"]])
     out, _ = driver_call("blocksparse_bench m=2048 k=4",
                          lambda: blocksparse_bench.main(["2048", "4", "2",
                                                          cuda]))
@@ -3498,6 +3534,251 @@ def phase_sdp(inv, dev):
     return launches, c, soln
 
 
+# ---------------------------------------------------------------------------
+# the multi-rank paths: the 2D block-sharded engine, the pools over a
+# process group, and the dry run
+# ---------------------------------------------------------------------------
+
+# the JAX sharded_bench's defaults (clipper_tpu/bench/sharded_bench.py:36-37)
+MESH_OPTS = dict(probes=16, power_steps=4, support=512, build_chunk=512)
+MESH_MV_CHUNK = 8192   # rows cast to f32 at a time at m=65,536: 2.1 GB
+MESH_M = 8192          # the block against kernel 4, and R x C > 1
+MESH_SHAPES = ((1, 1), (1, 2), (2, 1), (2, 2))
+MESH_IOU = 0.95        # R x C > 1 against 1 x 1 (f32 ulp noise: phase 5)
+MESH_W = 64            # the tri pool on 2 gloo ranks
+MESH_TIMEOUT = 300.0   # each group of spawned ranks
+
+
+def mesh_capacity(inv, cap, cap_mask, dev):
+    """11 (a): the 2D engine on a 1-rank NCCL group at m=65,536, int8
+    storage built a chunk of rows at a time, the stacked matvec
+    ``MESH_MV_CHUNK`` rows at a time; the P/R bars; one counted call (the
+    warm-up), then 2 timed calls; then the matvec alone at K=16 and K=1
+    beside its bound."""
+    import torch
+    from clipper_tpu_torch.bench import data
+    from clipper_tpu_torch.bench.harness import time_ms
+    from clipper_tpu_torch.parallel import sharded
+    from clipper_tpu_torch.types import Params
+
+    pcd0, pcd1, A, Agt, u0 = cap
+    m = len(A)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    stats = {}
+    with one_rank_group(dev):
+        mesh = sharded.make_mesh((1, 1))
+
+        def run():
+            return sharded.solve_sharded(
+                inv, pcd0, pcd1, A, u0, Params(), mesh,
+                storage_dtype=torch.int8, matvec_chunk=MESH_MV_CHUNK,
+                device=dev, stats=stats, **MESH_OPTS)
+
+        sol, launches = counted_call(run)
+        cold = dict(stats)
+        sol, wall = timed_calls(run, 2)
+    peak = torch.cuda.max_memory_allocated(dev)
+    mask = sol.mask.cpu().numpy()
+    F = float(sol.score)
+    require(mask.shape == (m,) and bool(torch.isfinite(sol.u).all())
+            and np.isfinite(F) and F <= m, "2D engine m=65,536: bad shape, "
+            "non-finite u or F, or F > m")
+    P, R = data.get_precision_recall(A[mask], Agt)
+    block_gb = stats["storage_bytes"] / 1e9
+    print(f"2D engine 1x1 (1-rank NCCL group) m={m} rho={CAP_RHO} int8 "
+          f"probes=16 power=4 support=512 build_chunk=512 matvec_chunk="
+          f"{MESH_MV_CHUNK}: precision={P * 100:.2f}% recall={R * 100:.2f}% "
+          f"|mask|={int(mask.sum())}; ifinal={int(sol.ifinal)} F={F:.4f} "
+          f"ticks={stats['ticks']} rejected probes={stats['nback']}; polish "
+          f"branch {stats['polish_branch']}; block {block_gb:.3f} GB, peak "
+          f"allocated {peak / 1e9:.3f} GB; IoU with phase 4's triangle "
+          f"engine mask {mask_iou(mask, cap_mask):.4f}", flush=True)
+    print(f"2D engine 1x1 m={m} wall: warm call {wall:.4f} s (mean of 2 "
+          "after 1 warm-up); stage ms of the last (CUDA events): "
+          + ", ".join(f"{k}={stats[k]:.3f}" for k in
+                      ("build", "init", "solve", "polish"))
+          + "; first call: " + ", ".join(f"{k}={cold[k]:.3f}" for k in
+                                         ("build", "init", "solve",
+                                          "polish"))
+          + f"; kernel launches (one call): "
+          f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+    require(stats["storage_bytes"] == 2 * m * m, "2D engine: block bytes")
+    require(P >= 0.995, f"2D engine m={m}: precision {P:.4f} < 0.995")
+    require(R >= 0.88, f"2D engine m={m}: recall {R:.4f} < 0.88")
+    del sol
+
+    P1, P2, At = capacity_endpoints(cap, dev)
+    store = sharded._affinity_block_stored(inv, P1, P2, At, m, m, m, 1e-4,
+                                           torch.int8, 0, 0, 512)
+    mv = sharded.sharded_dual_matvec(store, m, m, torch.float32,
+                                     sharded.make_mesh(),
+                                     matvec_chunk=MESH_MV_CHUNK)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for K in (16, 1):
+        U = torch.rand(m, K, generator=gen, device=dev)
+        ms = time_ms(lambda: mv(U), dev, reps=3)
+        bound = bound_of(2 * m * m + m * K * 4 + 2 * m * K * 4,
+                         2 * 2 * m * m * K, F32_FLOPS)
+        print(f"2D engine stacked int8 matvec m={m} K={K} (stacked_partials "
+              f"{MESH_MV_CHUNK} rows at a time, torch.matmul in f32): "
+              f"{ms:.4f} ms a call; bound {bound['bound_ms']:.4f} ms "
+              f"({bound['bound_by']}), {ms / bound['bound_ms']:.2f}x", flush=True)
+    del store, mv
+    torch.cuda.empty_cache()
+
+
+def mesh_block_vs_kernel4(inv, dev):
+    """11 (b): the 1x1 stored block at m=8192 byte-equal to kernel 4's
+    stacked storage and to the plain stacked build, int8 and bf16.
+    Returns the problem."""
+    import torch
+    from clipper_tpu_torch.ops import affinity_pallas
+    from clipper_tpu_torch.ops.affinity import stored_from_endpoints
+    from clipper_tpu_torch.parallel import sharded
+
+    prob = one_problem(MESH_M, CAP_RHO, seed=2)
+    P1, P2, At = capacity_endpoints(prob, dev)
+    m = MESH_M
+    mts = torch.full((1,), m, dtype=torch.int32, device=dev)
+    for storage in (torch.int8, torch.bfloat16):
+        blk = sharded._affinity_block_stored(inv, P1, P2, At, m, m, m, 1e-4,
+                                             storage, 0, 0, 512)
+        k4 = affinity_pallas.stored_build(inv, P1[None], P2[None], At[None],
+                                          mts, storage_dtype=storage)[0]
+        plain = stored_from_endpoints(inv, P1, P2, At, storage_dtype=storage)
+        d4 = int((blk != k4).sum())
+        dp = int((blk != plain).sum())
+        print(f"2D engine 1x1 block m={m} {str(storage).split('.')[-1]}: "
+              f"{blk.numel()} bytes-or-values; differ from kernel 4 "
+              f"(stored_build) {d4}, from the plain stacked build {dp}",
+              flush=True)
+        require(d4 == 0 and dp == 0, "the 1x1 block differs from kernel 4's "
+                "storage or the plain build")
+        del blk, k4, plain
+    torch.cuda.empty_cache()
+    return prob
+
+
+def mesh_pools(inv, main, dev):
+    """11 (c): the tri and stacked pools on a 1-rank NCCL mesh: the
+    Solution of mesh=None bit for bit, their kernels launched, the bench
+    bars; problems/s of both, timed in turns (none, mesh, mesh, none)."""
+    import torch
+    import torch.distributed as dist
+
+    D1, D2s, As, Agts, u0s = main
+    with one_rank_group(dev):
+        group = dist.group.WORLD
+        for label, run, need in (("tri", run_pipeline,
+                                  ("tri_build", "tri_matvec")),
+                                 ("stacked", run_stacked,
+                                  ("stored_build",))):
+            ref, _ = counted_call(lambda: run(inv, main, dev, W_MAIN))
+            sol, launches = counted_call(lambda: run(inv, main, dev, W_MAIN,
+                                                     mesh=group))
+            missing = [k for k in need if not launches[k]]
+            require(not missing, f"{label} pool mesh=group: kernels never "
+                    f"launched: {missing}")
+            same = all(torch.equal(getattr(sol, f), getattr(ref, f))
+                       for f in ("mask", "ifinal", "score", "u"))
+            require(same, f"{label} pool on a 1-rank mesh differs from "
+                    "mesh=None")
+            P, R = check_quality(f"{label} pool mesh=group", As, sol, Agts,
+                                 W_MAIN)
+            times = {None: [], "mesh": []}
+            for which in (None, "mesh", "mesh", None):
+                t0 = time.perf_counter()
+                run(inv, main, dev, W_MAIN,
+                    mesh=group if which else None)
+                torch.cuda.synchronize()
+                times[which].append(time.perf_counter() - t0)
+            rate = {k: W_MAIN / np.mean(v) for k, v in times.items()}
+            print(f"{label} pool W={W_MAIN} on a 1-rank NCCL mesh: equal to "
+                  f"mesh=None (mask, ifinal, F, u); P={P * 100:.2f}% "
+                  f"R={R * 100:.2f}%; {rate['mesh']:.1f} problems/s against "
+                  f"{rate[None]:.1f} with mesh=None (turns none, mesh, mesh, "
+                  f"none); launches "
+                  f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+
+
+def mesh_on_gloo(inv, main, prob, dev):
+    """11 (d): R x C > 1 on the one card, gloo ranks all on it (NCCL takes
+    one rank a card): the 2D engine at m=8192 int8 on 1x1, 1x2, 2x1 and
+    2x2 (4 ranks: every rank's u bit-identical, the bench bars, IoU >=
+    MESH_IOU with 1x1); then 2 ranks: the tri pool at W=MESH_W (the masks
+    of mesh=None in this process, its kernels launched on each rank) and
+    dryrun_multichip(2)."""
+    import torch
+    from clipper_tpu_torch.bench import cpu_mesh_run, data
+
+    pcd0, pcd1, A, Agt, u0 = prob
+    job = dict(kind="sharded", D1=pcd0, D2=pcd1, A=A, u0=u0, invariant=inv,
+               device=dev.type, storage_dtype=torch.int8, **MESH_OPTS)
+    t0 = time.perf_counter()
+    res = cpu_mesh_run.run(4, [dict(job, mesh=s) for s in MESH_SHAPES],
+                           timeout=MESH_TIMEOUT)
+    print(f"2D engine on 4 gloo ranks on one card: {time.perf_counter() - t0:.1f}"
+          " s (spawn and join included)", flush=True)
+    base = res[0]["mask"]
+    for shape, r in zip(MESH_SHAPES, res):
+        P, R = data.get_precision_recall(A[r["mask"]], Agt)
+        iou = mask_iou(r["mask"], base)
+        print(f"2D engine {shape[0]}x{shape[1]} m={MESH_M} int8 (gloo on the "
+              f"card): P={P * 100:.2f}% R={R * 100:.2f}% F={r['score']:.4f} "
+              f"ifinal={r['ifinal']} ticks={r['stats']['ticks']} polish "
+              f"{r['stats']['polish_branch']}; ranks' u bit-identical "
+              f"{r['ranks_agree']}; IoU with 1x1 {iou:.4f}; stage ms "
+              + ", ".join(f"{k}={r['stats'][k]:.1f}" for k in
+                          ("build", "init", "solve", "polish")), flush=True)
+        require(r["ranks_agree"], f"2D engine {shape}: the ranks' u differ")
+        require(P >= 0.995 and R >= 0.88, f"2D engine {shape}: P={P:.4f} "
+                f"R={R:.4f} below the bars")
+        require(iou >= MESH_IOU, f"2D engine {shape}: IoU {iou:.4f} with 1x1")
+
+    D1, D2s, As, _, u0s = main
+    W = MESH_W
+    pjob = dict(kind="pool", D1=first(D1, W), D2s=D2s[:W], As=As[:W],
+                u0s=u0s[:W], invariant=inv, device=dev.type, lanes=128,
+                window=2, storage_dtype=torch.int8, power_steps=4,
+                layout="tri", tri_probes=16, d_scale=0.15)
+    t0 = time.perf_counter()
+    got = cpu_mesh_run.run_all(2, [pjob, dict(kind="dryrun",
+                                              device=dev.type)],
+                               timeout=MESH_TIMEOUT)
+    print(f"tri pool and dry run on 2 gloo ranks on one card: "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    ref = run_pipeline(inv, main, dev, W).mask.cpu().numpy()
+    for rank in range(2):
+        r = got[rank][0]
+        equal = bool((r["mask"] == ref).all())
+        print(f"tri pool W={W} on 2 gloo ranks, rank {rank}: masks equal to "
+              f"mesh=None {equal}; windows {r['stats']['windows']}; launches "
+              f"{r['launches']}", flush=True)
+        require(equal, f"tri pool on 2 ranks: rank {rank}'s masks differ "
+                "from mesh=None")
+        require(r["launches"].get("tri_build") and r["launches"].get(
+            "tri_matvec"), f"tri pool rank {rank}: kernels not launched")
+    dry = got[0][1]
+    print(f"dryrun_multichip(2) on one card: {json.dumps(dry)}", flush=True)
+    require(dry["mesh"] == [1, 2] and dry["parity_float64"]["iou"] == 1.0,
+            f"dry run: {dry}")
+
+
+def phase_mesh(inv, cap, cap_mask, main, dev):
+    """11: the multi-rank paths (see the module docstring)."""
+    t0 = time.perf_counter()
+    mesh_capacity(inv, cap, cap_mask, dev)
+    print(f"mesh (a): {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    prob = mesh_block_vs_kernel4(inv, dev)
+    mesh_pools(inv, main, dev)
+    print(f"mesh (b, c): {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    mesh_on_gloo(inv, main, prob, dev)
+    print(f"mesh (d): {time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def main() -> None:
     quick = "--quick" in sys.argv[1:]
     t_start = time.perf_counter()
@@ -3559,7 +3840,7 @@ def main() -> None:
     cap = one_problem(CAP_M, CAP_RHO, seed=0)
     print(f"capacity data: m={CAP_M} in {time.perf_counter() - t0:.1f} s",
           flush=True)
-    cap_launches = phase_capacity(inv, cap, dev)
+    cap_launches, cap_mask = phase_capacity(inv, cap, dev)
     for name in ("sym_rows_matvec", "sym_tiles_matvec", "sym_rows_reduce",
                  "sym_tiles_reduce"):
         launches[name] = cap_launches[name]
@@ -3588,6 +3869,10 @@ def main() -> None:
     print(f"drivers: {time.perf_counter() - t0:.1f} s", flush=True)
     phase_surface(inv, pn_inv, check, dev)
     _, sdr_c, _ = phase_sdp(inv, dev)
+    t0 = time.perf_counter()
+    phase_mesh(inv, cap, cap_mask, main_data, dev)
+    print(f"mesh: {time.perf_counter() - t0:.1f} s on {gpu_line()}",
+          flush=True)
     if "--profile" in sys.argv[1:]:
         phase_profile(inv, main_data, cap, dev)
         from clipper_tpu_torch.solvers import sdp

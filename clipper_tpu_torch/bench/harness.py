@@ -29,6 +29,7 @@ The drivers of ``clipper_tpu_torch.bench`` share :func:`parse_argv`,
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import Callable, Dict, List, Optional, Tuple
@@ -128,6 +129,26 @@ def timed_call(fn: Callable[[], object], dev: torch.device):
     out = fn()
     sync(dev)
     return out, time.perf_counter() - t0
+
+
+@contextlib.contextmanager
+def process_group(dev: torch.device):
+    """For a driver over a process group: the default group when one is
+    initialized; else, on the card, a 1-rank NCCL group met through an
+    in-memory store (no network) and destroyed on the way out; else none
+    (one rank, no collective)."""
+    import torch.distributed as dist
+    if dist.is_initialized() or dev.type != "cuda":
+        yield
+        return
+    torch.cuda.set_device(torch.cuda.current_device() if dev.index is None
+                          else dev.index)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
 
 
 def default_invariant() -> EuclideanDistance:

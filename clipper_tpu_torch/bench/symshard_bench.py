@@ -28,7 +28,6 @@ Usage:
 
 from __future__ import annotations
 
-import contextlib
 import time
 
 import numpy as np
@@ -37,22 +36,6 @@ import torch.distributed as dist
 
 from clipper_tpu_torch.bench import data, harness
 from clipper_tpu_torch.ops import symstore
-
-
-@contextlib.contextmanager
-def _group(dev: torch.device):
-    """The default group when one is initialized; else, on the card, a
-    1-rank NCCL group destroyed on the way out; else none (one rank)."""
-    if dist.is_initialized() or dev.type != "cuda":
-        yield
-        return
-    torch.cuda.set_device(dev)
-    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
-                            world_size=1)
-    try:
-        yield
-    finally:
-        dist.destroy_process_group()
 
 
 def main(argv=None) -> dict:
@@ -86,7 +69,7 @@ def main(argv=None) -> dict:
     D2 = torch.as_tensor(pcd1.astype(np.float32), device=dev)
     At = torch.as_tensor(A, dtype=torch.int32, device=dev)
 
-    with _group(dev):
+    with harness.process_group(dev):
         D = dist.get_world_size() if dist.is_initialized() else 1
         print(f"m={m} (pad {m_pad}, nt={nt}, T={T}) on {D} rank(s) of "
               f"{harness.device_name(dev)}: triangle {storage_name} = "

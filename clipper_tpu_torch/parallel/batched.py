@@ -15,10 +15,12 @@ from __future__ import annotations
 from typing import Dict, Optional
 
 import torch
+import torch.distributed as dist
 
 from clipper_tpu_torch.invariants.base import PairwiseInvariant
 from clipper_tpu_torch.ops import fused_matvec
 from clipper_tpu_torch.ops.affinity import score_pairwise_consistency
+from clipper_tpu_torch.parallel.pool import rank_rows
 from clipper_tpu_torch.solvers import msrc, msrc_flat
 from clipper_tpu_torch.types import Params, Rounding, Solution, resolve_device
 
@@ -140,7 +142,33 @@ def make_solve_pipeline(params: Params = Params()):
     return pipeline
 
 
-def shard_batch(tree, mesh, axis_name: str = "b"):
-    raise NotImplementedError(
-        "shard_batch (the batch over a device mesh) is not ported yet "
-        "(ROADMAP.md Queue 1 item 13)")
+def shard_batch(tree, mesh, axis_name: str = "b", device="cuda"):
+    """This rank's share of a batch: the slice [r B / D, (r + 1) B / D) of
+    the leading axis of every array in ``tree`` (a tensor or numpy array,
+    or a tuple, list or dict of them), as tensors on ``device`` ("cuda"
+    by default: this process's current card; raises if missing).
+
+    mesh: the ``torch.distributed`` ProcessGroup of D ranks the batch is
+    split over (None: the default group, or one rank without one);
+    ``axis_name`` only keeps the JAX signature. Raises when D does not
+    divide B. Data parallelism over problems needs no collective: the
+    caller runs :func:`make_batched_pipeline` on its slice and gets its
+    B / D problems' Solution (the JAX ``device_put`` onto a sharding,
+    whose pipeline returned global arrays, has no torch counterpart)."""
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    if mesh is None and dist.is_available() and dist.is_initialized():
+        mesh = dist.group.WORLD
+    D, rank = ((dist.get_world_size(mesh), dist.get_rank(mesh))
+               if mesh is not None else (1, 0))
+
+    def part(x):
+        if isinstance(x, (tuple, list)):
+            return type(x)(part(v) for v in x)
+        if isinstance(x, dict):
+            return {k: part(v) for k, v in x.items()}
+        x = torch.as_tensor(x)
+        return x[rank_rows(x.shape[0], D, rank, "batch B")].to(dev)
+
+    return part(tree)

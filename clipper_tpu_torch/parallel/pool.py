@@ -20,7 +20,8 @@ csrc/stored_build.cu on the card), and ``"tri"`` its flat upper triangle
 (csrc/tri_tiles_matvec.cu). The build kernels compute the Euclidean and
 the point-normal invariants.
 :func:`make_pool_multistart_pipeline` runs K restarts of each problem as
-extra lanes over the stacked storage.
+extra lanes over the stacked storage. ``mesh=`` splits the W problems
+over a ``torch.distributed`` group, a compaction loop a rank.
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ import warnings
 from typing import Dict, Optional
 
 import torch
+import torch.distributed as dist
 
 from clipper_tpu_torch.invariants import kernel_builds
 from clipper_tpu_torch.invariants.base import PairwiseInvariant
@@ -362,6 +364,27 @@ def _build_stacked(invariant, P1s, P2s, As, m_trues, storage_dtype, build,
                                  storage_dtype=storage_dtype)
 
 
+def rank_rows(W: int, D: int, rank: int, what: str = "workload W") -> slice:
+    """Rank ``rank``'s rows of W split over D ranks: [r W / D, (r + 1) W /
+    D); raises when D does not divide W."""
+    if W % D:
+        raise ValueError(f"{what}={W} must be divisible by the mesh size {D}")
+    return slice(rank * W // D, (rank + 1) * W // D)
+
+
+def gather_rows(x: torch.Tensor, rows: slice, W: int, group) -> torch.Tensor:
+    """This rank's rows ``rows`` of a (W, ...) result -> the whole (W, ...)
+    on every rank of ``group``: an all-reduce of a buffer that is zero
+    outside each rank's rows, exact (x + 0 = x), on NCCL and on gloo's
+    CUDA tensors alike. A group of one rank makes no collective call."""
+    if dist.get_world_size(group) == 1:
+        return x
+    buf = x.new_zeros((W,) + x.shape[1:])
+    buf[rows] = x
+    dist.all_reduce(buf, group=group)
+    return buf
+
+
 def make_pool_pipeline(invariant: PairwiseInvariant,
                        params: Params = Params(),
                        affinityeps: float = 1e-4,
@@ -371,6 +394,7 @@ def make_pool_pipeline(invariant: PairwiseInvariant,
                        support: Optional[int] = 256,
                        power_steps: int = 0,
                        mesh=None,
+                       axis_name: str = "b",
                        build: str = "auto",
                        layout: str = "tri",
                        tri_tile: int = 0,
@@ -407,12 +431,24 @@ def make_pool_pipeline(invariant: PairwiseInvariant,
     Shapes: D1 (n1, d) shared by all problems or (W, n1, d), D2s
     (W, n2, d), As (W, m, 2), u0s (W, m); numpy arrays or tensors. The
     pipeline runs on ``device`` ("cuda" by default; raises if missing).
+
+    mesh: optional ``torch.distributed`` ProcessGroup of D ranks for data
+    parallelism (the JAX package's 1D mesh; ``axis_name`` only keeps its
+    signature). Every rank calls the pipeline with the whole workload; W
+    must divide by D. Each rank builds the storage of its W / D problems
+    (rank r takes problems r W / D to (r + 1) W / D) and runs its own
+    compaction loop, with no collective inside it; the ranks then gather
+    u and ifinal once (an all-reduce of buffers that are zero outside
+    each rank's rows: exact), and every rank polishes and rounds all W,
+    so each returns the W-problem Solution that ``mesh=None`` gives.
+    ``timings`` and ``stats`` then hold this rank's loop (``stats``: its
+    windows and its problems' ticks) and the gather's ms.
     """
     if layout not in ("tri", "stacked"):
         raise ValueError(f"unknown layout {layout!r}")
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= is not ported yet (ROADMAP.md Queue 1 item 13)")
+    if mesh is not None and not isinstance(mesh, dist.ProcessGroup):
+        raise TypeError("mesh must be a torch.distributed ProcessGroup "
+                        f"(or None); got {type(mesh).__name__}")
     if layout == "stacked" and (tri_probes != 1 or warm_alpha
                                 or d_scale != 1.0 or tri_tile
                                 or stall_outers):
@@ -443,8 +479,9 @@ def make_pool_pipeline(invariant: PairwiseInvariant,
                  stats: Optional[Dict] = None) -> Solution:
         """m_trues: optional (W,) per-problem true sizes (rows/cols >=
         m_true are inert). timings: optional dict filled with per-stage
-        milliseconds (build, init, solve, polish). stats: optional dict
-        filled with the pool's windows and per-problem ticks."""
+        milliseconds (build, init, solve, with a mesh gather, polish).
+        stats: optional dict filled with the pool's windows and
+        per-problem ticks."""
         u0s = as_tensor(u0s)
         dtype = u0s.dtype
         D1 = as_tensor(D1, dtype)
@@ -457,17 +494,23 @@ def make_pool_pipeline(invariant: PairwiseInvariant,
         clock = StageClock(dev, timings)
 
         clock.mark("start")
-        P1s, P2s = gather_endpoints(D1, D2s, As)
+        rows = slice(0, W)
+        if mesh is not None:
+            rows = rank_rows(W, dist.get_world_size(mesh),
+                             dist.get_rank(mesh))
+        D1r = D1[rows] if D1.dim() == 3 else D1
+        P1s, P2s = gather_endpoints(D1r, D2s[rows], As[rows])
         if layout == "tri":
-            store, nt = build_tri(P1s, P2s, As, m_trues, m)
+            store, nt = build_tri(P1s, P2s, As[rows], m_trues[rows], m)
             bmv = flattri.make_tri_pool_matvec(store, nt, dtype)
         else:
-            store = _build_stacked(invariant, P1s, P2s, As, m_trues,
-                                   storage_dtype, build, affinityeps)
+            store = _build_stacked(invariant, P1s, P2s, As[rows],
+                                   m_trues[rows], storage_dtype, build,
+                                   affinityeps)
             bmv = msrc_flat.make_stacked_pool_matvec(store, dtype)
         clock.mark("build")
 
-        u = u0s
+        u = u0s[rows]
         if power_steps:
             u = msrc_flat.power_init_batched(bmv, None, u, power_steps)
         inits = msrc_flat.flat_init_batched(bmv, None, u, params)
@@ -483,6 +526,10 @@ def make_pool_pipeline(invariant: PairwiseInvariant,
                                       window=window, stats=stats)
         clock.mark("solve")
 
+        if mesh is not None:
+            u, ifinal = (gather_rows(x, rows, W, mesh) for x in (u, ifinal))
+            P1s, P2s = gather_endpoints(D1, D2s, As)
+            clock.mark("gather")
         Fp = _polish_batch(invariant, P1s, P2s, As, u, support,
                                affinityeps)
         mask = msrc.round_solution(u, Fp, rounding)

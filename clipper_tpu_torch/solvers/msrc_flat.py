@@ -488,16 +488,32 @@ def stacked_products(MC: torch.Tensor, U: torch.Tensor,
     to bf16, and cuBLAS may reduce bf16 products in reduced precision.
     Only f32 storage on the card depends on the TF32 flag; it raises
     there when TF32 is on rather than change the flag."""
-    is_int8 = MC.dtype == torch.int8
-    cdt = torch.bfloat16 if is_int8 else MC.dtype
+    return finish_stacked(stacked_partials(MC, U, out_dtype), MC.dtype,
+                          out_dtype)
+
+
+def stacked_partials(MC: torch.Tensor, U: torch.Tensor,
+                     out_dtype: torch.dtype) -> torch.Tensor:
+    """:func:`stacked_products` before its cast to out_dtype and its int8
+    scaling: the sums in their accumulation dtype (out_dtype when the
+    storage has it, else f32), for a caller that adds several of them
+    before :func:`finish_stacked` rounds once (the 2D sharded engine)."""
+    cdt = torch.bfloat16 if MC.dtype == torch.int8 else MC.dtype
     acc = out_dtype if MC.dtype == out_dtype else torch.float32
     if (MC.is_cuda and MC.dtype == torch.float32 and acc == torch.float32
             and torch.backends.cuda.matmul.allow_tf32):
         raise RuntimeError(
             "stacked matvec: f32 storage on the card needs "
             "torch.backends.cuda.matmul.allow_tf32 = False")
-    Y = torch.matmul(MC.to(acc), U.to(cdt).to(acc)).to(out_dtype)
-    if is_int8:
+    return torch.matmul(MC.to(acc), U.to(cdt).to(acc))
+
+
+def finish_stacked(Y: torch.Tensor, storage_dtype: torch.dtype,
+                   out_dtype: torch.dtype) -> torch.Tensor:
+    """Sums of :func:`stacked_partials` cast to out_dtype, then scaled by
+    1/127 in it for int8 storage."""
+    Y = Y.to(out_dtype)
+    if storage_dtype == torch.int8:
         # a 0-d CPU tensor enters a CUDA op as a host scalar
         Y = Y * torch.tensor(1.0 / _INT8_SCALE, dtype=out_dtype)
     return Y

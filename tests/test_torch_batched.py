@@ -172,8 +172,12 @@ def test_batched_options_and_unported():
                      (dict(matvec="fused", probes=4), "multiprobe")):
         with pytest.raises(ValueError, match=err):
             batched.make_batched_pipeline(INV_T, device="cpu", **bad)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
-        batched.shard_batch({}, None)
+    # shard_batch is ported: one rank without a group keeps the whole
+    # batch, as tensors on the device; a mesh must split the batch
+    part = batched.shard_batch({"u0s": np.ones((3, 4))}, None, device="cpu")
+    assert part["u0s"].shape == (3, 4) and part["u0s"].device.type == "cpu"
+    with pytest.raises(ValueError, match="batch B=3 must be divisible"):
+        batched.rank_rows(3, 2, 0, "batch B")
 
 
 def _chunked(mv, s, params, chunk, **opts):

@@ -966,3 +966,91 @@ def test_sdr_refuses_tf32_on_the_card(cuda):
         assert torch.backends.cuda.matmul.allow_tf32
     finally:
         torch.backends.cuda.matmul.allow_tf32 = old
+
+
+@pytest.fixture
+def nccl_rank(cuda):
+    """A 1-rank NCCL group on the card, met through an in-memory store."""
+    import torch.distributed as dist
+    dev = torch.device("cuda", torch.cuda.current_device())
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        yield dev
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage", [torch.int8, torch.bfloat16])
+@pytest.mark.parametrize("m", [1000, 1024])
+def test_sharded_block_equals_kernel4_storage(cuda, m, storage):
+    """The 2D engine's 1x1 stored block (plain, 64 rows a chunk) is
+    byte-equal to kernel 4's stacked storage and to the plain build."""
+    from clipper_tpu_torch.ops.affinity import stored_from_endpoints
+    from clipper_tpu_torch.parallel import sharded
+    pcd0, D2s, As, _ = _problems(1, m, seed=7)
+    inv = harness.default_invariant()
+    A = torch.as_tensor(As[0], device=cuda)
+    P1, P2 = gather_endpoints(torch.as_tensor(pcd0, device=cuda),
+                              torch.as_tensor(D2s[0], device=cuda), A)
+    blk = sharded._affinity_block_stored(inv, P1, P2, A, m, m, m, 1e-4,
+                                         storage, 0, 0, 64)
+    k4 = affinity_pallas.stored_build(
+        inv, P1[None], P2[None], A[None],
+        torch.full((1,), m, dtype=torch.int32, device=cuda),
+        storage_dtype=storage)[0]
+    assert torch.equal(blk, k4)
+    assert torch.equal(blk, stored_from_endpoints(inv, P1, P2, A,
+                                                  storage_dtype=storage))
+
+
+@pytest.mark.cuda
+def test_sharded_engine_one_rank_nccl(nccl_rank):
+    """The 2D engine on a 1-rank NCCL group (a 1x1 mesh), int8 at m=1024:
+    unchunked, its u bit-equal to the flat solver's over kernel 4's
+    storage and make_stacked_matvec (the dense flat engine's arithmetic);
+    its matvec 256 rows at a time within JAX's chunking tolerance
+    (rtol=1e-6, atol=1e-8: cuBLAS may sum a row block in another order);
+    the chunked solve's and the CPU run's masks within IoU 0.95."""
+    from clipper_tpu_torch.parallel import sharded
+    from clipper_tpu_torch.solvers import msrc_flat
+    dev = nccl_rank
+    m = 1024
+    pcd0, D2s, As, _ = _problems(1, m, seed=3)
+    u0 = np.random.default_rng(3).random(m).astype(np.float32)
+    inv = harness.default_invariant()
+    opts = dict(storage_dtype=torch.int8, probes=16, power_steps=4,
+                support=512, build_chunk=256)
+    mesh = sharded.make_mesh()
+    assert mesh.shape == (1, 1) and mesh.group is not None
+    stats = {}
+    sol = sharded.solve_sharded(inv, pcd0, D2s[0], As[0], u0, Params(), mesh,
+                                device=dev, stats=stats, **opts)
+    assert sol.u.is_cuda and stats["mesh"] == [1, 1]
+    A = torch.as_tensor(As[0], device=dev)
+    P1, P2 = gather_endpoints(torch.as_tensor(pcd0, device=dev),
+                              torch.as_tensor(D2s[0], device=dev), A)
+    MC = affinity_pallas.stored_build(
+        inv, P1[None], P2[None], A[None],
+        torch.full((1,), m, dtype=torch.int32, device=dev))[0]
+    mv = msrc_flat.make_stacked_matvec(MC, torch.float32)
+    u = msrc_flat.power_init(mv, torch.as_tensor(u0, device=dev), 4)
+    s = msrc_flat.flat_init(mv, u, Params())
+    s = msrc_flat.flat_solve_state(mv, s, Params(), probes=16)
+    assert torch.equal(sol.u, s.u) and int(sol.ifinal) == int(s.i)
+    chunked_mv = sharded.sharded_dual_matvec(MC, m, m, torch.float32, mesh,
+                                             matvec_chunk=256)
+    U = torch.rand(m, 16, generator=torch.Generator(device=dev)
+                   .manual_seed(0), device=dev)
+    for a, b in zip(chunked_mv(U), mv(U)):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-8)
+    chunked = sharded.solve_sharded(inv, pcd0, D2s[0], As[0], u0, Params(),
+                                    mesh, device=dev, matvec_chunk=256,
+                                    **opts)
+    cpu = sharded.solve_sharded(inv, pcd0, D2s[0], As[0], u0, Params(),
+                                sharded.make_mesh(), device="cpu", **opts)
+    a = sol.mask.cpu().numpy()
+    for other in (chunked.mask.cpu().numpy(), cpu.mask.numpy()):
+        assert (a & other).sum() / max(1, (a | other).sum()) >= 0.95

@@ -58,6 +58,9 @@ def test_import_pulls_in_no_jax():
         "import clipper_tpu_torch.bench.multistart_bench\n"
         "import clipper_tpu_torch.bench.pool_ab\n"
         "import clipper_tpu_torch.bench.symshard_bench\n"
+        "import clipper_tpu_torch.bench.sharded_bench\n"
+        "import clipper_tpu_torch.parallel.sharded\n"
+        "import clipper_tpu_torch.dryrun\n"
         "import clipper_tpu_torch.bench.symstore_bench\n"
         "import clipper_tpu_torch.bench.tickstats\n"
         "import clipper_tpu_torch.invariants.pointnormal\n"
@@ -100,7 +103,10 @@ def test_default_device_raises_without_cuda():
                                    make_pool_multistart_pipeline,
                                    make_pool_pipeline)
     import clipper_tpu_torch.compat as clipperpy
-    from clipper_tpu_torch.bench import blocksparse_bench, sdp_bench
+    from clipper_tpu_torch import dryrun
+    from clipper_tpu_torch.bench import (blocksparse_bench, sdp_bench,
+                                         sharded_bench)
+    from clipper_tpu_torch.parallel import batched, sharded
     from clipper_tpu_torch.bench.harness import default_invariant
     from clipper_tpu_torch.examples import (ex1_known_scale_registration,
                                             ex3_plane_cloud, ex4_bunny,
@@ -138,7 +144,14 @@ def test_default_device_raises_without_cuda():
                  lambda: ex1_known_scale_registration.main([]),
                  lambda: ex3_plane_cloud.main([]),
                  lambda: ex4_bunny.main([]),
-                 lambda: ex5_large_scale.main(["64"])):
+                 lambda: ex5_large_scale.main(["64"]),
+                 lambda: sharded.solve_sharded(inv, M, M,
+                                               np.zeros((4, 2), np.int32),
+                                               np.ones(4)),
+                 lambda: sharded_bench.main(["64", "1"]),
+                 lambda: dryrun.dryrun_multichip(1),
+                 lambda: dryrun.main(["--ranks", "1"]),
+                 lambda: batched.shard_batch(M, None)):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             make()
     with pytest.raises(RuntimeError, match="CUDA is not available"):

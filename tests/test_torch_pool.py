@@ -163,7 +163,8 @@ def test_pipeline_rejects_unported_and_bad_shapes():
     # the stacked layout is ported: it builds, for any m
     assert callable(pool.make_pool_pipeline(inv, layout="stacked",
                                             device="cpu"))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
+    # mesh= is ported: it takes a torch.distributed ProcessGroup
+    with pytest.raises(TypeError, match="ProcessGroup"):
         pool.make_pool_pipeline(inv, layout="tri", mesh=object(),
                                 device="cpu")
     # the defaults are the main path: layout="tri", int8 storage
