@@ -51,6 +51,21 @@ Phases, each of which must pass (any failure exits non-zero):
               oracle (<= 1.1e-5) and a rerun bit for bit, the tiles
               matvec, and the rows and tile-list matvecs on one m=1024
               problem's bf16 storage (t=128; K=16, K=1, D=3 slices).
+              At every tile the JAX package takes (phase_kernels_tiles),
+              each kernel's route (ops/flattri.matvec_route,
+              ops/symstore.matvec_route) printed and its time beside its
+              bound, plain version and library call: kernels 1 and 9 in
+              int8 and bf16 at t = 16, 64, 100, 384, 512 on W=16 problems
+              of m = t (2048 // t) built by kernel 2 (kernel 1 at B=128,
+              K=16 and B=16, K=1; kernel 9 at B=128, bit-equal to kernel 1
+              at K=1), kernel 9 in f32 and f64 at t=64, each <= 1e-4 from
+              its plain version, <= 1.1e-5 from an f64 oracle, a rerun bit
+              for bit; kernels 2 and 8, int8 and bf16, both invariants,
+              at t = 384 and 512 (W=16, m_true < m on four: C exact, 0 M
+              codes differing, byte-equal to each other); kernels 3 and 7
+              in int8 and bf16 at t = 16, 64, 100, 256, 512 on one problem
+              of m = t (2048 // t), K=16 and K=1, whole and over D=3
+              slices (rows at G=3), the same bars.
 3. pool     — the bench protocol through make_pool_pipeline: W=512
               problems, m=1024, 90% outliers, bench.py's settings (1 warm-up
               call and 3 timed calls). Prints P/R, problems/s, per-stage times
@@ -260,15 +275,28 @@ Phases, each of which must pass (any failure exits non-zero):
               and 2x2 (4 ranks: every rank's u bit-identical, the bench
               bars, IoU >= 0.95 with 1x1), then on 2 ranks the tri pool at
               W=64 (the masks of mesh=None, kernels 1 and 2 launched on each
-              rank) and dryrun_multichip(2) (m=256, tiles of 128; its
-              convergent check in f64 with equal masks). Each group of
-              ranks runs under a 300 s timeout; a rank that fails fails
-              the phase.
+              rank) and dryrun_multichip(2) (the JAX dry run's m=64,
+              tiles of 16; its convergent check in f64 with equal masks).
+              Each group of ranks runs under a 300 s timeout; a rank that
+              fails fails the phase.
+12. tiles   — the paths at tiles the card took only at 128 and 256 before
+              (phase_tiles): bench.py's tri pool protocol (W=512) at
+              tri_tile 64 and 512 in int8 and 512 in bf16, beside t=256
+              in turns (P >= 0.995, R >= 0.88, the build kernel once and
+              the matvec by its route launched; problems/s and stage ms),
+              kernels 1 and 2 timed on that W=512 storage at each tile;
+              the m=65,536 capacity problem at tile=256, row-chunked and
+              tile list (the P/R bars, IoU >= 0.95 with phase 4's t=128
+              mask, kernels 3 and 7 launched; s a solve, stage ms), and
+              kernels 3 and 7 at t=256 beside their bound and
+              torch.matmul; phase 11 (d)'s dry run at m=64, tiles of 16.
 
 The line before the last is a JSON object of the kernels' numbers (rows 3
 and 7 also carry reduce_launches, the main path's launches of their
 reduction kernel, and tb_per_s, the bytes their design moves a call over
-the measured ms); the last line is {"ok": true, "device": {...}}.
+the measured ms; rows 1, 2, 3, 7, 8 and 9 carry "tiles", each new tile's
+route, shape, ms and bound from phases 2 and 12); the last line is
+{"ok": true, "device": {...}}.
 
 Usage: python3 chip_smoke.py [--quick] [--profile]
   --quick    phases 1-2 only
@@ -715,22 +743,22 @@ def capacity_endpoints(prob, dev, storage=None):
     return P1, P2, At
 
 
-def rows_storage(inv, prob, dev, G, storage=None):
+def rows_storage(inv, prob, dev, G, storage=None, tile=ROWS_T):
     """The capacity engine's row-chunked storage of one problem (int8 by
     default, else the raw scores in the float dtype ``storage``)."""
     import torch
     from clipper_tpu_torch.ops import symstore
     P1, P2, At = capacity_endpoints(prob, dev, storage)
-    return symstore.build_symchunks(inv, P1, P2, At, len(At), tile=ROWS_T,
+    return symstore.build_symchunks(inv, P1, P2, At, len(At), tile=tile,
                                     G=G, storage_dtype=storage or torch.int8)
 
 
-def tiles_storage(inv, prob, dev, storage=None):
+def tiles_storage(inv, prob, dev, storage=None, tile=ROWS_T):
     """The same problem's tile-list storage (ops/symstore.build_symtiles)."""
     import torch
     from clipper_tpu_torch.ops import symstore
     P1, P2, At = capacity_endpoints(prob, dev, storage)
-    return symstore.build_symtiles(inv, P1, P2, At, len(At), tile=ROWS_T,
+    return symstore.build_symtiles(inv, P1, P2, At, len(At), tile=tile,
                                    storage_dtype=storage or torch.int8)
 
 
@@ -883,9 +911,9 @@ def first(D1, W):
 
 
 def run_pipeline(inv, data_, dev, W, timings=None, storage=None,
-                 stall_outers=0, mesh=None):
+                 stall_outers=0, mesh=None, tri_tile=0):
     """bench.py's tri pool (int8 storage unless ``storage`` says; over a
-    process group with ``mesh``)."""
+    process group with ``mesh``; at ``tri_tile``, 0: the default 256)."""
     import torch
     from clipper_tpu_torch.parallel import pool
     from clipper_tpu_torch.types import Params
@@ -895,7 +923,7 @@ def run_pipeline(inv, data_, dev, W, timings=None, storage=None,
                                    power_steps=4, layout="tri",
                                    tri_probes=16, d_scale=0.15,
                                    stall_outers=stall_outers, mesh=mesh,
-                                   device=dev)
+                                   tri_tile=tri_tile, device=dev)
     return pipe(first(D1, W), D2s[:W], As[:W], u0s[:W], timings=timings)
 
 
@@ -1247,21 +1275,13 @@ def phase_timing(inv, main, dev):
         U = unit_rows(gen, B, K, dev)
         mv_err = max(mv_err, check_matvec(tri, nt, idx, U,
                                           f"int8, B={B}, K={K}"))
-        mv_bytes = B * 2 * t * S + B * K * M * 2 + B * K * 2 * M * 4
-        mv_ops = 2 * K * B * (2 * t * S + 2 * t * t * (T - nt))
         ms = time_ms(lambda: flattri.tri_pool_matvec_cuda(
             tri, nt, idx, U, torch.float32), dev, 50)
         plain = time_ms(lambda: flattri.tri_pool_matvec_plain(
             tri, nt, idx, U, torch.float32), dev, 5)
-        dense = flattri.dense_stacked(tri[idx.long()], nt).to(torch.bfloat16)
-        Ut = U.to(torch.bfloat16).transpose(1, 2).contiguous()
-        lib = time_ms(lambda: torch.bmm(dense, Ut), dev, 20)
-        del dense
-        bound_s = max(mv_bytes / HBM_BYTES_PER_S, mv_ops / BF16_FLOPS)
-        r = dict(ms=ms, plain_ms=plain, bound_ms=bound_s * 1e3,
-                 bound_by=("bytes" if mv_bytes / HBM_BYTES_PER_S
-                           > mv_ops / BF16_FLOPS else "operations"),
-                 library_ms=lib)
+        r = dict(ms=ms, plain_ms=plain, library_ms=bmm_ms(tri, nt, idx, U,
+                                                          dev, 20),
+                 **tri_matvec_bound(idx, K, t, nt, tri.element_size()))
         if K == 16:
             rows["tri_matvec"] = r
         extra.append((B, K, r))
@@ -1517,9 +1537,9 @@ def capacity_solve(inv, prob, dev, engine, opts):
     return c, sol, stats, launches, time.perf_counter() - t0, cold
 
 
-def report_capacity(label, run, Agt, kernel):
-    """Shapes, finite values, F <= m, the P/R bars, ``kernel`` and its
-    reduction launched;
+def report_capacity(label, run, Agt, kernel, route="units"):
+    """Shapes, finite values, F <= m, the P/R bars, ``kernel`` launched by
+    ``route`` (ops/symstore.matvec_route: "units" with its reduction);
     prints the quality, stage times, ticks, storage and launches."""
     import torch
     from clipper_tpu_torch import _kernels
@@ -1545,7 +1565,8 @@ def report_capacity(label, run, Agt, kernel):
                       for k in ("build", "init", "solve", "polish")),
           flush=True)
     print(f"{label} kernel launches (one call): {launches}", flush=True)
-    for name in (kernel, _kernels.REDUCTIONS[kernel]):
+    for name in ((kernel, _kernels.REDUCTIONS[kernel]) if route == "units"
+                 else (_kernels.route_key(kernel, route),)):
         require(launches[name] > 0, f"{label}: {name} was never launched: "
                 f"{launches}")
     require(P >= 0.995, f"{label} precision {P:.4f} < 0.995")
@@ -1767,13 +1788,14 @@ def time_plan(make, cache):
     return plan, tuple(ms)
 
 
-def time_capacity(name, inv, prob, dev):
+def time_capacity(name, inv, prob, dev, t=ROWS_T, storages=None):
     """The rows (name "sym_rows_matvec") or tile-list ("sym_tiles_matvec")
     matvec on the capacity path's m=65,536 storage: held against its plain
     version at K=16 and K=1 (the tile list on its D=3 slices too), then
     timed with its plan built beforehand, beside its bound, its plain
     version, the dense bf16 [M; C] matmul and its two-read design's time;
-    then the same over bf16 storage at K=16. Prints the time to make its
+    then the same over bf16 storage at K=16 (``storages``: int8 and bf16
+    by default; t: the storage's tile). Prints the time to make its
     plan (with the layout's plan cache emptied, and from the cache), the
     design's bytes a call against the stored tiles' (and fails past
     DESIGN_RATIO) and the rate it reaches. Returns the K=16 row of the kernels' JSON line and the
@@ -1784,17 +1806,19 @@ def time_capacity(name, inv, prob, dev):
 
     rows_layout = name == "sym_rows_matvec"
     m = len(prob[2])
-    t, G = ROWS_T, 32
+    G = 32
+    storages = storages or (torch.int8, torch.bfloat16)
     nt = m // t
     T = nt * (nt + 1) // 2
     gen = torch.Generator(device=dev).manual_seed(2 if rows_layout else 5)
     Us = {K: unit_rows(gen, 1, K, dev, m)[0] for K in (16, 1)}
     rows = {}
     err = 0.0
-    for storage in (torch.int8, torch.bfloat16):
+    for storage in storages:
         label = str(storage).split(".")[-1]
         if rows_layout:
-            store = rows_storage(inv, prob, dev, G=G, storage=storage)
+            store = rows_storage(inv, prob, dev, G=G, storage=storage,
+                                 tile=t)
             plan, plan_ms = time_plan(
                 lambda: symstore.rows_device_plan(store, nt),
                 symstore._rows_plan)
@@ -1806,7 +1830,7 @@ def time_capacity(name, inv, prob, dev):
             def plain(U):
                 return symstore.sym_rows_matvec_plain(store, nt, U)
         else:
-            store = tiles_storage(inv, prob, dev, storage)
+            store = tiles_storage(inv, prob, dev, storage, tile=t)
             plan, plan_ms = time_plan(
                 lambda: symstore.tiles_device_plan(store, nt),
                 symstore._tiles_plan)
@@ -1818,7 +1842,7 @@ def time_capacity(name, inv, prob, dev):
 
             def plain(U):
                 return symstore.sym_tiles_matvec_plain(store, nt, U)
-        print(f"{name} storage m={m}: {tuple(store.shape)} {label}, "
+        print(f"{name} storage m={m}, t={t}: {tuple(store.shape)} {label}, "
               f"{store.numel() * store.element_size() / 1e9:.3f} GB ({T} "
               f"tiles); plan: {len(plan.plan.units)} units, "
               f"{plan.plan.n_slots} partial slots, made in {plan_ms[0]:.1f} "
@@ -1826,7 +1850,8 @@ def time_capacity(name, inv, prob, dev):
               "from the layout's cache", flush=True)
         for K in ((16, 1) if storage == torch.int8 else (16,)):
             U = Us[K]
-            label_k = f"{label}, m={m}, K={K}"
+            label_k = f"{label}, m={m}, K={K}" + (
+                "" if t == ROWS_T else f", t={t}")
             if rows_layout:
                 err = max(err, check_rows(store, nt, U, label_k))
             else:
@@ -1846,8 +1871,10 @@ def time_capacity(name, inv, prob, dev):
                 2 if storage == torch.bfloat16 else (0 if K == 16 else 1)]
             # the measured time over the design's bytes a call
             r["tb_per_s"] = n_bytes / r["ms"] / 1e9
+            ref = (f"two-read design {two_read:.4f} ms" if t == ROWS_T
+                   else f"route {symstore.matvec_route(t, storage)}")
             print(f"timing {name} {label_k}: kernel {r['ms']:.4f} ms "
-                  f"(two-read design {two_read:.4f} ms), bound "
+                  f"({ref}), bound "
                   f"{r['bound_ms']:.4f} ms ({r['bound_by']}), plain "
                   f"{r['plain_ms']:.4f} ms, matmul over dense bf16 [M; C] "
                   f"{r['library_ms']:.4f} ms; the design moves "
@@ -2244,6 +2271,559 @@ def phase_kernels_bf16(inv, pn_inv, check, pn_check, dev):
         require(e_o <= ORACLE_TOL, f"sym_tiles_matvec {label} exceeds "
                 f"{ORACLE_TOL} against the f64 oracle")
     return errs
+
+
+# ---------------------------------------------------------------------------
+# every tile the JAX package takes: the int8 / bf16 matvecs' and builds'
+# new tiles (phase 2) and the paths over them (phase 12)
+# ---------------------------------------------------------------------------
+
+TILE_M = 2048                  # phase 2's new tiles: m = t (TILE_M // t)
+TILE_W = 16                    # ... problems (kernels 1, 2, 8, 9)
+PN_TILE_M = 1536               # ... point-normal problems (kernels 2, 8)
+TRI_TILES = (16, 64, 100, 384, 512)   # kernels 1 and 9
+CAP_TILES = (16, 64, 100, 256, 512)   # kernels 3 and 7
+BUILD_TILES = (384, 512)              # kernels 2 and 8 past 256
+TILE_G = 3                     # the rows layout's chunk width there
+POOL_TILES = (64, 512)         # phase 12: the tri pool at these tiles
+CAP_TILE = 256                 # ... and the capacity engine at this one
+CAP_CORE_TILE = 64             # ... and at this one (the CUDA-core route)
+CAP_TILE_IOU = 0.95            # ... its mask against phase 4's (t=128)
+
+
+def tile_m(t: int) -> int:
+    return t * (TILE_M // t)
+
+
+def tri_matvec_bound(idx, K, t, nt, item):
+    """bound_of a tri matvec call over lanes idx of storage of ``item``
+    bytes an element: each distinct problem's triangle read once, u (bf16)
+    read and the output (f32) written once, 2 K flops a stored element,
+    lane and direction (the transposed products of the strictly upper
+    tiles)."""
+    B = idx.numel()
+    P = int(idx.unique().numel())
+    S = t * (nt * (nt + 1) // 2)
+    T = nt * (nt + 1) // 2
+    m = nt * t
+    return bound_of(P * 2 * t * S * item + B * K * m * 2 + B * K * 2 * m * 4,
+                    2 * K * B * (2 * t * S + 2 * t * t * (T - nt)))
+
+
+def bmm_ms(tri, nt, idx, U, dev, reps=10):
+    """torch.bmm over the lanes' dense bf16 [M; C] (the library call that
+    computes the tri matvec)."""
+    import torch
+    from clipper_tpu_torch.bench.harness import time_ms
+    from clipper_tpu_torch.ops import flattri
+    dense = flattri.dense_stacked(tri[idx.long()], nt).to(torch.bfloat16)
+    Ut = U.to(torch.bfloat16).transpose(1, 2).contiguous()
+    ms = time_ms(lambda: torch.bmm(dense, Ut), dev, reps)
+    del dense
+    return ms
+
+
+def rows_oracle(chunks, nt, U):
+    """The rows matvec in f64 through the dense [M; C] (exact for int8
+    codes and bf16 values)."""
+    from clipper_tpu_torch.ops import symstore
+    Uc, scale = symstore._operand(chunks.dtype, U)
+    return (Uc.double() @ dense_from_chunks(chunks, nt).double().T) * scale
+
+
+def tile_problems(seed: int, dev):
+    """TILE_W bunny problems at m=TILE_M on dev: (P1s, P2s, At)."""
+    import torch
+    from clipper_tpu_torch.bench import harness
+    pcd0 = harness.load_bunny()
+    rng = np.random.default_rng(seed)
+    probs = [harness.make_problem(pcd0, TILE_M, RHO, rng)
+             for _ in range(TILE_W)]
+    D2s = np.stack([p[0] for p in probs]).astype(np.float32)
+    As = np.stack([p[1] for p in probs]).astype(np.int32)
+    P1s, P2s = endpoints(pcd0.astype(np.float32), D2s, As, dev)
+    return P1s, P2s, torch.as_tensor(As, device=dev)
+
+
+def tile_mtrues(W, m, dev):
+    """m_true = m but on four problems: m - 1, m - 24, 2m / 3 and 513."""
+    import torch
+    mts = torch.full((W,), m, dtype=torch.int32, device=dev)
+    mts[:4] = torch.tensor([m - 1, m - 24, 2 * m // 3, 513], device=dev)
+    return mts
+
+
+def check_builds_at(inv, P1s, P2s, At, mts, t, storage, label, dev):
+    """Kernels 2 and 8 at tile t against the plain build (C exact, no M
+    code differing) and byte-equal to each other; returns (kernel 2's
+    storage, max |M diff|, kernel 2 ms, kernel 8 ms, bound)."""
+    import torch
+    from clipper_tpu_torch.bench.harness import time_ms
+    from clipper_tpu_torch.ops import flattri
+    W, m = At.shape[:2]
+    nt = m // t
+
+    def k2():
+        return flattri.build_tri_cuda(inv, P1s, P2s, At, mts, t=t,
+                                      storage_dtype=storage)
+
+    def k8():
+        return flattri.build_tri_fused_cuda(inv, P1s, P2s, At, mts, t=t,
+                                            storage_dtype=storage)
+
+    k = k2()
+    err = check_build(k, flattri.build_tri_plain(
+        inv, P1s, P2s, At, mts, t=t, storage_dtype=storage), t, label)
+    same = bool(torch.equal(k8(), k))
+    print(f"tri_build_fused vs tri_build ({label}): byte-equal={same}",
+          flush=True)
+    require(same, f"tri_build_fused ({label}) differs from tri_build")
+    S = flattri.tri_ncols(nt, t)
+    d = P1s.shape[2]
+    item = torch.empty(0, dtype=storage).element_size()
+    b_bytes = (W * 2 * t * S * item + 2 * W * m * d * 4 + W * m * 2 * 4
+               + W * 4)
+    ops = BUILD_OPS_PER_PAIR if d == 3 else PN_OPS_PER_PAIR
+    bound_ms, bound_by = build_bound(b_bytes, W, m, ops)
+    return (k, err, time_ms(k2, dev, 5), time_ms(k8, dev, 5),
+            dict(bound_ms=bound_ms, bound_by=bound_by))
+
+
+def phase_kernels_tiles(inv, pn_inv, dev):
+    """Phase 2 at every tile the JAX package takes (the int8 / bf16
+    kernels past t = 128 and 256). Kernels 1 and 9, int8 and bf16,
+    at t in TRI_TILES on TILE_W=16 problems of m = t (2048 // t) built by
+    kernel 2 (B=128 lanes, K=16 and K=1 for kernel 1; <= 1e-4 from the
+    plain version, <= 1.1e-5 from an f64 oracle, a rerun bit for bit;
+    kernel 9 bit-equal to kernel 1 at K=1), kernel 9 in f32 and f64 at
+    t=64; kernels 2 and 8, int8 and bf16, both invariants, at t in
+    BUILD_TILES with m_true < m on four problems (C exact, 0 M codes
+    differing, byte-equal to each other); kernels 3 and 7, int8 and bf16,
+    at t in CAP_TILES on one problem of m = t (2048 // t) (rows at G=3),
+    K=16 and K=1, whole and over D=3 slices (<= 1e-4 from the plain
+    version, <= 1.1e-5 from an f64 oracle, reruns bit for bit). Each
+    kernel's route, and its time at these shapes beside its bound, its
+    plain version and its library call. Returns (max errors by kernel,
+    {kernel: {"t=...": timing row}})."""
+    import torch
+    from clipper_tpu_torch.bench.harness import time_ms
+    from clipper_tpu_torch.ops import flattri, symstore
+
+    t0 = time.perf_counter()
+    P1a, P2a, Aa = tile_problems(11, dev)
+    pn = make_pn_problems(TILE_W, seed=11, m=PN_TILE_M)
+    Q1a, Q2a = endpoints(*pn[:3], dev)
+    Qa = torch.as_tensor(pn[2], device=dev)
+    print(f"tile data: {TILE_W} bunny problems at m={TILE_M} and "
+          f"{TILE_W} point-normal at m={PN_TILE_M} in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    gen = torch.Generator(device=dev).manual_seed(15)
+    errs = {k: 0.0 for k in ("tri_matvec", "tri_tiles_matvec", "tri_build",
+                             "tri_build_fused", "sym_rows_matvec",
+                             "sym_tiles_matvec")}
+    rows = {k: {} for k in errs}
+
+    # kernels 2 and 8 past t = 256, both invariants and storages
+    for t in BUILD_TILES:
+        for kind, iv, X1, X2, XA in (("bunny", inv, P1a, P2a, Aa),
+                                     ("point-normal", pn_inv, Q1a, Q2a, Qa)):
+            m = t * (XA.shape[1] // t)
+            mts = tile_mtrues(TILE_W, m, dev)
+            for storage in (torch.int8, torch.bfloat16):
+                name = str(storage).split(".")[-1]
+                label = (f"{name} {kind}, W={TILE_W}, m={m}, t={t}, m_true "
+                         "< m on 4")
+                _, e, ms2, ms8, bound = check_builds_at(
+                    iv, X1[:, :m], X2[:, :m], XA[:, :m], mts, t, storage,
+                    label, dev)
+                errs["tri_build"] = max(errs["tri_build"], e)
+                key = f"t={t}" + ("" if kind == "bunny" else " pn") + (
+                    "" if storage == torch.int8 else " bf16")
+                shape = f"W={TILE_W}, m={m}"
+                rows["tri_build"][key] = dict(ms=ms2, shape=shape, **bound)
+                rows["tri_build_fused"][key] = dict(ms=ms8, shape=shape,
+                                                    **bound)
+                print(f"timing tri_build / tri_build_fused {label}: "
+                      f"{ms2:.4f} / {ms8:.4f} ms, bound "
+                      f"{bound['bound_ms']:.4f} ms ({bound['bound_by']})",
+                      flush=True)
+
+    # kernels 1 and 9 at every new tile
+    for t in TRI_TILES:
+        m = tile_m(t)
+        nt = m // t
+        mts = torch.full((TILE_W,), m, dtype=torch.int32, device=dev)
+        for storage in (torch.int8, torch.bfloat16):
+            name = str(storage).split(".")[-1]
+            tri = flattri.build_tri_cuda(inv, P1a[:, :m], P2a[:, :m],
+                                         Aa[:, :m], mts, t=t,
+                                         storage_dtype=storage)
+            route = flattri.matvec_route(t, storage)
+            for B, K in ((128, 16), (TILE_W, 1)):
+                idx = torch.randint(0, TILE_W, (B,), generator=gen,
+                                    device=dev, dtype=torch.int32)
+                U = unit_rows(gen, B, K, dev, m)
+                errs["tri_matvec"] = max(errs["tri_matvec"], check_matvec(
+                    tri, nt, idx, U, f"{name}, route {route}, W={TILE_W}, "
+                    f"m={m}, t={t}, B={B}, K={K}", oracle=True))
+                if K == 16:
+                    r = dict(route=route, shape=f"W={TILE_W}, m={m}, "
+                             f"B={B}, K={K}",
+                             **tri_matvec_bound(idx, K, t, nt,
+                                                tri.element_size()))
+                    r["ms"] = time_ms(lambda: flattri.tri_pool_matvec_cuda(
+                        tri, nt, idx, U, torch.float32), dev, 20)
+                    r["plain_ms"] = time_ms(
+                        lambda: flattri.tri_pool_matvec_plain(
+                            tri, nt, idx, U, torch.float32), dev, 2)
+                    r["library_ms"] = bmm_ms(tri, nt, idx, U, dev)
+                    rows["tri_matvec"][f"t={t}" + (
+                        "" if storage == torch.int8 else " bf16")] = r
+            idx = torch.randint(0, TILE_W, (128,), generator=gen, device=dev,
+                                dtype=torch.int32)
+            U = unit_rows(gen, 128, 1, dev, m)[:, 0]
+            errs["tri_tiles_matvec"] = max(
+                errs["tri_tiles_matvec"], check_tiles_matvec(
+                    tri, nt, idx, U, f"{name}, route {route}, W={TILE_W}, "
+                    f"m={m}, t={t}, B=128"))
+            tl = flat_tiles(tri, nt)
+            r = dict(route=route, shape=f"W={TILE_W}, m={m}, B=128",
+                     **tri_matvec_bound(idx, 1, t, nt, tri.element_size()))
+            r["ms"] = time_ms(lambda: flattri.tri_tiles_matvec_cuda(
+                tl, nt, idx, U, torch.float32), dev, 20)
+            r["plain_ms"] = time_ms(lambda: flattri.tri_tiles_matvec_plain(
+                tl, nt, idx, U, torch.float32), dev, 2)
+            r["library_ms"] = bmm_ms(tri, nt, idx, U[:, None], dev)
+            rows["tri_tiles_matvec"][f"t={t}" + (
+                "" if storage == torch.int8 else " bf16")] = r
+            del tri, tl
+    for name in ("tri_matvec", "tri_tiles_matvec"):
+        for key, r in rows[name].items():
+            print(f"timing {name} {key} ({r['shape']}, route {r['route']}): "
+                  f"kernel {r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+                  f"({r['bound_by']}), plain {r['plain_ms']:.4f} ms, bmm "
+                  f"over dense bf16 [M; C] {r['library_ms']:.4f} ms",
+                  flush=True)
+
+    # kernel 9's float kinds at t = 64 (its CUDA-core route)
+    t, m = 64, TILE_M // 2
+    nt = m // t
+    mts = torch.full((4,), m, dtype=torch.int32, device=dev)
+    for dtype in (torch.float32, torch.float64):
+        tri_f = flattri.build_tri_plain(inv, P1a[:4, :m].to(dtype),
+                                        P2a[:4, :m].to(dtype), Aa[:4, :m],
+                                        mts, t=t, storage_dtype=None)
+        idx = torch.randint(0, 4, (32,), generator=gen, device=dev,
+                            dtype=torch.int32)
+        U = unit_rows(gen, 32, 1, dev, m)[:, 0].to(dtype)
+        errs["tri_tiles_matvec"] = max(
+            errs["tri_tiles_matvec"], check_tiles_matvec(
+                tri_f, nt, idx, U, f"{dtype}, route "
+                f"{flattri.matvec_route(t, dtype)}, m={m}, "
+                f"t={t}, B=32"))
+        del tri_f
+
+    # kernels 3 and 7 at every new tile: one problem, m = t (2048 // t)
+    for t in CAP_TILES:
+        m = tile_m(t)
+        nt = m // t
+        prob = one_problem(m, RHO, seed=t)
+        for storage in (torch.int8, torch.bfloat16):
+            name = str(storage).split(".")[-1]
+            route = symstore.matvec_route(t, storage)
+            chunks = rows_storage(inv, prob, dev, G=TILE_G, storage=storage,
+                                  tile=t)
+            tl = tiles_storage(inv, prob, dev, storage, tile=t)
+            for K in (16, 1):
+                U = unit_rows(gen, 1, K, dev, m)[0]
+                label = (f"{name}, route {route}, m={m}, t={t}, "
+                         f"G={TILE_G}, K={K}")
+                errs["sym_rows_matvec"] = max(
+                    errs["sym_rows_matvec"],
+                    check_rows(chunks, nt, U, label),
+                    check_rows_slices(chunks, nt, U, label))
+                errs["sym_tiles_matvec"] = max(
+                    errs["sym_tiles_matvec"], check_tiles(tl, nt, U, label))
+                for kname, y, o in (
+                        ("sym_rows_matvec",
+                         symstore.sym_rows_matvec_cuda(chunks, nt, U),
+                         rows_oracle(chunks, nt, U)),
+                        ("sym_tiles_matvec",
+                         symstore.sym_tiles_matvec_cuda(tl, nt, U),
+                         tiles_oracle(tl, nt, U))):
+                    e_o = float((y.double() - o).abs().max())
+                    print(f"{kname} {label}: max|kernel - f64 oracle|="
+                          f"{e_o:.3e}", flush=True)
+                    require(e_o <= ORACLE_TOL, f"{kname} {label} exceeds "
+                            f"{ORACLE_TOL} against the f64 oracle")
+                if K != 16:
+                    continue
+                T = nt * (nt + 1) // 2
+                item = chunks.element_size()
+                bound = bound_of(T * 2 * t * t * item + K * m * 2
+                                 + K * 2 * m * 4,
+                                 2 * K * 2 * t * t * (2 * T - nt))
+                dense = dense_from_tiles(tl, nt, torch.bfloat16)
+                Ut = U.to(torch.bfloat16).T.contiguous()
+                lib = time_ms(lambda: torch.matmul(dense, Ut), dev, 10)
+                del dense
+                key = f"t={t}" + ("" if storage == torch.int8 else " bf16")
+                rp = symstore.rows_device_plan(chunks, nt)
+                tp = symstore.tiles_device_plan(tl, nt)
+                for kname, kern, plain in (
+                        ("sym_rows_matvec",
+                         lambda: symstore.sym_rows_matvec_cuda(
+                             chunks, nt, U, plan=rp),
+                         lambda: symstore.sym_rows_matvec_plain(chunks, nt,
+                                                                U)),
+                        ("sym_tiles_matvec",
+                         lambda: symstore.sym_tiles_matvec_cuda(
+                             tl, nt, U, plan=tp),
+                         lambda: symstore.sym_tiles_matvec_plain(tl, nt,
+                                                                 U))):
+                    r = dict(route=route, shape=f"m={m}, K={K}" + (
+                        f", G={TILE_G}" if kname == "sym_rows_matvec"
+                        else ""), ms=time_ms(kern, dev, 10),
+                             plain_ms=time_ms(plain, dev, 2),
+                             library_ms=lib, **bound)
+                    rows[kname][key] = r
+                    print(f"timing {kname} {key} ({r['shape']}, route "
+                          f"{route}, its plan made beforehand): kernel "
+                          f"{r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+                          f"({r['bound_by']}), plain {r['plain_ms']:.4f} "
+                          f"ms, matmul over dense bf16 [M; C] "
+                          f"{r['library_ms']:.4f} ms", flush=True)
+            del chunks, tl
+    torch.cuda.empty_cache()
+    return errs, rows
+
+
+def phase_tiles(inv, main, cap, cap_mask, dry, dev):
+    """12, "tiles": the paths over tiles the card took only at 128 and 256
+    before. (a) bench.py's tri pool protocol (the W=512 problems) at
+    tri_tile 64 and 512 in int8 and at 512 in bf16, each beside t=256 in
+    turns: one counted call (the warm-up: the build kernel launched once,
+    the matvec by its route, ops/flattri.matvec_route), then two rounds of
+    one timed call each, in turns; the P/R bars; kernel 1 at B=128, K=16
+    and kernel 2 on the same W=512 storage at each tile. (b) The m=65,536
+    capacity problem at tile=256 through the facade, row-chunked (auto)
+    and tile list: the P/R bars, IoU >= 0.95 with phase 4's t=128 mask,
+    kernels 3 and 7 (and their reductions) launched; then kernels 3 and 7
+    at t=256 on its storage, K=16 and K=1, against their plain versions,
+    timed beside their bound and torch.matmul. (c) Phase 11 (d)'s
+    dryrun_multichip(2) ran at the JAX shapes (m=64, tiles of 16). (d)
+    The same capacity problem at tile=64, kernels 3 and 7 by their
+    CUDA-core route (:func:`capacity_core_tile`). Returns {kernel:
+    {"...": timing row}} for the kernels' line."""
+    import torch
+    from clipper_tpu_torch import _kernels
+    from clipper_tpu_torch.bench.harness import time_ms
+    from clipper_tpu_torch.ops import flattri, symstore
+
+    t_phase = time.perf_counter()
+    D1, D2s, As, Agts, u0s = main
+    rows = {k: {} for k in ("tri_matvec", "tri_build", "sym_rows_matvec",
+                            "sym_tiles_matvec")}
+    # (a) the tri pool at each tile, beside t=256 in turns
+    cfgs = [(torch.int8, 256), (torch.int8, 64), (torch.int8, 512),
+            (torch.bfloat16, 256), (torch.bfloat16, 512)]
+
+    def run(storage, t, timings=None):
+        return run_pipeline(inv, main, dev, W_MAIN, timings=timings,
+                            storage=storage, tri_tile=t)
+
+    secs = {}
+    for storage, t in cfgs:
+        name = str(storage).split(".")[-1]
+        sol, launches = counted_call(lambda: run(storage, t))
+        P, R = check_quality(f"tri pool {name} t={t}", As, sol, Agts, W_MAIN)
+        route = flattri.matvec_route(t, storage)
+        key = _kernels.route_key("tri_matvec", route)
+        print(f"tri pool {name} tri_tile={t}: W={W_MAIN} m={M}: precision="
+              f"{P * 100:.2f}% recall={R * 100:.2f}%; kernel 1 route "
+              f"{route} ({key} {launches[key]} launches), tri_build "
+              f"{launches['tri_build']}", flush=True)
+        require(launches["tri_build"] == 1 and launches[key] > 0,
+                f"tri pool {name} t={t}: tri_build once and {key} "
+                f"expected: {launches}")
+        secs[(storage, t)] = []
+    timings = {}
+    for _ in range(2):
+        for storage, t in cfgs:
+            tm = {}
+            _, sec = timed_calls(lambda: run(storage, t, tm), 1)
+            secs[(storage, t)].append(sec)
+            timings[(storage, t)] = tm
+    for storage, t in cfgs:
+        name = str(storage).split(".")[-1]
+        sec = sum(secs[(storage, t)]) / 2
+        base = sum(secs[(storage, 256)]) / 2
+        print(f"tri pool {name} t={t}: {W_MAIN / sec:.1f} problems/s "
+              f"({sec * 1e3:.1f} ms/batch, mean of 2 in turns) beside t=256 "
+              f"{W_MAIN / base:.1f}; stage ms (last call) "
+              + ", ".join(f"{k}={v:.3f}" for k, v in
+                          timings[(storage, t)].items()), flush=True)
+
+    # kernels 1 and 2 at each pool tile, on the W=512 storage
+    P1s, P2s = endpoints(D1, D2s, As, dev)
+    At = torch.as_tensor(As, device=dev)
+    mts = torch.full((W_MAIN,), M, dtype=torch.int32, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(12)
+    B = min(128, W_MAIN)
+    idx = torch.randperm(W_MAIN, generator=gen, device=dev)[:B].to(
+        torch.int32)
+    U = unit_rows(gen, B, 16, dev)
+    for t in (256, *POOL_TILES):
+        nt = M // t
+        S = flattri.tri_ncols(nt, t)
+
+        def build():
+            return flattri.build_tri_cuda(inv, P1s, P2s, At, mts, t=t)
+
+        tri = build()
+        b_bytes = (W_MAIN * 2 * t * S + 2 * W_MAIN * M * 3 * 4
+                   + W_MAIN * M * 2 * 4 + W_MAIN * 4)
+        bound_ms, bound_by = build_bound(b_bytes, W_MAIN, M,
+                                         BUILD_OPS_PER_PAIR)
+        shape = f"W={W_MAIN}, m={M}"
+        rb = dict(ms=time_ms(build, dev, 5), shape=shape, bound_ms=bound_ms,
+                  bound_by=bound_by)
+        route = flattri.matvec_route(t, torch.int8)
+        rm = dict(route=route, shape=f"{shape}, B={B}, K=16",
+                  ms=time_ms(lambda: flattri.tri_pool_matvec_cuda(
+                      tri, nt, idx, U, torch.float32), dev, 20),
+                  plain_ms=time_ms(lambda: flattri.tri_pool_matvec_plain(
+                      tri, nt, idx, U, torch.float32), dev, 2),
+                  library_ms=bmm_ms(tri, nt, idx, U, dev),
+                  **tri_matvec_bound(idx, 16, t, nt, tri.element_size()))
+        print(f"timing at tri_tile={t} ({shape}): tri_build {rb['ms']:.4f} "
+              f"ms (bound {bound_ms:.4f}, {bound_by}); tri_matvec B={B} "
+              f"K=16 route {route} {rm['ms']:.4f} ms (bound "
+              f"{rm['bound_ms']:.4f}, {rm['bound_by']}), plain "
+              f"{rm['plain_ms']:.4f}, bmm {rm['library_ms']:.4f}",
+              flush=True)
+        if t != 256:
+            rows["tri_build"][f"t={t} {shape}"] = rb
+            rows["tri_matvec"][f"t={t} {shape}"] = rm
+        del tri
+    del P1s, P2s
+
+    # (b) the capacity engine at tile=256
+    m, Agt = len(cap[2]), cap[3]
+    for engine, opts, kernel in (
+            ("auto", {"tile": CAP_TILE}, "sym_rows_matvec"),
+            ("triangle", {"tile": CAP_TILE, "matvec": "xla"},
+             "sym_tiles_matvec")):
+        run_c = capacity_solve(inv, cap, dev, engine, opts)
+        label = f"capacity path ({engine}, t={CAP_TILE})"
+        mask, _ = report_capacity(label, run_c, Agt, kernel)
+        iou = mask_iou(mask, cap_mask)
+        print(f"{label}: IoU with phase 4's t={ROWS_T} mask {iou:.4f}",
+              flush=True)
+        require(iou >= CAP_TILE_IOU, f"{label}: IoU {iou:.4f} with the "
+                f"t={ROWS_T} mask < {CAP_TILE_IOU}")
+        del run_c
+    for name in ("sym_rows_matvec", "sym_tiles_matvec"):
+        r, _ = time_capacity(name, inv, cap, dev, t=CAP_TILE,
+                             storages=(torch.int8,))
+        r = dict(r, route=symstore.matvec_route(CAP_TILE, torch.int8),
+                 shape=f"m={m}, K=16" + (", G=32" if name == "sym_rows_matvec"
+                                         else ""))
+        rows[name][f"t={CAP_TILE} m={m}"] = r
+    torch.cuda.empty_cache()
+    for name, r in capacity_core_tile(inv, cap, cap_mask, dev, rows).items():
+        rows[name].update(r)
+
+    # (c) the dry run at the JAX shapes
+    print(f"dryrun_multichip(2) on the card at m={dry['m']}, tile="
+          f"{dry['tile']} (phase 11 (d))", flush=True)
+    require(dry["m"] == 64 and dry["tile"] == 16, f"the dry run ran at "
+            f"m={dry['m']}, tile={dry['tile']}, not the JAX shapes")
+    print(f"tiles: {time.perf_counter() - t_phase:.1f} s on {gpu_line()}",
+          flush=True)
+    return rows
+
+
+def capacity_core_tile(inv, cap, cap_mask, dev, lib_rows):
+    """Phase 12 (d): the m=65,536 capacity problem at tile=CAP_CORE_TILE,
+    not a multiple of 128, so kernels 3 and 7 run by their CUDA-core route
+    (ops/symstore.matvec_route). Through the facade, row-chunked (auto)
+    and tile list: the P/R bars, IoU >= CAP_TILE_IOU with phase 4's t=128
+    mask, the route's key launched; then kernels 3 and 7 at that tile on
+    its int8 storage: K=16 against the plain version (the tile list also
+    over D=3 slices), a rerun bit for bit, then timed at K=16 and K=1
+    beside their bound, the plain version and the torch.matmul of
+    ``lib_rows``' t=CAP_TILE rows (the same dense product, timed in (b)).
+    Returns {kernel: {"t=64 m=65536": timing row}}."""
+    import torch
+    from clipper_tpu_torch.bench.harness import time_ms
+    from clipper_tpu_torch.ops import symstore
+
+    t = CAP_CORE_TILE
+    m, Agt = len(cap[2]), cap[3]
+    nt = m // t
+    T = nt * (nt + 1) // 2
+    route = symstore.matvec_route(t, torch.int8)
+    for engine, opts, kernel in (
+            ("auto", {"tile": t}, "sym_rows_matvec"),
+            ("triangle", {"tile": t, "matvec": "xla"}, "sym_tiles_matvec")):
+        t0 = time.perf_counter()
+        run_c = capacity_solve(inv, cap, dev, engine, opts)
+        label = f"capacity path ({engine}, t={t})"
+        mask, _ = report_capacity(label, run_c, Agt, kernel, route=route)
+        iou = mask_iou(mask, cap_mask)
+        print(f"{label}: IoU with phase 4's t={ROWS_T} mask {iou:.4f}; the "
+              f"build and both calls {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        require(iou >= CAP_TILE_IOU, f"{label}: IoU {iou:.4f} with the "
+                f"t={ROWS_T} mask < {CAP_TILE_IOU}")
+        del run_c
+    gen = torch.Generator(device=dev).manual_seed(t)
+    Us = {K: unit_rows(gen, 1, K, dev, m)[0] for K in (16, 1)}
+    out = {}
+    for name in ("sym_rows_matvec", "sym_tiles_matvec"):
+        rows_layout = name == "sym_rows_matvec"
+        if rows_layout:
+            store = rows_storage(inv, cap, dev, G=32, tile=t)
+            plan = symstore.rows_device_plan(store, nt)
+
+            def kern(U):
+                return symstore.sym_rows_matvec_cuda(store, nt, U, plan=plan)
+
+            def plain(U):
+                return symstore.sym_rows_matvec_plain(store, nt, U)
+        else:
+            store = tiles_storage(inv, cap, dev, tile=t)
+            plan = symstore.tiles_device_plan(store, nt)
+
+            def kern(U):
+                return symstore.sym_tiles_matvec_cuda(store, nt, U,
+                                                      plan=plan)
+
+            def plain(U):
+                return symstore.sym_tiles_matvec_plain(store, nt, U)
+        label = f"int8, route {route}, m={m}, t={t}, K=16"
+        err = (check_rows(store, nt, Us[16], label) if rows_layout
+               else check_tiles(store, nt, Us[16], label))
+        by_k = {K: dict(ms=time_ms(lambda: kern(Us[K]), dev, 3),
+                        **bound_of(T * 2 * t * t + K * m * 2 + K * 2 * m * 4,
+                                   2 * K * 2 * t * t * (2 * T - nt)))
+                for K in (16, 1)}
+        row = dict(by_k[16], route=route, shape=f"m={m}, K=16" + (
+            ", G=32" if rows_layout else ""),
+                   plain_ms=time_ms(lambda: plain(Us[16]), dev, 1),
+                   library_ms=lib_rows[name][f"t={CAP_TILE} m={m}"][
+                       "library_ms"], K1=by_k[1], max_abs_err=err)
+        print(f"timing {name} int8 m={m} t={t} (route {route}, its plan made "
+              f"beforehand): K=16 {row['ms']:.4f} ms, K=1 "
+              f"{by_k[1]['ms']:.4f} ms, bound {row['bound_ms']:.4f} / "
+              f"{by_k[1]['bound_ms']:.4f} ms ({row['bound_by']}), plain "
+              f"{row['plain_ms']:.4f} ms, matmul over dense bf16 [M; C] "
+              f"(t={CAP_TILE}'s) {row['library_ms']:.4f} ms", flush=True)
+        out[name] = {f"t={t} m={m}": row}
+        del store, plan
+        torch.cuda.empty_cache()
+    return out
 
 
 def phase_pointnormal(pn_inv, pn_main, dev):
@@ -3763,10 +4343,12 @@ def mesh_on_gloo(inv, main, prob, dev):
     print(f"dryrun_multichip(2) on one card: {json.dumps(dry)}", flush=True)
     require(dry["mesh"] == [1, 2] and dry["parity_float64"]["iou"] == 1.0,
             f"dry run: {dry}")
+    return dry
 
 
 def phase_mesh(inv, cap, cap_mask, main, dev):
-    """11: the multi-rank paths (see the module docstring)."""
+    """11: the multi-rank paths (see the module docstring). Returns the
+    dry run's summary."""
     t0 = time.perf_counter()
     mesh_capacity(inv, cap, cap_mask, dev)
     print(f"mesh (a): {time.perf_counter() - t0:.1f} s", flush=True)
@@ -3775,8 +4357,9 @@ def phase_mesh(inv, cap, cap_mask, main, dev):
     mesh_pools(inv, main, dev)
     print(f"mesh (b, c): {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
-    mesh_on_gloo(inv, main, prob, dev)
+    dry = mesh_on_gloo(inv, main, prob, dev)
     print(f"mesh (d): {time.perf_counter() - t0:.1f} s", flush=True)
+    return dry
 
 
 def main() -> None:
@@ -3812,6 +4395,12 @@ def main() -> None:
     for phase in (phase_kernels_pn, phase_kernels_bf16):
         for name, e in phase(inv, pn_inv, check, pn_check, dev).items():
             errs[name] = max(errs.get(name, 0), e)
+    t0 = time.perf_counter()
+    errs_t, tile_rows = phase_kernels_tiles(inv, pn_inv, dev)
+    for name, e in errs_t.items():
+        errs[name] = max(errs.get(name, 0), e)
+    print(f"kernels at every tile: {time.perf_counter() - t0:.1f} s",
+          flush=True)
     if quick:
         print("quick: build and kernel checks passed", flush=True)
         return
@@ -3870,9 +4459,12 @@ def main() -> None:
     phase_surface(inv, pn_inv, check, dev)
     _, sdr_c, _ = phase_sdp(inv, dev)
     t0 = time.perf_counter()
-    phase_mesh(inv, cap, cap_mask, main_data, dev)
+    dry = phase_mesh(inv, cap, cap_mask, main_data, dev)
     print(f"mesh: {time.perf_counter() - t0:.1f} s on {gpu_line()}",
           flush=True)
+    for name, r in phase_tiles(inv, main_data, cap, cap_mask, dry,
+                               dev).items():
+        tile_rows[name].update(r)
     if "--profile" in sys.argv[1:]:
         phase_profile(inv, main_data, cap, dev)
         from clipper_tpu_torch.solvers import sdp
@@ -3900,6 +4492,10 @@ def main() -> None:
     for k in kernels:
         if k["name"] in _kernels.REDUCTIONS:
             k["reduce_launches"] = launches[_kernels.REDUCTIONS[k["name"]]]
+    # each new tile's time, bound and route (phases 2 and 12)
+    for k in kernels:
+        if k["name"] in tile_rows:
+            k["tiles"] = tile_rows[k["name"]]
     print("main-path launches: " + ", ".join(
         f"{name} {launches[name]}" for name in (*replaces, *_kernels.
                                                 REDUCTIONS.values())),

@@ -50,6 +50,7 @@ _I = ctypes.c_int
 _LL = ctypes.c_longlong
 _F = ctypes.c_float
 _D = ctypes.c_double
+_IP = ctypes.POINTER(ctypes.c_int)   # a route the entry reports (ROUTES)
 # a build kernel's score: kind, its four parameters, affinityeps
 _SCORE = [_I, _D, _D, _D, _D, _D]
 # the capacity kernels' storage view (pointer, rows, columns), unit plan
@@ -57,8 +58,9 @@ _SCORE = [_I, _D, _D, _D, _D, _D]
 # workspace; then K, nt, t, raw
 _UNITS = [_P, _LL, _LL, _P, _P, _P, _I, _P, _P, _I, _P, _P, _P]
 _SIGNATURES = {
-    "tri_matvec_int8": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _LL, _F, _P],
-    "tri_matvec_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _LL, _P],
+    "tri_matvec_int8": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _LL, _F, _P,
+                        _IP],
+    "tri_matvec_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _LL, _P, _IP],
     "tri_matvec_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _LL, _P],
     "tri_matvec_f64": [_P, _P, _P, _P, _I, _I, _I, _I, _LL, _P],
     "tri_build_int8": [_P, _P, _P, _P, _P, _I, _I, _I, _LL, *_SCORE, _P],
@@ -70,16 +72,23 @@ _SIGNATURES = {
     "tri_build_fused_whole": [_I, _I, _I],
     "affinity_build_f32": [_P, _P, _P, _P, _P, _I, *_SCORE, _P],
     "affinity_build_f64": [_P, _P, _P, _P, _P, _I, *_SCORE, _P],
-    "tri_tiles_matvec_int8": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
-    "tri_tiles_matvec_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "tri_tiles_matvec_int8": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P, _IP],
+    "tri_tiles_matvec_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _IP],
     "tri_tiles_matvec_f32": [_P, _P, _P, _P, _I, _I, _I, _P],
     "tri_tiles_matvec_f64": [_P, _P, _P, _P, _I, _I, _I, _P],
     "sym_rows_matvec_int8": [*_UNITS, _I, _I, _I, _I, _F, _P],
     "sym_rows_matvec_bf16": [*_UNITS, _I, _I, _I, _I, _P],
+    "sym_rows_matvec_core_int8": [_P, _P, _P, _I, _I, _I, _I, _LL, _LL, _I,
+                                  _F, _P],
+    "sym_rows_matvec_core_bf16": [_P, _P, _P, _I, _I, _I, _I, _LL, _LL, _I,
+                                  _P],
     "sym_rows_matvec_f32": [_P, _P, _P, _I, _I, _I, _I, _LL, _LL, _I, _P],
     "sym_rows_matvec_f64": [_P, _P, _P, _I, _I, _I, _I, _LL, _LL, _I, _P],
     "sym_tiles_matvec_int8": [*_UNITS, _I, _I, _I, _I, _F, _P],
     "sym_tiles_matvec_bf16": [*_UNITS, _I, _I, _I, _I, _P],
+    "sym_tiles_matvec_core_int8": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
+                                   _P],
+    "sym_tiles_matvec_core_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "sym_tiles_matvec_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "sym_tiles_matvec_f64": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "stored_build_int8": [_P, _P, _P, _P, _P, _I, _I, *_SCORE, _P],
@@ -93,10 +102,35 @@ _SIGNATURES = {
 # int8 / bf16 unit pass), counted under its own key
 REDUCTIONS: Dict[str, str] = {"sym_rows_matvec": "sym_rows_reduce",
                               "sym_tiles_matvec": "sym_tiles_reduce"}
+# the CUDA-core route of the int8 / bf16 matvecs at the tiles their
+# tensor-core kernel does not take (ops/flattri.matvec_route,
+# ops/symstore.matvec_route), counted under its own key
+CORE_ROUTES: Dict[str, str] = {name: f"{name}_core" for name in (
+    "tri_matvec", "tri_tiles_matvec", "sym_rows_matvec", "sym_tiles_matvec")}
+# the routes an entry with a route argument reports, by its value
+# (csrc/tri_matvec_mma.cuh: kRouteMma, kRouteCore)
+ROUTES = ("mma", "core")
 LAUNCHES: Dict[str, int] = {name: 0 for name in (*SOURCES,
-                                                 *REDUCTIONS.values())}
+                                                 *REDUCTIONS.values(),
+                                                 *CORE_ROUTES.values())}
 BUILD_LOG: Dict[str, str] = {}
 _LIBS: Dict[str, ctypes.CDLL] = {}
+
+
+def route_key(kernel: str, route: str) -> str:
+    """The ``LAUNCHES`` key of a launch of ``kernel`` by ``route``: the
+    int8 / bf16 kinds' CUDA-core route ("core") under
+    ``CORE_ROUTES[kernel]``; their tensor-core routes ("mma", "units") and
+    the float kinds' one route ("float") under ``kernel``."""
+    return CORE_ROUTES[kernel] if route == "core" else kernel
+
+
+def call_routed(fn, what: str, *args) -> str:
+    """Call the C entry ``fn`` on ``args`` and its route argument, check
+    its code and return the route it took (``ROUTES``)."""
+    route = ctypes.c_int(-1)
+    check(fn(*args, ctypes.byref(route)), what)
+    return ROUTES[route.value]
 
 
 def reset_launches() -> None:

@@ -1,15 +1,18 @@
 """The port's kernels beside their builds from another checkout, on the card.
 
-Builds csrc/tri_tiles_matvec.cu (kernel 9) and the build kernels'
-sources, csrc/tri_build.cu (kernel 2), tri_build_fused.cu (kernel 8),
-stored_build.cu (kernel 4), affinity_build.cu (kernel 6) and
+Builds csrc/tri_matvec.cu (kernel 1's float kinds),
+csrc/tri_tiles_matvec.cu (kernel 9), the capacity matvecs'
+sym_rows_matvec.cu (kernel 3) and sym_tiles_matvec.cu (kernel 7), and the
+build kernels' sources, csrc/tri_build.cu (kernel 2), tri_build_fused.cu
+(kernel 8), stored_build.cu (kernel 4), affinity_build.cu (kernel 6) and
 build_probe.cu (kernel 10), from the sources of another checkout of the
 repo at DIR (for example the parent commit unpacked with ``git
 archive``) into build/clipper_tpu_torch/probe/parent_ab/, with the
 package's flags, and times each beside the package's own build in one
 process, in turns (parent, change, change, parent; each the mean of its
 two turns), through the C entry points (no wrapper), which both trees
-must share:
+must share (but for the route argument, which an older checkout's
+entries may lack: ``tri_matvec_probe.bind``):
 
 - kernel 9 at B=128 and B=512 lanes, one probe a lane, int8 and bf16
   storage, on the tile-major form of P=512 random problems (m=1024,
@@ -17,6 +20,14 @@ must share:
   K=1 on the flat form of the same content, one ``torch.bmm`` over the
   dense bf16 [M; C] and the bound; whether the change's output is
   bit-equal to kernel 1's at K=1, and its max distance to the parent's;
+- kernels 1 and 9 over f32 and f64 storage at t=128 and 256 (kernel 1
+  at K=16, kernel 9 at one probe a lane; B=128 distinct lanes of P=128
+  random problems, m=1024): the parent's ms, the change's, the bound,
+  whether the outputs are bit-equal and their max distance;
+- kernels 3 and 7 in int8 at t=128, K=16 and K=1, on one bunny problem at
+  m=65,536 (rho=0.95, numpy default_rng(0); rows at G=32), with this
+  tree's plan and workspace: the parent's ms, the change's, the bound and
+  whether the outputs are bit-equal;
 - kernels 2, 8 and 4 on the W=512, m=1024 problems of ``chip_smoke.py``'s
   main path (the bunny at rho=0.9 and the point-normal scans, both from
   numpy default_rng(0)), int8 and bf16 storage (kernels 2 and 8 at
@@ -53,6 +64,7 @@ from typing import Dict, List
 import numpy as np
 
 from clipper_tpu_torch import _kernels
+from clipper_tpu_torch.bench.tri_matvec_probe import bind, route_arg
 
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
@@ -62,7 +74,11 @@ BF16_FLOPS = 989e12
 OPS_PER_PAIR = {"euclidean": 30, "pointnormal": 56}
 # the sources built from the other checkout, and their entry points
 _SOURCES = {
-    "tri_tiles_matvec": ("tri_tiles_matvec_int8", "tri_tiles_matvec_bf16"),
+    "tri_matvec": ("tri_matvec_f32", "tri_matvec_f64"),
+    "tri_tiles_matvec": ("tri_tiles_matvec_int8", "tri_tiles_matvec_bf16",
+                         "tri_tiles_matvec_f32", "tri_tiles_matvec_f64"),
+    "sym_rows_matvec": ("sym_rows_matvec_int8",),
+    "sym_tiles_matvec": ("sym_tiles_matvec_int8",),
     "tri_build": ("tri_build_int8", "tri_build_bf16"),
     "tri_build_fused": ("tri_build_fused_int8", "tri_build_fused_bf16"),
     "stored_build": ("stored_build_int8", "stored_build_bf16"),
@@ -94,9 +110,9 @@ def build_parent(parent: str) -> Dict[str, ctypes.CDLL]:
             raise RuntimeError(f"parent_ab: the parent's {cu} failed to "
                                f"build:\n{log}")
         lib = ctypes.CDLL(os.path.abspath(d / f"lib{cu}.so"))
+        cu_src = (d / f"{cu}.cu").read_text()
         for fn in _SOURCES[cu]:
-            getattr(lib, fn).argtypes = _kernels._SIGNATURES[fn]
-            getattr(lib, fn).restype = ctypes.c_int
+            bind(lib, fn, cu_src)
         libs[cu] = lib
     return libs
 
@@ -165,37 +181,25 @@ def tiles_rows(parent_lib, dev) -> list:
             outs = {k: torch.empty(B, 2 * m, device=dev)
                     for k in ("parent", "change", "k1")}
             ptr = (tiles.data_ptr(), idx.data_ptr(), U.data_ptr())
-            if int8:
-                def parent():
-                    return parent_lib.tri_tiles_matvec_int8(
-                        *ptr, outs["parent"].data_ptr(), P, B, nt, t,
-                        1 / 127, stream)
+            f9, f1 = (("tri_tiles_matvec_int8", "tri_matvec_int8") if int8
+                      else ("tri_tiles_matvec_bf16", "tri_matvec_bf16"))
+            sc = (1 / 127,) if int8 else ()
 
-                def change():
-                    return k9.tri_tiles_matvec_int8(
-                        *ptr, outs["change"].data_ptr(), P, B, nt, t,
-                        1 / 127, stream)
+            def parent():
+                return getattr(parent_lib, f9)(
+                    *ptr, outs["parent"].data_ptr(), P, B, nt, t, *sc,
+                    stream, *route_arg(parent_lib, f9))
 
-                def kernel1():
-                    return k1.tri_matvec_int8(
-                        flat.data_ptr(), idx.data_ptr(), U.data_ptr(),
-                        outs["k1"].data_ptr(), P, B, 1, nt, t, S, 1 / 127,
-                        stream)
-            else:
-                def parent():
-                    return parent_lib.tri_tiles_matvec_bf16(
-                        *ptr, outs["parent"].data_ptr(), P, B, nt, t,
-                        stream)
+            def change():
+                return getattr(k9, f9)(
+                    *ptr, outs["change"].data_ptr(), P, B, nt, t, *sc,
+                    stream, *route_arg(k9, f9))
 
-                def change():
-                    return k9.tri_tiles_matvec_bf16(
-                        *ptr, outs["change"].data_ptr(), P, B, nt, t,
-                        stream)
-
-                def kernel1():
-                    return k1.tri_matvec_bf16(
-                        flat.data_ptr(), idx.data_ptr(), U.data_ptr(),
-                        outs["k1"].data_ptr(), P, B, 1, nt, t, S, stream)
+            def kernel1():
+                return getattr(k1, f1)(
+                    flat.data_ptr(), idx.data_ptr(), U.data_ptr(),
+                    outs["k1"].data_ptr(), P, B, 1, nt, t, S, *sc, stream,
+                    *route_arg(k1, f1))
             for name, fn in (("parent", parent), ("change", change),
                              ("kernel 1", kernel1)):
                 _kernels.check(fn(), f"parent_ab kernel 9 {name}")
@@ -227,6 +231,140 @@ def tiles_rows(parent_lib, dev) -> list:
                   f"|change - parent| {row['max_diff_parent']:.3e}",
                   flush=True)
         del tiles, flat
+    return rows
+
+
+def float_rows(libs, dev, P: int = 128, B: int = 128,
+               m: int = 1024) -> list:
+    """Kernels 1 and 9 over f32 and f64 storage at t=128 and 256, parent
+    against change, through their C entries: kernel 1 at K=16, kernel 9 at
+    one probe a lane, B distinct lanes of P random problems (10% of pairs
+    kept), beside the bound (each lane's triangle, u and the output moved
+    once; 2 K flops a stored element and direction at the f32 or f64
+    peak)."""
+    import torch
+
+    from clipper_tpu_torch.ops import flattri
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rows = []
+    for t in (128, 256):
+        nt = m // t
+        S = flattri.tri_ncols(nt, t)
+        T = nt * (nt + 1) // 2
+        content = torch.rand(P, 2 * t, S, generator=gen, device=dev)
+        content = torch.where(content > 0.9, content, 0.0)
+        idx = torch.randperm(P, generator=gen, device=dev)[:B].to(
+            torch.int32)
+        for dtype, kind, peak in ((torch.float32, "f32", F32_FLOPS),
+                                  (torch.float64, "f64", F64_FLOPS)):
+            flat = content.to(dtype)
+            tiles = flat.view(P, 2 * t, T, t).permute(0, 2, 1, 3).contiguous()
+            for kernel, store, K in (("tri_matvec", flat, 16),
+                                     ("tri_tiles_matvec", tiles, 1)):
+                one = kernel == "tri_tiles_matvec"
+                lead = (B,) if one else (B, K)
+                U = torch.rand(*lead, m, generator=gen, device=dev,
+                               dtype=dtype)
+                outs = {side: (torch.empty(*lead, 2 * m, device=dev,
+                                           dtype=dtype),)
+                        for side in ("parent", "change")}
+                shape = (B, nt, t) if one else (B, K, nt, t, S)
+                fn = f"{kernel}_{kind}"
+
+                def call(lib, side):
+                    f = getattr(lib, fn)
+                    ptrs = (store.data_ptr(), idx.data_ptr(), U.data_ptr(),
+                            outs[side][0].data_ptr())
+                    return lambda: f(*ptrs, *shape, stream)
+
+                p_ms, c_ms, equal = compare(
+                    f"{fn} t={t}", call(libs[kernel], "parent"),
+                    call(_kernels.lib(kernel), "change"), outs, dev, 20)
+                item = store.element_size()
+                n_bytes = (B * 2 * t * S + B * K * m + B * K * 2 * m) * item
+                n_ops = 2 * K * B * (2 * t * S + 2 * t * t * (T - nt))
+                bound = max(n_bytes / HBM_BYTES_PER_S, n_ops / peak) * 1e3
+                diff = float((outs["change"][0] - outs["parent"][0]).abs()
+                             .max())
+                row = dict(kernel=kernel, storage=kind,
+                           shape=f"m={m}, t={t}, B={B}, K={K}",
+                           parent_ms=p_ms, change_ms=c_ms, bound_ms=bound,
+                           equal_to_parent=equal, max_diff_parent=diff)
+                print(f"{fn} m={m} t={t} B={B} K={K}: parent {p_ms:.4f} "
+                      f"ms, change {c_ms:.4f} ms (in turns), bound "
+                      f"{bound:.4f} ms; bit-equal to the parent's: {equal}, "
+                      f"max |change - parent| {diff:.3e}", flush=True)
+                rows.append(row)
+            del flat, tiles
+    return rows
+
+
+def capacity_rows(libs, dev, m: int = 65536, t: int = 128,
+                  G: int = 32) -> list:
+    """Kernels 3 and 7, parent against change, through their C entries on
+    one bunny problem's int8 storage (this tree's plan and workspace for
+    both)."""
+    import torch
+
+    from clipper_tpu_torch.bench import harness
+    from clipper_tpu_torch.ops import symstore
+    from clipper_tpu_torch.ops.affinity import gather_endpoints
+
+    pcd0 = harness.load_bunny()
+    pcd1, A, _ = harness.make_problem(pcd0, m, 0.95,
+                                      np.random.default_rng(0))
+    At = torch.as_tensor(A.astype(np.int32), device=dev)
+    P1, P2 = gather_endpoints(
+        torch.as_tensor(pcd0, dtype=torch.float32, device=dev),
+        torch.as_tensor(pcd1, dtype=torch.float32, device=dev), At)
+    inv = harness.default_invariant()
+    nt = m // t
+    T = nt * (nt + 1) // 2
+    gen = torch.Generator(device=dev).manual_seed(2)
+    rows = []
+    for name in ("sym_rows_matvec", "sym_tiles_matvec"):
+        if name == "sym_rows_matvec":
+            store = symstore.build_symchunks(inv, P1, P2, At, m, tile=t, G=G)
+            plan = symstore.rows_device_plan(store, nt)
+            view = (store.shape[0] * 2 * t, G * t)
+        else:
+            store = symstore.build_symtiles(inv, P1, P2, At, m, tile=t)
+            plan = symstore.tiles_device_plan(store, nt)
+            view = (store.shape[0] * 2 * t, t)
+        for K in (16, 1):
+            U = torch.rand(K, m, generator=gen, device=dev)
+            U = (U / torch.linalg.vector_norm(U, dim=-1, keepdim=True)).to(
+                torch.bfloat16).contiguous()
+            ws = plan.workspace(K)
+            outs = {side: (torch.empty(K, 2 * m, device=dev),)
+                    for side in ("parent", "change")}
+            stream = _kernels.stream_ptr(dev)
+
+            def call(fn, side):
+                return lambda: fn(store.data_ptr(), *view, *plan.args(),
+                                  U.data_ptr(), outs[side][0].data_ptr(),
+                                  ws.data_ptr(), K, nt, t, 0, 1 / 127,
+                                  stream)
+
+            fn = f"{name}_int8"
+            p_ms, c_ms, equal = compare(
+                f"{name} K={K}", call(getattr(libs[name], fn), "parent"),
+                call(getattr(_kernels.lib(name), fn), "change"), outs, dev,
+                20)
+            n_bytes = T * 2 * t * t + K * m * 2 + K * 2 * m * 4
+            bound = max(n_bytes / HBM_BYTES_PER_S,
+                        2 * K * 2 * t * t * (2 * T - nt) / BF16_FLOPS) * 1e3
+            row = dict(kernel=name, storage="int8", shape=f"m={m}, t={t}, "
+                       f"K={K}", parent_ms=p_ms, change_ms=c_ms,
+                       bound_ms=bound, equal_to_parent=equal)
+            print(f"{name} int8 m={m} t={t} K={K}: parent {p_ms:.4f} ms, "
+                  f"change {c_ms:.4f} ms (in turns), bound {bound:.4f} ms; "
+                  f"output bit-equal to the parent's: {equal}", flush=True)
+            rows.append(row)
+        del store, plan
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -465,6 +603,8 @@ def main(argv: List[str] = None) -> list:
     _kernels.build_all()
     libs = build_parent(argv[0])
     rows += tiles_rows(libs["tri_tiles_matvec"], dev)
+    rows += float_rows(libs, dev)
+    rows += capacity_rows(libs, dev)
     rows += build_rows(libs, dev)
     rows += affinity_rows(libs["affinity_build"], dev)
     rows += probe_rows(libs["build_probe"], dev)

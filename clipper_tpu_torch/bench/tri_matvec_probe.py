@@ -64,6 +64,24 @@ def variant_sources() -> Dict[str, str]:
             "noforward": no_fwd, "notransposed": no_tr}
 
 
+def bind(lib: ctypes.CDLL, fn: str, cu_src: str) -> None:
+    """Type lib's C entry ``fn`` as this tree's, less its last argument,
+    the route it reports, where the source it was built from (``cu_src``,
+    an older checkout's) has none."""
+    sig = _kernels._SIGNATURES[fn]
+    if sig[-1] is _kernels._IP and "int* route" not in cu_src:
+        sig = sig[:-1]
+    getattr(lib, fn).argtypes = sig
+    getattr(lib, fn).restype = ctypes.c_int
+
+
+def route_arg(lib: ctypes.CDLL, fn: str) -> tuple:
+    """The route argument of lib's entry ``fn`` where it takes one (a
+    place for the route, unread), else nothing."""
+    takes = getattr(lib, fn).argtypes[-1] is _kernels._IP
+    return (ctypes.byref(ctypes.c_int()),) if takes else ()
+
+
 def build_edited(probe: str, cu: str, edited: Dict[str, Dict[str, str]],
                  fns) -> Dict[str, ctypes.CDLL]:
     """Compile csrc/<cu>.cu once for each variant, in its own copy of csrc/
@@ -93,9 +111,9 @@ def build_edited(probe: str, cu: str, edited: Dict[str, Dict[str, str]],
             raise RuntimeError(f"{probe} probe: {name} failed to build:"
                                f"\n{log}")
         lib = ctypes.CDLL(os.path.abspath(out_dir / name / "lib.so"))
+        cu_src = (out_dir / name / f"{cu}.cu").read_text()
         for fn in fns:
-            getattr(lib, fn).argtypes = _kernels._SIGNATURES[fn]
-            getattr(lib, fn).restype = ctypes.c_int
+            bind(lib, fn, cu_src)
         libs[name] = lib
     return libs
 
@@ -162,10 +180,13 @@ def main(argv: List[str] = None) -> list:
             for name, lib in libs.items():
                 if storage == torch.int8:
                     def call(lib=lib):
-                        return lib.tri_matvec_int8(*args, 1 / 127, stream)
+                        return lib.tri_matvec_int8(
+                            *args, 1 / 127, stream,
+                            *route_arg(lib, "tri_matvec_int8"))
                 else:
                     def call(lib=lib):
-                        return lib.tri_matvec_bf16(*args, stream)
+                        return lib.tri_matvec_bf16(
+                            *args, stream, *route_arg(lib, "tri_matvec_bf16"))
                 _kernels.check(call(), f"tri_matvec_probe {name}")
                 if name == "full":
                     full_out = out.clone()

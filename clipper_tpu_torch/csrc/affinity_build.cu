@@ -55,8 +55,8 @@
 // Route: the shared body, not a kernel of its own on stored_build.cu's
 // walk. What tied the body to f32, its endpoint records (Ends,
 // stage_ends) and its score values, is templated on the value type, and
-// its largest-tile limit (kMaxTile) belongs to the flat map alone, so the
-// third map costs nothing a kernel of its own would save; kernels 2, 6
+// its t-tiles belong to the flat map alone, so the third map costs
+// nothing a kernel of its own would save; kernels 2, 6
 // and 8 share one first pass, one queue and one write.
 
 #include <cuda_runtime.h>

@@ -26,7 +26,8 @@
 // instead of f32, so that the sum across ranks is taken before the one
 // rounding. The whole list is base = 0, n = NC.
 //
-// int8 and bf16 storage (t = 128). The storage is read as a 2-D tensor of
+// int8 and bf16 storage (route "units": t = 128, or a multiple of it read
+// as 128-row tiles). The storage is read as a 2-D tensor of
 // n 2t rows and G t columns, and the host's plan (ops/symstore.rows_plan,
 // built once a storage and slice: the closed form above, restricted to the
 // slice) gives every stored tile's place in it; pad tiles and pad chunks are
@@ -49,11 +50,17 @@
 // accumulator instead, so this kernel is the more exact of the two
 // (ROADMAP.md Queue 3).
 //
-// The float / double storage kinds take a plain CUDA-core kernel: one block
-// per output row block j, which walks row j's tiles forward, then column
-// j's transposed (the ranges of the slice: c's from the closed form, r's by
-// a binary search on the chunk index first(r) + (j - r) / G, which grows
-// with r), summing in f64 and rounding to f32 as well.
+// Routes by tile (sym_tile_mma.cuh; ops/symstore.matvec_route picks):
+// int8 / bf16 at t a multiple of 128 take the unit kernel ("units"), the
+// plan holding each stored t-tile as its 128-row tiles; at every other t
+// ("core") the CUDA-core kernel below on the codes.
+//
+// The float / double storage kinds, and the codes' "core" route, take a
+// plain CUDA-core kernel: one block per output row block j, which walks
+// row j's tiles forward, then column j's transposed (the ranges of the
+// slice: c's from the closed form, r's by a binary search on the chunk
+// index first(r) + (j - r) / G, which grows with r), summing in f64 and
+// rounding to f32 as well.
 
 #include "sym_tile_mma.cuh"
 
@@ -132,13 +139,19 @@ struct Walk {
   }
 };
 
-// float / double storage: one thread per output column, K <= 16 f64 sums in
-// registers, the same fixed tile order, rounded to f32 at the end.
-template <typename F>
-__global__ void __launch_bounds__(kThreads) sym_rows_float_kernel(
-    const F* __restrict__ chunks, const F* __restrict__ U,
+bool bad_args(int K, int G, long long base, long long n) {
+  return K < 1 || K > kMaxK || G < 1 || base < 0 || n < 0;
+}
+
+// CUDA-core tiles (float / double storage, and int8 / bf16 codes on the
+// "core" route): one thread per output column, K <= 16 f64 sums in
+// registers, the same fixed tile order, rounded to f32 at the end and
+// scaled. F: the storage; UT: u's type (bf16 for codes, else F).
+template <typename F, typename UT>
+__global__ void __launch_bounds__(kThreads) sym_rows_core_kernel(
+    const F* __restrict__ chunks, const UT* __restrict__ U,
     void* __restrict__ out, int K, int nt, int t, int G, long long base,
-    long long n, int raw) {
+    long long n, int raw, float scale) {
   const int j = blockIdx.x;
   const int m = nt * t;
   const size_t Gt = (size_t)G * t;
@@ -151,15 +164,23 @@ __global__ void __launch_bounds__(kThreads) sym_rows_float_kernel(
       int r, c;
       bool fwd;
       w.at(it, j, r, c, fwd);
-      apply_tile_float(acc, chunks + tile_offset(r, c, nt, t, G, base), Gt,
-                       U, K, m, t, o, fwd, fwd ? c : r);
+      apply_tile(acc, chunks + tile_offset(r, c, nt, t, G, base), Gt, U, K,
+                 m, t, o, fwd, fwd ? c : r);
     }
-    store_float(acc, out, raw, K, m, t, j, o);
+    store_sums(acc, out, raw, K, m, t, j, o, scale);
   }
 }
 
-bool bad_args(int K, int G, long long base, long long n) {
-  return K < 1 || K > kMaxK || G < 1 || base < 0 || n < 0;
+template <typename F, typename UT>
+int launch_core(const void* chunks, const void* U, void* out, int K, int nt,
+                int t, int G, long long base, long long n, int raw,
+                float scale, void* stream) {
+  if (bad_args(K, G, base, n) || nt < 1 || t < 1)
+    return (int)cudaErrorInvalidValue;
+  sym_rows_core_kernel<F, UT><<<nt, core_threads(t), 0,
+                                (cudaStream_t)stream>>>(
+      (const F*)chunks, (const UT*)U, out, K, nt, t, G, base, n, raw, scale);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -169,7 +190,8 @@ extern "C" {
 // chunks: the chunk range [base, base + n) of the (NC, 2t, G t) int8
 // storage (codes in 0..127), as a view of rows = n 2t and cols = G t; the
 // plan of that slice (ops/symstore.rows_plan); U (K, m) bf16; out (K, 2m)
-// f32 (raw = 0) or f64 (raw = 1); ws the plan's workspace; t must be 128.
+// f32 (raw = 0) or f64 (raw = 1); ws the plan's workspace; t a multiple
+// of 128 (route "units"; the plan over the 128-grid).
 int sym_rows_matvec_int8(const void* chunks, long long rows, long long cols,
                          const void* entries, const void* units,
                          const void* fslots, int n_units,
@@ -195,24 +217,39 @@ int sym_rows_matvec_bf16(const void* chunks, long long rows, long long cols,
                                      stream);
 }
 
+// The "core" route of int8 codes (t not a multiple of 128): chunks the
+// slice [base, base + n) of (NC, 2t, G t) storage, U (K, m) bf16, out as
+// above (scaled by `scale` when raw = 0).
+int sym_rows_matvec_core_int8(const void* chunks, const void* U, void* out,
+                              int K, int nt, int t, int G, long long base,
+                              long long n, int raw, float scale,
+                              void* stream) {
+  return launch_core<int8_t, __nv_bfloat16>(chunks, U, out, K, nt, t, G,
+                                            base, n, raw, scale, stream);
+}
+
+// the same over bf16 storage (no scale)
+int sym_rows_matvec_core_bf16(const void* chunks, const void* U, void* out,
+                              int K, int nt, int t, int G, long long base,
+                              long long n, int raw, void* stream) {
+  return launch_core<__nv_bfloat16, __nv_bfloat16>(
+      chunks, U, out, K, nt, t, G, base, n, raw, 1.f, stream);
+}
+
 // chunks f32, U (K, m) f32, out as above.
 int sym_rows_matvec_f32(const void* chunks, const void* U, void* out, int K,
                         int nt, int t, int G, long long base, long long n,
                         int raw, void* stream) {
-  if (bad_args(K, G, base, n)) return (int)cudaErrorInvalidValue;
-  sym_rows_float_kernel<float><<<nt, kThreads, 0, (cudaStream_t)stream>>>(
-      (const float*)chunks, (const float*)U, out, K, nt, t, G, base, n, raw);
-  return (int)cudaGetLastError();
+  return launch_core<float, float>(chunks, U, out, K, nt, t, G, base, n, raw,
+                                   1.f, stream);
 }
 
 // chunks f64, U (K, m) f64, out as above.
 int sym_rows_matvec_f64(const void* chunks, const void* U, void* out, int K,
                         int nt, int t, int G, long long base, long long n,
                         int raw, void* stream) {
-  if (bad_args(K, G, base, n)) return (int)cudaErrorInvalidValue;
-  sym_rows_float_kernel<double><<<nt, kThreads, 0, (cudaStream_t)stream>>>(
-      (const double*)chunks, (const double*)U, out, K, nt, t, G, base, n, raw);
-  return (int)cudaGetLastError();
+  return launch_core<double, double>(chunks, U, out, K, nt, t, G, base, n,
+                                     raw, 1.f, stream);
 }
 
 }  // extern "C"

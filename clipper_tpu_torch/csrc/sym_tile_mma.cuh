@@ -3,9 +3,25 @@
 // tile list). Both apply stored (2t, t) [M; C] tiles to the K candidate
 // rows U (K, m): tile (r, c) forward (its rows are outputs: block r) and,
 // off the diagonal, transposed (its columns are outputs: block c). For
-// int8 and bf16 tiles (t = 128) the two layouts differ only in where a
-// tile sits, and the host's plan (ops/symstore.unit_plan) says that, so
-// one kernel serves both.
+// int8 and bf16 tiles the two layouts differ only in where a tile sits,
+// and the host's plan (ops/symstore.unit_plan) says that, so one kernel
+// serves both.
+//
+// Routes by tile (ops/symstore.matvec_route picks one in the wrappers and
+// counts its launches under its own key):
+//   "units" int8 / bf16 at t a multiple of 128: the tensor-core design
+//           below, on 128-row tiles. A stored t-tile (r, c) is the
+//           (t / 128)^2 tiles (r q + a, c q + b) of the 128-grid, q =
+//           t / 128 (on a diagonal t-tile the upper ones, a <= b, whose
+//           a < b tiles the kernel also applies transposed), each at its
+//           own place in the storage, its C half t rows below its M half:
+//           the plan holds them (symstore.unit_plan over the 128-grid) and
+//           the kernel reads them as at t = 128, so every such t takes the
+//           t = 128 kernel, sums and numerics.
+//   "core"  int8 / bf16 at every other t >= 1 dividing m: the CUDA-core
+//           kernels of the float kinds (apply_tile, below) on the codes,
+//           each product exact in f64 and summed in f64, rounded once.
+//   f32 / f64 at every t: those CUDA-core kernels.
 //
 // What bounds it on this card. At m = 65,536, K = 16 the stored tiles are
 // 4.30 GB in int8 (8.61 in bf16), 1.28 ms (2.57) at 3.35 TB/s; the
@@ -55,8 +71,9 @@
 // rounding. An output at m = 65,536 sums 512 tiles, where a running f32
 // sum once drifted 8.5e-3 from the plain version (ROADMAP.md Queue 3).
 //
-// float / double tiles: one thread per output column, K f64 sums in
-// registers, on CUDA cores (apply_tile_float, store_float).
+// float / double tiles, and the codes' "core" route: one thread per output
+// column, K f64 sums in registers, on CUDA cores (apply_tile,
+// store_sums).
 
 #pragma once
 
@@ -72,7 +89,9 @@ namespace symtile {
 
 using namespace hopper;
 
-constexpr int kT = 128;             // the tensor-core kernels' tile
+constexpr int kT = 128;             // the tensor-core kernels' tile (a
+                                    // stored tile of any multiple of it
+                                    // is read as kT-tiles)
 constexpr int kThreads = 256;       // the float and reduction kernels
 constexpr int kMaxK = 16;           // candidate rows a block takes
 constexpr int kUnitRows = 8;        // R: a unit's row blocks, whose sums a
@@ -87,13 +106,14 @@ constexpr int kColSlots = 8;        // the ring of column blocks of u: >= kCount
 constexpr int kMaxStages = 8;
 constexpr int kSmemBudget = 227 * 1024;
 
-// A plan entry is one stored tile, int4 {x, y, c, meta}: its element column
-// and row in the storage's 2-D view (rows of its M half; the C half is t
-// rows below), its column block c, and meta: the unit row i (bits 0-3),
-// whether it is applied transposed (r != c), whether it starts or ends its
-// column in the unit, whether the column's sum is written at its end, the
-// column's slot in the ring of u blocks (its ordinal in the unit modulo
-// kColSlots, bits 8-11) and its sum's workspace slot (bits 12 on).
+// A plan entry is one kT-tile, int4 {x, y, c, meta}: its element column
+// and row in the storage's 2-D view (rows of its M half; the C half is the
+// stored tile's t rows below), its column block c in the kT-grid, and
+// meta: the unit row i (bits 0-3), whether it is applied transposed
+// (r != c), whether it starts or ends its column in the unit, whether
+// the column's sum is written at its end, the column's slot in the ring
+// of u blocks (its ordinal in the unit modulo kColSlots, bits 8-11) and
+// its sum's workspace slot (bits 12 on).
 // ops/symstore.py packs the same bits.
 constexpr int kMetaRow = 0xF;
 constexpr int kMetaTransposed = 1 << 4;
@@ -205,6 +225,7 @@ __device__ __forceinline__ void store_partial(const double (&acc)[NK][4],
 }
 
 // Entry `en` of the walk into stage s, by one whole warp: its half-tile
+// (the C half `half` rows, the stored tile's t, below the M half)
 // (2-D tensor-map copies by lane 0) and, at a column's first entry, the
 // column's block of u (bulk copies, a candidate a lane) into its ring
 // slot, all completing on full[s]. The caller knows the stage free: every
@@ -213,7 +234,7 @@ __device__ __forceinline__ void store_partial(const double (&acc)[NK][4],
 // earlier.
 template <typename S, int NK>
 __device__ __forceinline__ void fill_stage(const int4& en, int s, int h,
-                                            int Kb, int m,
+                                            int half, int Kb, int m,
                                             const CUtensorMap* store,
                                             const __nv_bfloat16* u,
                                             uint8_t* stages, uint8_t* ucols,
@@ -226,7 +247,7 @@ __device__ __forceinline__ void fill_stage(const int4& en, int s, int h,
     mbar_expect_tx(&full[s], L::kStage + (col ? Kb * 2 * kT : 0));
     for (int bx = 0; bx < L::kBoxes; ++bx)
       tma_load_2d(stages + s * L::kStage + bx * kT * 128, store,
-                  en.x + bx * (128 / (int)sizeof(S)), en.y + h * kT,
+                  en.x + bx * (128 / (int)sizeof(S)), en.y + h * half,
                   &full[s]);
   }
   __syncwarp();
@@ -239,13 +260,14 @@ __device__ __forceinline__ void fill_stage(const int4& en, int s, int h,
 }
 
 // Grid (units, 2 halves, groups of 16 candidates). S: int8 codes or bf16;
-// NK: n8 groups of candidates (Kb <= 8 NK). The block's unit comes from the
-// plan; the stages hold half h of each of its tiles.
+// NK: n8 groups of candidates (Kb <= 8 NK); half: the stored tile's t,
+// the rows from a tile's M half to its C half. The block's unit comes
+// from the plan; the stages hold half h of each of its tiles.
 template <typename S, int NK>
 __global__ void __launch_bounds__(kUnitThreads, 1) sym_unit_kernel(
     const __grid_constant__ CUtensorMap store, Plan plan,
     const __nv_bfloat16* __restrict__ U, double* __restrict__ ws, int K,
-    int Kg, int m, long long ws_group) {
+    int Kg, int m, int half, long long ws_group) {
   using L = UnitLayout<S, NK>;
   constexpr bool kCodes = sizeof(S) == 1;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
@@ -304,8 +326,8 @@ __global__ void __launch_bounds__(kUnitThreads, 1) sym_unit_kernel(
                   rfull);
     }
     for (int it = 0; it < L::kCount && it < n_ent; ++it)
-      fill_stage<S, NK>(ent[it], it, h, Kb, m, &store, u, smem, ucols, full,
-                         lane);
+      fill_stage<S, NK>(ent[it], it, h, half, Kb, m, &store, u, smem,
+                         ucols, full, lane);
   }
 
   double* wsb = ws + blockIdx.z * ws_group;
@@ -356,8 +378,8 @@ __global__ void __launch_bounds__(kUnitThreads, 1) sym_unit_kernel(
       zero_f64(col);
     }
     if (__shfl_sync(0xffffffffu, last, 0) && refill)
-      fill_stage<S, NK>(ahead, s, h, Kb, m, &store, u, smem, ucols, full,
-                         lane);
+      fill_stage<S, NK>(ahead, s, h, half, Kb, m, &store, u, smem,
+                         ucols, full, lane);
   }
 #pragma unroll
   for (int i = 0; i < kUnitRows; ++i)
@@ -406,23 +428,26 @@ __global__ void __launch_bounds__(kThreads) sym_reduce_kernel(
 template <typename S, int NK>
 cudaError_t launch_unit_kernel(const CUtensorMap& map, const Plan& plan,
                                const void* U, void* ws, int K, int Kg, int m,
-                               long long ws_group, cudaStream_t stream) {
+                               int half, long long ws_group,
+                               cudaStream_t stream) {
   using L = UnitLayout<S, NK>;
   const cudaError_t err = cudaFuncSetAttribute(
-      sym_unit_kernel<S, NK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      L::kSmem);
+      sym_unit_kernel<S, NK>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, L::kSmem);
   if (err != cudaSuccess) return err;
   const dim3 grid(plan.n_units, 2, (K + kMaxK - 1) / kMaxK);
   sym_unit_kernel<S, NK><<<grid, kUnitThreads, L::kSmem, stream>>>(
-      map, plan, (const __nv_bfloat16*)U, (double*)ws, K, Kg, m, ws_group);
+      map, plan, (const __nv_bfloat16*)U, (double*)ws, K, Kg, m, half,
+      ws_group);
   return cudaGetLastError();
 }
 
 // Both passes of one call over storage of S viewed as `rows` x `cols`
-// (row-major, 16-byte aligned), with the plan's arrays (see Plan): the unit
-// kernel, then the reduction, on the caller's stream. ws holds groups x
-// n_slots x 2 x Kg x t doubles, Kg = min(K, 16), a group for each 16
-// candidates.
+// (row-major, 16-byte aligned) of nt stored t-tiles a side, t a multiple
+// of kT (route "units"), with the plan's arrays over the kT-grid (see
+// Plan): the unit kernel, then the reduction, on the caller's stream. ws
+// holds groups x n_slots x 2 x Kg x kT doubles, Kg = min(K, 16), a group
+// for each 16 candidates.
 template <typename S>
 int launch_units(const void* storage, long long rows, long long cols,
                  const void* entries, const void* units, const void* fslots,
@@ -433,64 +458,82 @@ int launch_units(const void* storage, long long rows, long long cols,
                   (const int*)fslots,   n_units,
                   (const int*)red_off,  (const int*)red_slots,
                   n_slots};
-  if (K < 1 || nt < 1 || t != kT || plan.n_units < 0 ||
+  if (K < 1 || nt < 1 || t < kT || t % kT || plan.n_units < 0 ||
       (K + kMaxK - 1) / kMaxK > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  const int m = nt * kT;
+  const int m = nt * t;
+  const int ntk = m / kT;  // output blocks of the kT-grid
   const int Kg = K < kMaxK ? K : kMaxK;
   const long long ws_group = (long long)plan.n_slots * 2 * Kg * kT;
   if (plan.n_units > 0) {
     CUtensorMap map;
     cudaError_t err = storage_map<S>(&map, storage, rows, cols, kT);
     if (err != cudaSuccess) return (int)err;
-    err = Kg <= 8 ? launch_unit_kernel<S, 1>(map, plan, U, ws, K, Kg, m,
+    err = Kg <= 8 ? launch_unit_kernel<S, 1>(map, plan, U, ws, K, Kg, m, t,
                                              ws_group, st)
-                  : launch_unit_kernel<S, 2>(map, plan, U, ws, K, Kg, m,
+                  : launch_unit_kernel<S, 2>(map, plan, U, ws, K, Kg, m, t,
                                              ws_group, st);
     if (err != cudaSuccess) return (int)err;
   }
-  sym_reduce_kernel<<<dim3(nt, 2, (K + kMaxK - 1) / kMaxK), kThreads, 0,
+  sym_reduce_kernel<<<dim3(ntk, 2, (K + kMaxK - 1) / kMaxK), kThreads, 0,
                       st>>>((const double*)ws, plan.red_off, plan.red_slots,
                             out, K, Kg, m, ws_group, raw, scale);
   return (int)cudaGetLastError();
 }
 
-// float / double tiles: output column o (of 2t) of one tile, with global
-// row stride ld elements, applied to u's block ub, added to acc[0:K].
-template <typename F>
-__device__ __forceinline__ void apply_tile_float(double (&acc)[kMaxK],
-                                                 const F* tile, size_t ld,
-                                                 const F* U, int K, int m,
-                                                 int t, int o, bool fwd,
-                                                 int ub) {
-  const F* u = U + (size_t)ub * t;
+// a stored value or an operand as f64: int8 codes and bf16 values exactly
+__device__ __forceinline__ double f64_of(int8_t x) { return (double)x; }
+__device__ __forceinline__ double f64_of(__nv_bfloat16 x) {
+  return (double)__bfloat162float(x);
+}
+__device__ __forceinline__ double f64_of(float x) { return (double)x; }
+__device__ __forceinline__ double f64_of(double x) { return x; }
+
+// CUDA-core tiles (float / double, and the codes' "core" route): output
+// column o (of 2t) of one tile of storage F, with global row stride ld
+// elements, applied to u's block ub (operand UT: bf16 for codes, else F),
+// added to acc[0:K] in f64.
+template <typename F, typename UT>
+__device__ __forceinline__ void apply_tile(double (&acc)[kMaxK],
+                                           const F* tile, size_t ld,
+                                           const UT* U, int K, int m, int t,
+                                           int o, bool fwd, int ub) {
+  const UT* u = U + (size_t)ub * t;
   if (fwd) {
     const F* row = tile + (size_t)o * ld;
     for (int q = 0; q < t; ++q) {
-      const F s = row[q];
-      if (s == F(0)) continue;
+      const double s = f64_of(row[q]);
+      if (s == 0.0) continue;
 #pragma unroll
       for (int k = 0; k < kMaxK; ++k)
-        if (k < K) acc[k] += (double)s * (double)u[(size_t)k * m + q];
+        if (k < K) acc[k] += s * f64_of(u[(size_t)k * m + q]);
     }
   } else {
     const int h = o / t;
     const F* col = tile + (size_t)(h * t) * ld + (o % t);
     for (int i = 0; i < t; ++i) {
-      const F s = col[(size_t)i * ld];
-      if (s == F(0)) continue;
+      const double s = f64_of(col[(size_t)i * ld]);
+      if (s == 0.0) continue;
 #pragma unroll
       for (int k = 0; k < kMaxK; ++k)
-        if (k < K) acc[k] += (double)s * (double)u[(size_t)k * m + i];
+        if (k < K) acc[k] += s * f64_of(u[(size_t)k * m + i]);
     }
   }
 }
 
-// output column o of block j: f32 after one rounding, or the raw f64 sums
-__device__ __forceinline__ void store_float(const double (&acc)[kMaxK],
-                                            void* out, int raw, int K, int m,
-                                            int t, int j, int o) {
+// the CUDA-core kernels' block: one thread an output column of the 2t, in
+// whole warps, at most kThreads (more columns take more turns)
+inline int core_threads(int t) {
+  const int want = (2 * t + 31) / 32 * 32;
+  return want < kThreads ? want : kThreads;
+}
+
+// output column o of block j: f32 after one rounding, then scaled in f32
+// (1 but for int8 codes), or the raw f64 sums
+__device__ __forceinline__ void store_sums(const double (&acc)[kMaxK],
+                                           void* out, int raw, int K, int m,
+                                           int t, int j, int o, float scale) {
   const size_t col = (size_t)(o / t) * m + (size_t)j * t + (o % t);
 #pragma unroll
   for (int k = 0; k < kMaxK; ++k) {
@@ -499,7 +542,7 @@ __device__ __forceinline__ void store_float(const double (&acc)[kMaxK],
     if (raw)
       static_cast<double*>(out)[at] = acc[k];
     else
-      static_cast<float*>(out)[at] = (float)acc[k];
+      static_cast<float*>(out)[at] = (float)acc[k] * scale;
   }
 }
 

@@ -19,7 +19,8 @@
 // written unrounded in f64 (raw = 1) for the sharded engine, which sums
 // the ranks' slices before that one rounding.
 //
-// int8 and bf16 storage (t = 128): the design of csrc/sym_tile_mma.cuh.
+// int8 and bf16 storage (route "units": t = 128, or a multiple of it read
+// as 128-row tiles): the design of csrc/sym_tile_mma.cuh.
 // The storage is read as a 2-D tensor of T 2t rows and t columns; the
 // host's plan (ops/symstore.tiles_plan, built once a storage) groups the
 // tiles into units of up to R row blocks by S column blocks, and one block
@@ -33,13 +34,19 @@
 // workspace of partials. K > 16 takes groups of 16 candidates on
 // blockIdx.z, each of which reads the tiles again.
 //
-// float / double storage: one CUDA-core block per (output block j, group of
-// at most 16 candidates), which owns its outputs outright. The host builds,
-// once per storage (ops/symstore.tile_walks), each output block's walk: the
-// forward tiles of row j, then the transposed tiles of column j, each in
-// increasing k, as (k, 2 ub + tr) pairs with ub the block of u the tile
-// contracts; inert slots are in no walk and never index u. Tile offsets
-// are 64-bit: T * 2t * t passes 2^31.
+// Routes by tile (sym_tile_mma.cuh; ops/symstore.matvec_route picks):
+// int8 / bf16 at t a multiple of 128 take the unit kernel ("units"), the
+// plan holding each stored t-tile as its 128-row tiles; at every other t
+// ("core") the CUDA-core kernel below on the codes.
+//
+// float / double storage, and the codes' "core" route: one CUDA-core block
+// per (output block j, group of at most 16 candidates), which owns its
+// outputs outright. The host builds, once per storage
+// (ops/symstore.tile_walks), each output block's walk: the forward tiles
+// of row j, then the transposed tiles of column j, each in increasing k,
+// as (k, 2 ub + tr) pairs with ub the block of u the tile contracts; inert
+// slots are in no walk and never index u. Tile offsets are 64-bit:
+// T * 2t * t passes 2^31.
 
 #include "sym_tile_mma.cuh"
 
@@ -47,18 +54,20 @@ namespace {
 
 using namespace symtile;
 
-// float / double tiles: one thread per output column, the same walk.
-template <typename F>
-__global__ void __launch_bounds__(kThreads) sym_tiles_float_kernel(
+// CUDA-core tiles (float / double, and int8 / bf16 codes on the "core"
+// route): one thread per output column, the same walk. F: the storage;
+// UT: u's type (bf16 for codes, else F).
+template <typename F, typename UT>
+__global__ void __launch_bounds__(kThreads) sym_tiles_core_kernel(
     const F* __restrict__ tiles, const int2* __restrict__ walks,
-    const int* __restrict__ offsets, const F* __restrict__ U,
-    void* __restrict__ out, int K, int nt, int t, int raw) {
+    const int* __restrict__ offsets, const UT* __restrict__ U,
+    void* __restrict__ out, int K, int nt, int t, int raw, float scale) {
   const int j = blockIdx.x;
   const int k0 = blockIdx.y * kMaxK;
   const int Kb = min(kMaxK, K - k0);
   const int m = nt * t;
   const size_t tile_elems = 2 * (size_t)t * t;
-  const F* Ub = U + (size_t)k0 * m;
+  const UT* Ub = U + (size_t)k0 * m;
   void* outb = raw ? (void*)((double*)out + (size_t)k0 * 2 * m)
                    : (void*)((float*)out + (size_t)k0 * 2 * m);
   const int e0 = offsets[j];
@@ -69,14 +78,26 @@ __global__ void __launch_bounds__(kThreads) sym_tiles_float_kernel(
     for (int k = 0; k < kMaxK; ++k) acc[k] = 0.0;
     for (int e = e0; e < e1; ++e) {
       const int2 w = walks[e];
-      apply_tile_float(acc, tiles + (size_t)w.x * tile_elems, (size_t)t, Ub,
-                       Kb, m, t, o, (w.y & 1) == 0, w.y >> 1);
+      apply_tile(acc, tiles + (size_t)w.x * tile_elems, (size_t)t, Ub, Kb, m,
+                 t, o, (w.y & 1) == 0, w.y >> 1);
     }
-    store_float(acc, outb, raw, Kb, m, t, j, o);
+    store_sums(acc, outb, raw, Kb, m, t, j, o, scale);
   }
 }
 
 dim3 grid_of(int nt, int K) { return dim3(nt, (K + kMaxK - 1) / kMaxK); }
+
+template <typename F, typename UT>
+int launch_core(const void* tiles, const void* walks, const void* offsets,
+                const void* U, void* out, int K, int nt, int t, int raw,
+                float scale, void* stream) {
+  if (K < 1 || nt < 1 || t < 1) return (int)cudaErrorInvalidValue;
+  sym_tiles_core_kernel<F, UT><<<grid_of(nt, K), core_threads(t), 0,
+                                 (cudaStream_t)stream>>>(
+      (const F*)tiles, (const int2*)walks, (const int*)offsets,
+      (const UT*)U, out, K, nt, t, raw, scale);
+  return (int)cudaGetLastError();
+}
 
 }  // namespace
 
@@ -85,7 +106,8 @@ extern "C" {
 // tiles (T, 2t, t) int8 codes in 0..127, as a view of rows = T 2t and
 // cols = t; the plan of the list (ops/symstore.tiles_plan); U (K, m) bf16;
 // out (K, 2m) f32 (raw = 0) or f64 (raw = 1); ws the plan's workspace for
-// ceil(K / 16) groups; t must be 128.
+// ceil(K / 16) groups; t a multiple of 128 (route "units"; the plan over
+// the 128-grid).
 int sym_tiles_matvec_int8(const void* tiles, long long rows, long long cols,
                           const void* entries, const void* units,
                           const void* fslots, int n_units,
@@ -111,29 +133,40 @@ int sym_tiles_matvec_bf16(const void* tiles, long long rows, long long cols,
                                      stream);
 }
 
+// The "core" route of int8 codes (t not a multiple of 128): tiles
+// (T, 2t, t); walks (E, 2) and offsets (nt + 1,) int32 from tile_walks;
+// U (K, m) bf16; out as above (scaled by `scale` when raw = 0).
+int sym_tiles_matvec_core_int8(const void* tiles, const void* walks,
+                               const void* offsets, const void* U, void* out,
+                               int K, int nt, int t, int raw, float scale,
+                               void* stream) {
+  return launch_core<int8_t, __nv_bfloat16>(tiles, walks, offsets, U, out, K,
+                                            nt, t, raw, scale, stream);
+}
+
+// the same over bf16 tiles (no scale)
+int sym_tiles_matvec_core_bf16(const void* tiles, const void* walks,
+                               const void* offsets, const void* U, void* out,
+                               int K, int nt, int t, int raw, void* stream) {
+  return launch_core<__nv_bfloat16, __nv_bfloat16>(
+      tiles, walks, offsets, U, out, K, nt, t, raw, 1.f, stream);
+}
+
 // tiles f32; walks (E, 2) and offsets (nt + 1,) int32 from tile_walks;
 // U (K, m) f32, out as above.
 int sym_tiles_matvec_f32(const void* tiles, const void* walks,
                          const void* offsets, const void* U, void* out, int K,
                          int nt, int t, int raw, void* stream) {
-  if (K < 1 || nt < 1 || t < 1) return (int)cudaErrorInvalidValue;
-  sym_tiles_float_kernel<float><<<grid_of(nt, K), kThreads, 0,
-                                  (cudaStream_t)stream>>>(
-      (const float*)tiles, (const int2*)walks, (const int*)offsets,
-      (const float*)U, out, K, nt, t, raw);
-  return (int)cudaGetLastError();
+  return launch_core<float, float>(tiles, walks, offsets, U, out, K, nt, t,
+                                   raw, 1.f, stream);
 }
 
 // tiles f64, U (K, m) f64, out as above.
 int sym_tiles_matvec_f64(const void* tiles, const void* walks,
                          const void* offsets, const void* U, void* out, int K,
                          int nt, int t, int raw, void* stream) {
-  if (K < 1 || nt < 1 || t < 1) return (int)cudaErrorInvalidValue;
-  sym_tiles_float_kernel<double><<<grid_of(nt, K), kThreads, 0,
-                                   (cudaStream_t)stream>>>(
-      (const double*)tiles, (const int2*)walks, (const int*)offsets,
-      (const double*)U, out, K, nt, t, raw);
-  return (int)cudaGetLastError();
+  return launch_core<double, double>(tiles, walks, offsets, U, out, K, nt, t,
+                                     raw, 1.f, stream);
 }
 
 }  // extern "C"

@@ -33,6 +33,10 @@
 // time per warp (a prefix sum by shuffles, no atomics); the codes leave
 // through shared memory as 16-byte chunks (tri_pair_build.cuh). What is
 // left for every pair is the screen's two squared lengths and the masks.
+//
+// Tiles: one route for every t >= 1 that divides m. The body cuts a t-tile
+// into ceil(t / 64) sub-tiles of 64 rows, whatever t is, and nothing else
+// is sized by t.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -95,7 +99,7 @@ template <typename T>
 int build(const void* P1, const void* P2, const void* A, const void* m_trues,
           void* out, int W, int m, int t, long long S, int kind, double p0,
           double p1, double p2, double p3, double affeps, void* stream) {
-  if (t < 1 || t > kMaxTile || m % t || W < 1 || W > 65535)
+  if (t < 1 || m % t || W < 1 || W > 65535)
     return (int)cudaErrorInvalidValue;
   const double p[4] = {p0, p1, p2, p3};
   if (kind == 0)

@@ -27,6 +27,10 @@
 // (tri_build_fused_whole says which). At W=512, one block an SM runs in 4
 // waves of 132. No pipeline selects it (the JAX package found it a wash
 // against the per-tile grid).
+//
+// Tiles: one route for every t >= 1 that divides m. The body cuts a t-tile
+// into ceil(t / 64) sub-tiles of 64 rows, whatever t is, and nothing else
+// is sized by t.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -158,7 +162,7 @@ template <typename T>
 int build(const void* P1, const void* P2, const void* A, const void* m_trues,
           void* out, int W, int m, int t, long long S, int kind, double p0,
           double p1, double p2, double p3, double affeps, void* stream) {
-  if (t < 1 || t > kMaxTile || m % t || W < 1)
+  if (t < 1 || m % t || W < 1)
     return (int)cudaErrorInvalidValue;
   const double p[4] = {p0, p1, p2, p3};
   if (kind == 0)

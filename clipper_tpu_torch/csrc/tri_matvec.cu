@@ -65,90 +65,68 @@
 // The output buffer's read-backs stay in L2 (B * K * 2m * 4 bytes: 17 MB at
 // B=128, K=16, m=1024); HBM sees each stored byte once.
 //
-// The float / double storage kinds take a plain CUDA-core kernel that
-// accumulates in the storage type (f64 in f64, as the JAX package does).
+// Routes by tile (the dispatch below, which reports the route it took
+// through `route`; the wrapper counts each route's launches under its own
+// key, and ops/flattri.matvec_route mirrors the rule):
+//   "mma"  int8 / bf16 at t = 128, 256, 384, 512 (a multiple of 128 whose
+//          panels, boxes and ring fit): the kernel above;
+//   "core" int8 / bf16 at every other t >= 1 dividing m:
+//          tri_matvec_core.cuh's CUDA-core kernel (runs of 16 products
+//          summed in f32, the runs in f64).
+// The float / double storage kinds have one route, that CUDA-core kernel
+// at every t (its runs summed in the storage's type, f32 or f64 as the
+// JAX package, the runs in f64), counted under the kernel's own key. On
+// an H100 at m=1024, B=128, K=16 it takes 1.52-2.49 ms where the older
+// thread-a-column kernel with u read through L1 took 2.20-3.05
+// (bench/parent_ab).
 
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tri_matvec_core.cuh"
 #include "tri_matvec_mma.cuh"
 
 namespace {
 
-__device__ __forceinline__ int tile_offset(int r, int nt) {
-  return r * nt - r * (r - 1) / 2;
+// the tensor-core kernel at tile T, NK n8 groups of candidates
+template <typename S, int T>
+int launch_tile(const CUtensorMap& map, const void* idx, const void* U,
+                void* out, int B, int K, int nt, float scale,
+                cudaStream_t st) {
+  return K <= 8 ? launch_mma<S, T, 1, FlatTiles>(map, idx, U, out, B, K, nt,
+                                                 scale, st)
+                : launch_mma<S, T, 2, FlatTiles>(map, idx, U, out, B, K, nt,
+                                                 scale, st);
 }
 
 template <typename S>
-int dispatch_mma(const void* tri, const void* idx, const void* U, void* out,
-                 int P, int B, int K, int nt, int t, long long S_cols,
-                 float scale, void* stream) {
-  if (K < 1 || K > 16 || B < 1 || B > 65535 || nt < 1 || P < 1 ||
-      (t != 128 && t != 256))
+int dispatch(const void* tri, const void* idx, const void* U, void* out,
+             int P, int B, int K, int nt, int t, long long S_cols,
+             float scale, void* stream, int* route) {
+  if (K < 1 || K > 16 || B < 1 || B > 65535 || nt < 1 || P < 1 || t < 1)
     return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (!mma_tile(t)) {  // route "core"
+    *route = kRouteCore;
+    return core::launch_core<S, __nv_bfloat16, float>(
+        tri, idx, U, out, B, K, nt, core::Flat{S_cols, t}, scale, st);
+  }
+  *route = kRouteMma;  // route "mma"
   CUtensorMap map;
   const cudaError_t err =
       storage_map<S>(&map, tri, (long long)P * 2 * t, S_cols, kPanel);
   if (err != cudaSuccess) return (int)err;
-  cudaStream_t st = (cudaStream_t)stream;
-  if (t == 256)
-    return K <= 8 ? launch_mma<S, 256, 1, FlatTiles>(map, idx, U, out, B, K,
-                                                     nt, scale, st)
-                  : launch_mma<S, 256, 2, FlatTiles>(map, idx, U, out, B, K,
-                                                     nt, scale, st);
-  return K <= 8 ? launch_mma<S, 128, 1, FlatTiles>(map, idx, U, out, B, K,
-                                                   nt, scale, st)
-                : launch_mma<S, 128, 2, FlatTiles>(map, idx, U, out, B, K, nt,
-                                                   scale, st);
-}
-
-// float / double storage: one thread per output column, K <= 16 sums in
-// registers, the same fixed tile order.
-template <typename F>
-__global__ void __launch_bounds__(256) tri_matvec_float_kernel(
-    const F* __restrict__ tri, const int* __restrict__ idx,
-    const F* __restrict__ U, F* __restrict__ out, int K, int nt, int t,
-    long long S) {
-  const int j = blockIdx.x;
-  const int b = blockIdx.y;
-  const int m = nt * t;
-  const F* st = tri + (size_t)idx[b] * (size_t)(2 * t) * (size_t)S;
-  const F* u = U + (size_t)b * K * m;
-  const int off_j = tile_offset(j, nt);
-  for (int o = threadIdx.x; o < 2 * t; o += blockDim.x) {
-    const int h = o / t;
-    const int l = o % t;
-    F acc[16];
-#pragma unroll
-    for (int k = 0; k < 16; ++k) acc[k] = F(0);
-    for (int c = j; c < nt; ++c) {
-      const F* row = st + (size_t)o * S + (size_t)(off_j + c - j) * t;
-      for (int q = 0; q < t; ++q) {
-        const F s = row[q];
-        if (s == F(0)) continue;
-#pragma unroll
-        for (int k = 0; k < 16; ++k)
-          if (k < K) acc[k] += s * u[(size_t)k * m + c * t + q];
-      }
-    }
-    for (int r = 0; r < j; ++r) {
-      const F* colp = st + (size_t)(h * t) * S +
-                      (size_t)(tile_offset(r, nt) + j - r) * t + l;
-      for (int i = 0; i < t; ++i) {
-        const F s = colp[(size_t)i * S];
-        if (s == F(0)) continue;
-#pragma unroll
-        for (int k = 0; k < 16; ++k)
-          if (k < K) acc[k] += s * u[(size_t)k * m + r * t + i];
-      }
-    }
-#pragma unroll
-    for (int k = 0; k < 16; ++k)
-      if (k < K)
-        out[((size_t)b * K + k) * 2 * m + (size_t)h * m + (size_t)j * t + l] =
-            acc[k];
+  switch (t) {
+    case 128:
+      return launch_tile<S, 128>(map, idx, U, out, B, K, nt, scale, st);
+    case 256:
+      return launch_tile<S, 256>(map, idx, U, out, B, K, nt, scale, st);
+    case 384:
+      return launch_tile<S, 384>(map, idx, U, out, B, K, nt, scale, st);
+    default:
+      return launch_tile<S, 512>(map, idx, U, out, B, K, nt, scale, st);
   }
 }
 
@@ -157,39 +135,35 @@ __global__ void __launch_bounds__(256) tri_matvec_float_kernel(
 extern "C" {
 
 // tri (P, 2t, S) int8 codes in 0..127, idx (B,) int32, U (B, K, m) bf16,
-// out (B, K, 2m) f32; t in (128, 256), K <= 16; tri 16-byte aligned.
+// out (B, K, 2m) f32; any t >= 1, K <= 16; tri 16-byte aligned (route
+// "mma"); *route set to the route taken (kRouteMma, kRouteCore).
 int tri_matvec_int8(const void* tri, const void* idx, const void* U, void* out,
                     int P, int B, int K, int nt, int t, long long S,
-                    float scale, void* stream) {
-  return dispatch_mma<int8_t>(tri, idx, U, out, P, B, K, nt, t, S, scale,
-                              stream);
+                    float scale, void* stream, int* route) {
+  return dispatch<int8_t>(tri, idx, U, out, P, B, K, nt, t, S, scale,
+                          stream, route);
 }
 
 // tri (P, 2t, S) bf16, the rest as tri_matvec_int8 (no scale).
 int tri_matvec_bf16(const void* tri, const void* idx, const void* U, void* out,
                     int P, int B, int K, int nt, int t, long long S,
-                    void* stream) {
-  return dispatch_mma<__nv_bfloat16>(tri, idx, U, out, P, B, K, nt, t, S,
-                                     1.f, stream);
+                    void* stream, int* route) {
+  return dispatch<__nv_bfloat16>(tri, idx, U, out, P, B, K, nt, t, S, 1.f,
+                                 stream, route);
 }
 
 int tri_matvec_f32(const void* tri, const void* idx, const void* U, void* out,
                    int B, int K, int nt, int t, long long S, void* stream) {
-  if (K < 1 || K > 16) return (int)cudaErrorInvalidValue;
-  tri_matvec_float_kernel<float><<<dim3(nt, B), 256, 0, (cudaStream_t)stream>>>(
-      (const float*)tri, (const int*)idx, (const float*)U, (float*)out, K, nt,
-      t, S);
-  return (int)cudaGetLastError();
+  return core::launch_core<float, float, float>(
+      tri, idx, U, out, B, K, nt, core::Flat{S, t}, 1.f,
+      (cudaStream_t)stream);
 }
 
 int tri_matvec_f64(const void* tri, const void* idx, const void* U, void* out,
                    int B, int K, int nt, int t, long long S, void* stream) {
-  if (K < 1 || K > 16) return (int)cudaErrorInvalidValue;
-  tri_matvec_float_kernel<double>
-      <<<dim3(nt, B), 256, 0, (cudaStream_t)stream>>>(
-          (const double*)tri, (const int*)idx, (const double*)U,
-          (double*)out, K, nt, t, S);
-  return (int)cudaGetLastError();
+  return core::launch_core<double, double, double>(
+      tri, idx, U, out, B, K, nt, core::Flat{S, t}, 1.f,
+      (cudaStream_t)stream);
 }
 
 }  // extern "C"

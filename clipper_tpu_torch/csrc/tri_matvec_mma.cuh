@@ -164,8 +164,11 @@ __device__ __forceinline__ void store_block(float* ob,
     }
 }
 
-// S: storage element (int8 codes or bf16); T: tile; NK: n8 column groups
-// of candidates (K <= 8 NK); Layout: FlatTiles or TileMajor. Grid (2, B):
+// S: storage element (int8 codes or bf16); T: tile, a multiple of 128
+// (128 to 512 are instantiated: F = T / 128 output blocks a warp, an even
+// number of panels a tile, and at 512 the ring's two stages and u slots
+// still fit one block an SM); NK: n8 column groups of candidates
+// (K <= 8 NK); Layout: FlatTiles or TileMajor. Grid (2, B):
 // blockIdx.x the half (0: M, 1: C), blockIdx.y the lane. Warp w < 8 owns
 // the 16-row output blocks w + 8 f, f < F, of every t-block of its half's
 // output row.
@@ -175,6 +178,8 @@ __global__ void __launch_bounds__(kThreads) tri_matvec_mma_kernel(
     const __nv_bfloat16* __restrict__ U, float* __restrict__ out, int K,
     int nt, float scale) {
   using L = Ring<S, T, NK>;
+  static_assert(T % 128 == 0 && L::kSmem <= 227 * 1024,
+                "a tile the panels and the ring do not take");
   constexpr int NP = T / kPanel;  // panels a tile
   constexpr int F = T / 128;      // output blocks of 16 a warp owns
   extern __shared__ __align__(1024) uint8_t smem_raw[];
@@ -340,6 +345,15 @@ __global__ void __launch_bounds__(kThreads) tri_matvec_mma_kernel(
     }
   }
 }
+
+// The route by tile of kernels 1 and 9's int8 / bf16 kinds: "mma" where
+// the kernel above is instantiated (t a multiple of 128 up to 512), else
+// "core" (tri_matvec_core.cuh). Their entries report the route they took
+// (kRouteMma or kRouteCore), which the wrappers count launches by;
+// ops/flattri.matvec_route mirrors it for the host's shape checks.
+bool mma_tile(int t) { return t == 128 || t == 256 || t == 384 || t == 512; }
+constexpr int kRouteMma = 0;
+constexpr int kRouteCore = 1;
 
 // map: the storage's 2-D view as Layout reads it (hopper::storage_map,
 // kPanel-row boxes)

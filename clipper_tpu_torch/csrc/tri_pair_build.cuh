@@ -19,15 +19,15 @@
 // and affeps are in V: f32 for the stored builds, f32 or f64 for the
 // dense one.
 //
-// Each distinct pair is scored once. Every t-tile is cut into q =
-// ceil(t / 64) sub-tiles of 64 rows (the last shorter where 64 does not
-// divide t), n = nt q a side, and the unordered pairs (I <= J) of
-// sub-tiles are walked by staged_codes.cuh's tile_pair. Pair (I, J) lies
-// in upper t-tile (I / q, J / q). Off a diagonal t-tile it is scored and
-// written once; inside one (I < J) its transpose, which lies in the same
-// t-tile, is written too; a diagonal sub-tile (I = J) scores i < j only
-// and writes (i, j) and (j, i), and its diagonal is 0 (keep needs
-// off-diagonal). The dense map has no t-tiles: every pair I < J is
+// Each distinct pair is scored once. Every t-tile (any t >= 1 dividing
+// m) is cut into q = ceil(t / 64) sub-tiles of 64 rows (the last shorter
+// where 64 does not divide t), n = nt q a side, and the unordered pairs
+// (I <= J) of sub-tiles are walked by staged_codes.cuh's tile_pair. Pair
+// (I, J) lies in upper t-tile (I / q, J / q). Off a diagonal t-tile it is
+// scored and written once; inside one (I < J) its transpose, which lies
+// in the same t-tile, is written too; a diagonal sub-tile (I = J) scores
+// i < j only and writes (i, j) and (j, i), and its diagonal is 0 (keep
+// needs off-diagonal). The dense map has no t-tiles: every pair I < J is
 // written in place and transposed. This is exact: the score, the distinct
 // mask and the quantization are symmetric bit for bit (the coordinate
 // differences of one order are the exact negations of the other's; x y
@@ -70,8 +70,6 @@
 #include "store_put.cuh"
 
 namespace {
-
-constexpr int kMaxTile = 256;  // the largest t the kernels take
 
 // Where sub-tile pair (I, J) of a problem goes.
 struct SubPair {

@@ -35,16 +35,30 @@
 // mma's 8 n8 columns (kernel 1's K=1 cost too); the kernel stays bound by
 // bytes.
 //
-// The f32 / f64 storage kinds (not on the pool's hot path) keep a plain
-// CUDA-core kernel: one block of 8 warps per (output block j, lane b). A
-// forward tile's 2t rows go to the warps, each row read by one warp as t
-// contiguous elements (t / 32 a lane, vector loads) and reduced by a fixed
-// shuffle tree; a transposed tile is read row by row, each thread holding
-// 4 adjacent columns of one group of rows, and the row groups' partial
-// sums are added in a fixed order through shared memory:
-//   block j = forward products of tiles (j, c), c = j..nt-1, in order,
+// Routes by tile (the dispatch below, which reports the route it took
+// through `route`; the wrapper counts each route's launches under its own
+// key, and ops/flattri.matvec_route mirrors the rule):
+//   "mma"  int8 / bf16 at t = 128, 256, 384, 512: kernel 1's tensor-core
+//          kernel (TileMajor), above;
+//   "core" int8 / bf16 at every other t >= 1 dividing m:
+//          tri_matvec_core.cuh's CUDA-core kernel (TileMajor), kernel 1's
+//          route for those.
+// The f32 / f64 storage kinds (not on the pool's hot path), counted under
+// the kernel's own key at every t, take by t alone:
+//   t = 128, 256: a warp-row CUDA-core kernel: one block of 8 warps per
+//     (output block j, lane b). A forward tile's 2t rows go to the warps,
+//     each row read by one warp as t contiguous elements (t / 32 a lane,
+//     vector loads) and reduced by a fixed shuffle tree; a transposed tile
+//     is read row by row, each thread holding 4 adjacent columns of one
+//     group of rows, and the row groups' partial sums are added in a
+//     fixed order through shared memory:
+//       block j = forward products of tiles (j, c), c = j..nt-1, in order,
 //           then transposed products of tiles (r, j), r = 0..j-1, in order
-// (diagonal tiles only forward: their content is complete there).
+//     (diagonal tiles only forward: their content is complete there). On
+//     an H100 at m=1024, B=128 it takes 0.36-0.74 ms where
+//     tri_matvec_core.cuh's kernel takes 1.31-1.89 (bench/parent_ab).
+//   every other t: tri_matvec_core.cuh's CUDA-core kernel (TileMajor),
+//     kernel 1's float kernel, whose rows it does not need in whole warps.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -52,29 +66,46 @@
 #include <limits.h>
 #include <stdint.h>
 
+#include "tri_matvec_core.cuh"
 #include "tri_matvec_mma.cuh"
 
 namespace {
 
 // int8 / bf16 storage: the tensor map over the (P T 2t, t) view, then
-// kernel 1's kernel at one n8 group
+// kernel 1's kernel at one n8 group (route "mma"), or the CUDA-core
+// kernel (route "core")
 template <typename S>
-int dispatch_mma(const void* tri, const void* idx, const void* U, void* out,
-                 int P, int B, int nt, int t, float scale, void* stream) {
-  if (B < 1 || B > 65535 || nt < 1 || P < 1 || (t != 128 && t != 256))
+int dispatch(const void* tri, const void* idx, const void* U, void* out,
+             int P, int B, int nt, int t, float scale, void* stream,
+             int* route) {
+  if (B < 1 || B > 65535 || nt < 1 || P < 1 || t < 1)
     return (int)cudaErrorInvalidValue;
-  // the copies' row coordinate is a 32-bit int
+  cudaStream_t st = (cudaStream_t)stream;
+  if (!mma_tile(t)) {  // route "core"
+    *route = kRouteCore;
+    return core::launch_core<S, __nv_bfloat16, float>(
+        tri, idx, U, out, B, 1, nt, core::TileMajor{t}, scale, st);
+  }
+  *route = kRouteMma;  // route "mma": the copies' row coordinate is 32-bit
   const long long rows = (long long)P * (nt * (nt + 1) / 2) * 2 * t;
   if (rows > INT_MAX) return (int)cudaErrorInvalidValue;
   CUtensorMap map;
   const cudaError_t err = storage_map<S>(&map, tri, rows, t, kPanel);
   if (err != cudaSuccess) return (int)err;
-  cudaStream_t st = (cudaStream_t)stream;
-  if (t == 256)
-    return launch_mma<S, 256, 1, TileMajor>(map, idx, U, out, B, 1, nt,
-                                            scale, st);
-  return launch_mma<S, 128, 1, TileMajor>(map, idx, U, out, B, 1, nt, scale,
-                                          st);
+  switch (t) {
+    case 128:
+      return launch_mma<S, 128, 1, TileMajor>(map, idx, U, out, B, 1, nt,
+                                              scale, st);
+    case 256:
+      return launch_mma<S, 256, 1, TileMajor>(map, idx, U, out, B, 1, nt,
+                                              scale, st);
+    case 384:
+      return launch_mma<S, 384, 1, TileMajor>(map, idx, U, out, B, 1, nt,
+                                              scale, st);
+    default:
+      return launch_mma<S, 512, 1, TileMajor>(map, idx, U, out, B, 1, nt,
+                                              scale, st);
+  }
 }
 
 template <typename S, int V>
@@ -175,10 +206,13 @@ __global__ void __launch_bounds__(256) tri_tiles_float_kernel(
   }
 }
 
+// f32 / f64 storage: the warp-row kernel at t = 128 and 256, the
+// CUDA-core kernel at every other t
 template <typename A>
 int launch_float(const void* tri, const void* idx, const void* Uin, void* out,
                  int B, int nt, int t, void* stream) {
-  if (B < 1 || B > 65535 || nt < 1) return (int)cudaErrorInvalidValue;
+  if (B < 1 || B > 65535 || nt < 1 || t < 1)
+    return (int)cudaErrorInvalidValue;
   const dim3 grid(nt, B);
   const int T = nt * (nt + 1) / 2;
   cudaStream_t st = (cudaStream_t)stream;
@@ -189,7 +223,8 @@ int launch_float(const void* tri, const void* idx, const void* Uin, void* out,
     tri_tiles_float_kernel<A, 128><<<grid, 256, 0, st>>>(
         (const A*)tri, (const int*)idx, (const A*)Uin, (A*)out, nt, T);
   } else {
-    return (int)cudaErrorInvalidValue;
+    return core::launch_core<A, A, A>(tri, idx, Uin, out, B, 1, nt,
+                                      core::TileMajor{t}, 1.f, st);
   }
   return (int)cudaGetLastError();
 }
@@ -199,29 +234,32 @@ int launch_float(const void* tri, const void* idx, const void* Uin, void* out,
 extern "C" {
 
 // tri (P, T, 2t, t) int8 codes in 0..127, idx (B,) int32, U (B, m) bf16,
-// out (B, 2m) f32; t in (128, 256); tri 16-byte aligned (the tensor map's
-// base).
+// out (B, 2m) f32; any t >= 1; tri 16-byte aligned (route "mma": the
+// tensor map's base); *route set to the route taken (kRouteMma,
+// kRouteCore).
 int tri_tiles_matvec_int8(const void* tri, const void* idx, const void* U,
                           void* out, int P, int B, int nt, int t, float scale,
-                          void* stream) {
-  return dispatch_mma<int8_t>(tri, idx, U, out, P, B, nt, t, scale, stream);
+                          void* stream, int* route) {
+  return dispatch<int8_t>(tri, idx, U, out, P, B, nt, t, scale, stream,
+                          route);
 }
 
 // bf16 storage, the rest as tri_tiles_matvec_int8 (no scale).
 int tri_tiles_matvec_bf16(const void* tri, const void* idx, const void* U,
                           void* out, int P, int B, int nt, int t,
-                          void* stream) {
-  return dispatch_mma<__nv_bfloat16>(tri, idx, U, out, P, B, nt, t, 1.f,
-                                     stream);
+                          void* stream, int* route) {
+  return dispatch<__nv_bfloat16>(tri, idx, U, out, P, B, nt, t, 1.f,
+                                 stream, route);
 }
 
-// f32 storage: U (B, m) f32, out (B, 2m) f32; tri 64-byte aligned.
+// f32 storage: U (B, m) f32, out (B, 2m) f32; tri 64-byte aligned (the
+// warp-row kernel's vector loads).
 int tri_tiles_matvec_f32(const void* tri, const void* idx, const void* U,
                          void* out, int B, int nt, int t, void* stream) {
   return launch_float<float>(tri, idx, U, out, B, nt, t, stream);
 }
 
-// f64 storage: U (B, m) f64, out (B, 2m) f64.
+// f64 storage: U (B, m) f64, out (B, 2m) f64; tri 64-byte aligned.
 int tri_tiles_matvec_f64(const void* tri, const void* idx, const void* U,
                          void* out, int B, int nt, int t, void* stream) {
   return launch_float<double>(tri, idx, U, out, B, nt, t, stream);

@@ -16,10 +16,10 @@ it:
     over the dense stacked [M; C], and in f32 a mask within IoU 0.95 of
     it (see :func:`dryrun_multichip`).
 
-Iteration caps are tiny except in the convergent check. The CPU run keeps
-the JAX dry run's shapes (m=64, tiles of 16); on the card the int8
-kernels take tiles of 128 (the capacity matvecs) and 128 or 256 (the tri
-pool), so the problems there are m=256 with tiles of 128.
+Iteration caps are tiny except in the convergent check. Every device runs
+the JAX dry run's shapes (m=64, n=48, tiles of 16): on the card the int8
+kernels take that tile by their CUDA-core routes (ops/flattri.matvec_route,
+ops/symstore.matvec_route).
 
 Command line:
     python -m clipper_tpu_torch.dryrun --ranks 2 --device cpu
@@ -89,7 +89,7 @@ def dryrun_multichip(n_ranks: int, device="cuda") -> Dict:
     dev = resolve_device(device)
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
-    m, n, tile = (256, 200, 128) if dev.type == "cuda" else (64, 48, 16)
+    m, n, tile = 64, 48, 16
     group = dist.group.WORLD if dist.is_initialized() else None
     inv = EuclideanDistance(EuclideanDistanceParams(sigma=0.015,
                                                     epsilon=0.05))

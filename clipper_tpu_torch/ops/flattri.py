@@ -45,6 +45,9 @@ from clipper_tpu_torch.solvers.msrc_flat import _INT8_SCALE
 
 # candidate rows one kernel launch takes (the mma A-tile height)
 _KERNEL_ROWS = 16
+# the tiles at which kernels 1 and 9 take int8 / bf16 storage on the
+# tensor cores (csrc/tri_matvec_mma.cuh: mma_tile)
+_MMA_TILES = (128, 256, 384, 512)
 # the builds' sub-tile: kernels 2 and 8 score pairs of 64-row sub-tiles
 _SUB = 64
 
@@ -145,26 +148,56 @@ def tri_pool_matvec_plain(tri: torch.Tensor, nt: int, idx: torch.Tensor,
     return (accM * s).to(out_dtype), (accC * s).to(out_dtype)
 
 
+def matvec_route(t: int, dtype: torch.dtype) -> str:
+    """The route by which csrc/tri_matvec.cu (kernel 1) and
+    csrc/tri_tiles_matvec.cu (kernel 9) take storage of ``dtype`` at tile
+    t, by t alone: ``"mma"`` for int8 / bf16 at t in 128, 256, 384, 512,
+    the tensor-core kernel (csrc/tri_matvec_mma.cuh); ``"core"`` for int8
+    / bf16 at every other t, the CUDA-core kernel
+    (csrc/tri_matvec_core.cuh); ``"float"`` for f32 / f64 at every t.
+    The host's copy of the dispatch's rule, for the shape checks: the
+    wrappers count each launch by the route its C entry reports
+    (``_kernels.call_routed``, ``_kernels.route_key``)."""
+    if dtype in (torch.int8, torch.bfloat16):
+        return "mma" if t in _MMA_TILES else "core"
+    return "float"
+
+
+def check_tri_matvec(tri: torch.Tensor, nt: int, U: torch.Tensor) -> str:
+    """The shape and storage check of :func:`tri_pool_matvec_cuda`, before
+    any device check: (P, 2t, S) int8 / bf16 / f32 / f64 storage of nt
+    t-tiles a side, any t >= 1, and U (B, K, m). Returns the kernel's
+    route (:func:`matvec_route`)."""
+    if tri.dtype not in (torch.int8, torch.bfloat16, torch.float32,
+                         torch.float64):
+        raise NotImplementedError(f"tri matvec kernel takes int8/bf16/f32/"
+                                  f"f64 storage, not {tri.dtype}")
+    P, two_t, S = tri.shape
+    t = two_t // 2
+    if (two_t != 2 * t or t < 1 or nt < 1 or S != tri_ncols(nt, t)
+            or U.dim() != 3 or U.shape[2] != nt * t):
+        raise ValueError(f"tri matvec kernel: storage {tuple(tri.shape)} "
+                         f"and U {tuple(U.shape)} are not the flat triangle "
+                         f"of nt={nt} tiles and its (B, K, m) rows")
+    return matvec_route(t, tri.dtype)
+
+
 def tri_pool_matvec_cuda(tri: torch.Tensor, nt: int, idx: torch.Tensor,
                          U: torch.Tensor, out_dtype: torch.dtype):
-    """Launch csrc/tri_matvec.cu: U (B, K, m) on the card -> (MU, CU)."""
+    """Launch csrc/tri_matvec.cu: U (B, K, m) on the card -> (MU, CU), by
+    the route of :func:`matvec_route` (every t >= 1 dividing m), each
+    launch counted by the route the C entry reports."""
+    route = check_tri_matvec(tri, nt, U)
     P, two_t, S = tri.shape
     t = two_t // 2
     m = nt * t
     B, K, _ = U.shape
     cdt, acc, scale = _dtypes(tri.dtype)
-    mma = tri.dtype in (torch.int8, torch.bfloat16)
-    if not mma and tri.dtype not in (torch.float32, torch.float64):
-        raise NotImplementedError(f"tri matvec kernel takes int8/bf16/f32/"
-                                  f"f64 storage, not {tri.dtype}")
-    if mma and t not in (128, 256):
-        raise NotImplementedError(f"{tri.dtype} tri matvec kernel needs t in "
-                                  f"(128, 256), got {t}")
     if not (tri.is_cuda and idx.is_cuda and U.is_cuda
             and tri.is_contiguous()):
         raise ValueError("tri matvec kernel: storage, idx and U must lie on "
                          "the card, the storage contiguous")
-    if mma and tri.data_ptr() % 16:
+    if route == "mma" and tri.data_ptr() % 16:
         raise ValueError("tri matvec kernel: the storage must be 16-byte "
                          "aligned (its bulk copies)")
     lib = _kernels.lib("tri_matvec")
@@ -181,15 +214,16 @@ def tri_pool_matvec_cuda(tri: torch.Tensor, nt: int, idx: torch.Tensor,
                 ok.data_ptr())
         shape = (B, k1 - k0, nt, t, S)
         if tri.dtype == torch.int8:
-            code = lib.tri_matvec_int8(*ptrs, P, *shape, scale, stream)
+            route = _kernels.call_routed(lib.tri_matvec_int8, "tri_matvec",
+                                         *ptrs, P, *shape, scale, stream)
         elif tri.dtype == torch.bfloat16:
-            code = lib.tri_matvec_bf16(*ptrs, P, *shape, stream)
-        elif tri.dtype == torch.float32:
-            code = lib.tri_matvec_f32(*ptrs, *shape, stream)
+            route = _kernels.call_routed(lib.tri_matvec_bf16, "tri_matvec",
+                                         *ptrs, P, *shape, stream)
         else:
-            code = lib.tri_matvec_f64(*ptrs, *shape, stream)
-        _kernels.check(code, "tri_matvec")
-        _kernels.LAUNCHES["tri_matvec"] += 1
+            fn = (lib.tri_matvec_f32 if tri.dtype == torch.float32
+                  else lib.tri_matvec_f64)
+            _kernels.check(fn(*ptrs, *shape, stream), "tri_matvec")
+        _kernels.LAUNCHES[_kernels.route_key("tri_matvec", route)] += 1
         if ok.data_ptr() != out.data_ptr():
             out[:, k0:k1] = ok
     out = out.to(out_dtype)
@@ -298,26 +332,39 @@ def tri_build_fused_whole(m: int, invariant: PairwiseInvariant,
     return bool(code)
 
 
-def _launch_tri_build(kernel: str, invariant: PairwiseInvariant, P1s, P2s,
-                      As, m_trues, t: int, affinityeps: float,
-                      storage_dtype) -> torch.Tensor:
-    """Launch csrc/<kernel>.cu: (W, 2t, S) int8 or bf16 storage on the
-    card."""
+def check_tri_build(invariant: PairwiseInvariant, P1s, P2s, t: int,
+                    storage_dtype) -> Tuple[int, tuple, str]:
+    """The input check of kernels 2 and 8 (:func:`build_tri_cuda`,
+    :func:`build_tri_fused_cuda`), before any device check: a built-in
+    invariant, int8 or bf16 storage, (W, m, d) f32 endpoints and any tile
+    t >= 1 dividing m. Returns the score's (kind, params) and the storage
+    suffix of the C entry points."""
     kind, d, params = kernel_score(invariant)
     suffix = {torch.int8: "int8", torch.bfloat16: "bf16"}.get(storage_dtype)
     if suffix is None:
         raise NotImplementedError(f"the CUDA tri builds write int8 or bf16 "
                                   f"storage, not {storage_dtype}")
     W, m, dp = P1s.shape
-    if not (P1s.is_cuda and P2s.is_cuda and As.is_cuda):
-        raise ValueError(f"{kernel} kernel: inputs must lie on the card")
     if (dp != d or P2s.shape != P1s.shape or P1s.dtype != torch.float32
             or P2s.dtype != torch.float32):
-        raise ValueError(f"{kernel} kernel takes (W, m, {d}) float32 "
+        raise ValueError(f"the tri build kernels take (W, m, {d}) float32 "
                          f"endpoints for {type(invariant).__name__}")
-    if m % t or t > 256:
-        raise ValueError(f"{kernel} kernel needs t <= 256 dividing m; "
-                         f"got m={m}, t={t}")
+    if t < 1 or m % t:
+        raise ValueError(f"the tri build kernels need a tile t >= 1 "
+                         f"dividing m; got m={m}, t={t}")
+    return kind, params, suffix
+
+
+def _launch_tri_build(kernel: str, invariant: PairwiseInvariant, P1s, P2s,
+                      As, m_trues, t: int, affinityeps: float,
+                      storage_dtype) -> torch.Tensor:
+    """Launch csrc/<kernel>.cu: (W, 2t, S) int8 or bf16 storage on the
+    card, at any tile t >= 1 dividing m."""
+    kind, params, suffix = check_tri_build(invariant, P1s, P2s, t,
+                                           storage_dtype)
+    if not (P1s.is_cuda and P2s.is_cuda and As.is_cuda):
+        raise ValueError(f"{kernel} kernel: inputs must lie on the card")
+    W, m, _ = P1s.shape
     nt = m // t
     S = tri_ncols(nt, t)
     # held in locals until the launch (see stored_build_cuda)
@@ -453,28 +500,42 @@ def tri_tiles_matvec_plain(tri: torch.Tensor, nt: int, idx: torch.Tensor,
     return (MU * s).to(out_dtype), (CU * s).to(out_dtype)
 
 
-def tri_tiles_matvec_cuda(tri: torch.Tensor, nt: int, idx: torch.Tensor,
-                          U: torch.Tensor, out_dtype: torch.dtype):
-    """Launch csrc/tri_tiles_matvec.cu: U (B, m) on the card -> (MU, CU)."""
-    P, T, two_t, t = tri.shape
-    m = nt * t
-    B = U.shape[0]
-    cdt, acc, scale = _dtypes(tri.dtype)
+def check_tri_tiles_matvec(tri: torch.Tensor, nt: int,
+                           U: torch.Tensor) -> str:
+    """The shape and storage check of :func:`tri_tiles_matvec_cuda`, before
+    any device check: (P, T, 2t, t) int8 / bf16 / f32 / f64 tile-major
+    storage of nt t-tiles a side, any t >= 1, and U (B, m). Returns the
+    kernel's route (:func:`matvec_route`)."""
     if tri.dtype not in (torch.int8, torch.bfloat16, torch.float32,
                          torch.float64):
         raise NotImplementedError(f"tiles matvec kernel takes int8/bf16/f32/"
                                   f"f64 storage, not {tri.dtype}")
-    if t not in (128, 256):
-        raise NotImplementedError(f"tiles matvec kernel needs t in "
-                                  f"(128, 256), got {t}")
+    P, T, two_t, t = tri.shape
+    if (two_t != 2 * t or t < 1 or nt < 1 or T != nt * (nt + 1) // 2
+            or U.dim() != 2 or U.shape[1] != nt * t):
+        raise ValueError(f"tiles matvec kernel: storage {tuple(tri.shape)} "
+                         f"and U {tuple(U.shape)} are not the tile-major "
+                         f"triangle of nt={nt} tiles and its (B, m) rows")
+    return matvec_route(t, tri.dtype)
+
+
+def tri_tiles_matvec_cuda(tri: torch.Tensor, nt: int, idx: torch.Tensor,
+                          U: torch.Tensor, out_dtype: torch.dtype):
+    """Launch csrc/tri_tiles_matvec.cu: U (B, m) on the card -> (MU, CU),
+    by the route of :func:`matvec_route` (every t >= 1 dividing m), the
+    launch counted by the route the C entry reports."""
+    route = check_tri_tiles_matvec(tri, nt, U)
+    P, T, two_t, t = tri.shape
+    m = nt * t
+    B = U.shape[0]
+    cdt, acc, scale = _dtypes(tri.dtype)
     if not (tri.is_cuda and idx.is_cuda and U.is_cuda
             and tri.is_contiguous()):
         raise ValueError("tiles matvec kernel: storage, idx and U must lie "
                          "on the card, the storage contiguous")
-    # int8 / bf16: the tensor map's base (16 bytes); f32 / f64: the
-    # CUDA-core kernel's vector loads
-    mma = tri.dtype in (torch.int8, torch.bfloat16)
-    align = 16 if mma else 64
+    # int8 / bf16 on the tensor cores: the tensor map's base (16 bytes);
+    # f32 / f64: the warp-row kernel's vector loads
+    align = 64 if route == "float" else 16 if route == "mma" else 1
     if tri.data_ptr() % align:
         raise ValueError(f"tiles matvec kernel: the storage must be "
                          f"{align}-byte aligned")
@@ -486,15 +547,18 @@ def tri_tiles_matvec_cuda(tri: torch.Tensor, nt: int, idx: torch.Tensor,
     args = (*ptrs, B, nt, t)
     stream = _kernels.stream_ptr(tri.device)
     if tri.dtype == torch.int8:
-        code = lib.tri_tiles_matvec_int8(*ptrs, P, B, nt, t, scale, stream)
+        route = _kernels.call_routed(lib.tri_tiles_matvec_int8,
+                                     "tri_tiles_matvec", *ptrs, P, B, nt, t,
+                                     scale, stream)
     elif tri.dtype == torch.bfloat16:
-        code = lib.tri_tiles_matvec_bf16(*ptrs, P, B, nt, t, stream)
-    elif tri.dtype == torch.float32:
-        code = lib.tri_tiles_matvec_f32(*args, stream)
+        route = _kernels.call_routed(lib.tri_tiles_matvec_bf16,
+                                     "tri_tiles_matvec", *ptrs, P, B, nt, t,
+                                     stream)
     else:
-        code = lib.tri_tiles_matvec_f64(*args, stream)
-    _kernels.check(code, "tri_tiles_matvec")
-    _kernels.LAUNCHES["tri_tiles_matvec"] += 1
+        fn = (lib.tri_tiles_matvec_f32 if tri.dtype == torch.float32
+              else lib.tri_tiles_matvec_f64)
+        _kernels.check(fn(*args, stream), "tri_tiles_matvec")
+    _kernels.LAUNCHES[_kernels.route_key("tri_tiles_matvec", route)] += 1
     out = out.to(out_dtype)
     return out[:, :m], out[:, m:]
 
@@ -556,7 +620,8 @@ def dense_stacked(tri: torch.Tensor, nt: int) -> torch.Tensor:
 
 
 __all__ = ["tri_tile_offsets", "tri_ncols", "tri_coords", "repack_stacked",
-           "tri_pool_matvec_plain", "tri_pool_matvec_cuda",
+           "matvec_route", "check_tri_matvec", "check_tri_tiles_matvec",
+           "check_tri_build", "tri_pool_matvec_plain", "tri_pool_matvec_cuda",
            "make_tri_pool_matvec", "make_tri_pool_matvec_xla",
            "build_tri_plain", "build_tri_cuda", "build_tri_fused_cuda",
            "build_tri", "build_tri_pallas_fused", "SubPair", "tri_sub_tiles",

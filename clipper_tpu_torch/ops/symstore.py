@@ -58,6 +58,9 @@ _KERNEL_ROWS = 16
 # in registers; csrc/sym_tile_mma.cuh's kUnitRows) by S column blocks
 _UNIT_ROWS = 8
 _UNIT_COLS = 32
+# the unit kernel's tile (csrc/sym_tile_mma.cuh's kT): a stored tile of any
+# multiple of it is walked as its _UNIT_T-row tiles
+_UNIT_T = 128
 # a plan entry's meta bits (csrc/sym_tile_mma.cuh): the unit row in bits
 # 0-3, then these flags, the column's slot in the kernel's ring of
 # _COL_RING blocks of u (bits 8-11), and its sum's workspace slot
@@ -273,11 +276,39 @@ def unit_plan(nt: int, r, c, x, y) -> UnitPlan:
         entries, units, fslots[launch], red_off, red, slot_block)))
 
 
+def unit_tile(t: int) -> int:
+    """The tile of a plan's grid over stored t-tiles: _UNIT_T where it
+    divides t (the unit kernel's route, :func:`matvec_route`), else t."""
+    return _UNIT_T if t % _UNIT_T == 0 else t
+
+
+def unit_grid(r, c, x, y, t: int):
+    """Stored t-tiles (r, c) at (x, y) in the storage's 2-D view as the
+    tiles of the grid of :func:`unit_tile` (u = unit_tile(t), q = t / u):
+    tile (r, c) is the q x q tiles (r q + a, c q + b) at (x + b u, y + a u),
+    and a diagonal t-tile only its upper ones, a <= b (the kernel applies
+    the a < b ones transposed too, which covers their mirrors). Returns
+    the four arrays of the grid's tiles, in the order of (r, c), then
+    (a, b)."""
+    u = unit_tile(t)
+    q = t // u
+    r, c, x, y = (np.asarray(v, np.int64).ravel() for v in (r, c, x, y))
+    if q == 1:
+        return r, c, x, y
+    a, b = (v.ravel() for v in np.meshgrid(np.arange(q), np.arange(q),
+                                           indexing="ij"))
+    keep = (r[:, None] != c[:, None]) | (a <= b)[None, :]
+    return ((r[:, None] * q + a)[keep], (c[:, None] * q + b)[keep],
+            (x[:, None] + b * u)[keep], (y[:, None] + a * u)[keep])
+
+
 def tiles_plan(nt: int, rows, cols, t: int = 128) -> UnitPlan:
     """:func:`unit_plan` over tile-list storage (T, 2t, t) at coordinates
     (rows, cols), viewed as T 2t rows of t: tile k's M half starts at row
-    2t k. Inert slots (nt, nt) are in no unit. The plan depends on the
-    layout alone: it is cached by it, so a warm solve reuses it."""
+    2t k, and is walked as the tiles of :func:`unit_grid` (nt t / u of
+    them a side, u = :func:`unit_tile`). Inert slots (nt, nt) are in no
+    unit. The plan depends on the layout alone: it is cached by it, so a
+    warm solve reuses it."""
     return _tiles_plan(nt, np.asarray(rows, np.int32).tobytes(),
                        np.asarray(cols, np.int32).tobytes(), t, _UNIT_ROWS,
                        _UNIT_COLS)
@@ -290,7 +321,9 @@ def _tiles_plan(nt, rows, cols, t, R, S) -> UnitPlan:
     rows = np.frombuffer(rows, np.int32).astype(np.int64)
     cols = np.frombuffer(cols, np.int32).astype(np.int64)
     k = np.flatnonzero(rows < nt)
-    return unit_plan(nt, rows[k], cols[k], np.zeros_like(k), 2 * t * k)
+    return unit_plan(nt * t // unit_tile(t),
+                     *unit_grid(rows[k], cols[k], np.zeros_like(k),
+                                2 * t * k, t))
 
 
 def rows_plan(nt: int, G: int, n: int, chunk_base: int = 0,
@@ -298,8 +331,9 @@ def rows_plan(nt: int, G: int, n: int, chunk_base: int = 0,
     """:func:`unit_plan` over the chunk slice [chunk_base, chunk_base + n)
     of row-chunked storage, viewed as n 2t rows of G t: tile (r, c) sits
     in chunk first(r) + (c - r) // G (:func:`row_first_chunk`) at column
-    ((c - r) % G) t. Tiles outside the slice, pad tiles and pad chunks are
-    in no unit. Cached by the layout, as :func:`tiles_plan` is."""
+    ((c - r) % G) t, walked as the tiles of :func:`unit_grid`. Tiles
+    outside the slice, pad tiles and pad chunks are in no unit. Cached by
+    the layout, as :func:`tiles_plan` is."""
     return _rows_plan(nt, G, n, chunk_base, t, _UNIT_ROWS, _UNIT_COLS)
 
 
@@ -309,13 +343,16 @@ def _rows_plan(nt, G, n, chunk_base, t, R, S) -> UnitPlan:
     k = row_first_chunk(nt, G)[r] + (c - r) // G
     keep = (k >= chunk_base) & (k < chunk_base + n)
     r, c, k = r[keep], c[keep], k[keep]
-    return unit_plan(nt, r, c, (c - r) % G * t, (k - chunk_base) * 2 * t)
+    return unit_plan(nt * t // unit_tile(t),
+                     *unit_grid(r, c, (c - r) % G * t,
+                                (k - chunk_base) * 2 * t, t))
 
 
 class DevicePlan:
     """A :class:`UnitPlan` on the card, with the kernel's workspace of f64
     partials: allocated with torch.empty at the first call that needs it
-    and kept for the next (a closure's plan caches it)."""
+    and kept for the next (a closure's plan caches it). t: the plan's
+    grid tile (:func:`unit_tile`)."""
 
     def __init__(self, plan: UnitPlan, t: int, device):
         self.plan = plan
@@ -454,15 +491,67 @@ def _finish(acc: torch.Tensor, scale: float) -> torch.Tensor:
     return acc.to(torch.float32) * s
 
 
-def _check_kernel_storage(what: str, item: int, dtype, t: int):
-    roadmap = f"(ROADMAP.md Queue 2 item {item})"
+def matvec_route(t: int, dtype) -> str:
+    """The route by which the capacity kernels (csrc/sym_rows_matvec.cu,
+    csrc/sym_tiles_matvec.cu) take storage of ``dtype`` at tile t, by t
+    alone: ``"units"`` for int8 / bf16 at t a multiple of _UNIT_T (the
+    tensor-core unit kernel over the plan's 128-grid, its reduction
+    beside it); ``"core"`` for int8 / bf16 at every other t (the CUDA-core
+    kernel on the codes, counted under ``<kernel>_core``); ``"float"``
+    for f32 / f64 at every t."""
+    if dtype in (torch.int8, torch.bfloat16):
+        return "units" if t % _UNIT_T == 0 else "core"
+    return "float"
+
+
+def _check_kernel_storage(what: str, item: int, dtype):
     if dtype not in (torch.int8, torch.bfloat16, torch.float32,
                      torch.float64):
         raise NotImplementedError(f"{what} kernel takes int8/bf16/f32/f64 "
-                                  f"storage, not {dtype} {roadmap}")
-    if dtype in (torch.int8, torch.bfloat16) and t != 128:
-        raise NotImplementedError(f"{dtype} {what} kernel needs t = 128, "
-                                  f"got {t} {roadmap}")
+                                  f"storage, not {dtype} (ROADMAP.md Queue "
+                                  f"2 item {item})")
+
+
+def _check_operand(U: torch.Tensor, m: int):
+    if U.dim() != 2 or U.shape[1] != m:
+        raise ValueError(f"U {tuple(U.shape)} is not (K, m) for m={m}")
+
+
+def check_tiles_kernel(tiles: torch.Tensor, nt: int, U: torch.Tensor,
+                       rows=None, cols=None):
+    """The shape and storage check of :func:`sym_tiles_matvec_cuda`,
+    before any device check: (T, 2t, t) int8 / bf16 / f32 / f64 tile-list
+    storage at any t >= 1 and U (K, m). Returns (route, t, rows, cols),
+    the route of :func:`matvec_route`."""
+    t, rows, cols = _tiles_layout(tiles, nt, rows, cols)
+    _check_kernel_storage("tile-list matvec", 7, tiles.dtype)
+    _check_operand(U, nt * t)
+    return matvec_route(t, tiles.dtype), t, rows, cols
+
+
+def check_rows_kernel(chunks: torch.Tensor, nt: int, U: torch.Tensor,
+                      chunk_base: Optional[int] = None):
+    """The shape and storage check of :func:`sym_rows_matvec_cuda`,
+    before any device check: (n, 2t, G t) int8 / bf16 / f32 / f64
+    row-chunked storage (or a chunk slice) at any t >= 1 and U (K, m).
+    Returns (route, t, G), the route of :func:`matvec_route`."""
+    t, G, _ = _layout(chunks, nt, chunk_base)
+    _check_kernel_storage("rows matvec", 3, chunks.dtype)
+    _check_operand(U, nt * t)
+    return matvec_route(t, chunks.dtype), t, G
+
+
+def _count_route(name: str, route: str, plan) -> None:
+    """Count one C call's launches by its route (the wrapper picks the C
+    entry by it): "units" the unit pass under ``name`` (not launched when
+    the plan has no unit) and the reduction under its own key; "core" and
+    "float" under ``_kernels.route_key``."""
+    if route == "units":
+        if len(plan.plan.units):
+            _kernels.LAUNCHES[name] += 1
+        _kernels.LAUNCHES[_kernels.REDUCTIONS[name]] += 1
+    else:
+        _kernels.LAUNCHES[_kernels.route_key(name, route)] += 1
 
 
 def sym_tiles_matvec_plain(tiles: torch.Tensor, nt: int, U: torch.Tensor,
@@ -503,44 +592,34 @@ def sym_tiles_matvec_plain(tiles: torch.Tensor, nt: int, U: torch.Tensor,
 
 def tiles_device_plan(tiles: torch.Tensor, nt: int, rows=None, cols=None):
     """The walk of csrc/sym_tiles_matvec.cu over this tile list, on its
-    device: a :class:`DevicePlan` of :func:`tiles_plan` for int8 and bf16
-    storage, the (walks, offsets) of :func:`tile_walks` for f32 and f64."""
+    device: a :class:`DevicePlan` of :func:`tiles_plan` on the "units"
+    route (:func:`matvec_route`), the (walks, offsets) of
+    :func:`tile_walks` on the others."""
     t, rows, cols = _tiles_layout(tiles, nt, rows, cols)
-    if tiles.dtype in (torch.int8, torch.bfloat16):
-        return DevicePlan(tiles_plan(nt, rows, cols, t), t, tiles.device)
+    if matvec_route(t, tiles.dtype) == "units":
+        return DevicePlan(tiles_plan(nt, rows, cols, t), unit_tile(t),
+                          tiles.device)
     walks, offsets = tile_walks(nt, rows, cols)
     return (torch.as_tensor(walks, device=tiles.device).contiguous(),
             torch.as_tensor(offsets, device=tiles.device))
-
-
-def _count_launches(name: str, plan) -> None:
-    """Count one C call's launches: with a unit plan, the unit pass under
-    ``name`` (not launched when the plan has no unit) and the reduction
-    under its own key; else the float kernel under ``name``."""
-    if plan is None or len(plan.plan.units):
-        _kernels.LAUNCHES[name] += 1
-    if plan is not None:
-        _kernels.LAUNCHES[_kernels.REDUCTIONS[name]] += 1
 
 
 def sym_tiles_matvec_cuda(tiles: torch.Tensor, nt: int, U: torch.Tensor,
                           rows=None, cols=None, raw: bool = False,
                           plan=None) -> torch.Tensor:
     """Launch csrc/sym_tiles_matvec.cu: U (K, m) on the card -> (K, 2m),
-    f32 scaled or (raw=True) the f64 sums, from one C call. int8 and bf16
-    storage: the unit kernel (each stored tile read once per 16 columns of
-    U) and its fixed-order reduction, two launches; f32 and f64: a block per
-    (output block, 16 columns of U). plan: :func:`tiles_device_plan` of
-    this storage (made here when not given)."""
-    t, rows, cols = _tiles_layout(tiles, nt, rows, cols)
+    f32 scaled or (raw=True) the f64 sums, from one C call, by the route
+    of :func:`matvec_route` (every t >= 1). "units": the unit kernel (each
+    stored tile read once per 16 columns of U) and its fixed-order
+    reduction, two launches; "core" and "float": a block per (output
+    block, 16 columns of U). plan: :func:`tiles_device_plan` of this
+    storage (made here when not given)."""
+    route, t, rows, cols = check_tiles_kernel(tiles, nt, U, rows, cols)
     m = nt * t
     K = U.shape[0]
-    _check_kernel_storage("tile-list matvec", 7, tiles.dtype, t)
     if not (tiles.is_cuda and U.is_cuda and tiles.is_contiguous()):
         raise ValueError("tile-list matvec kernel: storage and U must lie on "
                          "the card, the storage contiguous")
-    if U.shape[1] != m:
-        raise ValueError(f"U has {U.shape[1]} columns, storage m={m}")
     if plan is None:
         plan = tiles_device_plan(tiles, nt, rows, cols)
     lib = _kernels.lib("sym_tiles_matvec")
@@ -549,13 +628,13 @@ def sym_tiles_matvec_cuda(tiles: torch.Tensor, nt: int, U: torch.Tensor,
     out = torch.empty(K, 2 * m, dtype=torch.float64 if raw else torch.float32,
                       device=tiles.device)
     stream = _kernels.stream_ptr(tiles.device)
-    units = tiles.dtype in (torch.int8, torch.bfloat16)
-    if units:
+    codes = tiles.dtype == torch.int8
+    if route == "units":
         ws = plan.workspace(K)
         args = (tiles.data_ptr(), tiles.shape[0] * 2 * t, t, *plan.args(),
                 Uc.data_ptr(), out.data_ptr(), ws.data_ptr(), K, nt, t,
                 int(raw))
-        if tiles.dtype == torch.int8:
+        if codes:
             code = lib.sym_tiles_matvec_int8(*args, scale, stream)
         else:
             code = lib.sym_tiles_matvec_bf16(*args, stream)
@@ -563,12 +642,16 @@ def sym_tiles_matvec_cuda(tiles: torch.Tensor, nt: int, U: torch.Tensor,
         wk, offsets = plan
         args = (tiles.data_ptr(), wk.data_ptr(), offsets.data_ptr(),
                 Uc.data_ptr(), out.data_ptr(), K, nt, t, int(raw))
-        if tiles.dtype == torch.float32:
+        if codes:
+            code = lib.sym_tiles_matvec_core_int8(*args, scale, stream)
+        elif tiles.dtype == torch.bfloat16:
+            code = lib.sym_tiles_matvec_core_bf16(*args, stream)
+        elif tiles.dtype == torch.float32:
             code = lib.sym_tiles_matvec_f32(*args, stream)
         else:
             code = lib.sym_tiles_matvec_f64(*args, stream)
     _kernels.check(code, "sym_tiles_matvec")
-    _count_launches("sym_tiles_matvec", plan if units else None)
+    _count_route("sym_tiles_matvec", route, plan)
     return out
 
 
@@ -761,14 +844,14 @@ def sym_rows_matvec_plain(chunks: torch.Tensor, nt: int, U: torch.Tensor,
 def rows_device_plan(chunks: torch.Tensor, nt: int,
                      chunk_base: Optional[int] = None):
     """The walk of csrc/sym_rows_matvec.cu over this storage (or chunk
-    slice), on its device: a :class:`DevicePlan` of :func:`rows_plan` for
-    int8 and bf16 storage; None for f32 and f64, whose kernel computes its
-    walk from the closed form."""
+    slice), on its device: a :class:`DevicePlan` of :func:`rows_plan` on
+    the "units" route (:func:`matvec_route`); None on the others, whose
+    kernel computes its walk from the closed form."""
     t, G, _ = _layout(chunks, nt, chunk_base)
-    if chunks.dtype not in (torch.int8, torch.bfloat16):
+    if matvec_route(t, chunks.dtype) != "units":
         return None
     return DevicePlan(rows_plan(nt, G, chunks.shape[0], chunk_base or 0, t),
-                      t, chunks.device)
+                      unit_tile(t), chunks.device)
 
 
 def sym_rows_matvec_cuda(chunks: torch.Tensor, nt: int, U: torch.Tensor,
@@ -776,18 +859,16 @@ def sym_rows_matvec_cuda(chunks: torch.Tensor, nt: int, U: torch.Tensor,
                          raw: bool = False, plan=None) -> torch.Tensor:
     """Launch csrc/sym_rows_matvec.cu: U (K, m) on the card -> (K, 2m),
     f32 scaled or (raw=True) the f64 sums, K split into launches of at most
-    16 columns (each reads the storage again); chunk_base as for
+    16 columns (each reads the storage again), by the route of
+    :func:`matvec_route` (every t >= 1); chunk_base as for
     :func:`sym_rows_matvec_plain`. plan: :func:`rows_device_plan` of this
     storage and slice (made here when not given)."""
-    t, G, _ = _layout(chunks, nt, chunk_base)
+    route, t, G = check_rows_kernel(chunks, nt, U, chunk_base)
     m = nt * t
     K = U.shape[0]
-    _check_kernel_storage("rows matvec", 3, chunks.dtype, t)
     if not (chunks.is_cuda and U.is_cuda and chunks.is_contiguous()):
         raise ValueError("rows matvec kernel: storage and U must lie on the "
                          "card, the storage contiguous")
-    if U.shape[1] != m:
-        raise ValueError(f"U has {U.shape[1]} columns, storage m={m}")
     if plan is None:
         plan = rows_device_plan(chunks, nt, chunk_base)
     lib = _kernels.lib("sym_rows_matvec")
@@ -796,15 +877,16 @@ def sym_rows_matvec_cuda(chunks: torch.Tensor, nt: int, U: torch.Tensor,
     out = torch.empty(K, 2 * m, dtype=torch.float64 if raw else torch.float32,
                       device=chunks.device)
     stream = _kernels.stream_ptr(chunks.device)
+    codes = chunks.dtype == torch.int8
     for k0 in range(0, K, _KERNEL_ROWS):
         k1 = min(K, k0 + _KERNEL_ROWS)
-        if plan is not None:
+        if route == "units":
             ws = plan.workspace(k1 - k0)
             args = (chunks.data_ptr(), chunks.shape[0] * 2 * t, G * t,
                     *plan.args(), Uc[k0:k1].data_ptr(),
                     out[k0:k1].data_ptr(), ws.data_ptr(), k1 - k0, nt, t,
                     int(raw))
-            if chunks.dtype == torch.int8:
+            if codes:
                 code = lib.sym_rows_matvec_int8(*args, scale, stream)
             else:
                 code = lib.sym_rows_matvec_bf16(*args, stream)
@@ -812,12 +894,16 @@ def sym_rows_matvec_cuda(chunks: torch.Tensor, nt: int, U: torch.Tensor,
             args = (chunks.data_ptr(), Uc[k0:k1].data_ptr(),
                     out[k0:k1].data_ptr(), k1 - k0, nt, t, G,
                     chunk_base or 0, chunks.shape[0], int(raw))
-            if chunks.dtype == torch.float32:
+            if codes:
+                code = lib.sym_rows_matvec_core_int8(*args, scale, stream)
+            elif chunks.dtype == torch.bfloat16:
+                code = lib.sym_rows_matvec_core_bf16(*args, stream)
+            elif chunks.dtype == torch.float32:
                 code = lib.sym_rows_matvec_f32(*args, stream)
             else:
                 code = lib.sym_rows_matvec_f64(*args, stream)
         _kernels.check(code, "sym_rows_matvec")
-        _count_launches("sym_rows_matvec", plan)
+        _count_route("sym_rows_matvec", route, plan)
     return out
 
 

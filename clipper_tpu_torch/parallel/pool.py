@@ -415,7 +415,8 @@ def make_pool_pipeline(invariant: PairwiseInvariant,
     layout: ``"tri"`` (the default here; the JAX package defaults to
     ``"stacked"``) stores the flat upper triangle, m divisible by the tile
     ``tri_tile`` (0, the default: 256 when it divides m, else 128; the
-    card's kernels take 128 and 256), with the K=tri_probes multiprobe
+    card's kernels take any tile, by the routes of
+    ``flattri.matvec_route``), with the K=tri_probes multiprobe
     tick and the warm_alpha, stall_outers and d_scale options. ``"stacked"`` stores the
     dense (2m, m) [M; C] of each problem, for any m, and runs the
     single-probe reference tick; the tri-only options raise there (the

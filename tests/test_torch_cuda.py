@@ -43,10 +43,12 @@ def test_every_source_is_built():
     on_disk = {p.stem for p in _kernels.CSRC.glob("*.cu")}
     assert on_disk == set(_kernels.SOURCES)
     # every source's launches are counted, and the capacity matvecs'
-    # reductions under their own keys
+    # reductions and the matvecs' CUDA-core routes under their own keys
     assert set(_kernels.REDUCTIONS) <= set(_kernels.SOURCES)
+    assert set(_kernels.CORE_ROUTES) <= set(_kernels.SOURCES)
     assert set(_kernels.LAUNCHES) == (set(_kernels.SOURCES)
-                                      | set(_kernels.REDUCTIONS.values()))
+                                      | set(_kernels.REDUCTIONS.values())
+                                      | set(_kernels.CORE_ROUTES.values()))
     # the build kernels are compiled without FMA contraction
     for name in ("tri_build", "tri_build_fused", "stored_build",
                  "affinity_build", "build_probe"):
@@ -338,6 +340,98 @@ def test_sym_tiles_kernel_matches_plain(cuda, m, storage):
         assert float((summed - b).abs().max()) <= 1e-4
 
 
+def _dense_rows_oracle(chunks, nt, U):
+    """The rows matvec in f64 through the dense [M; C] of row-chunked
+    storage (int8 codes times bf16-rounded u over 127, bf16 values
+    exactly)."""
+    NC, two_t, Gt = chunks.shape
+    t = two_t // 2
+    m = nt * t
+    first = symstore.row_first_chunk(nt, Gt // t)
+    D = torch.zeros(2 * m, m, dtype=torch.float64, device=chunks.device)
+    for r in range(nt):
+        seg = chunks[int(first[r]):int(first[r + 1])].permute(1, 0, 2)
+        seg = seg.reshape(two_t, -1)[:, :(nt - r) * t].double()
+        for h in range(2):
+            half = seg[h * t:(h + 1) * t]
+            D[h * m + r * t:h * m + (r + 1) * t, r * t:] = half
+            D[h * m + (r + 1) * t:h * m + m, r * t:(r + 1) * t] = \
+                half[:, t:].T
+    Uc, scale = symstore._operand(chunks.dtype, U)
+    return (Uc.double() @ D.T) * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage", [torch.int8, torch.bfloat16])
+@pytest.mark.parametrize("t", [16, 64, 100, 256, 512])
+def test_capacity_kernels_every_tile(cuda, storage, t):
+    """Kernels 3 and 7 at t = 16, 64, 100 (their CUDA-core route on the
+    codes) and 256, 512 (the unit kernel over 128-row tiles), one problem
+    of m = t (1024 // t), rows at G=3, K=16 and K=1: within 1e-4 of the
+    plain versions, 1.1e-5 of an f64 oracle, on the whole storage and
+    over D=3 slices summed; reruns bit-identical; launches under the
+    route's key (and the reduction's on the unit route)."""
+    m = t * (1024 // t)
+    nt = m // t
+    G = 3
+    inv = harness.default_invariant()
+    P1, P2, A = _capacity_endpoints(cuda, m, seed=t)
+    chunks = symstore.build_symchunks(inv, P1, P2, A, m, tile=t, G=G,
+                                      storage_dtype=storage)
+    tiles = symstore.build_symtiles(inv, P1, P2, A, m, tile=t,
+                                    storage_dtype=storage)
+    route = symstore.matvec_route(t, storage)
+    scale = symstore._scale(storage)
+    gen = torch.Generator(device=cuda).manual_seed(t)
+    for K in (16, 1):
+        U = _unit_rows(gen, K, m)
+        for name, run, plain, oracle in (
+                ("sym_rows_matvec",
+                 lambda **kw: symstore.sym_rows_matvec_cuda(chunks, nt, U,
+                                                            **kw),
+                 symstore.sym_rows_matvec_plain(chunks, nt, U),
+                 _dense_rows_oracle(chunks, nt, U)),
+                ("sym_tiles_matvec",
+                 lambda **kw: symstore.sym_tiles_matvec_cuda(tiles, nt, U,
+                                                             **kw),
+                 symstore.sym_tiles_matvec_plain(tiles, nt, U), None)):
+            key = _kernels.route_key(name, route)
+            red = _kernels.REDUCTIONS[name]
+            before, before_red = _kernels.LAUNCHES[key], _kernels.LAUNCHES[red]
+            a = run()
+            assert _kernels.LAUNCHES[key] == before + 1
+            assert _kernels.LAUNCHES[red] == before_red + int(
+                route == "units")
+            assert a.dtype == torch.float32 and a.shape == (K, 2 * m)
+            assert float((a - plain).abs().max()) <= 1e-4
+            assert torch.equal(a, run())
+            if oracle is None:
+                oracle = _dense_rows_oracle(chunks, nt, U)
+            assert float((a.double() - oracle).abs().max()) <= 1.1e-5
+        # D=3 slices: the tile list's shard slices, the chunk ranges
+        acc = 0
+        for rank in range(3):
+            rows, cols = symstore._shard_coords(nt, 3, rank, "xla", 32)
+            tl = symstore._build_tiles_at(inv, P1, P2, A, rows, cols, m, t,
+                                          1e-4, storage, 64)
+            acc = acc + symstore.sym_tiles_matvec_cuda(tl, nt, U, rows, cols,
+                                                       raw=True)
+        summed = symstore._finish(acc, scale)
+        assert float((summed - plain).abs().max()) <= 1e-4
+        acc = 0
+        for rank in range(3):
+            base, crs, cc0, _, _ = symstore._shard_coords(nt, 3, rank,
+                                                          "pallas", G)
+            ch = symstore.build_symchunks(inv, P1, P2, A, m, tile=t, G=G,
+                                          storage_dtype=storage,
+                                          chunk_coords=(crs, cc0))
+            acc = acc + symstore.sym_rows_matvec_cuda(ch, nt, U, base,
+                                                      raw=True)
+        summed = symstore._finish(acc, scale)
+        ref = symstore.sym_rows_matvec_plain(chunks, nt, U)
+        assert float((summed - ref).abs().max()) <= 1e-4
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("storage", [torch.int8, torch.bfloat16,
                                      torch.float64])
@@ -478,12 +572,12 @@ def test_affinity_build_kernel_matches_plain(cuda, kind, dtype, m):
 @pytest.mark.cuda
 @pytest.mark.parametrize("storage", [torch.int8, torch.bfloat16,
                                      torch.float32, torch.float64])
-@pytest.mark.parametrize("t", [256, 128])
+@pytest.mark.parametrize("t", [256, 128, 16, 64, 512])
 def test_tri_tiles_kernel_matches_plain(cuda, storage, t):
     """Kernel 9 against its plain version and against kernel 1 on the
     same content (the flat storage's tile-major view), within 1e-4 (1e-12
     for f64 storage, summed in f64); a rerun is bit-identical; one launch
-    a call."""
+    a call, under its route's key (flattri.matvec_route)."""
     W, m = 4, 512
     nt = m // t
     pcd0, D2s, As, _ = _problems(W, m, seed=13)
@@ -503,9 +597,11 @@ def test_tri_tiles_kernel_matches_plain(cuda, storage, t):
     U = torch.rand(6, m, generator=gen, device=cuda, dtype=fdt)
     U /= torch.linalg.vector_norm(U, dim=-1, keepdim=True)
     idx = torch.tensor([3, 0, 1, 3, 2, 0], device=cuda, dtype=torch.int32)
-    before = _kernels.LAUNCHES["tri_tiles_matvec"]
+    key = _kernels.route_key("tri_tiles_matvec",
+                              flattri.matvec_route(t, storage))
+    before = _kernels.LAUNCHES[key]
     a = flattri.make_tri_pool_matvec_tiles(tiles, nt, fdt)(idx, U)
-    assert _kernels.LAUNCHES["tri_tiles_matvec"] == before + 1
+    assert _kernels.LAUNCHES[key] == before + 1
     b = flattri.tri_tiles_matvec_plain(tiles, nt, idx, U, fdt)
     c = flattri.make_tri_pool_matvec(flat, nt, fdt)(idx, U)
     tol = 1e-12 if storage == torch.float64 else 1e-4
@@ -565,13 +661,16 @@ def _random_tri(P, t, nt, storage, cuda, seed):
 @pytest.mark.parametrize("storage", [torch.int8, torch.bfloat16])
 @pytest.mark.parametrize("t,nt", [(128, 1), (256, 1), (128, 4), (256, 4),
                                   (128, 9), (256, 9), (128, 16),
-                                  (256, 16)])
+                                  (256, 16), (16, 8), (64, 4), (100, 5),
+                                  (384, 3), (512, 1), (512, 4)])
 def test_tri_matvec_kernel_every_shape(cuda, storage, t, nt):
     """Kernel 1 at every tile and width the pool uses (nt up to 16: m <=
-    2048 at t=128, m <= 4096 at t=256), K = 1, 5, 16 and 17 (two
-    launches): within 1e-4 of its plain version and 1.1e-5 of an f64
-    oracle on the same content and bf16-rounded u; a rerun is bit
-    identical; one launch a 16 candidates."""
+    2048 at t=128, m <= 4096 at t=256) and at tiles of both its routes
+    past them (16, 64, 100: CUDA cores; 384, 512: tensor cores), K = 1,
+    5, 16 and 17 (two launches): within 1e-4 of its plain version and
+    1.1e-5 of an f64 oracle on the same content and bf16-rounded u; a
+    rerun is bit identical; one launch a 16 candidates, under its route's
+    key."""
     P, B = 3, 5
     m = t * nt
     tri = _random_tri(P, t, nt, storage, cuda, seed=nt)
@@ -581,9 +680,11 @@ def test_tri_matvec_kernel_every_shape(cuda, storage, t, nt):
     for K in (1, 5, 16, 17):
         U = torch.rand(B, K, m, generator=gen, device=cuda)
         U /= torch.linalg.vector_norm(U, dim=-1, keepdim=True)
-        before = _kernels.LAUNCHES["tri_matvec"]
+        key = _kernels.route_key("tri_matvec",
+                                  flattri.matvec_route(t, storage))
+        before = _kernels.LAUNCHES[key]
         a = flattri.tri_pool_matvec_cuda(tri, nt, idx, U, torch.float32)
-        assert _kernels.LAUNCHES["tri_matvec"] == before + (K + 15) // 16
+        assert _kernels.LAUNCHES[key] == before + (K + 15) // 16
         b = flattri.tri_pool_matvec_plain(tri, nt, idx, U, torch.float32)
         o = flattri.tri_pool_matvec_plain(tri.double(), nt, idx,
                                           U.bfloat16().double(),
@@ -633,13 +734,15 @@ def test_tri_builds_bf16_match_plain(cuda, kind):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("storage", [torch.int8, torch.bfloat16])
-@pytest.mark.parametrize("t,nt", [(128, 4), (256, 4), (128, 9), (256, 9)])
+@pytest.mark.parametrize("t,nt", [(128, 4), (256, 4), (128, 9), (256, 9),
+                                  (16, 8), (64, 4), (100, 5), (384, 3),
+                                  (512, 2)])
 def test_tri_tiles_kernel_equals_tri_matvec_k1(cuda, storage, t, nt):
-    """Kernel 9 runs kernel 1's kernel over the tile-major address map: on
-    the tile-major form of some content its output is bit-equal to kernel
-    1's at K=1 on the flat form, within 1e-4 of its plain version and
-    1.1e-5 of an f64 oracle on the same content and bf16-rounded u; one
-    launch a call."""
+    """Kernel 9 runs kernel 1's kernel over the tile-major address map (on
+    either route): on the tile-major form of some content its output is
+    bit-equal to kernel 1's at K=1 on the flat form, within 1e-4 of its
+    plain version and 1.1e-5 of an f64 oracle on the same content and
+    bf16-rounded u; one launch a call."""
     P, B = 3, 7
     m = t * nt
     T = nt * (nt + 1) // 2
@@ -650,9 +753,11 @@ def test_tri_tiles_kernel_equals_tri_matvec_k1(cuda, storage, t, nt):
     U = torch.rand(B, m, generator=gen, device=cuda)
     U /= torch.linalg.vector_norm(U, dim=-1, keepdim=True)
     idx = torch.tensor([2, 0, 1, 2, 0, 1, 1], device=cuda, dtype=torch.int32)
-    before = _kernels.LAUNCHES["tri_tiles_matvec"]
+    key = _kernels.route_key("tri_tiles_matvec",
+                              flattri.matvec_route(t, storage))
+    before = _kernels.LAUNCHES[key]
     a = flattri.tri_tiles_matvec_cuda(tiles, nt, idx, U, torch.float32)
-    assert _kernels.LAUNCHES["tri_tiles_matvec"] == before + 1
+    assert _kernels.LAUNCHES[key] == before + 1
     c = flattri.tri_pool_matvec_cuda(tri, nt, idx, U[:, None],
                                      torch.float32)
     b = flattri.tri_tiles_matvec_plain(tiles, nt, idx, U, torch.float32)
@@ -739,13 +844,14 @@ def _hold_tri_builds(inv, P1, P2, A, mts, t, storage):
 @pytest.mark.parametrize("storage", [torch.int8, torch.bfloat16])
 @pytest.mark.parametrize("kind", ["euclidean", "pointnormal"])
 @pytest.mark.parametrize("t,nt", [(64, 8), (128, 4), (256, 2), (256, 4),
-                                  (200, 5), (100, 5), (16, 6)])
+                                  (200, 5), (100, 5), (16, 6), (384, 3),
+                                  (512, 2), (320, 3)])
 def test_tri_builds_every_tile(cuda, kind, storage, t, nt):
     """Kernels 2 and 8, each distinct pair scored once over 64-row
     sub-tiles, at t a multiple of 64 and not (t=200 and 100 leave a short
     sub-tile; t=100 and 16 give int8 rows that are no 16-byte multiple,
-    written value by value), m_true < m on two problems: equal to the
-    plain build and to each other."""
+    written value by value), and past t=256 (384, 512, 320), m_true < m
+    on two problems: equal to the plain build and to each other."""
     W, m = 3, t * nt
     inv, P1, P2, A = _endpoints(kind, W, m, t + nt, cuda)
     mts = torch.tensor([m, m - 1, m // 2 + 7], device=cuda)

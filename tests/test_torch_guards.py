@@ -205,15 +205,16 @@ def test_kernel_source_is_shipped_and_registered(path):
 @pytest.mark.parametrize("storage", [torch.int8, torch.bfloat16])
 def test_kernel_wrappers_reject_cpu_tensors_and_tiles(storage):
     """Kernels 1, 2, 3, 7, 8 and 9 in int8 and bf16: a wrapper raises on
-    CPU tensors (it never gives way to its plain version) and on a tile
-    its kernel does not take (1 and 9: t in (128, 256); 3 and 7:
-    t = 128)."""
+    CPU tensors (it never gives way to its plain version), at every tile
+    (each takes any t >= 1 dividing m, by one route or another: the shape
+    check passes and the device check raises), and on a storage type its
+    kernel does not take."""
     from clipper_tpu_torch.bench import harness
     from clipper_tpu_torch.ops import flattri, symstore
     idx = torch.zeros(1, dtype=torch.int32)
     f32 = torch.float32
     for t, err, match in ((128, ValueError, "on the card"),
-                          (64, NotImplementedError, "t in")):
+                          (64, ValueError, "on the card")):
         with pytest.raises(err, match=match):
             flattri.tri_pool_matvec_cuda(
                 torch.zeros(1, 2 * t, t, dtype=storage), 1, idx,
@@ -225,14 +226,18 @@ def test_kernel_wrappers_reject_cpu_tensors_and_tiles(storage):
     with pytest.raises(ValueError, match="on the card"):
         symstore.sym_rows_matvec_cuda(torch.zeros(1, 256, 128, dtype=storage),
                                       1, torch.zeros(1, 128))
-    with pytest.raises(NotImplementedError, match="t = 128"):
+    with pytest.raises(ValueError, match="on the card"):
         symstore.sym_rows_matvec_cuda(torch.zeros(2, 64, 64, dtype=storage),
                                       2, torch.zeros(1, 64))
     with pytest.raises(ValueError, match="on the card"):
         symstore.sym_tiles_matvec_cuda(
             torch.zeros(1, 256, 128, dtype=storage), 1, torch.zeros(1, 128))
-    with pytest.raises(NotImplementedError, match="t = 128"):
+    with pytest.raises(ValueError, match="on the card"):
         symstore.sym_tiles_matvec_cuda(torch.zeros(3, 64, 32, dtype=storage),
+                                       2, torch.zeros(1, 64))
+    with pytest.raises(NotImplementedError, match="f32/f64"):
+        symstore.sym_tiles_matvec_cuda(torch.zeros(3, 64, 32,
+                                                   dtype=torch.float16),
                                        2, torch.zeros(1, 64))
     inv = harness.default_invariant()
     P = torch.zeros(1, 128, 3)

@@ -525,11 +525,13 @@ def test_tiles_matvec_rejects():
     with pytest.raises(ValueError, match="tile list"):
         symstore.sym_tiles_matvec_plain(torch.zeros(3, 64, 64), 2,
                                         torch.zeros(1, 64))
-    with pytest.raises(NotImplementedError, match="t = 128"):
+    with pytest.raises(ValueError, match="on the card"):
         symstore.sym_tiles_matvec_cuda(tiles, 2, torch.zeros(1, 64))
-    with pytest.raises(NotImplementedError, match="Queue 2 item 7"):
+    with pytest.raises(ValueError, match="on the card"):
         symstore.sym_tiles_matvec_cuda(tiles.bfloat16(), 2,
                                        torch.zeros(1, 64))
+    with pytest.raises(NotImplementedError, match="Queue 2 item 7"):
+        symstore.sym_tiles_matvec_cuda(tiles.half(), 2, torch.zeros(1, 64))
     with pytest.raises(ValueError, match="on the card"):
         symstore.sym_tiles_matvec_cuda(torch.zeros(1, 256, 128,
                                                    dtype=torch.int8), 1,
