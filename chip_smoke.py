@@ -63,9 +63,11 @@ Phases, each of which must pass (any failure exits non-zero):
               for bit; kernels 2 and 8, int8 and bf16, both invariants,
               at t = 384 and 512 (W=16, m_true < m on four: C exact, 0 M
               codes differing, byte-equal to each other); kernels 3 and 7
-              in int8 and bf16 at t = 16, 64, 100, 256, 512 on one problem
-              of m = t (2048 // t), K=16 and K=1, whole and over D=3
-              slices (rows at G=3), the same bars.
+              in int8 and bf16 at t = 16, 32, 48, 64, 100, 192, 256, 512
+              on one problem of m = t (2048 // t), K=16 and K=1, whole and
+              over D=3 slices (rows at G=3), the same bars, and in f32
+              and f64 at t=128, K=16, beside torch.matmul over the dense
+              [M; C] in their type (TF32 off).
 3. pool     — the bench protocol through make_pool_pipeline: W=512
               problems, m=1024, 90% outliers, bench.py's settings (1 warm-up
               call and 3 timed calls). Prints P/R, problems/s, per-stage times
@@ -1539,8 +1541,9 @@ def capacity_solve(inv, prob, dev, engine, opts):
 
 def report_capacity(label, run, Agt, kernel, route="units"):
     """Shapes, finite values, F <= m, the P/R bars, ``kernel`` launched by
-    ``route`` (ops/symstore.matvec_route: "units" with its reduction);
-    prints the quality, stage times, ticks, storage and launches."""
+    ``route`` (ops/symstore.matvec_route) with its reduction (on the
+    "units" route, its "core" key not at all); prints the quality, stage
+    times, ticks, storage and launches."""
     import torch
     from clipper_tpu_torch import _kernels
     from clipper_tpu_torch.bench import data
@@ -1565,10 +1568,14 @@ def report_capacity(label, run, Agt, kernel, route="units"):
                       for k in ("build", "init", "solve", "polish")),
           flush=True)
     print(f"{label} kernel launches (one call): {launches}", flush=True)
-    for name in ((kernel, _kernels.REDUCTIONS[kernel]) if route == "units"
-                 else (_kernels.route_key(kernel, route),)):
+    for name in (_kernels.route_key(kernel, route),
+                 _kernels.REDUCTIONS[kernel]):
         require(launches[name] > 0, f"{label}: {name} was never launched: "
                 f"{launches}")
+    if route == "units":
+        other = _kernels.route_key(kernel, "core")
+        require(launches[other] == 0, f"{label}: the units route launched "
+                f"{other}: {launches}")
     require(P >= 0.995, f"{label} precision {P:.4f} < 0.995")
     require(R >= 0.88, f"{label} recall {R:.4f} < 0.88")
     return mask, F
@@ -2282,12 +2289,13 @@ TILE_M = 2048                  # phase 2's new tiles: m = t (TILE_M // t)
 TILE_W = 16                    # ... problems (kernels 1, 2, 8, 9)
 PN_TILE_M = 1536               # ... point-normal problems (kernels 2, 8)
 TRI_TILES = (16, 64, 100, 384, 512)   # kernels 1 and 9
-CAP_TILES = (16, 64, 100, 256, 512)   # kernels 3 and 7
+CAP_TILES = (16, 32, 48, 64, 100, 192, 256, 512)   # kernels 3 and 7
 BUILD_TILES = (384, 512)              # kernels 2 and 8 past 256
 TILE_G = 3                     # the rows layout's chunk width there
 POOL_TILES = (64, 512)         # phase 12: the tri pool at these tiles
 CAP_TILE = 256                 # ... and the capacity engine at this one
-CAP_CORE_TILE = 64             # ... and at this one (the CUDA-core route)
+CAP_CORE_TILE = 64             # ... and at this one (the unit kernel over
+                               # super-tiles of 64-row tiles)
 CAP_TILE_IOU = 0.95            # ... its mask against phase 4's (t=128)
 
 
@@ -2594,6 +2602,52 @@ def phase_kernels_tiles(inv, pn_inv, dev):
                           f"ms, matmul over dense bf16 [M; C] "
                           f"{r['library_ms']:.4f} ms", flush=True)
             del chunks, tl
+
+    # kernels 3 and 7 over f32 and f64 storage at t=128 (the CUDA-core
+    # kernel of csrc/sym_core.cuh in f64, their one route)
+    t = 128
+    m = tile_m(t)
+    nt = m // t
+    T = nt * (nt + 1) // 2
+    prob = one_problem(m, RHO, seed=t)
+    for dtype, kind, peak in ((torch.float32, "f32", F32_FLOPS),
+                              (torch.float64, "f64", F64_FLOPS)):
+        chunks = rows_storage(inv, prob, dev, G=TILE_G, storage=dtype, tile=t)
+        tl = tiles_storage(inv, prob, dev, dtype, tile=t)
+        U = unit_rows(gen, 1, 16, dev, m)[0].to(dtype)
+        label = f"{kind}, route float, m={m}, t={t}, G={TILE_G}, K=16"
+        errs["sym_rows_matvec"] = max(errs["sym_rows_matvec"],
+                                      check_rows(chunks, nt, U, label))
+        errs["sym_tiles_matvec"] = max(errs["sym_tiles_matvec"],
+                                       check_tiles(tl, nt, U, label))
+        bound = bound_of(T * 2 * t * t * chunks.element_size()
+                         + 16 * m * U.element_size() + 16 * 2 * m * 4,
+                         2 * 16 * 2 * t * t * (2 * T - nt), peak)
+        dense = dense_from_tiles(tl, nt, dtype)
+        Ut = U.T.contiguous()
+        lib = time_ms(lambda: torch.matmul(dense, Ut), dev, 10)
+        del dense
+        rp = symstore.rows_device_plan(chunks, nt)
+        tp = symstore.tiles_device_plan(tl, nt)
+        for kname, kern, plain in (
+                ("sym_rows_matvec",
+                 lambda: symstore.sym_rows_matvec_cuda(chunks, nt, U,
+                                                       plan=rp),
+                 lambda: symstore.sym_rows_matvec_plain(chunks, nt, U)),
+                ("sym_tiles_matvec",
+                 lambda: symstore.sym_tiles_matvec_cuda(tl, nt, U, plan=tp),
+                 lambda: symstore.sym_tiles_matvec_plain(tl, nt, U))):
+            r = dict(route="float", shape=f"m={m}, K=16" + (
+                f", G={TILE_G}" if kname == "sym_rows_matvec" else ""),
+                ms=time_ms(kern, dev, 10), plain_ms=time_ms(plain, dev, 2),
+                library_ms=lib, **bound)
+            rows[kname][f"t={t} {kind}"] = r
+            print(f"timing {kname} t={t} {kind} ({r['shape']}, route "
+                  f"float): kernel {r['ms']:.4f} ms, bound "
+                  f"{r['bound_ms']:.4f} ms ({r['bound_by']}), plain "
+                  f"{r['plain_ms']:.4f} ms, matmul over dense {kind} "
+                  f"[M; C] (TF32 off) {r['library_ms']:.4f} ms", flush=True)
+        del chunks, tl
     torch.cuda.empty_cache()
     return errs, rows
 
@@ -2612,8 +2666,8 @@ def phase_tiles(inv, main, cap, cap_mask, dry, dev):
     at t=256 on its storage, K=16 and K=1, against their plain versions,
     timed beside their bound and torch.matmul. (c) Phase 11 (d)'s
     dryrun_multichip(2) ran at the JAX shapes (m=64, tiles of 16). (d)
-    The same capacity problem at tile=64, kernels 3 and 7 by their
-    CUDA-core route (:func:`capacity_core_tile`). Returns {kernel:
+    The same capacity problem at tile=64, kernels 3 and 7 by the unit
+    kernel over super-tiles (:func:`capacity_core_tile`). Returns {kernel:
     {"...": timing row}} for the kernels' line."""
     import torch
     from clipper_tpu_torch import _kernels
@@ -2746,16 +2800,20 @@ def phase_tiles(inv, main, cap, cap_mask, dry, dev):
 
 def capacity_core_tile(inv, cap, cap_mask, dev, lib_rows):
     """Phase 12 (d): the m=65,536 capacity problem at tile=CAP_CORE_TILE,
-    not a multiple of 128, so kernels 3 and 7 run by their CUDA-core route
-    (ops/symstore.matvec_route). Through the facade, row-chunked (auto)
-    and tile list: the P/R bars, IoU >= CAP_TILE_IOU with phase 4's t=128
-    mask, the route's key launched; then kernels 3 and 7 at that tile on
-    its int8 storage: K=16 against the plain version (the tile list also
-    over D=3 slices), a rerun bit for bit, then timed at K=16 and K=1
-    beside their bound, the plain version and the torch.matmul of
-    ``lib_rows``' t=CAP_TILE rows (the same dense product, timed in (b)).
-    Returns {kernel: {"t=64 m=65536": timing row}}."""
+    a multiple of 16 but not of 128, so kernels 3 and 7 run the unit
+    kernel over super-tiles of 64-row tiles (ops/symstore.matvec_route
+    "units", their "core" keys not launched). Through the facade,
+    row-chunked (auto) and tile list: the P/R bars, IoU >= CAP_TILE_IOU
+    with phase 4's t=128 mask, the route's key and the reduction launched
+    (their launches a solve kept), the warm call's stage ms; then kernels
+    3 and 7 at that tile on its int8 storage: K=16 against the plain
+    version (the tile list also over D=3 slices), a rerun bit for bit,
+    then timed at K=16 and K=1 beside their bound, the plain version and
+    the torch.matmul of ``lib_rows``' t=CAP_TILE rows (the same dense
+    product, timed in (b)). Returns {kernel: {"t=64 m=65536": timing
+    row}}."""
     import torch
+    from clipper_tpu_torch import _kernels
     from clipper_tpu_torch.bench.harness import time_ms
     from clipper_tpu_torch.ops import symstore
 
@@ -2764,6 +2822,7 @@ def capacity_core_tile(inv, cap, cap_mask, dev, lib_rows):
     nt = m // t
     T = nt * (nt + 1) // 2
     route = symstore.matvec_route(t, torch.int8)
+    solve = {}
     for engine, opts, kernel in (
             ("auto", {"tile": t}, "sym_rows_matvec"),
             ("triangle", {"tile": t, "matvec": "xla"}, "sym_tiles_matvec")):
@@ -2771,6 +2830,12 @@ def capacity_core_tile(inv, cap, cap_mask, dev, lib_rows):
         run_c = capacity_solve(inv, cap, dev, engine, opts)
         label = f"capacity path ({engine}, t={t})"
         mask, _ = report_capacity(label, run_c, Agt, kernel, route=route)
+        stats, launches = run_c[2], run_c[3]
+        solve[kernel] = dict(
+            launches=launches[_kernels.route_key(kernel, route)],
+            reduce_launches=launches[_kernels.REDUCTIONS[kernel]],
+            warm_s=run_c[4], stage_ms={k: stats[k] for k in (
+                "build", "init", "solve", "polish")})
         iou = mask_iou(mask, cap_mask)
         print(f"{label}: IoU with phase 4's t={ROWS_T} mask {iou:.4f}; the "
               f"build and both calls {time.perf_counter() - t0:.1f} s",
@@ -2813,7 +2878,8 @@ def capacity_core_tile(inv, cap, cap_mask, dev, lib_rows):
             ", G=32" if rows_layout else ""),
                    plain_ms=time_ms(lambda: plain(Us[16]), dev, 1),
                    library_ms=lib_rows[name][f"t={CAP_TILE} m={m}"][
-                       "library_ms"], K1=by_k[1], max_abs_err=err)
+                       "library_ms"], K1=by_k[1], max_abs_err=err,
+                   **solve[name])
         print(f"timing {name} int8 m={m} t={t} (route {route}, its plan made "
               f"beforehand): K=16 {row['ms']:.4f} ms, K=1 "
               f"{by_k[1]['ms']:.4f} ms, bound {row['bound_ms']:.4f} / "

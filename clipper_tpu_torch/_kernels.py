@@ -57,6 +57,10 @@ _SCORE = [_I, _D, _D, _D, _D, _D]
 # (entries, units, fslots, units, red_off, red_slots, slots), U, out and
 # workspace; then K, nt, t, raw
 _UNITS = [_P, _LL, _LL, _P, _P, _P, _I, _P, _P, _I, _P, _P, _P]
+# their CUDA-core route's storage (pointer, row length), plan (entries,
+# units, fslots, units, the unit's rows, red_off, red_slots, slots), U,
+# out and workspace; then K, nt, t, raw
+_CORE = [_P, _LL, _P, _P, _P, _I, _I, _P, _P, _I, _P, _P, _P]
 _SIGNATURES = {
     "tri_matvec_int8": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _LL, _F, _P,
                         _IP],
@@ -78,19 +82,24 @@ _SIGNATURES = {
     "tri_tiles_matvec_f64": [_P, _P, _P, _P, _I, _I, _I, _P],
     "sym_rows_matvec_int8": [*_UNITS, _I, _I, _I, _I, _F, _P],
     "sym_rows_matvec_bf16": [*_UNITS, _I, _I, _I, _I, _P],
-    "sym_rows_matvec_core_int8": [_P, _P, _P, _I, _I, _I, _I, _LL, _LL, _I,
-                                  _F, _P],
-    "sym_rows_matvec_core_bf16": [_P, _P, _P, _I, _I, _I, _I, _LL, _LL, _I,
-                                  _P],
-    "sym_rows_matvec_f32": [_P, _P, _P, _I, _I, _I, _I, _LL, _LL, _I, _P],
-    "sym_rows_matvec_f64": [_P, _P, _P, _I, _I, _I, _I, _LL, _LL, _I, _P],
+    "sym_rows_matvec_sub_int8": [*_UNITS[:10], _P, _I, *_UNITS[10:], _I, _I,
+                                 _I, _I, _F, _P],
+    "sym_rows_matvec_sub_bf16": [*_UNITS[:10], _P, _I, *_UNITS[10:], _I, _I,
+                                 _I, _I, _P],
+    "sym_rows_matvec_core_int8": [*_CORE, _I, _I, _I, _I, _F, _P],
+    "sym_rows_matvec_core_bf16": [*_CORE, _I, _I, _I, _I, _P],
+    "sym_rows_matvec_core_f32": [*_CORE, _I, _I, _I, _I, _P],
+    "sym_rows_matvec_core_f64": [*_CORE, _I, _I, _I, _I, _P],
     "sym_tiles_matvec_int8": [*_UNITS, _I, _I, _I, _I, _F, _P],
     "sym_tiles_matvec_bf16": [*_UNITS, _I, _I, _I, _I, _P],
-    "sym_tiles_matvec_core_int8": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
-                                   _P],
-    "sym_tiles_matvec_core_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "sym_tiles_matvec_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "sym_tiles_matvec_f64": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "sym_tiles_matvec_sub_int8": [*_UNITS[:10], _P, _I, *_UNITS[10:], _I,
+                                  _I, _I, _I, _F, _P],
+    "sym_tiles_matvec_sub_bf16": [*_UNITS[:10], _P, _I, *_UNITS[10:], _I,
+                                  _I, _I, _I, _P],
+    "sym_tiles_matvec_core_int8": [*_CORE, _I, _I, _I, _I, _F, _P],
+    "sym_tiles_matvec_core_bf16": [*_CORE, _I, _I, _I, _I, _P],
+    "sym_tiles_matvec_core_f32": [*_CORE, _I, _I, _I, _I, _P],
+    "sym_tiles_matvec_core_f64": [*_CORE, _I, _I, _I, _I, _P],
     "stored_build_int8": [_P, _P, _P, _P, _P, _I, _I, *_SCORE, _P],
     "stored_build_bf16": [_P, _P, _P, _P, _P, _I, _I, *_SCORE, _P],
     "pattern_matvec_f32": [_P, _P, _P, _P, _I, _I, _I, _P],

@@ -23,11 +23,17 @@ entries may lack: ``tri_matvec_probe.bind``):
 - kernels 1 and 9 over f32 and f64 storage at t=128 and 256 (kernel 1
   at K=16, kernel 9 at one probe a lane; B=128 distinct lanes of P=128
   random problems, m=1024): the parent's ms, the change's, the bound,
-  whether the outputs are bit-equal and their max distance;
-- kernels 3 and 7 in int8 at t=128, K=16 and K=1, on one bunny problem at
-  m=65,536 (rho=0.95, numpy default_rng(0); rows at G=32), with this
-  tree's plan and workspace: the parent's ms, the change's, the bound and
-  whether the outputs are bit-equal;
+  ``torch.bmm`` over the dense [M; C] in the storage's type, whether the
+  outputs are bit-equal and their max distance;
+- kernels 3 and 7 in int8 at t=128 and t=256, K=16 and K=1, on one bunny
+  problem at m=65,536 (rho=0.95, numpy default_rng(0); rows at G=32),
+  with this tree's plan and workspace: the parent's ms, the change's, the
+  bound and whether the outputs are bit-equal;
+- kernels 3 and 7 where the other checkout's capacity matvecs ran a
+  thread an output column (``capacity_tile_rows``): int8 at t=64
+  (m=65,536) and t=100 (m=65,600), K=16 and 1, and the f32 / f64 kinds
+  at t=128 (m=16,384, K=16), that checkout's kernel against this tree's
+  route, with the speedup and the outputs' largest difference;
 - kernels 2, 8 and 4 on the W=512, m=1024 problems of ``chip_smoke.py``'s
   main path (the bunny at rho=0.9 and the point-normal scans, both from
   numpy default_rng(0)), int8 and bf16 storage (kernels 2 and 8 at
@@ -77,13 +83,40 @@ _SOURCES = {
     "tri_matvec": ("tri_matvec_f32", "tri_matvec_f64"),
     "tri_tiles_matvec": ("tri_tiles_matvec_int8", "tri_tiles_matvec_bf16",
                          "tri_tiles_matvec_f32", "tri_tiles_matvec_f64"),
-    "sym_rows_matvec": ("sym_rows_matvec_int8",),
-    "sym_tiles_matvec": ("sym_tiles_matvec_int8",),
+    "sym_rows_matvec": ("sym_rows_matvec_int8", "sym_rows_matvec_core_int8",
+                        "sym_rows_matvec_f32", "sym_rows_matvec_f64"),
+    "sym_tiles_matvec": ("sym_tiles_matvec_int8",
+                         "sym_tiles_matvec_core_int8", "sym_tiles_matvec_f32",
+                         "sym_tiles_matvec_f64"),
     "tri_build": ("tri_build_int8", "tri_build_bf16"),
     "tri_build_fused": ("tri_build_fused_int8", "tri_build_fused_bf16"),
     "stored_build": ("stored_build_int8", "stored_build_bf16"),
     "affinity_build": ("affinity_build_f32", "affinity_build_f64"),
     "build_probe": ("build_probe_int8",),
+}
+
+
+_P, _I, _LL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                   ctypes.c_float)
+# the capacity matvecs' entries in a checkout before their CUDA-core route
+# took the unit plan (a thread an output column, the walk from the closed
+# form or tile_walks): recognised by their first arguments
+_ROWS_WALK = [_P, _P, _P, _I, _I, _I, _I, _LL, _LL, _I]
+_TILES_WALK = [_P, _P, _P, _P, _P, _I, _I, _I, _I]
+_WALK_ENTRIES = {
+    "sym_rows_matvec_core_int8": (
+        "core_int8(const void* chunks, const void* U", [*_ROWS_WALK, _F, _P]),
+    "sym_tiles_matvec_core_int8": (
+        "core_int8(const void* tiles, const void* walks",
+        [*_TILES_WALK, _F, _P]),
+    "sym_rows_matvec_f32": ("matvec_f32(const void* chunks, const void* U",
+                            [*_ROWS_WALK, _P]),
+    "sym_rows_matvec_f64": ("matvec_f64(const void* chunks, const void* U",
+                            [*_ROWS_WALK, _P]),
+    "sym_tiles_matvec_f32": ("matvec_f32(const void* tiles, const void* walks",
+                             [*_TILES_WALK, _P]),
+    "sym_tiles_matvec_f64": ("matvec_f64(const void* tiles, const void* walks",
+                             [*_TILES_WALK, _P]),
 }
 
 
@@ -112,7 +145,13 @@ def build_parent(parent: str) -> Dict[str, ctypes.CDLL]:
         lib = ctypes.CDLL(os.path.abspath(d / f"lib{cu}.so"))
         cu_src = (d / f"{cu}.cu").read_text()
         for fn in _SOURCES[cu]:
-            bind(lib, fn, cu_src)
+            if fn in _WALK_ENTRIES:
+                if _WALK_ENTRIES[fn][0] in cu_src:
+                    getattr(lib, fn).argtypes = _WALK_ENTRIES[fn][1]
+                    getattr(lib, fn).restype = ctypes.c_int
+                    lib.walk_core = True
+            else:
+                bind(lib, fn, cu_src)
         libs[cu] = lib
     return libs
 
@@ -241,10 +280,15 @@ def float_rows(libs, dev, P: int = 128, B: int = 128,
     one probe a lane, B distinct lanes of P random problems (10% of pairs
     kept), beside the bound (each lane's triangle, u and the output moved
     once; 2 K flops a stored element and direction at the f32 or f64
-    peak)."""
+    peak) and one torch.bmm over the lanes' dense [M; C] in the storage's
+    type (TF32 off), the library call computing the same function."""
     import torch
 
+    from clipper_tpu_torch.bench.harness import time_ms
     from clipper_tpu_torch.ops import flattri
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
 
     gen = torch.Generator(device=dev).manual_seed(3)
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -261,6 +305,7 @@ def float_rows(libs, dev, P: int = 128, B: int = 128,
                                   (torch.float64, "f64", F64_FLOPS)):
             flat = content.to(dtype)
             tiles = flat.view(P, 2 * t, T, t).permute(0, 2, 1, 3).contiguous()
+            dense = flattri.dense_stacked(flat[idx.long()], nt)
             for kernel, store, K in (("tri_matvec", flat, 16),
                                      ("tri_tiles_matvec", tiles, 1)):
                 one = kernel == "tri_tiles_matvec"
@@ -288,16 +333,22 @@ def float_rows(libs, dev, P: int = 128, B: int = 128,
                 bound = max(n_bytes / HBM_BYTES_PER_S, n_ops / peak) * 1e3
                 diff = float((outs["change"][0] - outs["parent"][0]).abs()
                              .max())
+                Ut = U.view(B, -1, m).transpose(1, 2).contiguous()
+                lib = time_ms(lambda: torch.bmm(dense, Ut), dev, 10)
                 row = dict(kernel=kernel, storage=kind,
                            shape=f"m={m}, t={t}, B={B}, K={K}",
                            parent_ms=p_ms, change_ms=c_ms, bound_ms=bound,
-                           equal_to_parent=equal, max_diff_parent=diff)
+                           library_ms=lib, equal_to_parent=equal,
+                           max_diff_parent=diff)
                 print(f"{fn} m={m} t={t} B={B} K={K}: parent {p_ms:.4f} "
                       f"ms, change {c_ms:.4f} ms (in turns), bound "
-                      f"{bound:.4f} ms; bit-equal to the parent's: {equal}, "
-                      f"max |change - parent| {diff:.3e}", flush=True)
+                      f"{bound:.4f} ms, torch.bmm over the dense {kind} "
+                      f"[M; C] {lib:.4f} ms; bit-equal to the parent's: "
+                      f"{equal}, max |change - parent| {diff:.3e}",
+                      flush=True)
                 rows.append(row)
-            del flat, tiles
+            del flat, tiles, dense
+    torch.backends.cuda.matmul.allow_tf32 = tf32
     return rows
 
 
@@ -364,6 +415,180 @@ def capacity_rows(libs, dev, m: int = 65536, t: int = 128,
                   f"output bit-equal to the parent's: {equal}", flush=True)
             rows.append(row)
         del store, plan
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _capacity_store(name: str, m: int, t: int, G: int, dev, dtype=None):
+    """One bunny problem's capacity storage at m, t (rho=0.95, numpy
+    default_rng(0); rows at G), int8 unless ``dtype``: (storage, nt, its
+    row length in elements)."""
+    import torch
+
+    from clipper_tpu_torch.bench import harness
+    from clipper_tpu_torch.ops import symstore
+    from clipper_tpu_torch.ops.affinity import gather_endpoints
+
+    dtype = dtype or torch.int8
+    fdt = torch.float64 if dtype == torch.float64 else torch.float32
+    pcd0 = harness.load_bunny()
+    pcd1, A, _ = harness.make_problem(pcd0, m, 0.95,
+                                      np.random.default_rng(0))
+    At = torch.as_tensor(A.astype(np.int32), device=dev)
+    P1, P2 = gather_endpoints(torch.as_tensor(pcd0, dtype=fdt, device=dev),
+                              torch.as_tensor(pcd1, dtype=fdt, device=dev),
+                              At)
+    inv = harness.default_invariant()
+    if name == "sym_rows_matvec":
+        store = symstore.build_symchunks(inv, P1, P2, At, m, tile=t, G=G,
+                                         storage_dtype=dtype)
+        return store, m // t, G * t
+    return symstore.build_symtiles(inv, P1, P2, At, m, tile=t,
+                                   storage_dtype=dtype), m // t, t
+
+
+def tile_walks(nt: int, rows, cols):
+    """Each output block's walk over a tile list, as the older checkouts'
+    thread-an-output-column kernels take it: (walks (E, 2), offsets
+    (nt + 1,)), int32. Block j's entries walks[offsets[j]:offsets[j + 1]]
+    are the forward tiles of row j, then the transposed tiles of column j
+    (r != c), each in increasing k, as (k, 2 ub + tr) with ub the block of
+    u the tile contracts and tr = 1 for a transposed application. Inert
+    slots are in no walk."""
+    rows = np.asarray(rows, np.int64)
+    cols = np.asarray(cols, np.int64)
+    k = np.arange(len(rows))
+    real = rows < nt
+    off = real & (rows != cols)
+    block = np.concatenate([rows[real], cols[off]])
+    tr = np.concatenate([np.zeros(real.sum(), np.int64),
+                         np.ones(off.sum(), np.int64)])
+    kk = np.concatenate([k[real], k[off]])
+    ub = np.concatenate([cols[real], rows[off]])
+    order = np.lexsort((kk, tr, block))
+    walks = np.stack([kk[order], 2 * ub[order] + tr[order]], 1)
+    offsets = np.searchsorted(block[order], np.arange(nt + 1))
+    return walks.astype(np.int32), offsets.astype(np.int32)
+
+
+def _walk_call(lib, name: str, kind: str, store, nt: int, t: int, G: int,
+               U, out, stream, scale: float):
+    """A launch of the parent's thread-an-output-column kernel of ``kind``
+    ("core_int8", "f32", "f64") over all K rows of U: the rows layout's in
+    launches of 16 (its wrapper's split), the tile list's in one, over
+    tile_walks."""
+    import torch
+
+    from clipper_tpu_torch.ops import symstore
+
+    fn = getattr(lib, f"{name}_{kind}")
+    K = U.shape[0]
+    tail = (scale,) if kind == "core_int8" else ()
+    if name == "sym_tiles_matvec":
+        walks, offsets = (torch.as_tensor(a, device=store.device).contiguous()
+                          for a in tile_walks(nt,
+                                              *symstore.tile_coords(nt)))
+        return lambda: fn(store.data_ptr(), walks.data_ptr(),
+                          offsets.data_ptr(), U.data_ptr(), out.data_ptr(),
+                          K, nt, t, 0, *tail, stream)
+
+    def call():
+        code = 0
+        for k0 in range(0, K, 16):
+            k1 = min(K, k0 + 16)
+            code = code or fn(store.data_ptr(), U[k0:k1].data_ptr(),
+                              out[k0:k1].data_ptr(), k1 - k0, nt, t, G, 0,
+                              store.shape[0], 0, *tail, stream)
+        return code
+    return call
+
+
+def capacity_tile_rows(libs, dev) -> list:
+    """Kernels 3 and 7 at the tiles whose route this tree redesigned,
+    against the parent's CUDA-core kernel (a thread an output column),
+    through their C entries, in turns: int8 at t=64 (m=65,536, the unit
+    kernel over super-tiles here) and t=100 (m=65,600, the CUDA-core
+    kernel of csrc/sym_core.cuh here), K=16 and 1; then the f32 and f64
+    storage kinds at t=128 (m=16,384, K=16), whose kernel here is that
+    CUDA-core kernel in f64. Each row: the parent's ms, the change's, the
+    bound and the outputs' largest difference."""
+    import torch
+
+    from clipper_tpu_torch.ops import symstore
+
+    stream = _kernels.stream_ptr(dev)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    rows = []
+    cases = [(t, m, torch.int8, K) for t, m in ((64, 65536), (100, 65600))
+             for K in (16, 1)]
+    cases += [(128, 16384, dt, 16) for dt in (torch.float32, torch.float64)]
+    for name in ("sym_rows_matvec", "sym_tiles_matvec"):
+        parent_lib = libs[name]
+        if not getattr(parent_lib, "walk_core", False):
+            print(f"{name}: the other checkout's CUDA-core entry takes the "
+                  "unit plan already; tile rows skipped", flush=True)
+            continue
+        lib = _kernels.lib(name)
+        built = None
+        for t, m, dtype, K in cases:
+            key = (t, m, dtype)
+            if built is None or built[0] != key:
+                built = None
+                torch.cuda.empty_cache()
+                store, nt, ld = _capacity_store(name, m, t, 32, dev, dtype)
+                plan = (symstore.rows_device_plan(store, nt)
+                        if name == "sym_rows_matvec"
+                        else symstore.tiles_device_plan(store, nt))
+                built = (key, store, nt, ld, plan)
+            _, store, nt, ld, plan = built
+            route = symstore.matvec_route(t, dtype)
+            U = torch.rand(K, m, generator=gen, device=dev)
+            U = U / torch.linalg.vector_norm(U, dim=-1, keepdim=True)
+            Uc, scale = symstore._operand(dtype, U)
+            Uc = Uc.contiguous()
+            outs = {side: (torch.empty(K, 2 * m, device=dev),)
+                    for side in ("parent", "change")}
+            kind = "core_int8" if dtype == torch.int8 else (
+                "f32" if dtype == torch.float32 else "f64")
+            parent = _walk_call(parent_lib, name, kind, store, nt, t,
+                                32, Uc, outs["parent"][0], stream, scale)
+            ws = plan.workspace(min(K, 16))
+
+            def change():
+                code = 0
+                for k0 in range(0, K, 16):
+                    k1 = min(K, k0 + 16)
+                    code = code or symstore._launch(
+                        lib, name, route, store, t, ld, plan, Uc[k0:k1],
+                        outs["change"][0][k0:k1], ws, k1 - k0, nt, False,
+                        scale)
+                return code
+            reps = 20 if dtype == torch.int8 and t == 64 else 5
+            p_ms, c_ms, equal = compare(f"{name} t={t} K={K}", parent,
+                                        change, outs, dev, reps)
+            T = nt * (nt + 1) // 2
+            item = store.element_size()
+            n_bytes = T * 2 * t * t * item + K * m * Uc.element_size() \
+                + K * 2 * m * 4
+            peak = BF16_FLOPS if dtype == torch.int8 else (
+                F32_FLOPS if dtype == torch.float32 else F64_FLOPS)
+            if dtype == torch.int8 and route == "core":
+                peak = F32_FLOPS
+            bound = max(n_bytes / HBM_BYTES_PER_S,
+                        2 * K * 2 * t * t * (2 * T - nt) / peak) * 1e3
+            diff = float((outs["change"][0] - outs["parent"][0]).abs().max())
+            kind_name = {torch.int8: "int8", torch.float32: "f32",
+                         torch.float64: "f64"}[dtype]
+            row = dict(kernel=name, storage=kind_name,
+                       shape=f"m={m}, t={t}, K={K}", route=route,
+                       parent_ms=p_ms, change_ms=c_ms, bound_ms=bound,
+                       speedup=p_ms / c_ms, max_diff_parent=diff)
+            print(f"{name} {kind_name} m={m} t={t} K={K} (route {route}): "
+                  f"parent {p_ms:.4f} ms, change {c_ms:.4f} ms (in turns, "
+                  f"{p_ms / c_ms:.2f}x), bound {bound:.4f} ms; max |change "
+                  f"- parent| {diff:.3e}", flush=True)
+            rows.append(row)
+        del built
         torch.cuda.empty_cache()
     return rows
 
@@ -604,7 +829,9 @@ def main(argv: List[str] = None) -> list:
     libs = build_parent(argv[0])
     rows += tiles_rows(libs["tri_tiles_matvec"], dev)
     rows += float_rows(libs, dev)
-    rows += capacity_rows(libs, dev)
+    for t in (128, 256):
+        rows += capacity_rows(libs, dev, t=t)
+    rows += capacity_tile_rows(libs, dev)
     rows += build_rows(libs, dev)
     rows += affinity_rows(libs["affinity_build"], dev)
     rows += probe_rows(libs["build_probe"], dev)

@@ -131,14 +131,14 @@ __device__ __forceinline__ void load_b(uint32_t (&b)[NK][2], uint32_t addr,
 // in pairs of banks: a 2-way conflict, the swizzle's), with k permuted
 // within each 16: slots 2tig, 2tig+1 <- codes 4tig, 4tig+1; slots 2tig+8,
 // 2tig+9 <- codes 4tig+2, 4tig+3 (u is read in the same order).
-template <int kRows>
+template <int kRows, int kBW = 128>
 __device__ __forceinline__ void forward_a_i8(uint32_t (&a0)[4],
                                              uint32_t (&a1)[4],
                                              uint32_t stage, int row0,
                                              int kb, int lane) {
   const int rr = row0 + 2 * (lane & 7) + ((lane >> 3) & 1);
   uint32_t q[4];
-  ldsm_x4(q, stage + swizzled_at<kRows>(rr, kb + 16 * (lane >> 4)));
+  ldsm_x4(q, stage + swizzled_at<kRows, kBW>(rr, kb + 16 * (lane >> 4)));
   a0[0] = codes_of<0x4140>(q[0]);
   a0[1] = codes_of<0x4140>(q[1]);
   a0[2] = codes_of<0x4342>(q[0]);
@@ -151,12 +151,12 @@ __device__ __forceinline__ void forward_a_i8(uint32_t (&a0)[4],
 
 // the bf16 forward A fragment of the k16 step at column k: matrices rows
 // 0-7 | 8-15 x columns k..k+7 | k+8..k+15
-template <int kRows>
+template <int kRows, int kBW = 128>
 __device__ __forceinline__ void forward_a_bf16(uint32_t (&a)[4],
                                                uint32_t stage, int row0,
                                                int k, int lane) {
   const int rr = row0 + (lane & 7) + 8 * ((lane >> 3) & 1);
-  ldsm_x4(a, stage + swizzled_at<kRows>(rr, 2 * k + 16 * (lane >> 4)));
+  ldsm_x4(a, stage + swizzled_at<kRows, kBW>(rr, 2 * k + 16 * (lane >> 4)));
 }
 
 // Forward: output rows row0..row0+15 of the stage (complete sums over the
@@ -203,18 +203,25 @@ __device__ __forceinline__ void forward_bf16(float (&acc)[NK][4],
 
 // Transposed: output columns l0..l0+15 of the stage's tile, partial sums
 // over the stage's kRows rows, against the u block from ur (the column of
-// the panel's first row).
-template <int T, int NK, int kRows, bool kChain = false>
+// the panel's first row). kMask: the rows [lo, hi) (multiples of 16) are
+// left out, their fragments zeroed (warp-uniform).
+template <int T, int NK, int kRows, bool kChain = false, int kBW = 128,
+          bool kMask = false>
 __device__ __forceinline__ void transposed_i8(float (&acc)[NK][4],
                                               uint32_t stage, int l0,
-                                              uint32_t ur, int lane) {
+                                              uint32_t ur, int lane,
+                                              int lo = 0, int hi = 0) {
 #pragma unroll
   for (int kb = 0; kb < kRows; kb += 32) {
     // matrix j: rows kb + 8 j .. + 7, bytes l0 .. l0 + 15; a lane gets rows
     // 2tig, 2tig+1 of columns 2g, 2g+1 (bytes: (2tig, 2g), (2tig, 2g+1),
     // (2tig+1, 2g), (2tig+1, 2g+1))
     uint32_t q[4], b0[NK][2], b1[NK][2];
-    ldsm_x4_t(q, stage + swizzled_at<kRows>(kb + lane, l0));
+    ldsm_x4_t(q, stage + swizzled_at<kRows, kBW>(kb + lane, l0));
+    if constexpr (kMask) {
+      if (kb >= lo && kb < hi) q[0] = q[1] = 0u;
+      if (kb + 16 >= lo && kb + 16 < hi) q[2] = q[3] = 0u;
+    }
     const uint32_t a0[4] = {codes_of<0x4240>(q[0]), codes_of<0x4341>(q[0]),
                             codes_of<0x4240>(q[1]), codes_of<0x4341>(q[1])};
     const uint32_t a1[4] = {codes_of<0x4240>(q[2]), codes_of<0x4341>(q[2]),
@@ -229,17 +236,23 @@ __device__ __forceinline__ void transposed_i8(float (&acc)[NK][4],
   }
 }
 
-template <int T, int NK, int kRows, bool kChain = false>
+template <int T, int NK, int kRows, bool kChain = false, int kBW = 128,
+          bool kMask = false>
 __device__ __forceinline__ void transposed_bf16(float (&acc)[NK][4],
                                                 uint32_t stage, int l0,
-                                                uint32_t ur, int lane) {
+                                                uint32_t ur, int lane,
+                                                int lo = 0, int hi = 0) {
   const int j = lane >> 3;
 #pragma unroll
   for (int kb = 0; kb < kRows; kb += 16) {
     // matrix j: rows kb + 8 (j >> 1) .. + 7, columns l0 + 8 (j & 1) .. + 7
     uint32_t a[4], b[NK][2];
-    ldsm_x4_t(a, stage + swizzled_at<kRows>(kb + (lane & 7) + 8 * (j >> 1),
-                                            2 * (l0 + 8 * (j & 1))));
+    ldsm_x4_t(a, stage + swizzled_at<kRows, kBW>(
+                        kb + (lane & 7) + 8 * (j >> 1),
+                        2 * (l0 + 8 * (j & 1))));
+    if constexpr (kMask) {
+      if (kb >= lo && kb < hi) a[0] = a[1] = a[2] = a[3] = 0u;
+    }
     load_b<T, NK>(b, ur + 2 * kb, lane);
 #pragma unroll
     for (int nk = 0; nk < NK; ++nk)
@@ -276,7 +289,7 @@ __device__ __forceinline__ void load_forward_u(uint32_t (&b)[T / 16][NK][2],
 
 // forward_i8 / forward_bf16 with the u block's fragments from registers
 // (load_forward_u)
-template <typename S, int T, int NK, int kRows, bool kChain>
+template <typename S, int T, int NK, int kRows, bool kChain, int kBW = 128>
 __device__ __forceinline__ void forward_regs(float (&acc)[NK][4],
                                              uint32_t stage, int row0,
                                              const uint32_t (&b)[T / 16][NK][2],
@@ -285,7 +298,7 @@ __device__ __forceinline__ void forward_regs(float (&acc)[NK][4],
 #pragma unroll
     for (int kb = 0; kb < T; kb += 32) {
       uint32_t a0[4], a1[4];
-      forward_a_i8<kRows>(a0, a1, stage, row0, kb, lane);
+      forward_a_i8<kRows, kBW>(a0, a1, stage, row0, kb, lane);
 #pragma unroll
       for (int nk = 0; nk < NK; ++nk) {
         step<kChain>(acc[nk], a0, b[kb / 16][nk][0], b[kb / 16][nk][1]);
@@ -297,7 +310,7 @@ __device__ __forceinline__ void forward_regs(float (&acc)[NK][4],
 #pragma unroll
     for (int k = 0; k < T; k += 16) {
       uint32_t a[4];
-      forward_a_bf16<kRows>(a, stage, row0, k, lane);
+      forward_a_bf16<kRows, kBW>(a, stage, row0, k, lane);
 #pragma unroll
       for (int nk = 0; nk < NK; ++nk)
         step<kChain>(acc[nk], a, b[k / 16][nk][0], b[k / 16][nk][1]);
@@ -305,15 +318,20 @@ __device__ __forceinline__ void forward_regs(float (&acc)[NK][4],
   }
 }
 
-// the transposed product of storage type S (int8 codes or bf16)
-template <typename S, int T, int NK, int kRows, bool kChain = false>
+// the transposed product of storage type S (int8 codes or bf16); kMask:
+// rows [lo, hi) left out (transposed_i8)
+template <typename S, int T, int NK, int kRows, bool kChain = false,
+          int kBW = 128, bool kMask = false>
 __device__ __forceinline__ void transposed(float (&acc)[NK][4],
                                            uint32_t stage, int l0,
-                                           uint32_t ur, int lane) {
+                                           uint32_t ur, int lane, int lo = 0,
+                                           int hi = 0) {
   if constexpr (sizeof(S) == 1)
-    transposed_i8<T, NK, kRows, kChain>(acc, stage, l0, ur, lane);
+    transposed_i8<T, NK, kRows, kChain, kBW, kMask>(acc, stage, l0, ur, lane,
+                                                    lo, hi);
   else
-    transposed_bf16<T, NK, kRows, kChain>(acc, stage, l0, ur, lane);
+    transposed_bf16<T, NK, kRows, kChain, kBW, kMask>(acc, stage, l0, ur,
+                                                      lane, lo, hi);
 }
 
 }  // namespace bf16mma

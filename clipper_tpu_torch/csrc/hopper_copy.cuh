@@ -114,10 +114,32 @@ __device__ __forceinline__ uint2 lds64(uint32_t addr) {
 // rows at one column hit distinct banks. The region starts on a 1024-byte
 // boundary (the swizzle repeats every 8 rows). Returns the offset of row
 // r's 16 bytes at byte column x (a multiple of 16).
-template <int kRows>
+//
+// kBW < 128: column boxes kBW bytes wide (64, 32 or 16), as copies with
+// the swizzle of that width leave them (swizzle_of): the swizzle XORs the
+// 16-byte chunk index with bits 7 on of the row's offset (r kBW), so the
+// rows of 8 consecutive 16-byte chunks at one column still hit distinct
+// banks; at 16 bytes there is no swizzle (8 rows are 128 bytes).
+template <int kRows, int kBW = 128>
 __device__ __forceinline__ uint32_t swizzled_at(int r, int x) {
-  return (uint32_t)((x >> 7) * (kRows * 128) + r * 128 +
-                    ((((x >> 4) & 7) ^ (r & 7)) << 4));
+  if constexpr (kBW == 128) {
+    return (uint32_t)((x >> 7) * (kRows * 128) + r * 128 +
+                      ((((x >> 4) & 7) ^ (r & 7)) << 4));
+  } else {
+    constexpr int kMask = kBW / 16 - 1;
+    return (uint32_t)((x / kBW) * (kRows * kBW) + r * kBW +
+                      ((((x >> 4) & kMask) ^ ((r * kBW >> 7) & kMask))
+                       << 4));
+  }
+}
+
+// the tensor-map swizzle whose pattern swizzled_at<kRows, box_bytes>
+// reads: a box row of 128, 64 or 32 bytes, or 16 bytes unswizzled
+inline CUtensorMapSwizzle swizzle_of(int box_bytes) {
+  return box_bytes == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+         : box_bytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+         : box_bytes == 32 ? CU_TENSOR_MAP_SWIZZLE_32B
+                           : CU_TENSOR_MAP_SWIZZLE_NONE;
 }
 
 // cuTensorMapEncodeTiled, found through the runtime's entry-point query
@@ -130,11 +152,13 @@ typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                 CUtensorMapFloatOOBfill);
 
 // A row-major storage of `rows` rows and `cols` columns of S (int8 codes or
-// bf16) as a 2-D tensor map, read in (box_rows rows, 128 bytes) boxes with
-// the 128-byte swizzle. Row strides must be multiples of 16 bytes.
+// bf16) as a 2-D tensor map, read in (box_rows rows, box_bytes) boxes with
+// the swizzle of that width (swizzle_of; 128 bytes by default). Row
+// strides must be multiples of 16 bytes. A box wholly or partly outside
+// the storage is filled with zeros (and its bytes still complete).
 template <typename S>
 cudaError_t storage_map(CUtensorMap* map, const void* base, long long rows,
-                        long long cols, int box_rows) {
+                        long long cols, int box_rows, int box_bytes = 128) {
   static EncodeTiled encode = nullptr;
   if (encode == nullptr) {
     void* fn = nullptr;
@@ -148,7 +172,7 @@ cudaError_t storage_map(CUtensorMap* map, const void* base, long long rows,
   }
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
   const cuuint64_t strides[1] = {(cuuint64_t)cols * sizeof(S)};
-  const cuuint32_t box[2] = {(cuuint32_t)(128 / sizeof(S)),
+  const cuuint32_t box[2] = {(cuuint32_t)(box_bytes / sizeof(S)),
                              (cuuint32_t)box_rows};
   const cuuint32_t steps[2] = {1, 1};
   const CUresult res = encode(
@@ -156,7 +180,7 @@ cudaError_t storage_map(CUtensorMap* map, const void* base, long long rows,
       sizeof(S) == 1 ? CU_TENSOR_MAP_DATA_TYPE_UINT8
                      : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
       2, const_cast<void*>(base), dims, strides, box, steps,
-      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle_of(box_bytes),
       CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }

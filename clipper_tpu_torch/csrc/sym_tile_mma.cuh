@@ -9,19 +9,28 @@
 //
 // Routes by tile (ops/symstore.matvec_route picks one in the wrappers and
 // counts its launches under its own key):
-//   "units" int8 / bf16 at t a multiple of 128: the tensor-core design
-//           below, on 128-row tiles. A stored t-tile (r, c) is the
-//           (t / 128)^2 tiles (r q + a, c q + b) of the 128-grid, q =
-//           t / 128 (on a diagonal t-tile the upper ones, a <= b, whose
-//           a < b tiles the kernel also applies transposed), each at its
-//           own place in the storage, its C half t rows below its M half:
-//           the plan holds them (symstore.unit_plan over the 128-grid) and
-//           the kernel reads them as at t = 128, so every such t takes the
-//           t = 128 kernel, sums and numerics.
-//   "core"  int8 / bf16 at every other t >= 1 dividing m: the CUDA-core
-//           kernels of the float kinds (apply_tile, below) on the codes,
-//           each product exact in f64 and summed in f64, rounded once.
-//   f32 / f64 at every t: those CUDA-core kernels.
+//   "units" int8 / bf16 at t a multiple of 16: the tensor-core design
+//           below, on the matrix's 128-row tiles (kT). Where 128 divides
+//           t, a stored t-tile (r, c) is the (t / 128)^2 tiles (r q + a,
+//           c q + b) of the 128-grid, q = t / 128 (on a diagonal t-tile
+//           the upper ones, a <= b, whose a < b tiles the kernel also
+//           applies transposed), each at its own place in the storage,
+//           its C half t rows below its M half: the plan holds them
+//           (symstore.unit_plan over the 128-grid) and the kernel reads
+//           them as at t = 128 (kP = 1). Elsewhere (t = 16, 32, 48, 64,
+//           96, ...) an entry is a super-tile of 128 rows of the matrix
+//           made of the storage's kG-row tiles, kG the largest of 64, 32
+//           and 16 dividing t (kP = 128 / kG of them a side, Sub below):
+//           kP^2 tensor-map boxes of (kG rows, kG elements) with the
+//           swizzle of that width land in the stage as its 128-row column
+//           boxes, so the products, sums and numerics are t = 128's. A
+//           diagonal super-tile's diagonal sub-tiles hold full symmetric
+//           blocks: its transposed product zeroes their rows
+//           (bf16mma::transposed's row mask). Each stored byte leaves
+//           device memory once: the boxes are each tile's own rows.
+//   "core"  int8 / bf16 at every other t >= 1 dividing m, and "float",
+//           f32 / f64 at every t: the CUDA-core kernel of sym_core.cuh,
+//           on the same plan and reduction over the t-grid.
 //
 // What bounds it on this card. At m = 65,536, K = 16 the stored tiles are
 // 4.30 GB in int8 (8.61 in bf16), 1.28 ms (2.57) at 3.35 TB/s; the
@@ -71,10 +80,6 @@
 // rounding. An output at m = 65,536 sums 512 tiles, where a running f32
 // sum once drifted 8.5e-3 from the plain version (ROADMAP.md Queue 3).
 //
-// float / double tiles, and the codes' "core" route: one thread per output
-// column, K f64 sums in registers, on CUDA cores (apply_tile,
-// store_sums).
-
 #pragma once
 
 #include <cuda.h>
@@ -92,7 +97,7 @@ using namespace hopper;
 constexpr int kT = 128;             // the tensor-core kernels' tile (a
                                     // stored tile of any multiple of it
                                     // is read as kT-tiles)
-constexpr int kThreads = 256;       // the float and reduction kernels
+constexpr int kThreads = 256;       // the reduction kernel
 constexpr int kMaxK = 16;           // candidate rows a block takes
 constexpr int kUnitRows = 8;        // R: a unit's row blocks, whose sums a
                                     // block holds (symstore._UNIT_ROWS)
@@ -137,6 +142,36 @@ struct Plan {
   const int* red_slots;
   int n_slots;
 };
+
+// The sub-tiled walk (t a multiple of 16 but not of kT): each plan entry
+// is a kT-tile of the matrix (a super-tile), which the storage holds as
+// kP x kP tiles of kG = kT / kP rows (kG the largest of 64, 32, 16
+// dividing t; ops/symstore.unit_tile), each at its own place. Entry.x
+// indexes subs, kP * kP int2 {x, y} a super-tile, sub-tile (a, b) (rows
+// a kG.., columns b kG..) at a * kP + b: its M half's element column and
+// row in the storage's 2-D view (the C half the stored tile's t rows
+// below). A sub-tile the storage does not hold (below the diagonal, past
+// m, or outside a slice) points past the view's last row: its box is out
+// of bounds, so the copy writes zeros. On a diagonal super-tile the
+// diagonal sub-tiles (a == b) hold their full symmetric blocks: they are
+// applied forward only, and the transposed product leaves their rows out.
+template <int kP>
+struct Sub {
+  static constexpr int kG = kT / kP;  // a sub-tile's rows
+  static constexpr int kPer = (kP * kP + 31) / 32;  // sub-tiles a lane
+};
+
+// the sub-tiles lane copies of entry en (lane + 32 j), from the plan's subs
+template <int kP>
+__device__ __forceinline__ void load_subs(int2 (&xy)[Sub<kP>::kPer],
+                                          const int2* subs, const int4& en,
+                                          int lane) {
+#pragma unroll
+  for (int j = 0; j < Sub<kP>::kPer; ++j) {
+    const int q = lane + 32 * j;
+    xy[j] = q < kP * kP ? subs[(size_t)en.x * kP * kP + q] : make_int2(0, 0);
+  }
+}
 
 // shared memory of the unit kernel: 1024-byte-aligned stages, the unit's
 // row blocks of u, the column ring of u, then the barriers
@@ -226,48 +261,78 @@ __device__ __forceinline__ void store_partial(const double (&acc)[NK][4],
 
 // Entry `en` of the walk into stage s, by one whole warp: its half-tile
 // (the C half `half` rows, the stored tile's t, below the M half)
-// (2-D tensor-map copies by lane 0) and, at a column's first entry, the
-// column's block of u (bulk copies, a candidate a lane) into its ring
-// slot, all completing on full[s]. The caller knows the stage free: every
-// warp has released its previous entry. The column's ring slot is free
-// too: its previous column ended at least kColSlots >= kCount entries
-// earlier.
-template <typename S, int NK>
+// (2-D tensor-map copies by lane 0; at kP > 1 the kP^2 sub-tile boxes of
+// the super-tile, by the warp's lanes, each into its rows and column box
+// of the stage) and, at a column's first entry, the column's block of u
+// (bulk copies, a candidate a lane; at kP > 1 only its positions below
+// m) into its ring slot, all completing on full[s]. The caller knows the
+// stage free: every warp has released its previous entry. The column's
+// ring slot is free too: its previous column ended at least kColSlots >=
+// kCount entries earlier.
+template <typename S, int NK, int kP>
 __device__ __forceinline__ void fill_stage(const int4& en, int s, int h,
                                             int half, int Kb, int m,
                                             const CUtensorMap* store,
+                                            const int2 (&xy)[Sub<kP>::kPer],
                                             const __nv_bfloat16* u,
                                             uint8_t* stages, uint8_t* ucols,
                                             uint64_t* full, int lane) {
   using L = UnitLayout<S, NK>;
   const bool col = en.w & kMetaColStart;
-  if (lane == 0) {
-    // the stage was last read by ldmatrix (the generic proxy)
+  if constexpr (kP == 1) {
+    if (lane == 0) {
+      // the stage was last read by ldmatrix (the generic proxy)
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      mbar_expect_tx(&full[s], L::kStage + (col ? Kb * 2 * kT : 0));
+      for (int bx = 0; bx < L::kBoxes; ++bx)
+        tma_load_2d(stages + s * L::kStage + bx * kT * 128, store,
+                    en.x + bx * (128 / (int)sizeof(S)), en.y + h * half,
+                    &full[s]);
+    }
+    __syncwarp();
+    if (col) {
+      const int q = (en.w >> kMetaRingShift) & 0xF;
+      for (int n = lane; n < Kb; n += 32)
+        bulk_copy(ucols + q * L::kUBlock + n * L::kUPitch,
+                  u + (size_t)n * m + (size_t)en.z * kT, 2 * kT, &full[s]);
+    }
+  } else {
+    constexpr int kG = Sub<kP>::kG;
+    constexpr int kBW = kG * (int)sizeof(S);  // a box row's bytes
+    const int ulen = min(kT, m - en.z * kT);  // the column's positions < m
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-    mbar_expect_tx(&full[s], L::kStage + (col ? Kb * 2 * kT : 0));
-    for (int bx = 0; bx < L::kBoxes; ++bx)
-      tma_load_2d(stages + s * L::kStage + bx * kT * 128, store,
-                  en.x + bx * (128 / (int)sizeof(S)), en.y + h * half,
-                  &full[s]);
-  }
-  __syncwarp();
-  if (col) {
-    const int q = (en.w >> kMetaRingShift) & 0xF;
-    for (int n = lane; n < Kb; n += 32)
-      bulk_copy(ucols + q * L::kUBlock + n * L::kUPitch,
-                u + (size_t)n * m + (size_t)en.z * kT, 2 * kT, &full[s]);
+    if (lane == 0)
+      mbar_expect_tx(&full[s], L::kStage + (col ? Kb * 2 * ulen : 0));
+    __syncwarp();
+#pragma unroll
+    for (int j = 0; j < Sub<kP>::kPer; ++j) {
+      const int q = lane + 32 * j;
+      if (q < kP * kP)
+        tma_load_2d(stages + s * L::kStage + (q % kP) * kT * kBW +
+                        (q / kP) * kG * kBW,
+                    store, xy[j].x, xy[j].y + h * half, &full[s]);
+    }
+    if (col) {
+      const int q = (en.w >> kMetaRingShift) & 0xF;
+      for (int n = lane; n < Kb; n += 32)
+        bulk_copy(ucols + q * L::kUBlock + n * L::kUPitch,
+                  u + (size_t)n * m + (size_t)en.z * kT, 2 * ulen, &full[s]);
+    }
   }
 }
 
 // Grid (units, 2 halves, groups of 16 candidates). S: int8 codes or bf16;
-// NK: n8 groups of candidates (Kb <= 8 NK); half: the stored tile's t,
-// the rows from a tile's M half to its C half. The block's unit comes
-// from the plan; the stages hold half h of each of its tiles.
-template <typename S, int NK>
+// NK: n8 groups of candidates (Kb <= 8 NK); kP: sub-tiles a side of an
+// entry (1: the storage's own kT-tiles; else Sub<kP>, with subs); half:
+// the stored tile's t, the rows from a tile's M half to its C half. The
+// block's unit comes from the plan; the stages hold half h of each of its
+// tiles.
+template <typename S, int NK, int kP>
 __global__ void __launch_bounds__(kUnitThreads, 1) sym_unit_kernel(
     const __grid_constant__ CUtensorMap store, Plan plan,
-    const __nv_bfloat16* __restrict__ U, double* __restrict__ ws, int K,
-    int Kg, int m, int half, long long ws_group) {
+    const int2* __restrict__ subs, const __nv_bfloat16* __restrict__ U,
+    double* __restrict__ ws, int K, int Kg, int m, int half,
+    long long ws_group) {
   using L = UnitLayout<S, NK>;
   constexpr bool kCodes = sizeof(S) == 1;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
@@ -299,7 +364,7 @@ __global__ void __launch_bounds__(kUnitThreads, 1) sym_unit_kernel(
   }
   // candidate rows Kb .. 8 NK - 1 of every u block (row blocks and column
   // ring, one after the other) read as zero; no copy writes them
-  {
+  if constexpr (kP == 1) {
     constexpr int kWords = 2 * kT / 4;  // a row's 32-bit words
     const int per = (8 * NK - Kb) * kWords;
     for (int w = threadIdx.x; w < (kUnitRows + kColSlots) * per;
@@ -309,6 +374,13 @@ __global__ void __launch_bounds__(kUnitThreads, 1) sym_unit_kernel(
                                   (Kb + r / kWords) * L::kUPitch)[r % kWords] =
           0u;
     }
+  } else {
+    // and so do the positions past m of a last, short block of u, whose
+    // copies stop at m: every u block starts as zeros (a slot's later
+    // copies leave finite values there, which meet zero tiles)
+    for (int w = threadIdx.x; w < (L::kURows + L::kUCols) / 16;
+         w += kUnitThreads)
+      reinterpret_cast<uint4*>(urows)[w] = make_uint4(0u, 0u, 0u, 0u);
   }
   __syncthreads();
 
@@ -316,18 +388,39 @@ __global__ void __launch_bounds__(kUnitThreads, 1) sym_unit_kernel(
     // the unit's row blocks of u, once, and the first kCount entries
     int n_rows = 0;
     for (int i = 0; i < kUnitRows; ++i) n_rows += fs[i] >= 0;
-    if (lane == 0) mbar_expect_tx(rfull, n_rows * Kb * 2 * kT);
-    __syncwarp();
-    for (int i = 0; i < kUnitRows; ++i) {
-      if (fs[i] < 0) continue;
-      for (int n = lane; n < Kb; n += 32)
-        bulk_copy(urows + i * L::kUBlock + n * L::kUPitch,
-                  u + (size_t)n * m + (size_t)(unit.z + i) * kT, 2 * kT,
-                  rfull);
+    if constexpr (kP == 1) {
+      if (lane == 0) mbar_expect_tx(rfull, n_rows * Kb * 2 * kT);
+      __syncwarp();
+      for (int i = 0; i < kUnitRows; ++i) {
+        if (fs[i] < 0) continue;
+        for (int n = lane; n < Kb; n += 32)
+          bulk_copy(urows + i * L::kUBlock + n * L::kUPitch,
+                    u + (size_t)n * m + (size_t)(unit.z + i) * kT, 2 * kT,
+                    rfull);
+      }
+    } else {
+      // a row block's positions below m
+      int n_pos = 0;
+      for (int i = 0; i < kUnitRows; ++i)
+        if (fs[i] >= 0) n_pos += min(kT, m - (unit.z + i) * kT);
+      if (lane == 0) mbar_expect_tx(rfull, n_pos * Kb * 2);
+      __syncwarp();
+      for (int i = 0; i < kUnitRows; ++i) {
+        if (fs[i] < 0) continue;
+        const int len = min(kT, m - (unit.z + i) * kT);
+        for (int n = lane; n < Kb; n += 32)
+          bulk_copy(urows + i * L::kUBlock + n * L::kUPitch,
+                    u + (size_t)n * m + (size_t)(unit.z + i) * kT, 2 * len,
+                    rfull);
+      }
     }
-    for (int it = 0; it < L::kCount && it < n_ent; ++it)
-      fill_stage<S, NK>(ent[it], it, h, half, Kb, m, &store, u, smem,
-                         ucols, full, lane);
+    for (int it = 0; it < L::kCount && it < n_ent; ++it) {
+      const int4 en = ent[it];
+      int2 xy[Sub<kP>::kPer];
+      if constexpr (kP > 1) load_subs<kP>(xy, subs, en, lane);
+      fill_stage<S, NK, kP>(en, it, h, half, Kb, m, &store, xy, u, smem,
+                            ucols, full, lane);
+    }
   }
 
   double* wsb = ws + blockIdx.z * ws_group;
@@ -341,13 +434,26 @@ __global__ void __launch_bounds__(kUnitThreads, 1) sym_unit_kernel(
   // the column's block of u as forward fragments, loaded at its first tile
   uint32_t ub[kT / 16][NK][2];
   int4 cur = ent[0];  // the entry, loaded one iteration ahead
+  // at kP > 1, the entry kCount ahead, loaded an iteration before its
+  // sub-tiles are (so that their load waits on nothing)
+  int4 next = make_int4(0, 0, 0, 0);
+  if constexpr (kP > 1)
+    if (L::kCount < n_ent) next = ent[L::kCount];
   mbar_wait(rfull, 0);
   for (int it = 0; it < n_ent; ++it) {
     const int meta = cur.w;
+    const int cb = cur.z;  // the entry's column block
     if (it + 1 < n_ent) cur = ent[it + 1];
     const bool refill = it + L::kCount < n_ent;
     int4 ahead = make_int4(0, 0, 0, 0);
-    if (refill) ahead = ent[it + L::kCount];  // loaded early, used late
+    int2 axy[Sub<kP>::kPer];
+    if constexpr (kP == 1) {
+      if (refill) ahead = ent[it + L::kCount];  // loaded early, used late
+    } else {
+      ahead = next;
+      if (it + 1 + L::kCount < n_ent) next = ent[it + 1 + L::kCount];
+      if (refill) load_subs<kP>(axy, subs, ahead, lane);
+    }
     const int i = meta & kMetaRow;
     const int s = it % L::kCount;
     mbar_wait(&full[s], (it / L::kCount) & 1);
@@ -360,10 +466,27 @@ __global__ void __launch_bounds__(kUnitThreads, 1) sym_unit_kernel(
     float pf[NK][4], pt[NK][4];
     zero_f32(pf);
     zero_f32(pt);
-    bf16mma::forward_regs<S, kT, NK, kT, true>(pf, stage, 16 * warp, ub,
-                                               lane);
-    bf16mma::transposed<S, kT, NK, kT, true>(pt, stage, 16 * warp,
-                                             ur0 + i * L::kUBlock, lane);
+    if constexpr (kP == 1) {
+      bf16mma::forward_regs<S, kT, NK, kT, true>(pf, stage, 16 * warp, ub,
+                                                 lane);
+      bf16mma::transposed<S, kT, NK, kT, true>(pt, stage, 16 * warp,
+                                               ur0 + i * L::kUBlock, lane);
+    } else {
+      constexpr int kG = Sub<kP>::kG;
+      constexpr int kBW = kG * (int)sizeof(S);
+      bf16mma::forward_regs<S, kT, NK, kT, true, kBW>(pf, stage, 16 * warp,
+                                                      ub, lane);
+      if (unit.z + i == cb) {
+        // a diagonal super-tile: the transposed product leaves out the
+        // rows of the warp's own diagonal sub-tile
+        const int lo = 16 * warp / kG * kG;
+        bf16mma::transposed<S, kT, NK, kT, true, kBW, true>(
+            pt, stage, 16 * warp, ur0 + i * L::kUBlock, lane, lo, lo + kG);
+      } else {
+        bf16mma::transposed<S, kT, NK, kT, true, kBW>(
+            pt, stage, 16 * warp, ur0 + i * L::kUBlock, lane);
+      }
+    }
     // release the stage (every read of it has returned: the products used
     // them); the last warp to release it refills it, below
     __syncwarp();
@@ -378,8 +501,8 @@ __global__ void __launch_bounds__(kUnitThreads, 1) sym_unit_kernel(
       zero_f64(col);
     }
     if (__shfl_sync(0xffffffffu, last, 0) && refill)
-      fill_stage<S, NK>(ahead, s, h, half, Kb, m, &store, u, smem,
-                         ucols, full, lane);
+      fill_stage<S, NK, kP>(ahead, s, h, half, Kb, m, &store, axy, u, smem,
+                            ucols, full, lane);
   }
 #pragma unroll
   for (int i = 0; i < kUnitRows; ++i)
@@ -387,98 +510,136 @@ __global__ void __launch_bounds__(kUnitThreads, 1) sym_unit_kernel(
       store_partial<kCodes, NK>(fwd[i], wsb, fs[i], h, Kb, Kg, warp, lane);
 }
 
-// Grid (nt, 2 halves, groups of 16 candidates): output block j of half h
-// is the sum of its slots, in the plan's order, in f64; then rounded once
-// to f32 and scaled (raw = 0) or written as it is (raw = 1). An output
-// block with no slot is 0.
+// Grid (output blocks of bw positions, 2 halves, groups of `group`
+// candidates), both routes' reduction: bw = kT and group = kMaxK after
+// the unit kernel, bw = t and group = symcore::core_group(t) after the
+// CUDA-core kernel (sym_core.cuh). Output block j of half h is the sum of
+// its slots, in the plan's order, in f64; then rounded once to f32 and
+// scaled (raw = 0) or written as it is (raw = 1). An output block with no
+// slot is 0; positions past m are not written. A thread keeps kPer sums in
+// registers, so its loads of one slot are independent.
 __global__ void __launch_bounds__(kThreads) sym_reduce_kernel(
     const double* __restrict__ ws, const int* __restrict__ red_off,
-    const int* __restrict__ red_slots, void* __restrict__ out, int K, int Kg,
-    int m, long long ws_group, int raw, float scale) {
+    const int* __restrict__ red_slots, void* __restrict__ out, int K,
+    int group, int bw, int m, long long ws_group, int raw, float scale) {
   constexpr int kPer = kMaxK * kT / kThreads;
   const int j = blockIdx.x;
   const int h = blockIdx.y;
-  const int k0 = blockIdx.z * kMaxK;
-  const int n_el = min(kMaxK, K - k0) * kT;
+  const int k0 = blockIdx.z * group;
+  const int Kg = min(K, group);
+  const int n_el = min(group, K - k0) * bw;
   const double* wsb = ws + blockIdx.z * ws_group;
-  double acc[kPer];
+  for (int e0 = 0; e0 < n_el; e0 += kPer * kThreads) {
+    double acc[kPer];
 #pragma unroll
-  for (int v = 0; v < kPer; ++v) acc[v] = 0.0;
-  for (int q = red_off[j]; q < red_off[j + 1]; ++q) {
-    const double* p = wsb + ((size_t)red_slots[q] * 2 + h) * Kg * kT;
+    for (int v = 0; v < kPer; ++v) acc[v] = 0.0;
+    for (int q = red_off[j]; q < red_off[j + 1]; ++q) {
+      const double* p = wsb + ((size_t)red_slots[q] * 2 + h) * Kg * bw;
+#pragma unroll
+      for (int v = 0; v < kPer; ++v) {
+        const int e = e0 + threadIdx.x + v * kThreads;
+        if (e < n_el) acc[v] += __ldcs(p + e);
+      }
+    }
 #pragma unroll
     for (int v = 0; v < kPer; ++v) {
-      const int e = threadIdx.x + v * kThreads;
-      if (e < n_el) acc[v] += __ldcs(p + e);
+      const int e = e0 + threadIdx.x + v * kThreads;
+      if (e >= n_el || j * bw + e % bw >= m) continue;
+      const size_t at = (size_t)(k0 + e / bw) * 2 * m + (size_t)h * m +
+                        (size_t)j * bw + (e % bw);
+      if (raw)
+        static_cast<double*>(out)[at] = acc[v];
+      else
+        static_cast<float*>(out)[at] = (float)acc[v] * scale;
     }
-  }
-#pragma unroll
-  for (int v = 0; v < kPer; ++v) {
-    const int e = threadIdx.x + v * kThreads;
-    if (e >= n_el) continue;
-    const size_t at = (size_t)(k0 + e / kT) * 2 * m + (size_t)h * m +
-                      (size_t)j * kT + (e % kT);
-    if (raw)
-      static_cast<double*>(out)[at] = acc[v];
-    else
-      static_cast<float*>(out)[at] = (float)acc[v] * scale;
   }
 }
 
-template <typename S, int NK>
+template <typename S, int NK, int kP>
 cudaError_t launch_unit_kernel(const CUtensorMap& map, const Plan& plan,
-                               const void* U, void* ws, int K, int Kg, int m,
-                               int half, long long ws_group,
-                               cudaStream_t stream) {
+                               const void* subs, const void* U, void* ws,
+                               int K, int Kg, int m, int half,
+                               long long ws_group, cudaStream_t stream) {
   using L = UnitLayout<S, NK>;
   const cudaError_t err = cudaFuncSetAttribute(
-      sym_unit_kernel<S, NK>,
+      sym_unit_kernel<S, NK, kP>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, L::kSmem);
   if (err != cudaSuccess) return err;
   const dim3 grid(plan.n_units, 2, (K + kMaxK - 1) / kMaxK);
-  sym_unit_kernel<S, NK><<<grid, kUnitThreads, L::kSmem, stream>>>(
-      map, plan, (const __nv_bfloat16*)U, (double*)ws, K, Kg, m, half,
-      ws_group);
+  sym_unit_kernel<S, NK, kP><<<grid, kUnitThreads, L::kSmem, stream>>>(
+      map, plan, (const int2*)subs, (const __nv_bfloat16*)U, (double*)ws, K,
+      Kg, m, half, ws_group);
   return cudaGetLastError();
+}
+
+// the unit kernel at kP sub-tiles a side, by the candidates' n8 groups
+template <typename S, int kP>
+cudaError_t launch_unit_nk(const CUtensorMap& map, const Plan& plan,
+                           const void* subs, const void* U, void* ws, int K,
+                           int Kg, int m, int half, long long ws_group,
+                           cudaStream_t st) {
+  return Kg <= 8 ? launch_unit_kernel<S, 1, kP>(map, plan, subs, U, ws, K,
+                                                Kg, m, half, ws_group, st)
+                 : launch_unit_kernel<S, 2, kP>(map, plan, subs, U, ws, K,
+                                                Kg, m, half, ws_group, st);
 }
 
 // Both passes of one call over storage of S viewed as `rows` x `cols`
 // (row-major, 16-byte aligned) of nt stored t-tiles a side, t a multiple
-// of kT (route "units"), with the plan's arrays over the kT-grid (see
-// Plan): the unit kernel, then the reduction, on the caller's stream. ws
-// holds groups x n_slots x 2 x Kg x kT doubles, Kg = min(K, 16), a group
-// for each 16 candidates.
+// of 16 (route "units"), with the plan's arrays over the kT-grid (see
+// Plan): the unit kernel, then the reduction, on the caller's stream. g:
+// the plan's sub-tile (ops/symstore.unit_tile: kT itself when kT divides
+// t, subs then unused; else 64, 32 or 16, with the plan's subs, see Sub).
+// ws holds groups x n_slots x 2 x Kg x kT doubles, Kg = min(K, 16), a
+// group for each 16 candidates.
 template <typename S>
 int launch_units(const void* storage, long long rows, long long cols,
                  const void* entries, const void* units, const void* fslots,
                  int n_units, const void* red_off, const void* red_slots,
-                 int n_slots, const void* U, void* out, void* ws, int K,
-                 int nt, int t, int raw, float scale, void* stream) {
+                 int n_slots, const void* subs, int g, const void* U,
+                 void* out, void* ws, int K, int nt, int t, int raw,
+                 float scale, void* stream) {
   const Plan plan{(const int4*)entries, (const int4*)units,
                   (const int*)fslots,   n_units,
                   (const int*)red_off,  (const int*)red_slots,
                   n_slots};
-  if (K < 1 || nt < 1 || t < kT || t % kT || plan.n_units < 0 ||
+  const bool sub_ok = g == kT || ((g == 64 || g == 32 || g == 16) &&
+                                  subs != nullptr && t % 16 == 0);
+  if (K < 1 || nt < 1 || t < 16 || t % g || !sub_ok || plan.n_units < 0 ||
       (K + kMaxK - 1) / kMaxK > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const int m = nt * t;
-  const int ntk = m / kT;  // output blocks of the kT-grid
+  const int ntk = (m + kT - 1) / kT;  // output blocks of the kT-grid
   const int Kg = K < kMaxK ? K : kMaxK;
   const long long ws_group = (long long)plan.n_slots * 2 * Kg * kT;
   if (plan.n_units > 0) {
     CUtensorMap map;
-    cudaError_t err = storage_map<S>(&map, storage, rows, cols, kT);
+    const int box = g < kT ? g * (int)sizeof(S) : 128;
+    cudaError_t err = storage_map<S>(&map, storage, rows, cols, g, box);
     if (err != cudaSuccess) return (int)err;
-    err = Kg <= 8 ? launch_unit_kernel<S, 1>(map, plan, U, ws, K, Kg, m, t,
-                                             ws_group, st)
-                  : launch_unit_kernel<S, 2>(map, plan, U, ws, K, Kg, m, t,
-                                             ws_group, st);
+    switch (g) {
+      case kT:
+        err = launch_unit_nk<S, 1>(map, plan, subs, U, ws, K, Kg, m, t,
+                                   ws_group, st);
+        break;
+      case 64:
+        err = launch_unit_nk<S, 2>(map, plan, subs, U, ws, K, Kg, m, t,
+                                   ws_group, st);
+        break;
+      case 32:
+        err = launch_unit_nk<S, 4>(map, plan, subs, U, ws, K, Kg, m, t,
+                                   ws_group, st);
+        break;
+      default:
+        err = launch_unit_nk<S, 8>(map, plan, subs, U, ws, K, Kg, m, t,
+                                   ws_group, st);
+    }
     if (err != cudaSuccess) return (int)err;
   }
   sym_reduce_kernel<<<dim3(ntk, 2, (K + kMaxK - 1) / kMaxK), kThreads, 0,
                       st>>>((const double*)ws, plan.red_off, plan.red_slots,
-                            out, K, Kg, m, ws_group, raw, scale);
+                            out, K, kMaxK, kT, m, ws_group, raw, scale);
   return (int)cudaGetLastError();
 }
 
@@ -489,61 +650,5 @@ __device__ __forceinline__ double f64_of(__nv_bfloat16 x) {
 }
 __device__ __forceinline__ double f64_of(float x) { return (double)x; }
 __device__ __forceinline__ double f64_of(double x) { return x; }
-
-// CUDA-core tiles (float / double, and the codes' "core" route): output
-// column o (of 2t) of one tile of storage F, with global row stride ld
-// elements, applied to u's block ub (operand UT: bf16 for codes, else F),
-// added to acc[0:K] in f64.
-template <typename F, typename UT>
-__device__ __forceinline__ void apply_tile(double (&acc)[kMaxK],
-                                           const F* tile, size_t ld,
-                                           const UT* U, int K, int m, int t,
-                                           int o, bool fwd, int ub) {
-  const UT* u = U + (size_t)ub * t;
-  if (fwd) {
-    const F* row = tile + (size_t)o * ld;
-    for (int q = 0; q < t; ++q) {
-      const double s = f64_of(row[q]);
-      if (s == 0.0) continue;
-#pragma unroll
-      for (int k = 0; k < kMaxK; ++k)
-        if (k < K) acc[k] += s * f64_of(u[(size_t)k * m + q]);
-    }
-  } else {
-    const int h = o / t;
-    const F* col = tile + (size_t)(h * t) * ld + (o % t);
-    for (int i = 0; i < t; ++i) {
-      const double s = f64_of(col[(size_t)i * ld]);
-      if (s == 0.0) continue;
-#pragma unroll
-      for (int k = 0; k < kMaxK; ++k)
-        if (k < K) acc[k] += s * f64_of(u[(size_t)k * m + i]);
-    }
-  }
-}
-
-// the CUDA-core kernels' block: one thread an output column of the 2t, in
-// whole warps, at most kThreads (more columns take more turns)
-inline int core_threads(int t) {
-  const int want = (2 * t + 31) / 32 * 32;
-  return want < kThreads ? want : kThreads;
-}
-
-// output column o of block j: f32 after one rounding, then scaled in f32
-// (1 but for int8 codes), or the raw f64 sums
-__device__ __forceinline__ void store_sums(const double (&acc)[kMaxK],
-                                           void* out, int raw, int K, int m,
-                                           int t, int j, int o, float scale) {
-  const size_t col = (size_t)(o / t) * m + (size_t)j * t + (o % t);
-#pragma unroll
-  for (int k = 0; k < kMaxK; ++k) {
-    if (k >= K) continue;
-    const size_t at = (size_t)k * 2 * m + col;
-    if (raw)
-      static_cast<double*>(out)[at] = acc[k];
-    else
-      static_cast<float*>(out)[at] = (float)acc[k] * scale;
-  }
-}
 
 }  // namespace symtile

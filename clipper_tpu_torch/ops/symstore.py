@@ -14,8 +14,8 @@ int8, half of dense stacked storage), in one of two layouts:
   chunks of G tiles side by side, one (2t, G t) array each, a short row's
   last chunk padded with zero tiles. Chunk k holds row ``chunk_r[k]`` from
   column block ``chunk_c0[k]`` on (:func:`row_chunk_coords`); row r's first
-  chunk is :func:`row_first_chunk`'s closed form, which the CUDA kernel
-  computes too.
+  chunk is :func:`row_first_chunk`'s closed form, from which the CUDA
+  kernel's plan (:func:`rows_plan`) places every tile.
 
 Each layout's per-tick dual matvec wraps a hand-written CUDA kernel
 (csrc/sym_tiles_matvec.cu, csrc/sym_rows_matvec.cu) with a plain PyTorch
@@ -59,8 +59,15 @@ _KERNEL_ROWS = 16
 _UNIT_ROWS = 8
 _UNIT_COLS = 32
 # the unit kernel's tile (csrc/sym_tile_mma.cuh's kT): a stored tile of any
-# multiple of it is walked as its _UNIT_T-row tiles
+# multiple of it is walked as its _UNIT_T-row tiles, and at any other
+# multiple of 16 the kernel's entries are _UNIT_T-row super-tiles of the
+# matrix made of the storage's _SUB_TILES-row tiles (unit_tile)
 _UNIT_T = 128
+_SUB_TILES = (64, 32, 16)
+# the CUDA-core route's unit (csrc/sym_core.cuh, core_shape): about
+# _CORE_ROWS rows of row blocks by _CORE_COLS of column blocks
+_CORE_ROWS = 4096
+_CORE_COLS = 4096
 # a plan entry's meta bits (csrc/sym_tile_mma.cuh): the unit row in bits
 # 0-3, then these flags, the column's slot in the kernel's ring of
 # _COL_RING blocks of u (bits 8-11), and its sum's workspace slot
@@ -80,6 +87,13 @@ def tile_coords(nt: int) -> Tuple[np.ndarray, np.ndarray]:
     ur, uc = np.triu_indices(nt, 1)
     return (np.concatenate([diag, ur]).astype(np.int32),
             np.concatenate([diag, uc]).astype(np.int32))
+
+
+@functools.lru_cache(maxsize=4)
+def _canonical_coords(nt: int) -> Tuple[np.ndarray, np.ndarray]:
+    """:func:`tile_coords`, made once an nt: the wrappers' default
+    coordinates, whose check a call skips."""
+    return tile_coords(nt)
 
 
 def shard_tile_coords(nt: int, D: int) -> Tuple[np.ndarray, np.ndarray]:
@@ -208,31 +222,39 @@ class UnitPlan(NamedTuple):
     red_off: np.ndarray
     red_slots: np.ndarray
     slot_block: np.ndarray
+    # the sub-tiled walk (:func:`super_plan`): each entry a super-tile of
+    # _UNIT_T rows whose x indexes subs, (E P^2, 2) int32 (x, y) of its P x P
+    # sub-tiles of ``sub`` rows (P = _UNIT_T // sub), row-major; sub =
+    # _UNIT_T and no subs otherwise
+    subs: np.ndarray = np.zeros((0, 2), np.int32)
+    sub: int = _UNIT_T
 
     @property
     def n_slots(self) -> int:
         return len(self.slot_block)
 
 
-def unit_plan(nt: int, r, c, x, y) -> UnitPlan:
+def unit_plan(nt: int, r, c, x, y, R: Optional[int] = None,
+              S: Optional[int] = None, tr=None) -> UnitPlan:
     """The plan over the stored tiles (r[k], c[k]), c >= r, which sit at
     (x[k], y[k]) in the storage's 2-D view. Unit (b, s) holds the tiles
-    with r // R == b and c // S == s (R = _UNIT_ROWS, S = _UNIT_COLS),
-    walked column by column (c outer, r inner). It writes one forward
-    partial for each of its rows and one transposed partial for each of
-    its columns with an off-diagonal tile; each output block sums its
-    partials in slot order."""
-    R, S = _UNIT_ROWS, _UNIT_COLS
+    with r // R == b and c // S == s (R = _UNIT_ROWS, S = _UNIT_COLS by
+    default), walked column by column (c outer, r inner). It writes one
+    forward partial for each of its rows and one transposed partial for
+    each of its columns with a tile applied transposed (tr: per tile,
+    default r != c); each output block sums its partials in slot order."""
+    R = _UNIT_ROWS if R is None else R
+    S = _UNIT_COLS if S is None else S
     r, c, x, y = (np.asarray(a, np.int64).ravel() for a in (r, c, x, y))
+    tr = r != c if tr is None else np.asarray(tr, bool).ravel()
     if len(y) and y.max() >= (1 << 31) - 256:
         raise ValueError("the storage's 2-D view has more rows than the "
                          "kernel's int32 copy coordinates reach")
     key = (r // R) * (-(-nt // S)) + c // S
     order = np.lexsort((r, c, key))
-    r, c, x, y, key = (a[order] for a in (r, c, x, y, key))
+    r, c, x, y, key, tr = (a[order] for a in (r, c, x, y, key, tr))
     n = len(r)
     i = r % R
-    tr = r != c
     # column runs: the entries of one unit and column
     start = np.ones(n, bool)
     start[1:] = (key[1:] != key[:-1]) | (c[1:] != c[:-1])
@@ -277,9 +299,27 @@ def unit_plan(nt: int, r, c, x, y) -> UnitPlan:
 
 
 def unit_tile(t: int) -> int:
-    """The tile of a plan's grid over stored t-tiles: _UNIT_T where it
-    divides t (the unit kernel's route, :func:`matvec_route`), else t."""
-    return _UNIT_T if t % _UNIT_T == 0 else t
+    """The tile of a plan's grid over stored t-tiles: the largest of
+    _UNIT_T and _SUB_TILES (128, 64, 32, 16) dividing t (the unit kernel's
+    route, :func:`matvec_route`; below 128 the tiles of its super-tiles,
+    :func:`super_plan`), else t (the CUDA-core route)."""
+    for u in (_UNIT_T, *_SUB_TILES):
+        if t % u == 0:
+            return u
+    return t
+
+
+def core_shape(t: int) -> Tuple[int, int, int]:
+    """(kg, R, S) of the CUDA-core route at tile t (csrc/sym_core.cuh):
+    the candidates a block takes (symcore::core_group) and the unit's row
+    and column blocks, sized by rows: R t about _CORE_ROWS / kg (the
+    unit's f64 row sums in shared memory), S t about _CORE_COLS."""
+    if t > 4096:
+        raise ValueError(f"the CUDA-core route takes t <= 4096, not {t}")
+    kg = (16 if t <= 256 else 8 if t <= 512 else 4 if t <= 1024
+          else 2 if t <= 2048 else 1)
+    R = min(8, max(1, _CORE_ROWS // (t * kg)))
+    return kg, R, max(1, _CORE_COLS // t)
 
 
 def unit_grid(r, c, x, y, t: int):
@@ -302,71 +342,131 @@ def unit_grid(r, c, x, y, t: int):
             (x[:, None] + b * u)[keep], (y[:, None] + a * u)[keep])
 
 
-def tiles_plan(nt: int, rows, cols, t: int = 128) -> UnitPlan:
-    """:func:`unit_plan` over tile-list storage (T, 2t, t) at coordinates
-    (rows, cols), viewed as T 2t rows of t: tile k's M half starts at row
-    2t k, and is walked as the tiles of :func:`unit_grid` (nt t / u of
-    them a side, u = :func:`unit_tile`). Inert slots (nt, nt) are in no
-    unit. The plan depends on the layout alone: it is cached by it, so a
-    warm solve reuses it."""
+def super_plan(nt_g: int, r, c, x, y, g: int, view_rows: int) -> UnitPlan:
+    """:func:`unit_plan` over the super-tiles of _UNIT_T rows that the
+    g-row grid tiles (r, c) at (x, y) make (g in _SUB_TILES, P = _UNIT_T
+    // g of them a side; nt_g of them a side of the matrix, which the
+    last super-tile may overrun): super-tile (R, C) holds the tiles with
+    r // P == R and c // P == C at sub-position (r % P, c % P), and every
+    super-tile is applied transposed (a diagonal one its off-diagonal
+    sub-tiles: the kernel leaves out its diagonal sub-tiles' rows). Its
+    entries' x index the plan's subs; a sub-tile the storage does not
+    hold points at row view_rows, past the view's last, whose copy is
+    zeros."""
+    P = _UNIT_T // g
+    r, c, x, y = (np.asarray(v, np.int64).ravel() for v in (r, c, x, y))
+    if view_rows + 2 * g >= (1 << 31) - 256:
+        raise ValueError("the storage's 2-D view has more rows than the "
+                         "kernel's int32 copy coordinates reach")
+    nts = -(-nt_g // P)
+    key = (r // P) * nts + c // P
+    uniq, inv = np.unique(key, return_inverse=True)
+    subs = np.zeros((len(uniq), P * P, 2), np.int64)
+    subs[:, :, 1] = view_rows
+    at = (r % P) * P + c % P
+    subs[inv, at, 0] = x
+    subs[inv, at, 1] = y
+    n = len(uniq)
+    plan = unit_plan(nts, uniq // nts, uniq % nts, np.arange(n),
+                     np.zeros(n), tr=np.ones(n, bool))
+    return plan._replace(subs=subs.reshape(-1, 2).astype(np.int32), sub=g)
+
+
+def core_plan(nt: int, r, c, x, y, t: int) -> UnitPlan:
+    """:func:`unit_plan` over the stored t-tiles themselves, in units of
+    :func:`core_shape`'s R x S (the CUDA-core route, csrc/sym_core.cuh)."""
+    _, R, S = core_shape(t)
+    return unit_plan(nt, r, c, x, y, R, S)
+
+
+def _grid_plan(nt: int, r, c, x, y, t: int, view_rows: int,
+               kernel: str) -> UnitPlan:
+    """The plan of ``kernel`` ("units" or "core") over the stored t-tiles
+    (r, c) at (x, y): the unit kernel over the grid of :func:`unit_tile`
+    (super-tiles below _UNIT_T), the CUDA-core kernel over the t-grid."""
+    if kernel == "core":
+        return core_plan(nt, r, c, x, y, t)
+    g = unit_tile(t)
+    grid = unit_grid(r, c, x, y, t)
+    if g == _UNIT_T:
+        return unit_plan(nt * t // g, *grid)
+    return super_plan(nt * t // g, *grid, g, view_rows)
+
+
+def plan_kernel(t: int, dtype=torch.int8) -> str:
+    """The kernel whose plan storage of ``dtype`` at tile t walks: "units"
+    on the "units" route, else "core" (the int8 / bf16 "core" route and
+    the float kinds; :func:`matvec_route`)."""
+    return "units" if matvec_route(t, dtype) == "units" else "core"
+
+
+def tiles_plan(nt: int, rows, cols, t: int = 128,
+               kernel: Optional[str] = None) -> UnitPlan:
+    """The plan of ``kernel`` (default :func:`plan_kernel` of int8 at t)
+    over tile-list storage (T, 2t, t) at coordinates (rows, cols), viewed
+    as T 2t rows of t: tile k's M half starts at row 2t k
+    (:func:`_grid_plan`). Inert slots (nt, nt) are in no unit. The plan
+    depends on the layout alone: it is cached by it, so a warm solve
+    reuses it."""
     return _tiles_plan(nt, np.asarray(rows, np.int32).tobytes(),
-                       np.asarray(cols, np.int32).tobytes(), t, _UNIT_ROWS,
-                       _UNIT_COLS)
+                       np.asarray(cols, np.int32).tobytes(), t,
+                       kernel or plan_kernel(t), _UNIT_ROWS, _UNIT_COLS)
 
 
 # R, S: the unit shape (_UNIT_ROWS, _UNIT_COLS) a cached plan was made
 # with, a part of its key
 @functools.lru_cache(maxsize=8)
-def _tiles_plan(nt, rows, cols, t, R, S) -> UnitPlan:
+def _tiles_plan(nt, rows, cols, t, kernel, R, S) -> UnitPlan:
     rows = np.frombuffer(rows, np.int32).astype(np.int64)
     cols = np.frombuffer(cols, np.int32).astype(np.int64)
     k = np.flatnonzero(rows < nt)
-    return unit_plan(nt * t // unit_tile(t),
-                     *unit_grid(rows[k], cols[k], np.zeros_like(k),
-                                2 * t * k, t))
+    return _grid_plan(nt, rows[k], cols[k], np.zeros_like(k), 2 * t * k, t,
+                      2 * t * len(rows), kernel)
 
 
 def rows_plan(nt: int, G: int, n: int, chunk_base: int = 0,
-              t: int = 128) -> UnitPlan:
-    """:func:`unit_plan` over the chunk slice [chunk_base, chunk_base + n)
-    of row-chunked storage, viewed as n 2t rows of G t: tile (r, c) sits
-    in chunk first(r) + (c - r) // G (:func:`row_first_chunk`) at column
-    ((c - r) % G) t, walked as the tiles of :func:`unit_grid`. Tiles
-    outside the slice, pad tiles and pad chunks are in no unit. Cached by
-    the layout, as :func:`tiles_plan` is."""
-    return _rows_plan(nt, G, n, chunk_base, t, _UNIT_ROWS, _UNIT_COLS)
+              t: int = 128, kernel: Optional[str] = None) -> UnitPlan:
+    """The plan of ``kernel`` (as :func:`tiles_plan`) over the chunk slice
+    [chunk_base, chunk_base + n) of row-chunked storage, viewed as n 2t
+    rows of G t: tile (r, c) sits in chunk first(r) + (c - r) // G
+    (:func:`row_first_chunk`) at column ((c - r) % G) t. Tiles outside
+    the slice, pad tiles and pad chunks are in no unit. Cached by the
+    layout, as :func:`tiles_plan` is."""
+    return _rows_plan(nt, G, n, chunk_base, t, kernel or plan_kernel(t),
+                      _UNIT_ROWS, _UNIT_COLS)
 
 
 @functools.lru_cache(maxsize=8)
-def _rows_plan(nt, G, n, chunk_base, t, R, S) -> UnitPlan:
+def _rows_plan(nt, G, n, chunk_base, t, kernel, R, S) -> UnitPlan:
     r, c = np.triu_indices(nt)
     k = row_first_chunk(nt, G)[r] + (c - r) // G
     keep = (k >= chunk_base) & (k < chunk_base + n)
     r, c, k = r[keep], c[keep], k[keep]
-    return unit_plan(nt * t // unit_tile(t),
-                     *unit_grid(r, c, (c - r) % G * t,
-                                (k - chunk_base) * 2 * t, t))
+    return _grid_plan(nt, r, c, (c - r) % G * t, (k - chunk_base) * 2 * t,
+                      t, 2 * t * n, kernel)
 
 
 class DevicePlan:
     """A :class:`UnitPlan` on the card, with the kernel's workspace of f64
     partials: allocated with torch.empty at the first call that needs it
-    and kept for the next (a closure's plan caches it). t: the plan's
-    grid tile (:func:`unit_tile`)."""
+    and kept for the next (a closure's plan caches it). t: the positions of
+    a partial (_UNIT_T for the unit kernel, the tile on the CUDA-core
+    route); group: the candidates a block takes (16, or core_shape's)."""
 
-    def __init__(self, plan: UnitPlan, t: int, device):
+    def __init__(self, plan: UnitPlan, t: int, device, group: int = 16):
         self.plan = plan
         self.t = t
+        self.group = group
         self.arrays = [torch.as_tensor(a, device=device) for a in (
             plan.entries, plan.units, plan.fslots, plan.red_off,
-            plan.red_slots)]
+            plan.red_slots, plan.subs)]
         self._ws = None
 
     def workspace(self, K: int) -> torch.Tensor:
-        """The partials of K candidates: ceil(K / 16) groups of n_slots x
-        2 halves x min(K, 16) x t doubles."""
-        n = (-(-K // _KERNEL_ROWS) * self.plan.n_slots * 2
-             * min(K, _KERNEL_ROWS) * self.t)
+        """The partials of K candidates: ceil(K / group) groups of n_slots
+        x 2 halves x min(K, group) x t doubles."""
+        n = (-(-K // self.group) * self.plan.n_slots * 2
+             * min(K, self.group) * self.t)
         if self._ws is None or self._ws.numel() < max(n, 1):
             self._ws = None
             self._ws = torch.empty(max(n, 1), dtype=torch.float64,
@@ -374,10 +474,30 @@ class DevicePlan:
         return self._ws
 
     def args(self) -> tuple:
-        """The C entry points' plan arguments: entries, units, fslots, the
+        """The unit kernel's plan arguments: entries, units, fslots, the
         unit count, red_off, red_slots, the slot count."""
-        e, u, f, ro, rs = (a.data_ptr() for a in self.arrays)
+        e, u, f, ro, rs = (a.data_ptr() for a in self.arrays[:5])
         return (e, u, f, len(self.plan.units), ro, rs, self.plan.n_slots)
+
+    def sub_args(self) -> tuple:
+        """The sub-tiled unit kernel's: args(), then subs and the sub-tile."""
+        return (*self.args(), self.arrays[5].data_ptr(), self.plan.sub)
+
+    def core_args(self) -> tuple:
+        """The CUDA-core kernel's: entries, units, fslots, the unit count,
+        the unit's rows R (fslots' width), red_off, red_slots, the slot
+        count."""
+        e, u, f, ro, rs = (a.data_ptr() for a in self.arrays[:5])
+        return (e, u, f, len(self.plan.units), self.plan.fslots.shape[1],
+                ro, rs, self.plan.n_slots)
+
+
+
+def _device_plan(plan: UnitPlan, t: int, kernel: str, device) -> DevicePlan:
+    """A plan of ``kernel`` on the card, with its workspace's shape."""
+    if kernel == "units":
+        return DevicePlan(plan, _UNIT_T, device)
+    return DevicePlan(plan, t, device, core_shape(t)[0])
 
 
 # ----------------------------------------------------------------------
@@ -434,38 +554,17 @@ def _tiles_layout(tiles: torch.Tensor, nt: int, rows, cols):
     """(t, rows, cols) of (T, 2t, t) storage, the coordinates defaulting to
     :func:`tile_coords` and checked against the storage."""
     T, two_t, t = tiles.shape
-    if rows is None:
-        rows, cols = tile_coords(nt)
+    canonical = rows is None
+    if canonical:
+        rows, cols = _canonical_coords(nt)
     rows = np.asarray(rows, np.int32)
     cols = np.asarray(cols, np.int32)
     if (two_t != 2 * t or len(rows) != T or len(cols) != T
-            or (T and (rows.max() > nt or cols.max() > nt))):
+            or (T and not canonical
+                and (rows.max() > nt or cols.max() > nt))):
         raise ValueError(f"storage {tuple(tiles.shape)} is not a tile list "
                          f"of nt={nt} at the given coordinates")
     return t, rows, cols
-
-
-def tile_walks(nt: int, rows, cols) -> Tuple[np.ndarray, np.ndarray]:
-    """Each output block's walk over a tile list, the kernel's order:
-    (walks (E, 2), offsets (nt + 1,)), int32. Block j's entries
-    walks[offsets[j]:offsets[j + 1]] are the forward tiles of row j, then
-    the transposed tiles of column j (r != c), each in increasing k, as
-    (k, 2 ub + tr) with ub the block of u the tile contracts and tr = 1
-    for a transposed application. Inert slots are in no walk."""
-    rows = np.asarray(rows, np.int64)
-    cols = np.asarray(cols, np.int64)
-    k = np.arange(len(rows))
-    real = rows < nt
-    off = real & (rows != cols)
-    block = np.concatenate([rows[real], cols[off]])
-    tr = np.concatenate([np.zeros(real.sum(), np.int64),
-                         np.ones(off.sum(), np.int64)])
-    kk = np.concatenate([k[real], k[off]])
-    ub = np.concatenate([cols[real], rows[off]])
-    order = np.lexsort((kk, tr, block))
-    walks = np.stack([kk[order], 2 * ub[order] + tr[order]], 1)
-    offsets = np.searchsorted(block[order], np.arange(nt + 1))
-    return walks.astype(np.int32), offsets.astype(np.int32)
 
 
 def _scale(storage_dtype) -> float:
@@ -494,13 +593,15 @@ def _finish(acc: torch.Tensor, scale: float) -> torch.Tensor:
 def matvec_route(t: int, dtype) -> str:
     """The route by which the capacity kernels (csrc/sym_rows_matvec.cu,
     csrc/sym_tiles_matvec.cu) take storage of ``dtype`` at tile t, by t
-    alone: ``"units"`` for int8 / bf16 at t a multiple of _UNIT_T (the
-    tensor-core unit kernel over the plan's 128-grid, its reduction
-    beside it); ``"core"`` for int8 / bf16 at every other t (the CUDA-core
-    kernel on the codes, counted under ``<kernel>_core``); ``"float"``
-    for f32 / f64 at every t."""
+    alone: ``"units"`` for int8 / bf16 at t a multiple of 16 (the
+    tensor-core unit kernel over the plan's 128-grid: the storage's own
+    128-row tiles where 128 divides t, else super-tiles of its 64-, 32- or
+    16-row tiles, :func:`unit_tile`; its reduction beside it);
+    ``"core"`` for int8 / bf16 at every other t (the CUDA-core kernel of
+    csrc/sym_core.cuh on the codes, counted under ``<kernel>_core``);
+    ``"float"`` for f32 / f64 at every t (that kernel in f64)."""
     if dtype in (torch.int8, torch.bfloat16):
-        return "units" if t % _UNIT_T == 0 else "core"
+        return "units" if t % _SUB_TILES[-1] == 0 else "core"
     return "float"
 
 
@@ -543,15 +644,13 @@ def check_rows_kernel(chunks: torch.Tensor, nt: int, U: torch.Tensor,
 
 def _count_route(name: str, route: str, plan) -> None:
     """Count one C call's launches by its route (the wrapper picks the C
-    entry by it): "units" the unit pass under ``name`` (not launched when
-    the plan has no unit) and the reduction under its own key; "core" and
-    "float" under ``_kernels.route_key``."""
-    if route == "units":
-        if len(plan.plan.units):
-            _kernels.LAUNCHES[name] += 1
-        _kernels.LAUNCHES[_kernels.REDUCTIONS[name]] += 1
-    else:
+    entry by it): the first pass under ``_kernels.route_key`` ("units"
+    and "float" under ``name``, "core" under ``<name>_core``; not launched
+    when the plan has no unit), and the fixed-order reduction under its
+    own key."""
+    if len(plan.plan.units):
         _kernels.LAUNCHES[_kernels.route_key(name, route)] += 1
+    _kernels.LAUNCHES[_kernels.REDUCTIONS[name]] += 1
 
 
 def sym_tiles_matvec_plain(tiles: torch.Tensor, nt: int, U: torch.Tensor,
@@ -592,16 +691,12 @@ def sym_tiles_matvec_plain(tiles: torch.Tensor, nt: int, U: torch.Tensor,
 
 def tiles_device_plan(tiles: torch.Tensor, nt: int, rows=None, cols=None):
     """The walk of csrc/sym_tiles_matvec.cu over this tile list, on its
-    device: a :class:`DevicePlan` of :func:`tiles_plan` on the "units"
-    route (:func:`matvec_route`), the (walks, offsets) of
-    :func:`tile_walks` on the others."""
+    device: a :class:`DevicePlan` of :func:`tiles_plan` for the kernel of
+    its route (:func:`plan_kernel`)."""
     t, rows, cols = _tiles_layout(tiles, nt, rows, cols)
-    if matvec_route(t, tiles.dtype) == "units":
-        return DevicePlan(tiles_plan(nt, rows, cols, t), unit_tile(t),
-                          tiles.device)
-    walks, offsets = tile_walks(nt, rows, cols)
-    return (torch.as_tensor(walks, device=tiles.device).contiguous(),
-            torch.as_tensor(offsets, device=tiles.device))
+    kernel = plan_kernel(t, tiles.dtype)
+    return _device_plan(tiles_plan(nt, rows, cols, t, kernel), t, kernel,
+                        tiles.device)
 
 
 def sym_tiles_matvec_cuda(tiles: torch.Tensor, nt: int, U: torch.Tensor,
@@ -609,11 +704,12 @@ def sym_tiles_matvec_cuda(tiles: torch.Tensor, nt: int, U: torch.Tensor,
                           plan=None) -> torch.Tensor:
     """Launch csrc/sym_tiles_matvec.cu: U (K, m) on the card -> (K, 2m),
     f32 scaled or (raw=True) the f64 sums, from one C call, by the route
-    of :func:`matvec_route` (every t >= 1). "units": the unit kernel (each
-    stored tile read once per 16 columns of U) and its fixed-order
-    reduction, two launches; "core" and "float": a block per (output
-    block, 16 columns of U). plan: :func:`tiles_device_plan` of this
-    storage (made here when not given)."""
+    of :func:`matvec_route` (every t >= 1): the unit kernel ("units",
+    each stored tile read once per 16 columns of U) or the CUDA-core
+    kernel ("core", "float"; each tile read once per core_shape's group
+    of columns), then the fixed-order reduction, two launches. plan:
+    :func:`tiles_device_plan` of this storage (made here when not
+    given)."""
     route, t, rows, cols = check_tiles_kernel(tiles, nt, U, rows, cols)
     m = nt * t
     K = U.shape[0]
@@ -627,32 +723,37 @@ def sym_tiles_matvec_cuda(tiles: torch.Tensor, nt: int, U: torch.Tensor,
     Uc = Uc.contiguous()
     out = torch.empty(K, 2 * m, dtype=torch.float64 if raw else torch.float32,
                       device=tiles.device)
-    stream = _kernels.stream_ptr(tiles.device)
-    codes = tiles.dtype == torch.int8
-    if route == "units":
-        ws = plan.workspace(K)
-        args = (tiles.data_ptr(), tiles.shape[0] * 2 * t, t, *plan.args(),
-                Uc.data_ptr(), out.data_ptr(), ws.data_ptr(), K, nt, t,
-                int(raw))
-        if codes:
-            code = lib.sym_tiles_matvec_int8(*args, scale, stream)
-        else:
-            code = lib.sym_tiles_matvec_bf16(*args, stream)
-    else:
-        wk, offsets = plan
-        args = (tiles.data_ptr(), wk.data_ptr(), offsets.data_ptr(),
-                Uc.data_ptr(), out.data_ptr(), K, nt, t, int(raw))
-        if codes:
-            code = lib.sym_tiles_matvec_core_int8(*args, scale, stream)
-        elif tiles.dtype == torch.bfloat16:
-            code = lib.sym_tiles_matvec_core_bf16(*args, stream)
-        elif tiles.dtype == torch.float32:
-            code = lib.sym_tiles_matvec_f32(*args, stream)
-        else:
-            code = lib.sym_tiles_matvec_f64(*args, stream)
+    code = _launch(lib, "sym_tiles_matvec", route, tiles, t, t, plan, Uc,
+                   out, plan.workspace(K), K, nt, raw, scale)
     _kernels.check(code, "sym_tiles_matvec")
     _count_route("sym_tiles_matvec", route, plan)
     return out
+
+
+def _launch(lib, name: str, route: str, store: torch.Tensor, t: int,
+            ld: int, plan: DevicePlan, Uc, out, ws, K: int, nt: int,
+            raw: bool, scale: float) -> int:
+    """One C call of ``name`` by ``route`` over ``store`` viewed as rows of
+    ld elements: the unit kernel (its own 128-row tiles, or super-tiles of
+    the plan's subs) or the CUDA-core kernel, each with its reduction.
+    Returns the call's code."""
+    stream = _kernels.stream_ptr(store.device)
+    kind = {torch.int8: "int8", torch.bfloat16: "bf16", torch.float32: "f32",
+            torch.float64: "f64"}[store.dtype]
+    tail = (Uc.data_ptr(), out.data_ptr(), ws.data_ptr(), K, nt, t,
+            int(raw))
+    if route == "units":
+        view = (store.data_ptr(), store.numel() // ld, ld)
+        if plan.plan.sub == _UNIT_T:
+            fn, args = f"{name}_{kind}", (*view, *plan.args(), *tail)
+        else:
+            fn, args = f"{name}_sub_{kind}", (*view, *plan.sub_args(), *tail)
+    else:
+        fn = f"{name}_core_{kind}"
+        args = (store.data_ptr(), ld, *plan.core_args(), *tail)
+    if kind == "int8":
+        args = (*args, scale)
+    return getattr(lib, fn)(*args, stream)
 
 
 def _dual_matvec(fn, m: int, out_dtype, scale: float, group):
@@ -726,7 +827,8 @@ def row_first_chunk(nt: int, G: int) -> np.ndarray:
     """Index of each row block's first chunk, (nt + 1,) with the chunk
     count NC last: first[r] = S(nt) - S(nt - r) with
     S(n) = sum_{s<=n} ceil(s / G) = G q (q + 1) / 2 + (n - q G)(q + 1),
-    q = n // G. csrc/sym_rows_matvec.cu computes the same closed form."""
+    q = n // G; :func:`rows_plan` places every tile of the CUDA kernel's
+    walk by it."""
     def S(n):
         q = n // G
         return G * q * (q + 1) // 2 + (n - q * G) * (q + 1)
@@ -844,14 +946,12 @@ def sym_rows_matvec_plain(chunks: torch.Tensor, nt: int, U: torch.Tensor,
 def rows_device_plan(chunks: torch.Tensor, nt: int,
                      chunk_base: Optional[int] = None):
     """The walk of csrc/sym_rows_matvec.cu over this storage (or chunk
-    slice), on its device: a :class:`DevicePlan` of :func:`rows_plan` on
-    the "units" route (:func:`matvec_route`); None on the others, whose
-    kernel computes its walk from the closed form."""
+    slice), on its device: a :class:`DevicePlan` of :func:`rows_plan` for
+    the kernel of its route (:func:`plan_kernel`)."""
     t, G, _ = _layout(chunks, nt, chunk_base)
-    if matvec_route(t, chunks.dtype) != "units":
-        return None
-    return DevicePlan(rows_plan(nt, G, chunks.shape[0], chunk_base or 0, t),
-                      unit_tile(t), chunks.device)
+    kernel = plan_kernel(t, chunks.dtype)
+    return _device_plan(rows_plan(nt, G, chunks.shape[0], chunk_base or 0, t,
+                                  kernel), t, kernel, chunks.device)
 
 
 def sym_rows_matvec_cuda(chunks: torch.Tensor, nt: int, U: torch.Tensor,
@@ -876,32 +976,11 @@ def sym_rows_matvec_cuda(chunks: torch.Tensor, nt: int, U: torch.Tensor,
     Uc = Uc.contiguous()
     out = torch.empty(K, 2 * m, dtype=torch.float64 if raw else torch.float32,
                       device=chunks.device)
-    stream = _kernels.stream_ptr(chunks.device)
-    codes = chunks.dtype == torch.int8
     for k0 in range(0, K, _KERNEL_ROWS):
         k1 = min(K, k0 + _KERNEL_ROWS)
-        if route == "units":
-            ws = plan.workspace(k1 - k0)
-            args = (chunks.data_ptr(), chunks.shape[0] * 2 * t, G * t,
-                    *plan.args(), Uc[k0:k1].data_ptr(),
-                    out[k0:k1].data_ptr(), ws.data_ptr(), k1 - k0, nt, t,
-                    int(raw))
-            if codes:
-                code = lib.sym_rows_matvec_int8(*args, scale, stream)
-            else:
-                code = lib.sym_rows_matvec_bf16(*args, stream)
-        else:
-            args = (chunks.data_ptr(), Uc[k0:k1].data_ptr(),
-                    out[k0:k1].data_ptr(), k1 - k0, nt, t, G,
-                    chunk_base or 0, chunks.shape[0], int(raw))
-            if codes:
-                code = lib.sym_rows_matvec_core_int8(*args, scale, stream)
-            elif chunks.dtype == torch.bfloat16:
-                code = lib.sym_rows_matvec_core_bf16(*args, stream)
-            elif chunks.dtype == torch.float32:
-                code = lib.sym_rows_matvec_f32(*args, stream)
-            else:
-                code = lib.sym_rows_matvec_f64(*args, stream)
+        code = _launch(lib, "sym_rows_matvec", route, chunks, t, G * t, plan,
+                       Uc[k0:k1], out[k0:k1], plan.workspace(k1 - k0),
+                       k1 - k0, nt, raw, scale)
         _kernels.check(code, "sym_rows_matvec")
         _count_route("sym_rows_matvec", route, plan)
     return out
@@ -1212,7 +1291,7 @@ def solve_sharded_sym(invariant: PairwiseInvariant, D1, D2, A, u0,
 
 __all__ = ["tile_coords", "shard_tile_coords", "exact_objective",
            "UnitPlan", "unit_plan", "tiles_plan", "rows_plan", "DevicePlan",
-           "build_symtiles", "tile_walks", "sym_tiles_matvec_plain",
+           "build_symtiles", "sym_tiles_matvec_plain",
            "tiles_device_plan", "sym_tiles_matvec_cuda",
            "make_sym_dual_matvec", "row_chunk_coords", "row_first_chunk",
            "build_symchunks", "sym_rows_matvec_plain", "rows_device_plan",

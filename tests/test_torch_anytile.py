@@ -36,7 +36,7 @@ W, M_POOL = 16, 768          # 768 = 12 x 64 = 2 x 384
 ENGINE = dict(lanes=4, window=2, power_steps=4, layout="tri", tri_probes=16,
               d_scale=0.15)
 NEW_TILES = (16, 64, 100, 384, 512)
-PLAN_TILES = (16, 64, 100, 256, 512)
+PLAN_TILES = (16, 32, 48, 64, 96, 100, 192, 256, 512)
 
 
 @pytest.fixture(scope="module")
@@ -91,6 +91,41 @@ def _bunny(m, seed):
         pcd1.astype(np.float32)
 
 
+def _solve_both(m, tile, matvec, seed):
+    """symstore.solve_single in int8 at ``tile`` (m padded to it) in the
+    ``matvec`` layout, and the JAX package's tile-list solve, from the same
+    numpy u0: (mask, ifinal) of each."""
+    A, D1, D2 = _bunny(m, seed=seed)
+    u0 = np.random.default_rng(seed + 1).random(m).astype(np.float32)
+    opts = dict(tile=tile, probes=16, power_steps=4, support=64)
+    u_j, F_j, i_j = jsym.solve_single(
+        JINV, jnp.asarray(D1), jnp.asarray(D2), jnp.asarray(A),
+        jnp.asarray(u0), ct.Params(), storage_dtype=jnp.int8, matvec="xla",
+        **opts)
+    mask_j = np.asarray(jmsrc.round_solution(u_j, F_j, ct.Rounding.DSD_HEU))
+    u, F, i = symstore.solve_single(
+        INV, torch.from_numpy(D1), torch.from_numpy(D2), torch.from_numpy(A),
+        torch.from_numpy(u0), Params(), storage_dtype=torch.int8,
+        matvec=matvec, **opts)
+    mask = msrc.round_solution(u, F, Rounding.DSD_HEU).numpy()
+    return mask, int(i), mask_j, int(i_j)
+
+
+@pytest.mark.parametrize("matvec", ["pallas", "xla"])
+@pytest.mark.parametrize("tile", [64, 48])
+def test_solve_single_at_sub_tiles_matches_jax(tile, matvec):
+    """symstore.solve_single in int8 at tile 64 and 48 (m=1000, padded to
+    1024 and 1008: the unit kernel's sub-tiled routes on the card, whose
+    plain versions run here), row-chunked ('pallas') and tile list
+    ('xla'), against the JAX package's solve_single
+    (clipper_tpu/ops/symstore.py:427) at the same tile from the same numpy
+    u0: equal masks and ifinal."""
+    mask, i, mask_j, i_j = _solve_both(1000, tile, matvec, seed=tile + 5)
+    assert mask.sum() > 0
+    assert i == i_j
+    np.testing.assert_array_equal(mask, mask_j)
+
+
 @pytest.mark.parametrize("matvec", ["pallas", "xla"])
 @pytest.mark.parametrize("tile", [16, 64, 256])
 def test_solve_single_int8_at_tile_matches_jax(tile, matvec):
@@ -116,39 +151,76 @@ def test_solve_single_int8_at_tile_matches_jax(tile, matvec):
     np.testing.assert_array_equal(mask, mask_j)
 
 
-def _emulate(view, plan, U, nt_g, u, t):
-    """The unit kernel's two passes in plain f64 as ``plan`` walks the
-    storage's 2-D ``view`` (numpy f64) over its grid of u-row tiles (nt_g
-    a side, symstore.unit_grid): an entry's M tile at (x, y), its C tile
-    the stored tile's t rows below; row and column sums written to their
-    slots, then each output block's slots added in list order. U (K, m)
-    f64. Returns the raw (K, 2m) sums."""
+def _emulate(view, plan, U, m, u, t):
+    """The kernel's two passes in plain f64 as ``plan`` walks the storage's
+    2-D ``view`` (numpy f64): an entry's M tile at (x, y) in the view, u
+    rows a side (symstore.unit_tile, or t on the CUDA-core route), its C
+    tile the stored tile's t rows below; or, in a sub-tiled plan
+    (plan.sub < 128), a super-tile of 128 rows assembled from the plan's
+    subs (a sub-tile at row view.shape[0] zeros), whose transposed product
+    leaves out its diagonal sub-tiles on the matrix's diagonal. Row and
+    column sums are written to their slots, then each output block's
+    slots added in list order. U (K, m) f64. Returns the raw (K, 2m)
+    sums."""
     K = U.shape[0]
-    Ub = U.reshape(K, nt_g, u)
-    ws = np.full((plan.n_slots, 2, K, u), np.nan)
+    g = plan.sub
+    P = symstore._UNIT_T // g if g < symstore._UNIT_T else 1
+    w = u if P == 1 else symstore._UNIT_T
+    nb = -(-m // w)
+    Ub = np.zeros((K, nb * w))
+    Ub[:, :m] = U
+    Ub = Ub.reshape(K, nb, w)
+
+    def tile(x, y):
+        if P == 1:
+            return np.stack([view[y:y + w, x:x + w],
+                             view[y + t:y + t + w, x:x + w]])
+        X = np.zeros((2, w, w))
+        for q, (sx, sy) in enumerate(plan.subs[x * P * P:(x + 1) * P * P]):
+            if sy < view.shape[0]:
+                a, b = divmod(q, P)
+                for h in (0, 1):
+                    X[h, a * g:(a + 1) * g, b * g:(b + 1) * g] = \
+                        view[sy + h * t:sy + h * t + g, sx:sx + g]
+        return X
+
+    ws = np.full((plan.n_slots, 2, K, w), np.nan)
     for n_unit, (e0, e1, r0, _) in enumerate(plan.units):
-        fwd = np.zeros((plan.fslots.shape[1], 2, K, u))
-        col = np.zeros((2, K, u))
+        fwd = np.zeros((plan.fslots.shape[1], 2, K, w))
+        col = np.zeros((2, K, w))
         for x, y, c, meta in plan.entries[e0:e1]:
             i = meta & 0xF
-            tile = np.stack([view[y:y + u, x:x + u],
-                             view[y + t:y + t + u, x:x + u]])
-            fwd[i] += Ub[:, c] @ tile.transpose(0, 2, 1)
+            X = tile(x, y)
+            fwd[i] += Ub[:, c] @ X.transpose(0, 2, 1)
             if meta & symstore._META_TRANSPOSED:
-                col += Ub[:, r0 + i] @ tile
+                if P > 1 and r0 + i == c:
+                    X = X.copy()
+                    for a in range(P):
+                        X[:, a * g:(a + 1) * g, a * g:(a + 1) * g] = 0
+                col += Ub[:, r0 + i] @ X
             if meta & symstore._META_COL_END:
                 if meta & symstore._META_COL_WRITE:
                     ws[meta >> symstore._META_SLOT_SHIFT] = col
-                col = np.zeros((2, K, u))
+                col = np.zeros((2, K, w))
         for i, slot in enumerate(plan.fslots[n_unit]):
             if slot >= 0:
                 ws[slot] = fwd[i]
-    out = np.zeros((K, 2, nt_g, u))
-    for j in range(nt_g):
+    out = np.zeros((K, 2, nb, w))
+    for j in range(nb):
         for slot in plan.red_slots[plan.red_off[j]:plan.red_off[j + 1]]:
             out[:, :, j] += ws[slot].transpose(1, 0, 2)
     assert not np.isnan(out).any()
-    return out.reshape(K, 2 * nt_g * u)
+    return out.reshape(K, 2, nb * w)[:, :, :m].reshape(K, 2 * m)
+
+
+def _grid_tiles(plan, view_rows):
+    """The (x, y) of every tile a plan reads: its entries', or a sub-tiled
+    plan's sub-tiles that the storage holds."""
+    if plan.sub < symstore._UNIT_T:
+        xy = plan.subs[plan.subs[:, 1] < view_rows]
+    else:
+        xy = plan.entries[:, :2]
+    return [tuple(v) for v in xy]
 
 
 def _storage(layout, t, storage=torch.int8):
@@ -169,19 +241,23 @@ def _storage(layout, t, storage=torch.int8):
 @pytest.mark.parametrize("layout", ["tiles", "rows"])
 @pytest.mark.parametrize("t", PLAN_TILES)
 def test_unit_plan_emulation_at_tile(layout, t):
-    """The int8 / bf16 kernels' plan at t = 16, 64, 100, 256, 512 (m = t
-    (1024 // t)): over the grid of symstore.unit_tile(t) (128-row tiles
-    where 128 divides t, else t itself), every stored t-tile's tiles
-    covered once (a diagonal t-tile's upper ones), and its two passes
-    emulated in f64 equal to the plain matvec's raw sums within 1e-12
-    relative, on the whole storage and on D=3 slices summed (the tile
-    list's shard_tile_coords slices; the rows layout's chunk ranges)."""
+    """The int8 / bf16 kernels' plan at t = 16, 32, 48, 64, 96, 100, 192,
+    256, 512 (m = t (1024 // t)): symstore.unit_tile(t) the largest of
+    128, 64, 32, 16 dividing t (the unit kernel; below 128 over
+    super-tiles of 128 rows made of those tiles), else t (the CUDA-core
+    kernel's own grid); every stored t-tile's grid tiles read once (a
+    diagonal t-tile's upper ones), and the plan's two passes emulated in
+    f64 equal to the plain matvec's raw sums within 1e-12 relative, on the
+    whole storage and on D=3 slices summed (the tile list's
+    shard_tile_coords slices; the rows layout's chunk ranges)."""
     store, nt, m = _storage(layout, t)
     u = symstore.unit_tile(t)
-    nt_g = m // u
-    assert u == (128 if t % 128 == 0 else t)
+    units = t % 16 == 0
+    assert u == next((g for g in (128, 64, 32, 16) if t % g == 0), t)
     assert symstore.matvec_route(t, torch.int8) == (
-        "units" if t % 128 == 0 else "core")
+        "units" if units else "core")
+    kernel = symstore.plan_kernel(t)
+    assert kernel == ("units" if units else "core")
     U = torch.from_numpy(np.random.default_rng(t).random((5, m)).astype(
         np.float32))
     Uc, _ = symstore._operand(torch.int8, U)
@@ -219,19 +295,26 @@ def test_unit_plan_emulation_at_tile(layout, t):
         views = [p.double().numpy().reshape(-1, 3 * t) for p, _ in plans]
     scale = np.abs(ref).max()
     acc = 0
+    read = []
     for d, ((_, plan), view) in enumerate(zip(plans, views)):
+        assert plan.sub == (u if units and u < 128 else 128)
         # a stored t-tile is (t / u)^2 grid tiles, a diagonal one its upper
         # (t / u)(t / u + 1) / 2
         q = t // u
+        tiles = _grid_tiles(plan, view.shape[0])
         if d == 0:
-            assert len(plan.entries) == nt * q * (q + 1) // 2 + \
-                nt * (nt - 1) // 2 * q * q
-            assert plan.entries[:, 2].max() < nt_g
-        got = _emulate(view, plan, U64, nt_g, u, t)
+            assert len(tiles) == len(set(tiles)) == \
+                nt * q * (q + 1) // 2 + nt * (nt - 1) // 2 * q * q
+            w = u if plan.sub == 128 else 128
+            assert plan.entries[:, 2].max() < -(-m // w)
+        else:
+            read += tiles
+        got = _emulate(view, plan, U64, m, u, t)
         if d == 0:
             assert np.abs(got - ref).max() <= 1e-12 * scale
         else:
             acc = acc + got
+    assert len(read) == nt * q * (q + 1) // 2 + nt * (nt - 1) // 2 * q * q
     assert np.abs(acc - ref).max() <= 1e-12 * scale
 
 
@@ -260,7 +343,7 @@ def test_wrapper_shape_checks_take_every_tile(t):
         with pytest.raises(ValueError, match="on the card"):
             flattri.tri_tiles_matvec_cuda(tiles, nt, idx, torch.zeros(1, m),
                                           f32)
-        units = "units" if t % 128 == 0 else "core"
+        units = "units" if t % 16 == 0 else "core"
         tl = torch.zeros(T, 2 * t, t, dtype=storage)
         assert symstore.check_tiles_kernel(tl, nt, torch.zeros(4, m))[0] \
             == units
@@ -317,12 +400,28 @@ def test_routes_match_the_cuda_dispatch():
     src = (_kernels.CSRC / "sym_tile_mma.cuh").read_text()
     assert int(re.search(r"constexpr int kT = (\d+);", src).group(1)) == \
         symstore._UNIT_T
+    # the unit kernel's sub-tiles: the dispatch of launch_units and the
+    # entries it accepts
+    body = src[src.index("int launch_units("):]
+    cases = [int(x) for x in re.findall(r"case (\d+):", body)]
+    assert tuple(cases) == symstore._SUB_TILES[:-1]
+    assert "default:\n        err = launch_unit_nk<S, 8>" in body
+    ok = re.search(r"const bool sub_ok = g == kT \|\| \(\(([^)]*)\)", body)
+    assert tuple(int(x) for x in re.findall(r"g == (\d+)", ok.group(1))) \
+        == symstore._SUB_TILES
+    assert "t % 16 == 0" in body
     for t in range(1, 1025):
         for dt in (torch.int8, torch.bfloat16):
             r = flattri.matvec_route(t, dt)
             assert (r == "mma") == (t in (128, 256, 384, 512))
             assert _kernels.route_key("tri_matvec", r) in _kernels.LAUNCHES
             r = symstore.matvec_route(t, dt)
-            assert (r == "units") == (t % 128 == 0)
+            assert (r == "units") == (t % 16 == 0)
+            g = symstore.unit_tile(t)
+            assert (g in (128, *symstore._SUB_TILES)) == (r == "units")
+            assert symstore.plan_kernel(t, dt) == (
+                "units" if r == "units" else "core")
+        assert symstore.matvec_route(t, torch.float32) == "float"
+        assert symstore.plan_kernel(t, torch.float64) == "core"
     for key in _kernels.CORE_ROUTES.values():
         assert key in _kernels.LAUNCHES

@@ -304,7 +304,7 @@ def test_sym_tiles_kernel_matches_plain(cuda, m, storage):
     (two column groups), on the whole list and on D=3 slices (their raw
     sums added, then rounded once), within 1e-4; a rerun (its device plan
     made anew) is bit-identical; one launch a call, and one of the
-    reduction for int8 and bf16 storage."""
+    reduction (the float kinds' CUDA-core kernel has one too)."""
     t = 128
     nt = m // t
     inv = harness.default_invariant()
@@ -327,8 +327,7 @@ def test_sym_tiles_kernel_matches_plain(cuda, m, storage):
         before_red = _kernels.LAUNCHES["sym_tiles_reduce"]
         a = symstore.sym_tiles_matvec_cuda(tiles, nt, U, plan=plan)
         assert _kernels.LAUNCHES["sym_tiles_matvec"] == before + 1
-        assert _kernels.LAUNCHES["sym_tiles_reduce"] == before_red + int(
-            storage in (torch.int8, torch.bfloat16))
+        assert _kernels.LAUNCHES["sym_tiles_reduce"] == before_red + 1
         b = symstore.sym_tiles_matvec_plain(tiles, nt, U)
         assert a.dtype == torch.float32 and a.shape == (K, 2 * m)
         assert float((a - b).abs().max()) <= 1e-4
@@ -363,14 +362,17 @@ def _dense_rows_oracle(chunks, nt, U):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("storage", [torch.int8, torch.bfloat16])
-@pytest.mark.parametrize("t", [16, 64, 100, 256, 512])
+@pytest.mark.parametrize("t", [7, 16, 32, 48, 64, 96, 100, 192, 256, 512])
 def test_capacity_kernels_every_tile(cuda, storage, t):
-    """Kernels 3 and 7 at t = 16, 64, 100 (their CUDA-core route on the
-    codes) and 256, 512 (the unit kernel over 128-row tiles), one problem
-    of m = t (1024 // t), rows at G=3, K=16 and K=1: within 1e-4 of the
-    plain versions, 1.1e-5 of an f64 oracle, on the whole storage and
-    over D=3 slices summed; reruns bit-identical; launches under the
-    route's key (and the reduction's on the unit route)."""
+    """Kernels 3 and 7 at t = 16, 32, 48, 64, 96, 192 (the unit kernel over
+    super-tiles of 64-, 32- and 16-row tiles), 256, 512 (over 128-row
+    tiles) and 7, 100 (the CUDA-core kernel of csrc/sym_core.cuh), one
+    problem of m = t (1024 // t), rows at G=3, K = 16, 1, 5 and 17 (two
+    groups): within 1e-4 of the plain versions, 1.1e-5 of an f64 oracle,
+    raw sums (rounded once) likewise, on the whole storage and over D=3
+    slices summed; reruns bit-identical; launches under the route's key
+    (the rows wrapper one a 16 columns, the tile list one a call) and as
+    many of the reduction. At t = 64 the f32 and f64 storage kinds too."""
     m = t * (1024 // t)
     nt = m // t
     G = 3
@@ -381,33 +383,37 @@ def test_capacity_kernels_every_tile(cuda, storage, t):
     tiles = symstore.build_symtiles(inv, P1, P2, A, m, tile=t,
                                     storage_dtype=storage)
     route = symstore.matvec_route(t, storage)
+    assert route == ("units" if t % 16 == 0 else "core")
     scale = symstore._scale(storage)
     gen = torch.Generator(device=cuda).manual_seed(t)
-    for K in (16, 1):
+    for K in (16, 1, 5, 17):
         U = _unit_rows(gen, K, m)
-        for name, run, plain, oracle in (
+        oracle = _dense_rows_oracle(chunks, nt, U)
+        for name, run, plain, calls in (
                 ("sym_rows_matvec",
                  lambda **kw: symstore.sym_rows_matvec_cuda(chunks, nt, U,
                                                             **kw),
-                 symstore.sym_rows_matvec_plain(chunks, nt, U),
-                 _dense_rows_oracle(chunks, nt, U)),
+                 symstore.sym_rows_matvec_plain(chunks, nt, U), -(-K // 16)),
                 ("sym_tiles_matvec",
                  lambda **kw: symstore.sym_tiles_matvec_cuda(tiles, nt, U,
                                                              **kw),
-                 symstore.sym_tiles_matvec_plain(tiles, nt, U), None)):
+                 symstore.sym_tiles_matvec_plain(tiles, nt, U), 1)):
             key = _kernels.route_key(name, route)
+            other = _kernels.route_key(name, "core" if route == "units"
+                                       else "units")
             red = _kernels.REDUCTIONS[name]
-            before, before_red = _kernels.LAUNCHES[key], _kernels.LAUNCHES[red]
+            before = {k: _kernels.LAUNCHES[k] for k in (key, other, red)}
             a = run()
-            assert _kernels.LAUNCHES[key] == before + 1
-            assert _kernels.LAUNCHES[red] == before_red + int(
-                route == "units")
+            assert _kernels.LAUNCHES[key] == before[key] + calls
+            assert _kernels.LAUNCHES[red] == before[red] + calls
+            assert _kernels.LAUNCHES[other] == before[other]
             assert a.dtype == torch.float32 and a.shape == (K, 2 * m)
             assert float((a - plain).abs().max()) <= 1e-4
             assert torch.equal(a, run())
-            if oracle is None:
-                oracle = _dense_rows_oracle(chunks, nt, U)
             assert float((a.double() - oracle).abs().max()) <= 1.1e-5
+            raw = run(raw=True)
+            assert raw.dtype == torch.float64
+            assert torch.equal(symstore._finish(raw, scale), a)
         # D=3 slices: the tile list's shard slices, the chunk ranges
         acc = 0
         for rank in range(3):
@@ -430,6 +436,23 @@ def test_capacity_kernels_every_tile(cuda, storage, t):
         summed = symstore._finish(acc, scale)
         ref = symstore.sym_rows_matvec_plain(chunks, nt, U)
         assert float((summed - ref).abs().max()) <= 1e-4
+    if t != 64 or storage != torch.int8:
+        return
+    for dtype in (torch.float32, torch.float64):
+        Pf1, Pf2 = P1.to(dtype), P2.to(dtype)
+        for store, run, plain in (
+                (symstore.build_symchunks(inv, Pf1, Pf2, A, m, tile=t, G=G,
+                                          storage_dtype=dtype),
+                 symstore.sym_rows_matvec_cuda,
+                 symstore.sym_rows_matvec_plain),
+                (symstore.build_symtiles(inv, Pf1, Pf2, A, m, tile=t,
+                                         storage_dtype=dtype),
+                 symstore.sym_tiles_matvec_cuda,
+                 symstore.sym_tiles_matvec_plain)):
+            U = _unit_rows(gen, 17, m, dtype)
+            a = run(store, nt, U)
+            assert float((a - plain(store, nt, U)).abs().max()) <= 1e-4
+            assert torch.equal(a, run(store, nt, U))
 
 
 @pytest.mark.cuda

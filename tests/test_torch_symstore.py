@@ -23,8 +23,8 @@ from clipper_tpu_torch.solvers import msrc
 from clipper_tpu_torch.types import Params, Rounding
 
 from test_symstore import make_problem
-from test_torch_symtiles import (check_slot_lists, emulate_plan, plan_tiles,
-                                  unit_shape)
+from test_torch_symtiles import (check_slot_lists, emulate_plan, grid_tiles,
+                                  plan_blocks, plan_tiles, unit_shape)
 
 JINV = jharness.default_invariant()
 INV = harness.default_invariant()
@@ -195,19 +195,21 @@ def test_rows_plan_covers_each_tile_once(nt, G, D, R, S, monkeypatch):
     seen = []
     for base, n in _chunk_slices(nt, G, D):
         plan = symstore.rows_plan(nt, G, n, base, t)
-        r, c = plan_tiles(plan)
-        x, y = plan.entries[:, 0], plan.entries[:, 1]
+        # t = 32: super-tiles of 128 rows made of the stored 32-row tiles
+        assert plan.sub == t
+        x, y, r, c = grid_tiles(plan, n * 2 * t)
         assert (y % (2 * t) == 0).all() and (x % t == 0).all()
         np.testing.assert_array_equal(y // (2 * t) + base,
                                       first[r] + (c - r) // G)
         np.testing.assert_array_equal(x // t, (c - r) % G)
         assert ((y // (2 * t) < n) & (c >= r) & (c < nt)).all()
+        er, ec = plan_tiles(plan)
         for e0, e1, r0, _ in plan.units:
-            assert len({(a // R, b // S) for a, b in zip(r[e0:e1],
-                                                         c[e0:e1])}) == 1
-            walk = list(zip(c[e0:e1], r[e0:e1]))
+            assert len({(a // R, b // S) for a, b in zip(er[e0:e1],
+                                                         ec[e0:e1])}) == 1
+            walk = list(zip(ec[e0:e1], er[e0:e1]))
             assert walk == sorted(walk)
-        check_slot_lists(plan, nt)
+        check_slot_lists(plan, plan_blocks(plan, nt * t))
         seen += list(zip(r, c))
     assert sorted(seen) == sorted(zip(*np.triu_indices(nt)))
 
@@ -260,9 +262,12 @@ def test_plans_are_cached_by_layout(monkeypatch):
     b = symstore.tiles_plan(nt, rows, cols, t)
     assert symstore.tiles_plan(nt, rows.copy(), list(cols), t) is b
     assert symstore.tiles_plan(nt, rows[::-1], cols[::-1], t) is not b
+    # the whole list's super-tiles (t = 32: three 128-row blocks a side)
+    NC = int(symstore.row_first_chunk(nt, G)[-1])
+    whole = symstore.rows_plan(nt, G, NC, 0, t)
     unit_shape(monkeypatch, 2, 3)
-    small = symstore.rows_plan(nt, G, 12, 0, t)
-    assert small is not a and len(small.units) > len(a.units)
+    small = symstore.rows_plan(nt, G, NC, 0, t)
+    assert small is not whole and len(small.units) > len(whole.units)
 
 
 def test_exact_objective_matches_jax():

@@ -257,33 +257,60 @@ def emulate_plan(view, plan, U, nt, t):
     the storage's 2-D ``view`` (numpy, f64): each unit's row sums and
     column sums, tile by tile in entry order, written to their slots at
     the unit's end and the column's end; then each output block's slots
-    added in list order. U (K, m) f64, the kernel's operand. Returns the
-    raw (K, 2m) sums."""
+    added in list order. A sub-tiled plan's entry (plan.sub < 128) is a
+    super-tile of 128 rows assembled from its subs (a sub-tile past the
+    view's last row zeros), whose transposed product leaves out its
+    diagonal sub-tiles on the matrix's diagonal. U (K, m) f64, the
+    kernel's operand. Returns the raw (K, 2m) sums."""
     K = U.shape[0]
-    Ub = U.reshape(K, nt, t)
-    ws = np.full((plan.n_slots, 2, K, t), np.nan)
+    m = nt * t
+    g = plan.sub
+    P = symstore._UNIT_T // g if g < symstore._UNIT_T else 1
+    w = t if P == 1 else symstore._UNIT_T
+    nb = -(-m // w)
+    Ub = np.zeros((K, nb * w))
+    Ub[:, :m] = U
+    Ub = Ub.reshape(K, nb, w)
+
+    def tile(x, y):
+        if P == 1:
+            return view[y:y + 2 * t, x:x + t].reshape(2, t, t)
+        X = np.zeros((2, w, w))
+        for q, (sx, sy) in enumerate(plan.subs[x * P * P:(x + 1) * P * P]):
+            if sy < view.shape[0]:
+                a, b = divmod(q, P)
+                for h in (0, 1):
+                    X[h, a * g:(a + 1) * g, b * g:(b + 1) * g] = \
+                        view[sy + h * t:sy + h * t + g, sx:sx + g]
+        return X
+
+    ws = np.full((plan.n_slots, 2, K, w), np.nan)
     for n_unit, (e0, e1, r0, _) in enumerate(plan.units):
-        fwd = np.zeros((plan.fslots.shape[1], 2, K, t))
-        col = np.zeros((2, K, t))
+        fwd = np.zeros((plan.fslots.shape[1], 2, K, w))
+        col = np.zeros((2, K, w))
         for x, y, c, meta in plan.entries[e0:e1]:
             i = meta & 0xF
-            tile = view[y:y + 2 * t, x:x + t].reshape(2, t, t)
-            fwd[i] += Ub[:, c] @ tile.transpose(0, 2, 1)
+            X = tile(x, y)
+            fwd[i] += Ub[:, c] @ X.transpose(0, 2, 1)
             if meta & symstore._META_TRANSPOSED:
-                col += Ub[:, r0 + i] @ tile
+                if P > 1 and r0 + i == c:
+                    X = X.copy()
+                    for a in range(P):
+                        X[:, a * g:(a + 1) * g, a * g:(a + 1) * g] = 0
+                col += Ub[:, r0 + i] @ X
             if meta & symstore._META_COL_END:
                 if meta & symstore._META_COL_WRITE:
                     ws[meta >> symstore._META_SLOT_SHIFT] = col
-                col = np.zeros((2, K, t))
+                col = np.zeros((2, K, w))
         for i, slot in enumerate(plan.fslots[n_unit]):
             if slot >= 0:
                 ws[slot] = fwd[i]
-    out = np.zeros((K, 2, nt, t))
-    for j in range(nt):
+    out = np.zeros((K, 2, nb, w))
+    for j in range(nb):
         for slot in plan.red_slots[plan.red_off[j]:plan.red_off[j + 1]]:
             out[:, :, j] += ws[slot].transpose(1, 0, 2)
     assert not np.isnan(out).any()
-    return out.reshape(K, 2 * nt * t)
+    return out.reshape(K, 2, nb * w)[:, :, :m].reshape(K, 2 * m)
 
 
 def plan_tiles(plan):
@@ -296,6 +323,28 @@ def plan_tiles(plan):
     rr = np.empty(len(plan.entries), int)
     rr[order] = r
     return rr, plan.entries[:, 2].astype(int)
+
+
+def grid_tiles(plan, view_rows):
+    """(x, y, r, c) of every tile a plan reads, (r, c) in the grid of
+    symstore.unit_tile: the entries' own, or a sub-tiled plan's sub-tiles
+    that the storage holds (super-tile (R, C)'s sub-tile (a, b) is the
+    grid's tile (R P + a, C P + b), P = 128 // plan.sub)."""
+    er, ec = plan_tiles(plan)
+    if plan.sub == symstore._UNIT_T:
+        return plan.entries[:, 0], plan.entries[:, 1], er, ec
+    P = symstore._UNIT_T // plan.sub
+    subs = plan.subs.reshape(-1, P * P, 2)[plan.entries[:, 0]]
+    e, q = np.nonzero(subs[:, :, 1] < view_rows)
+    return (subs[e, q, 0], subs[e, q, 1], er[e] * P + q // P,
+            ec[e] * P + q % P)
+
+
+def plan_blocks(plan, m):
+    """The output blocks of a plan's grid at size m: 128 rows each in a
+    sub-tiled plan, else the entries' tile."""
+    return -(-m // symstore._UNIT_T) if plan.sub < symstore._UNIT_T else \
+        len(plan.red_off) - 1
 
 
 def check_slot_lists(plan, nt):
@@ -376,22 +425,25 @@ def test_tiles_plan_covers_each_tile_once(nt, D, R, S, monkeypatch):
         r_sl = rows[rank * n:(rank + 1) * n]
         c_sl = cols[rank * n:(rank + 1) * n]
         plan = symstore.tiles_plan(nt, r_sl, c_sl, t)
-        r, c = plan_tiles(plan)
-        k = plan.entries[:, 1] // (2 * t)
-        assert (plan.entries[:, 1] % (2 * t) == 0).all()
-        assert (plan.entries[:, 0] == 0).all()
+        # t = 32: super-tiles of 128 rows made of the stored 32-row tiles
+        assert plan.sub == t
+        x, y, r, c = grid_tiles(plan, len(r_sl) * 2 * t)
+        k = y // (2 * t)
+        assert (y % (2 * t) == 0).all()
+        assert (x == 0).all()
         np.testing.assert_array_equal(r_sl[k], r)
         np.testing.assert_array_equal(c_sl[k], c)
         assert sorted(k) == list(np.flatnonzero(r_sl < nt))
+        er, ec = plan_tiles(plan)
         for e0, e1, r0, _ in plan.units:
-            assert len({(a // R, b // S) for a, b in zip(r[e0:e1],
-                                                         c[e0:e1])}) == 1
-            assert r0 == r[e0] // R * R
-            walk = list(zip(c[e0:e1], r[e0:e1]))
+            assert len({(a // R, b // S) for a, b in zip(er[e0:e1],
+                                                         ec[e0:e1])}) == 1
+            assert r0 == er[e0] // R * R
+            walk = list(zip(ec[e0:e1], er[e0:e1]))
             assert walk == sorted(walk)
         sizes = plan.units[:, 1] - plan.units[:, 0]
         assert (np.diff(sizes) <= 0).all()     # the largest unit first
-        check_slot_lists(plan, nt)
+        check_slot_lists(plan, plan_blocks(plan, nt * t))
         seen += list(zip(r, c))
     assert sorted(seen) == sorted(zip(*symstore.tile_coords(nt)))
 
@@ -436,11 +488,13 @@ def test_tiles_plan_emulation_matches_plain(m, storage, R, S, monkeypatch):
 
 
 def test_tile_walks():
-    """Each output block's walk holds its row's forward tiles, then its
+    """Each output block's walk (bench.parent_ab.tile_walks, the older
+    checkouts' tile-list walk) holds its row's forward tiles, then its
     column's transposed tiles, in increasing k; inert slots are in none."""
+    from clipper_tpu_torch.bench import parent_ab
     nt = 5
     rows, cols = symstore.shard_tile_coords(nt, 4)
-    walks, offsets = symstore.tile_walks(nt, rows, cols)
+    walks, offsets = parent_ab.tile_walks(nt, rows, cols)
     assert offsets[0] == 0 and offsets[-1] == len(walks) == 2 * 15 - nt
     for j in range(nt):
         got = [tuple(w) for w in walks[offsets[j]:offsets[j + 1]]]
