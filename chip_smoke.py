@@ -55,12 +55,16 @@ Phases, each of which must pass (any failure exits non-zero):
               each kernel's route (ops/flattri.matvec_route,
               ops/symstore.matvec_route) printed and its time beside its
               bound, plain version and library call: kernels 1 and 9 in
-              int8 and bf16 at t = 16, 64, 100, 384, 512 on W=16 problems
-              of m = t (2048 // t) built by kernel 2 (kernel 1 at B=128,
-              K=16 and B=16, K=1; kernel 9 at B=128, bit-equal to kernel 1
-              at K=1), kernel 9 in f32 and f64 at t=64, each <= 1e-4 from
-              its plain version, <= 1.1e-5 from an f64 oracle, a rerun bit
-              for bit; kernels 2 and 8, int8 and bf16, both invariants,
+              int8 and bf16 at t = 16, 32, 48, 64, 100, 384, 512 on W=16
+              problems of m = t (2048 // t) built by kernel 2 (kernel 1 at
+              B=128, K=16 and B=16, K=1; kernel 9 at B=128, bit-equal to
+              kernel 1 at K=1), and in f32 and f64 at t = 64, 100, 128,
+              256 on W=16 problems of m = t (1024 // t) (kernel 1 at
+              B=128, K=16; kernel 9 at B=128, bit-equal to kernel 1 at K=1
+              but on its warp-row kernel at t = 128, 256), each <= 1e-4
+              from its plain version (f64: 1e-12), <= 1.1e-5 from an f64
+              oracle, a rerun bit for bit; kernels 2 and 8, int8 and bf16,
+              both invariants,
               at t = 384 and 512 (W=16, m_true < m on four: C exact, 0 M
               codes differing, byte-equal to each other); kernels 3 and 7
               in int8 and bf16 at t = 16, 32, 48, 64, 100, 192, 256, 512
@@ -285,7 +289,8 @@ Phases, each of which must pass (any failure exits non-zero):
               (phase_tiles): bench.py's tri pool protocol (W=512) at
               tri_tile 64 and 512 in int8 and 512 in bf16, beside t=256
               in turns (P >= 0.995, R >= 0.88, the build kernel once and
-              the matvec by its route launched; problems/s and stage ms),
+              the matvec by its route launched, no launch under another
+              route's key; problems/s and stage ms),
               kernels 1 and 2 timed on that W=512 storage at each tile;
               the m=65,536 capacity problem at tile=256, row-chunked and
               tile list (the P/R bars, IoU >= 0.95 with phase 4's t=128
@@ -328,7 +333,8 @@ W_CHECK = 16        # problems for the kernel and CPU-parity checks
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 BF16_FLOPS = 989e12           # dense bf16 tensor-core peak
 F32_FLOPS = 67e12             # f32 outside the tensor cores
-F64_FLOPS = 34e12             # f64 outside the tensor cores (data sheet)
+F64_FLOPS = 67e12             # f64 products on the tensor cores (DMMA)
+F64_SIMT_FLOPS = 34e12        # other f64 work, outside the tensor cores
 BUILD_OPS_PER_PAIR = 30       # f32 operations a Euclidean pair (tri_build.cu)
 MATVEC_TOL = 1e-4             # max |kernel - plain| of the matvecs
 CAP_M = 65536       # the capacity path: one problem at m=65,536 ...
@@ -457,34 +463,42 @@ def check_build(tri_k, tri_p, t, label):
 
 
 def check_matvec(tri, nt, idx, U, label, oracle=False):
-    """tri_matvec against the plain version on the same inputs (<= 1e-4);
-    with oracle, also against an f64 oracle on the same content and
-    bf16-rounded u (<= 1.1e-5) and a rerun bit for bit. Returns the max
-    |kernel - plain|."""
+    """tri_matvec against the plain version on the same inputs (<= 1e-4;
+    f64 storage, summed in f64: <= 1e-12); with oracle, also against an
+    f64 oracle on the same content and u (bf16-rounded for int8 / bf16
+    storage; <= 1.1e-5, f64: 1e-12) and a rerun bit for bit. Returns the
+    max |kernel - plain|."""
     import torch
     from clipper_tpu_torch.ops import flattri
-    MUk, CUk = flattri.tri_pool_matvec_cuda(tri, nt, idx, U, torch.float32)
-    MUp, CUp = flattri.tri_pool_matvec_plain(tri, nt, idx, U, torch.float32)
+    f64 = tri.dtype == torch.float64
+    fdt = torch.float64 if f64 else torch.float32
+    MUk, CUk = flattri.tri_pool_matvec_cuda(tri, nt, idx, U, fdt)
+    MUp, CUp = flattri.tri_pool_matvec_plain(tri, nt, idx, U, fdt)
     require(bool(torch.isfinite(MUk).all() & torch.isfinite(CUk).all()),
             f"tri_matvec {label}: non-finite output")
     err = max(float((MUk - MUp).abs().max()), float((CUk - CUp).abs().max()))
     msg = f"tri_matvec vs plain ({label}): max|kernel - plain|={err:.3e}"
     if oracle:
-        MUo, CUo = flattri.tri_pool_matvec_plain(
-            tri.double(), nt, idx, U.bfloat16().double(), torch.float64)
+        Uo = (U.bfloat16().double() if tri.dtype in (torch.int8,
+                                                      torch.bfloat16)
+              else U.double())
+        MUo, CUo = flattri.tri_pool_matvec_plain(tri.double(), nt, idx, Uo,
+                                                 torch.float64)
         s = 1 / 127 if tri.dtype == torch.int8 else 1.0
         e_o = max(float((MUk.double() - MUo * s).abs().max()),
                   float((CUk.double() - CUo * s).abs().max()))
-        again = flattri.tri_pool_matvec_cuda(tri, nt, idx, U, torch.float32)
+        again = flattri.tri_pool_matvec_cuda(tri, nt, idx, U, fdt)
         same = bool(torch.equal(MUk, again[0]) and torch.equal(CUk,
                                                                again[1]))
         msg += (f", max|kernel - f64 oracle|={e_o:.3e}, rerun "
                 f"bit-identical={same}")
-        require(e_o <= ORACLE_TOL, f"tri_matvec {label} exceeds "
-                f"{ORACLE_TOL} against the f64 oracle")
+        o_tol = F64_MATVEC_TOL if f64 else ORACLE_TOL
+        require(e_o <= o_tol, f"tri_matvec {label} exceeds {o_tol} against "
+                "the f64 oracle")
         require(same, f"tri_matvec {label}: a rerun is not bit-identical")
     print(msg, flush=True)
-    require(err <= MATVEC_TOL, f"tri_matvec {label} disagrees with plain")
+    require(err <= (F64_MATVEC_TOL if f64 else MATVEC_TOL),
+            f"tri_matvec {label} disagrees with plain")
     return err
 
 
@@ -2063,7 +2077,10 @@ def check_tiles_matvec(tri, nt, idx, U, label):
           f"max|kernel - f64 oracle|={e_o:.3e}, max|kernel - tri_matvec "
           f"K=1|={e_1:.3e}, bit-equal to tri_matvec K=1: {bits}; rerun "
           "bit-identical", flush=True)
-    if tri.dtype in (torch.int8, torch.bfloat16):
+    # one kernel over two address maps but where kernel 9's float kinds
+    # take their warp-row kernel (t = 128, 256)
+    t = tri.shape[1] // 2
+    if tri.dtype in (torch.int8, torch.bfloat16) or t not in (128, 256):
         require(bits, f"tri_tiles_matvec {label}: not bit-equal to "
                 "tri_matvec at K=1 on the same content")
     f64 = tri.dtype == torch.float64
@@ -2288,7 +2305,8 @@ def phase_kernels_bf16(inv, pn_inv, check, pn_check, dev):
 TILE_M = 2048                  # phase 2's new tiles: m = t (TILE_M // t)
 TILE_W = 16                    # ... problems (kernels 1, 2, 8, 9)
 PN_TILE_M = 1536               # ... point-normal problems (kernels 2, 8)
-TRI_TILES = (16, 64, 100, 384, 512)   # kernels 1 and 9
+TRI_TILES = (16, 32, 48, 64, 100, 384, 512)   # kernels 1 and 9
+FLOAT_TILES = (64, 100, 128, 256)     # ... over f32 / f64 storage
 CAP_TILES = (16, 32, 48, 64, 100, 192, 256, 512)   # kernels 3 and 7
 BUILD_TILES = (384, 512)              # kernels 2 and 8 past 256
 TILE_G = 3                     # the rows layout's chunk width there
@@ -2303,29 +2321,33 @@ def tile_m(t: int) -> int:
     return t * (TILE_M // t)
 
 
-def tri_matvec_bound(idx, K, t, nt, item):
+def tri_matvec_bound(idx, K, t, nt, item, u_item=2, out_item=4,
+                     peak=None):
     """bound_of a tri matvec call over lanes idx of storage of ``item``
-    bytes an element: each distinct problem's triangle read once, u (bf16)
-    read and the output (f32) written once, 2 K flops a stored element,
-    lane and direction (the transposed products of the strictly upper
-    tiles)."""
+    bytes an element: each distinct problem's triangle read once, u
+    (``u_item`` bytes: bf16) read and the output (``out_item``: f32)
+    written once, 2 K flops a stored element, lane and direction (the
+    transposed products of the strictly upper tiles), at ``peak`` (the
+    bf16 tensor cores' unless given)."""
     B = idx.numel()
     P = int(idx.unique().numel())
     S = t * (nt * (nt + 1) // 2)
     T = nt * (nt + 1) // 2
     m = nt * t
-    return bound_of(P * 2 * t * S * item + B * K * m * 2 + B * K * 2 * m * 4,
-                    2 * K * B * (2 * t * S + 2 * t * t * (T - nt)))
+    return bound_of(P * 2 * t * S * item + B * K * m * u_item
+                    + B * K * 2 * m * out_item,
+                    2 * K * B * (2 * t * S + 2 * t * t * (T - nt)), peak)
 
 
-def bmm_ms(tri, nt, idx, U, dev, reps=10):
-    """torch.bmm over the lanes' dense bf16 [M; C] (the library call that
-    computes the tri matvec)."""
+def bmm_ms(tri, nt, idx, U, dev, reps=10, dtype=None):
+    """torch.bmm over the lanes' dense [M; C] in ``dtype`` (bf16 unless
+    given; the library call that computes the tri matvec)."""
     import torch
     from clipper_tpu_torch.bench.harness import time_ms
     from clipper_tpu_torch.ops import flattri
-    dense = flattri.dense_stacked(tri[idx.long()], nt).to(torch.bfloat16)
-    Ut = U.to(torch.bfloat16).transpose(1, 2).contiguous()
+    dtype = dtype or torch.bfloat16
+    dense = flattri.dense_stacked(tri[idx.long()], nt).to(dtype)
+    Ut = U.to(dtype).transpose(1, 2).contiguous()
     ms = time_ms(lambda: torch.bmm(dense, Ut), dev, reps)
     del dense
     return ms
@@ -2403,8 +2425,11 @@ def phase_kernels_tiles(inv, pn_inv, dev):
     at t in TRI_TILES on TILE_W=16 problems of m = t (2048 // t) built by
     kernel 2 (B=128 lanes, K=16 and K=1 for kernel 1; <= 1e-4 from the
     plain version, <= 1.1e-5 from an f64 oracle, a rerun bit for bit;
-    kernel 9 bit-equal to kernel 1 at K=1), kernel 9 in f32 and f64 at
-    t=64; kernels 2 and 8, int8 and bf16, both invariants, at t in
+    kernel 9 bit-equal to kernel 1 at K=1), kernels 1 and 9 in f32 and
+    f64 at t in FLOAT_TILES on TILE_W problems of m = t (1024 // t) (the
+    same bars, f64 at 1e-12; kernel 9 bit-equal to kernel 1 at K=1 off
+    its warp-row tiles 128 and 256); kernels 2 and 8, int8 and bf16, both
+    invariants, at t in
     BUILD_TILES with m_true < m on four problems (C exact, 0 M codes
     differing, byte-equal to each other); kernels 3 and 7, int8 and bf16,
     at t in CAP_TILES on one problem of m = t (2048 // t) (rows at G=3),
@@ -2513,23 +2538,66 @@ def phase_kernels_tiles(inv, pn_inv, dev):
                   f"over dense bf16 [M; C] {r['library_ms']:.4f} ms",
                   flush=True)
 
-    # kernel 9's float kinds at t = 64 (its CUDA-core route)
-    t, m = 64, TILE_M // 2
-    nt = m // t
-    mts = torch.full((4,), m, dtype=torch.int32, device=dev)
-    for dtype in (torch.float32, torch.float64):
-        tri_f = flattri.build_tri_plain(inv, P1a[:4, :m].to(dtype),
-                                        P2a[:4, :m].to(dtype), Aa[:4, :m],
-                                        mts, t=t, storage_dtype=None)
-        idx = torch.randint(0, 4, (32,), generator=gen, device=dev,
-                            dtype=torch.int32)
-        U = unit_rows(gen, 32, 1, dev, m)[:, 0].to(dtype)
-        errs["tri_tiles_matvec"] = max(
-            errs["tri_tiles_matvec"], check_tiles_matvec(
-                tri_f, nt, idx, U, f"{dtype}, route "
-                f"{flattri.matvec_route(t, dtype)}, m={m}, "
-                f"t={t}, B=32"))
-        del tri_f
+    # kernels 1 and 9's float kinds at FLOAT_TILES (kernel 1's CUDA-core
+    # kernel; kernel 9's too but at t = 128, 256: its warp-row kernel),
+    # TILE_W problems of m = t (1024 // t), B=128 lanes: kernel 1 at K=16
+    # and kernel 9 at one probe, checked and timed, and kernel 1 at K=1
+    # timed beside kernel 9
+    for t in FLOAT_TILES:
+        m = t * (TILE_M // 2 // t)
+        nt = m // t
+        mts = torch.full((TILE_W,), m, dtype=torch.int32, device=dev)
+        for dtype, kind, peak in ((torch.float32, "f32", F32_FLOPS),
+                                  (torch.float64, "f64", F64_FLOPS)):
+            tri_f = flattri.build_tri_plain(inv, P1a[:, :m].to(dtype),
+                                            P2a[:, :m].to(dtype), Aa[:, :m],
+                                            mts, t=t, storage_dtype=None)
+            route = flattri.matvec_route(t, dtype)
+            item = tri_f.element_size()
+            idx = torch.randint(0, TILE_W, (128,), generator=gen,
+                                device=dev, dtype=torch.int32)
+            U = unit_rows(gen, 128, 16, dev, m).to(dtype)
+            shape = f"W={TILE_W}, m={m}, B=128"
+            errs["tri_matvec"] = max(errs["tri_matvec"], check_matvec(
+                tri_f, nt, idx, U, f"{kind}, route {route}, {shape}, t={t}, "
+                "K=16", oracle=True))
+            r = dict(route=route, shape=f"{shape}, K=16",
+                     **tri_matvec_bound(idx, 16, t, nt, item, item, item,
+                                        peak))
+            r["ms"] = time_ms(lambda: flattri.tri_pool_matvec_cuda(
+                tri_f, nt, idx, U, dtype), dev, 10)
+            r["plain_ms"] = time_ms(lambda: flattri.tri_pool_matvec_plain(
+                tri_f, nt, idx, U, dtype), dev, 2)
+            r["library_ms"] = bmm_ms(tri_f, nt, idx, U, dev, dtype=dtype)
+            rows["tri_matvec"][f"t={t} {kind}"] = r
+            U1 = U[:, 0].contiguous()
+            errs["tri_tiles_matvec"] = max(
+                errs["tri_tiles_matvec"], check_tiles_matvec(
+                    tri_f, nt, idx, U1, f"{kind}, route {route}, {shape}, "
+                    f"t={t}"))
+            tl = flat_tiles(tri_f, nt)
+            r = dict(route=route, shape=f"{shape}, one probe",
+                     **tri_matvec_bound(idx, 1, t, nt, item, item, item,
+                                        peak))
+            r["ms"] = time_ms(lambda: flattri.tri_tiles_matvec_cuda(
+                tl, nt, idx, U1, dtype), dev, 10)
+            r["plain_ms"] = time_ms(lambda: flattri.tri_tiles_matvec_plain(
+                tl, nt, idx, U1, dtype), dev, 2)
+            r["library_ms"] = bmm_ms(tri_f, nt, idx, U1[:, None], dev,
+                                     dtype=dtype)
+            r["k1_ms"] = time_ms(lambda: flattri.tri_pool_matvec_cuda(
+                tri_f, nt, idx, U1[:, None], dtype), dev, 10)
+            rows["tri_tiles_matvec"][f"t={t} {kind}"] = r
+            for name in ("tri_matvec", "tri_tiles_matvec"):
+                q = rows[name][f"t={t} {kind}"]
+                print(f"timing {name} t={t} {kind} ({q['shape']}, route "
+                      f"{route}): kernel {q['ms']:.4f} ms, bound "
+                      f"{q['bound_ms']:.4f} ms ({q['bound_by']}), plain "
+                      f"{q['plain_ms']:.4f} ms, torch.bmm over the dense "
+                      f"{kind} [M; C] (TF32 off) {q['library_ms']:.4f} ms"
+                      + (f", kernel 1 at K=1 {q['k1_ms']:.4f} ms"
+                         if "k1_ms" in q else ""), flush=True)
+            del tri_f, tl
 
     # kernels 3 and 7 at every new tile: one problem, m = t (2048 // t)
     for t in CAP_TILES:
@@ -2687,6 +2755,8 @@ def phase_tiles(inv, main, cap, cap_mask, dry, dev):
                             storage=storage, tri_tile=t)
 
     secs = {}
+    keys = [_kernels.route_key("tri_matvec", r)
+            for r in ("mma", "super", "core")]
     for storage, t in cfgs:
         name = str(storage).split(".")[-1]
         sol, launches = counted_call(lambda: run(storage, t))
@@ -2695,10 +2765,12 @@ def phase_tiles(inv, main, cap, cap_mask, dry, dev):
         key = _kernels.route_key("tri_matvec", route)
         print(f"tri pool {name} tri_tile={t}: W={W_MAIN} m={M}: precision="
               f"{P * 100:.2f}% recall={R * 100:.2f}%; kernel 1 route "
-              f"{route} ({key} {launches[key]} launches), tri_build "
-              f"{launches['tri_build']}", flush=True)
-        require(launches["tri_build"] == 1 and launches[key] > 0,
-                f"tri pool {name} t={t}: tri_build once and {key} "
+              f"{route}; launches by route key: " + ", ".join(
+                  f"{k} {launches[k]}" for k in keys)
+              + f"; tri_build {launches['tri_build']}", flush=True)
+        require(launches["tri_build"] == 1 and launches[key] > 0
+                and all(launches[k] == 0 for k in keys if k != key),
+                f"tri pool {name} t={t}: tri_build once and only {key} "
                 f"expected: {launches}")
         secs[(storage, t)] = []
     timings = {}
@@ -3182,7 +3254,7 @@ def time_pn_and_dense(inv, pn_inv, check, pn_main, dev, rows_in):
                 2 * m * m * size + 2 * m * d * size + m * 2 * 4,
                 (m * (m - 1) // 2) * (PN_OPS_PER_PAIR if d == 6
                                       else BUILD_OPS_PER_PAIR),
-                F32_FLOPS if dtype == torch.float32 else F64_FLOPS)
+                F32_FLOPS if dtype == torch.float32 else F64_SIMT_FLOPS)
             # the kernel through its wrapper, as the facade and the grid
             # trials call it; beside it through its C entry on inputs made
             # once, as bench/parent_ab times it (at m=1024 the wrapper's

@@ -21,7 +21,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "clipper_tpu_torch"
@@ -111,27 +111,31 @@ _SIGNATURES = {
 # int8 / bf16 unit pass), counted under its own key
 REDUCTIONS: Dict[str, str] = {"sym_rows_matvec": "sym_rows_reduce",
                               "sym_tiles_matvec": "sym_tiles_reduce"}
-# the CUDA-core route of the int8 / bf16 matvecs at the tiles their
-# tensor-core kernel does not take (ops/flattri.matvec_route,
-# ops/symstore.matvec_route), counted under its own key
-CORE_ROUTES: Dict[str, str] = {name: f"{name}_core" for name in (
-    "tri_matvec", "tri_tiles_matvec", "sym_rows_matvec", "sym_tiles_matvec")}
 # the routes an entry with a route argument reports, by its value
-# (csrc/tri_matvec_mma.cuh: kRouteMma, kRouteCore)
-ROUTES = ("mma", "core")
-LAUNCHES: Dict[str, int] = {name: 0 for name in (*SOURCES,
-                                                 *REDUCTIONS.values(),
-                                                 *CORE_ROUTES.values())}
-BUILD_LOG: Dict[str, str] = {}
-_LIBS: Dict[str, ctypes.CDLL] = {}
+# (csrc/tri_matvec_mma.cuh: kRouteMma, kRouteCore, kRouteSuper)
+ROUTES = ("mma", "core", "super")
+# the routes of the matvecs that have more than one, beside each
+# kernel's primary routes ("mma", "units", "float"): the int8 / bf16
+# CUDA-core route ("core") and kernels 1 and 9's super-tiles ("super";
+# ops/flattri.matvec_route, ops/symstore.matvec_route)
+ROUTED: Dict[str, Tuple[str, ...]] = {
+    "tri_matvec": ("core", "super"), "tri_tiles_matvec": ("core", "super"),
+    "sym_rows_matvec": ("core",), "sym_tiles_matvec": ("core",)}
+_PRIMARY = ("mma", "units", "float")
 
 
 def route_key(kernel: str, route: str) -> str:
-    """The ``LAUNCHES`` key of a launch of ``kernel`` by ``route``: the
-    int8 / bf16 kinds' CUDA-core route ("core") under
-    ``CORE_ROUTES[kernel]``; their tensor-core routes ("mma", "units") and
-    the float kinds' one route ("float") under ``kernel``."""
-    return CORE_ROUTES[kernel] if route == "core" else kernel
+    """The ``LAUNCHES`` key of a launch of ``kernel`` by ``route``:
+    ``kernel`` for its primary routes ("mma", "units", "float"),
+    ``f"{kernel}_{route}"`` for the others (``ROUTED``)."""
+    return kernel if route in _PRIMARY else f"{kernel}_{route}"
+
+
+LAUNCHES: Dict[str, int] = {name: 0 for name in (
+    *SOURCES, *REDUCTIONS.values(),
+    *(route_key(k, r) for k, rs in ROUTED.items() for r in rs))}
+BUILD_LOG: Dict[str, str] = {}
+_LIBS: Dict[str, ctypes.CDLL] = {}
 
 
 def call_routed(fn, what: str, *args) -> str:

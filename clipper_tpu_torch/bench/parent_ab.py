@@ -20,11 +20,23 @@ entries may lack: ``tri_matvec_probe.bind``):
   K=1 on the flat form of the same content, one ``torch.bmm`` over the
   dense bf16 [M; C] and the bound; whether the change's output is
   bit-equal to kernel 1's at K=1, and its max distance to the parent's;
-- kernels 1 and 9 over f32 and f64 storage at t=128 and 256 (kernel 1
-  at K=16, kernel 9 at one probe a lane; B=128 distinct lanes of P=128
-  random problems, m=1024): the parent's ms, the change's, the bound,
-  ``torch.bmm`` over the dense [M; C] in the storage's type, whether the
-  outputs are bit-equal and their max distance;
+- kernels 1 and 9 over f32 and f64 storage at t = 64, 100, 128 and 256
+  (kernel 1 at K=16, kernel 9 at one probe a lane; B=128 distinct lanes
+  of P=128 random problems, m=1024, 1000 at t=100): the parent's ms, the
+  change's, the bound, ``torch.bmm`` over the dense [M; C] in the
+  storage's type, whether the outputs are bit-equal and their max
+  distance;
+- kernels 1 and 9 in int8 and bf16 at every route (``route_rows``): t =
+  16, 32, 48, 64, 100 (the routes "super" and "core") and 128, 384, 512
+  ("mma") on phase 2's shapes of ``chip_smoke.py`` (W=16 bunny problems
+  at m = t (2048 // t), rho=0.9, built by kernel 2; B=128 lanes, kernel 1
+  at K=16, kernel 9 at one probe), and kernel 1 at the tri pool's
+  ``tri_tile=64`` (the W=512, m=1024 main-path problems, B=128 distinct
+  lanes, K=16): the parent's ms, the change's, the route each took, the
+  bound, ``torch.bmm`` over the dense bf16 [M; C], the outputs' largest
+  difference relative to their largest value (held to 1e-4 where the
+  route changed, to bit equality where it did not), and kernel 9's bit
+  equality with kernel 1 at K=1;
 - kernels 3 and 7 in int8 at t=128 and t=256, K=16 and K=1, on one bunny
   problem at m=65,536 (rho=0.95, numpy default_rng(0); rows at G=32),
   with this tree's plan and workspace: the parent's ms, the change's, the
@@ -33,7 +45,9 @@ entries may lack: ``tri_matvec_probe.bind``):
   thread an output column (``capacity_tile_rows``): int8 at t=64
   (m=65,536) and t=100 (m=65,600), K=16 and 1, and the f32 / f64 kinds
   at t=128 (m=16,384, K=16), that checkout's kernel against this tree's
-  route, with the speedup and the outputs' largest difference;
+  route, with the speedup and the outputs' largest difference; and at
+  t=100 (int8) and the f32 / f64 shapes, the library call beside them
+  (``capacity_library_rows``: torch.matmul over the dense [M; C], K=16);
 - kernels 2, 8 and 4 on the W=512, m=1024 problems of ``chip_smoke.py``'s
   main path (the bunny at rho=0.9 and the point-normal scans, both from
   numpy default_rng(0)), int8 and bf16 storage (kernels 2 and 8 at
@@ -49,11 +63,19 @@ entries may lack: ``tri_matvec_probe.bind``):
   and the change's ``full`` beside kernel 4 (whose kernel it runs) on
   them, in turns, with whether the two are byte-equal.
 
+- the tri pool end to end (``pool_rows``): ``make_pool_pipeline(
+  layout="tri", tri_tile=t)`` at t = 64, 256, 512 on chip_smoke.py's
+  W=512, m=1024 int8 main path, the other checkout's and this tree's in
+  one process each, in turns (parent, change, change, parent, change,
+  parent, parent, change): problems/s, each process's mean ms, and the
+  tri kernels' launches of one call by key. ``--pool`` runs
+  these rows alone.
+
 Kernel 1 is compared first, by ``tri_matvec_probe.main(["--parent",
 DIR])`` (its ablations and the parent's build, bit equality at its four
 shapes). Run on a machine with the card:
 
-    python -m clipper_tpu_torch.bench.parent_ab DIR
+    python -m clipper_tpu_torch.bench.parent_ab DIR [--pool]
 
 It prints the card's name and power limit first and returns its rows.
 """
@@ -61,6 +83,7 @@ It prints the card's name and power limit first and returns its rows.
 from __future__ import annotations
 
 import ctypes
+import json
 import os
 import subprocess
 import sys
@@ -74,13 +97,19 @@ from clipper_tpu_torch.bench.tri_matvec_probe import bind, route_arg
 
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
-F64_FLOPS = 34e12     # f64 outside the tensor cores (data sheet)
+F64_FLOPS = 67e12       # f64 products on the tensor cores (DMMA)
+F64_SIMT_FLOPS = 34e12  # other f64 work, outside the tensor cores
 BF16_FLOPS = 989e12
+# kernels 1 and 9's tiles in route_rows, and the bar of a changed route:
+# |change - parent| / max |parent|
+ROUTE_TILES = (16, 32, 48, 64, 100, 128, 384, 512)
+ROUTE_TOL = 1e-4
 # f32 operations a pair of each score (chip_smoke.py's counts)
 OPS_PER_PAIR = {"euclidean": 30, "pointnormal": 56}
 # the sources built from the other checkout, and their entry points
 _SOURCES = {
-    "tri_matvec": ("tri_matvec_f32", "tri_matvec_f64"),
+    "tri_matvec": ("tri_matvec_int8", "tri_matvec_bf16", "tri_matvec_f32",
+                   "tri_matvec_f64"),
     "tri_tiles_matvec": ("tri_tiles_matvec_int8", "tri_tiles_matvec_bf16",
                          "tri_tiles_matvec_f32", "tri_tiles_matvec_f64"),
     "sym_rows_matvec": ("sym_rows_matvec_int8", "sym_rows_matvec_core_int8",
@@ -275,13 +304,14 @@ def tiles_rows(parent_lib, dev) -> list:
 
 def float_rows(libs, dev, P: int = 128, B: int = 128,
                m: int = 1024) -> list:
-    """Kernels 1 and 9 over f32 and f64 storage at t=128 and 256, parent
-    against change, through their C entries: kernel 1 at K=16, kernel 9 at
-    one probe a lane, B distinct lanes of P random problems (10% of pairs
-    kept), beside the bound (each lane's triangle, u and the output moved
-    once; 2 K flops a stored element and direction at the f32 or f64
-    peak) and one torch.bmm over the lanes' dense [M; C] in the storage's
-    type (TF32 off), the library call computing the same function."""
+    """Kernels 1 and 9 over f32 and f64 storage at t = 64, 100, 128 and
+    256 (m = t (m // t)), parent against change, through their C entries:
+    kernel 1 at K=16, kernel 9 at one probe a lane, B distinct lanes of P
+    random problems (10% of pairs kept), beside the bound (each lane's
+    triangle, u and the output moved once; 2 K flops a stored element and
+    direction at the f32 or f64 peak) and one torch.bmm over the lanes'
+    dense [M; C] in the storage's type (TF32 off), the library call
+    computing the same function."""
     import torch
 
     from clipper_tpu_torch.bench.harness import time_ms
@@ -293,8 +323,10 @@ def float_rows(libs, dev, P: int = 128, B: int = 128,
     gen = torch.Generator(device=dev).manual_seed(3)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rows = []
-    for t in (128, 256):
-        nt = m // t
+    m0 = m
+    for t in (64, 100, 128, 256):
+        nt = m0 // t
+        m = nt * t
         S = flattri.tri_ncols(nt, t)
         T = nt * (nt + 1) // 2
         content = torch.rand(P, 2 * t, S, generator=gen, device=dev)
@@ -335,11 +367,15 @@ def float_rows(libs, dev, P: int = 128, B: int = 128,
                              .max())
                 Ut = U.view(B, -1, m).transpose(1, 2).contiguous()
                 lib = time_ms(lambda: torch.bmm(dense, Ut), dev, 10)
+                # kernel 9's warp-row kernel (t = 128, 256) is unchanged
+                same = one and t in (128, 256)
+                rel = diff / float(outs["parent"][0].abs().max())
                 row = dict(kernel=kernel, storage=kind,
                            shape=f"m={m}, t={t}, B={B}, K={K}",
                            parent_ms=p_ms, change_ms=c_ms, bound_ms=bound,
                            library_ms=lib, equal_to_parent=equal,
-                           max_diff_parent=diff)
+                           max_diff_parent=diff,
+                           held=equal if same else rel <= ROUTE_TOL)
                 print(f"{fn} m={m} t={t} B={B} K={K}: parent {p_ms:.4f} "
                       f"ms, change {c_ms:.4f} ms (in turns), bound "
                       f"{bound:.4f} ms, torch.bmm over the dense {kind} "
@@ -349,6 +385,134 @@ def float_rows(libs, dev, P: int = 128, B: int = 128,
                 rows.append(row)
             del flat, tiles, dense
     torch.backends.cuda.matmul.allow_tf32 = tf32
+    return rows
+
+
+def _tri_call(lib, fn, tri, idx, U, out, P, B, K, nt, t, stream):
+    """A launch of kernel 1's (``tri_matvec_*``) or kernel 9's
+    (``tri_tiles_matvec_*``) int8 / bf16 entry of ``lib``, and a place
+    for the route it reports (where it takes one)."""
+    from clipper_tpu_torch.ops import flattri
+    route = ctypes.c_int(-1)
+    takes = getattr(lib, fn).argtypes[-1] is _kernels._IP
+    sc = (1 / 127,) if fn.endswith("int8") else ()
+    if fn.startswith("tri_tiles"):
+        args = (P, B, nt, t, *sc, stream)
+    else:
+        args = (P, B, K, nt, t, flattri.tri_ncols(nt, t), *sc, stream)
+
+    def call():
+        return getattr(lib, fn)(tri.data_ptr(), idx.data_ptr(),
+                                U.data_ptr(), out.data_ptr(), *args,
+                                *((ctypes.byref(route),) if takes else ()))
+    return call, route
+
+
+def route_rows(libs, dev) -> list:
+    """Kernels 1 and 9 in int8 and bf16 at ROUTE_TILES on phase 2's shapes
+    and kernel 1 at the tri pool's tri_tile=64, parent against change (see
+    the module's docstring). A changed route is held to ROUTE_TOL of the
+    parent's output, an unchanged one to bit equality; rows that miss
+    carry ``held=False``."""
+    import torch
+
+    from clipper_tpu_torch.bench import harness
+    from clipper_tpu_torch.bench.harness import time_ms
+    from clipper_tpu_torch.ops import flattri
+
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    gen = torch.Generator(device=dev).manual_seed(17)
+    rows = []
+    cases = [("phase 2", t) for t in ROUTE_TILES] + [("pool", 64)]
+    data = {"phase 2": stored_inputs("euclidean", 16, 2048, dev)}
+    for shape, t in cases:
+        if shape not in data:
+            data[shape] = stored_inputs("euclidean", 512, 1024, dev)
+        P1, P2, A = data[shape]
+        W, M = A.shape[:2]
+        m = t * (M // t)
+        nt = m // t
+        S = flattri.tri_ncols(nt, t)
+        T = nt * (nt + 1) // 2
+        mts = torch.full((W,), m, dtype=torch.int32, device=dev)
+        B = 128
+        if W > B:
+            idx = torch.randperm(W, generator=gen, device=dev)[:B]
+        else:
+            idx = torch.randint(0, W, (B,), generator=gen, device=dev)
+        idx = idx.to(torch.int32)
+        for storage, kind in ((torch.int8, "int8"),
+                              (torch.bfloat16, "bf16")):
+            tri = flattri.build_tri_cuda(
+                harness.default_invariant(), P1[:, :m].contiguous(),
+                P2[:, :m].contiguous(),
+                A[:, :m].contiguous(), mts, t=t, storage_dtype=storage)
+            tiles = tri.view(W, 2 * t, T, t).permute(0, 2, 1, 3).contiguous()
+            dense = flattri.dense_stacked(tri[idx.long()], nt).to(
+                torch.bfloat16)
+            kernels = [("tri_matvec", 16)]
+            if shape == "phase 2":
+                kernels.append(("tri_tiles_matvec", 1))
+            U16 = torch.rand(B, 16, m, generator=gen, device=dev)
+            U16 = (U16 / torch.linalg.vector_norm(U16, dim=-1, keepdim=True)
+                   ).bfloat16()
+            k1_out = None
+            for kernel, K in kernels:
+                U = U16[:, :K].contiguous()
+                store = tri if kernel == "tri_matvec" else tiles
+                fn = f"{kernel}_{kind}"
+                outs = {side: torch.empty(B, K, 2 * m, device=dev)
+                        for side in ("parent", "change")}
+                par, _ = _tri_call(libs[kernel], fn, store, idx, U,
+                                   outs["parent"], W, B, K, nt, t, stream)
+                chg, route = _tri_call(_kernels.lib(kernel), fn, store, idx,
+                                       U, outs["change"], W, B, K, nt, t,
+                                       stream)
+                p_ms, c_ms, equal = compare(
+                    f"{fn} t={t}", par, chg,
+                    {k: (v,) for k, v in outs.items()}, dev, 10)
+                taken = _kernels.ROUTES[route.value]
+                ref = outs["parent"]
+                rel = float((outs["change"] - ref).abs().max()
+                            / ref.abs().max())
+                changed = taken != "mma"
+                held = rel <= ROUTE_TOL if changed else equal
+                Ut = U.view(B, K, m).transpose(1, 2).contiguous()
+                lib_ms = time_ms(lambda: torch.bmm(dense, Ut), dev, 10)
+                # each distinct problem's triangle read once
+                n_bytes = (int(idx.unique().numel()) * 2 * t * S
+                           * tri.element_size() + B * K * m * 2
+                           + B * K * 2 * m * 4)
+                n_ops = 2 * K * B * (2 * t * S + 2 * t * t * (T - nt))
+                row = dict(kernel=kernel, storage=kind, route=taken,
+                           shape=f"{shape}: W={W}, m={m}, t={t}, B={B}, "
+                           f"K={K}", parent_ms=p_ms, change_ms=c_ms,
+                           bound_ms=max(n_bytes / HBM_BYTES_PER_S,
+                                        n_ops / BF16_FLOPS) * 1e3,
+                           library_ms=lib_ms, equal_to_parent=equal,
+                           rel_diff_parent=rel, held=held)
+                if kernel == "tri_matvec":
+                    k1 = torch.empty(B, 1, 2 * m, device=dev)
+                    one, _ = _tri_call(_kernels.lib(kernel), fn, tri, idx,
+                                       U[:, :1].contiguous(), k1, W, B, 1,
+                                       nt, t, stream)
+                    _kernels.check(one(), "parent_ab kernel 1 K=1")
+                    k1_out = k1
+                else:
+                    row["equal_to_k1"] = bool(torch.equal(outs["change"],
+                                                          k1_out))
+                    row["held"] = held and row["equal_to_k1"]
+                rows.append(row)
+                print(f"{fn} ({row['shape']}, route {taken}): parent "
+                      f"{p_ms:.4f} ms, change {c_ms:.4f} ms (in turns), "
+                      f"bound {row['bound_ms']:.4f} ms, torch.bmm over the "
+                      f"dense bf16 [M; C] {lib_ms:.4f} ms; bit-equal to the "
+                      f"parent's: {equal}, max |change - parent| / max "
+                      f"|parent| {rel:.3e}" + (
+                          f", bit-equal to kernel 1 K=1: {row['equal_to_k1']}"
+                          if "equal_to_k1" in row else "")
+                      + ("" if row["held"] else " -- NOT HELD"), flush=True)
+            del tri, tiles, dense
     return rows
 
 
@@ -593,6 +757,63 @@ def capacity_tile_rows(libs, dev) -> list:
     return rows
 
 
+def _dense_tiles(tiles, nt: int, dtype):
+    """Tile-list storage (T, 2t, t) -> the dense stacked (2m, m) [M; C] in
+    dtype, both triangles (row block r's tiles: its diagonal tile r, then
+    its strictly upper run; ops/symstore.tile_coords)."""
+    import torch
+    T, two_t, t = tiles.shape
+    m = nt * t
+    D = torch.zeros(2 * m, m, dtype=dtype, device=tiles.device)
+    k = nt
+    for r in range(nt):
+        seg = torch.cat([tiles[r:r + 1], tiles[k:k + nt - r - 1]])
+        k += nt - r - 1
+        seg = seg.permute(1, 0, 2).reshape(two_t, -1).to(dtype)
+        for h in range(2):
+            half = seg[h * t:(h + 1) * t]
+            D[h * m + r * t:h * m + (r + 1) * t, r * t:] = half
+            D[h * m + (r + 1) * t:h * m + m, r * t:(r + 1) * t] = \
+                half[:, t:].T
+    return D
+
+
+def capacity_library_rows(dev) -> list:
+    """The library call beside kernels 3 and 7 at the shapes of
+    ``capacity_tile_rows``: one torch.matmul of the capacity problem's
+    dense [M; C] (2m, m) by the K=16 candidates, int8 codes as bf16 at
+    t=100 (m=65,600), f32 and f64 at t=128 (m=16,384), TF32 off."""
+    import torch
+
+    from clipper_tpu_torch.bench.harness import time_ms
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=dev).manual_seed(5)
+    rows = []
+    for t, m, dtype, ddt in ((100, 65600, torch.int8, torch.bfloat16),
+                             (128, 16384, torch.float32, torch.float32),
+                             (128, 16384, torch.float64, torch.float64)):
+        store, nt, _ = _capacity_store("sym_tiles_matvec", m, t, 32, dev,
+                                       dtype)
+        D = _dense_tiles(store, nt, ddt)
+        del store
+        Ut = torch.rand(m, 16, generator=gen, device=dev).to(ddt)
+        ms = time_ms(lambda: torch.matmul(D, Ut), dev, 5)
+        kind = {torch.int8: "int8", torch.float32: "f32",
+                torch.float64: "f64"}[dtype]
+        rows.append(dict(kernel="sym_rows_matvec, sym_tiles_matvec",
+                         storage=kind, shape=f"m={m}, t={t}, K=16",
+                         library_ms=ms))
+        print(f"kernels 3 and 7 {kind} m={m} t={t} K=16: torch.matmul over "
+              f"the dense {str(ddt).split('.')[-1]} [M; C] {ms:.4f} ms",
+              flush=True)
+        del D, Ut
+        torch.cuda.empty_cache()
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    return rows
+
+
 def stored_inputs(kind: str, W: int, m: int, dev):
     """chip_smoke.py's main-path problems: (P1, P2, A) gathered on the
     card, bunny (kind "euclidean") or point-normal scans, rho=0.9, numpy
@@ -736,7 +957,7 @@ def affinity_rows(parent_lib, dev) -> list:
             n_bytes = 2 * m * m * dtype.itemsize + 2 * m * d * \
                 dtype.itemsize + m * 2 * 4
             n_ops = (m * (m - 1) // 2) * OPS_PER_PAIR[kind]
-            peak = F32_FLOPS if dtype == torch.float32 else F64_FLOPS
+            peak = F32_FLOPS if dtype == torch.float32 else F64_SIMT_FLOPS
             rows.append(dict(kernel="affinity_build", kind=kind, m=m,
                              dtype=name, parent_ms=p_ms, ms=c_ms,
                              bound_ms=max(n_bytes / HBM_BYTES_PER_S,
@@ -809,18 +1030,121 @@ def probe_rows(parent_lib, dev, B: int = 512, m: int = 1024) -> list:
     return rows
 
 
+# one checkout's tri pool (chip_smoke.py's main path: W=512 bunny
+# problems at m=1024, int8 storage) at each tile of argv[3], in turns
+# within the process, after one counted warm-up call a tile; prints its
+# wall seconds a call and the tri kernels' launches as one JSON line
+_POOL_CHILD = r"""
+import json, sys, time
+sys.path.insert(0, sys.argv[1])
+import torch
+import chip_smoke as cs
+from clipper_tpu_torch import _kernels
+from clipper_tpu_torch.bench import harness
+inv = harness.default_invariant()
+dev = torch.device("cuda")
+data = cs.make_problems(cs.W_MAIN, seed=0)
+reps = int(sys.argv[2])
+tiles = [int(x) for x in sys.argv[3].split(",")]
+
+def run(t):
+    return cs.run_pipeline(inv, data, dev, cs.W_MAIN, storage=torch.int8,
+                           tri_tile=t)
+
+out = {}
+for t in tiles:
+    _kernels.reset_launches()
+    run(t)
+    torch.cuda.synchronize()
+    out[t] = dict(secs=[], launches={k: v for k, v in _kernels.LAUNCHES.items()
+                                     if v and k.startswith("tri_")})
+for _ in range(reps):
+    for t in tiles:
+        t0 = time.perf_counter()
+        run(t)
+        torch.cuda.synchronize()
+        out[t]["secs"].append(time.perf_counter() - t0)
+print("POOL " + json.dumps(out), flush=True)
+"""
+POOL_TILES = (64, 256, 512)
+
+
+def _pool_turn(root: Path, reps: int, tiles) -> dict:
+    """One process of _POOL_CHILD in checkout ``root``."""
+    res = subprocess.run(
+        [sys.executable, "-c", _POOL_CHILD, str(root), str(reps),
+         ",".join(str(t) for t in tiles)], cwd=root, capture_output=True,
+        text=True, timeout=900)
+    if res.returncode != 0:
+        raise SystemExit(f"parent_ab: the tri pool in {root} failed:\n"
+                         + res.stderr[-4000:])
+    line = [x for x in res.stdout.splitlines() if x.startswith("POOL ")][-1]
+    return {int(t): v for t, v in json.loads(line[5:]).items()}
+
+
+def pool_rows(parent: str, reps: int = 3, tiles=POOL_TILES) -> list:
+    """The tri pool end to end (``make_pool_pipeline(layout="tri",
+    tri_tile=t)`` on chip_smoke.py's W=512, m=1024 int8 main path),
+    the other checkout's against this tree's, one process each, in turns
+    (parent, change, change, parent, change, parent, parent, change):
+    problems/s from the mean of each tree's 4 reps calls a tile, each
+    process's mean ms beside it, and each tree's tri kernel launches of
+    one call by key."""
+    roots = {"parent": Path(parent).resolve(),
+             "change": Path(__file__).resolve().parents[2]}
+    order = ("parent", "change", "change", "parent", "change", "parent",
+             "parent", "change")
+    secs = {who: {t: [] for t in tiles} for who in roots}
+    turns = {who: {t: [] for t in tiles} for who in roots}
+    launches = {}
+    for who in order:
+        got = _pool_turn(roots[who], reps, tiles)
+        for t in tiles:
+            secs[who][t] += got[t]["secs"]
+            turns[who][t].append(
+                sum(got[t]["secs"]) / len(got[t]["secs"]) * 1e3)
+            launches[(who, t)] = got[t]["launches"]
+    W = 512
+    rows = []
+    for t in tiles:
+        p_s = sum(secs["parent"][t]) / len(secs["parent"][t])
+        c_s = sum(secs["change"][t]) / len(secs["change"][t])
+        rows.append(dict(kernel="tri_pool", storage="int8",
+                         shape=f"W={W}, m=1024, tri_tile={t}",
+                         parent_per_s=W / p_s, per_s=W / c_s,
+                         parent_ms=p_s * 1e3, ms=c_s * 1e3,
+                         parent_turn_ms=turns["parent"][t],
+                         turn_ms=turns["change"][t],
+                         parent_launches=launches[("parent", t)],
+                         launches=launches[("change", t)]))
+        print(f"parent_ab tri pool int8 tri_tile={t}: parent "
+              f"{W / p_s:.1f} problems/s ({p_s * 1e3:.1f} ms a call; "
+              f"turns {', '.join(f'{x:.1f}' for x in turns['parent'][t])}),"
+              f" change {W / c_s:.1f} ({c_s * 1e3:.1f} ms; turns "
+              f"{', '.join(f'{x:.1f}' for x in turns['change'][t])}; "
+              f"{len(secs['change'][t])} calls each); launches parent "
+              f"{launches[('parent', t)]}, change "
+              f"{launches[('change', t)]}", flush=True)
+    return rows
+
+
 def main(argv: List[str] = None) -> list:
     import torch
 
     from clipper_tpu_torch.bench import harness, tri_matvec_probe
 
     argv = sys.argv[1:] if argv is None else argv
+    pool_only = "--pool" in argv
+    argv = [a for a in argv if a != "--pool"]
     if len(argv) != 1:
         raise SystemExit("usage: python -m clipper_tpu_torch.bench.parent_ab"
-                         " DIR")
+                         " DIR [--pool]")
     if not torch.cuda.is_available():
         raise SystemExit("parent_ab needs a CUDA device")
     dev = torch.device("cuda")
+    if pool_only:
+        print(f"parent_ab on {harness.device_name(dev)}", flush=True)
+        return pool_rows(argv[0])
     print("kernel 1 against the parent (tri_matvec_probe --parent):",
           flush=True)
     rows = [dict(kernel="tri_matvec", **r)
@@ -828,17 +1152,25 @@ def main(argv: List[str] = None) -> list:
     _kernels.build_all()
     libs = build_parent(argv[0])
     rows += tiles_rows(libs["tri_tiles_matvec"], dev)
+    rows += route_rows(libs, dev)
     rows += float_rows(libs, dev)
     for t in (128, 256):
         rows += capacity_rows(libs, dev, t=t)
     rows += capacity_tile_rows(libs, dev)
+    rows += capacity_library_rows(dev)
     rows += build_rows(libs, dev)
     rows += affinity_rows(libs["affinity_build"], dev)
     rows += probe_rows(libs["build_probe"], dev)
+    rows += pool_rows(argv[0])
     held = [r["equal_to_parent"] for r in rows if "equal_to_parent" in r]
     print(f"parent_ab on {harness.device_name(dev)}: {len(rows)} rows, "
           f"outputs byte-equal to the parent's in {sum(held)} of "
           f"{len(held)}", flush=True)
+    missed = [f"{r['kernel']} {r['storage']} {r['shape']}" for r in rows
+              if r.get("held") is False]
+    if missed:
+        raise SystemExit("parent_ab: outputs not held to the parent's: "
+                         + "; ".join(missed))
     return rows
 
 

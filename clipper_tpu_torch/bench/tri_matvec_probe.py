@@ -19,6 +19,19 @@ The variants' outputs are wrong by design; only their times mean
 anything. Run on a machine with the card:
 
     python -m clipper_tpu_torch.bench.tri_matvec_probe [--parent DIR]
+    python -m clipper_tpu_torch.bench.tri_matvec_probe --routes
+
+``--routes`` probes kernel 1's two other routes the same way, on random
+content (10% of pairs kept), B=128 lanes at K=16: the "super" route
+(tri_super_kernel in csrc/tri_matvec_mma.cuh) at t=16 and 64 on W=16
+problems of m=2048 (phase 2's shape in chip_smoke.py: 8 lanes a
+problem) and at t=64 on W=512 of m=1024 (the tri pool's, distinct lanes),
+int8 and bf16, with the variants ``nocompute``, ``noforward`` and
+``nou`` (no u block copied: data movement of the stored tiles alone);
+the "core" / "float" route (csrc/tri_matvec_core.cuh) at t=100 on W=16
+problems of m=2000 (int8, bf16) and at t=128 on W=128 of m=1024 (f32,
+f64), with ``nocompute``, ``nocopy`` (no block staged) and ``noreduce``
+(no partial sums added).
 
 It prints the card's name and power limit, then one line per storage and
 shape with each variant's ms beside the bound. ``--parent DIR`` adds the
@@ -133,6 +146,113 @@ def build_variants(parent: str = None) -> Dict[str, ctypes.CDLL]:
                         ("tri_matvec_int8", "tri_matvec_bf16"))
 
 
+_SUPER_FWD = "if ((warp >> 2) == p && i < m && flo < fhi) {"
+_SUPER_TR = "        if (keep > 0) {"
+_SUPER_UC = "for (int nn = lane; nn < K; nn += 32)\n          bulk_copy(uslot + q"
+_SUPER_UR = ("for (int nn = lane; nn < K; nn += 32)\n            bulk_copy("
+             "uslot + (2 + qr)")
+_CORE_TR = "if (c > r && rs < kNR) {"
+_CORE_FWD = "if (cb < kNC) {"
+_CORE_COPY = "for (int e = tid; e < hr * per; e += kThreads) {"
+_CORE_RED = ("if (k >= kKG || p >= hr) continue;",
+             "if (k >= kKG || x >= wc) continue;")
+
+
+def route_sources() -> Dict[str, Dict[str, str]]:
+    """The ``--routes`` variants: file name -> text of the edited
+    header, by variant (``super ...`` and ``core ...``)."""
+    mma = (_kernels.CSRC / _HEADER).read_text()
+    core = (_kernels.CSRC / "tri_matvec_core.cuh").read_text()
+    no_u = _edit(_edit(mma, _SUPER_UC, _SUPER_UC.replace("nn < K", "nn < 0")),
+                 _SUPER_UR, _SUPER_UR.replace("nn < K", "nn < 0"))
+    no_u = _edit(_edit(no_u, "mbar_expect_tx(&rfull[qr], 2 * K * lr);",
+                       "mbar_arrive(&rfull[qr]);"),
+                 "mbar_expect_tx(&ufull[q], 2 * K * lc);",
+                 "mbar_arrive(&ufull[q]);")
+    no_fwd = _edit(mma, _SUPER_FWD, "if (false) {")
+    no_red = _edit(_edit(core, _CORE_RED[0], "if (true) continue;"),
+                   _CORE_RED[1], "if (true) continue;")
+    no_core = _edit(_edit(core, _CORE_TR, "if (false) {"), _CORE_FWD,
+                    "if (false) {")
+    return {
+        "super-full": {}, "super-nocompute": {
+            _HEADER: _edit(no_fwd, _SUPER_TR, "        if (false) {")},
+        "super-noforward": {_HEADER: no_fwd}, "super-nou": {_HEADER: no_u},
+        "core-full": {}, "core-nocompute": {"tri_matvec_core.cuh": no_core},
+        "core-nocopy": {"tri_matvec_core.cuh": _edit(
+            core, _CORE_COPY, _CORE_COPY.replace("hr * per", "0"))},
+        "core-noreduce": {"tri_matvec_core.cuh": no_red}}
+
+
+def routes_main() -> list:
+    """``--routes``: the super and core routes' variants, timed."""
+    import torch
+
+    from clipper_tpu_torch.bench.harness import time_ms
+    from clipper_tpu_torch.ops import flattri
+
+    dev = torch.device("cuda")
+    libs = build_edited("tri_matvec_routes", "tri_matvec", route_sources(),
+                        ("tri_matvec_int8", "tri_matvec_bf16",
+                         "tri_matvec_f32", "tri_matvec_f64"))
+    gen = torch.Generator(device=dev).manual_seed(1)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    cases = [("super", W, m, t, distinct, kinds)
+             for W, m, t, distinct in ((16, 2048, 16, False),
+                                       (16, 2048, 64, False),
+                                       (512, 1024, 64, True))
+             for kinds in (("int8", "bf16"),)]
+    cases += [("core", 16, 2000, 100, False, ("int8", "bf16")),
+              ("core", 128, 1024, 128, True, ("f32", "f64"))]
+    rows = []
+    B, K = 128, 16
+    for route, W, m, t, distinct, kinds in cases:
+        nt = m // t
+        S = flattri.tri_ncols(nt, t)
+        content = torch.rand(W, 2 * t, S, generator=gen, device=dev)
+        content = torch.where(content > 0.9, content, 0.0)
+        idx = (torch.randperm(W, generator=gen, device=dev)[:B] if distinct
+               else torch.randint(0, W, (B,), generator=gen, device=dev))
+        idx = idx.to(torch.int32)
+        for kind in kinds:
+            tri = ((content * 127).round().to(torch.int8) if kind == "int8"
+                   else content.to({"bf16": torch.bfloat16,
+                                    "f32": torch.float32,
+                                    "f64": torch.float64}[kind]))
+            f64 = kind == "f64"
+            udt = (torch.float32 if kind == "f32" else torch.float64 if f64
+                   else torch.bfloat16)
+            U = torch.rand(B, K, m, generator=gen, device=dev).to(udt)
+            out = torch.empty(B, K, 2 * m, device=dev,
+                              dtype=torch.float64 if f64 else torch.float32)
+            args = (tri.data_ptr(), idx.data_ptr(), U.data_ptr(),
+                    out.data_ptr())
+            row = dict(route=route, storage=kind,
+                       shape=f"W={W}, m={m}, t={t}, B={B}, K={K}")
+            for name, lib in libs.items():
+                if not name.startswith(route + "-"):
+                    continue
+                fn = getattr(lib, f"tri_matvec_{kind}")
+                if kind in ("int8", "bf16"):
+                    sc = (1 / 127,) if kind == "int8" else ()
+                    taken = ctypes.c_int(-1)
+
+                    def call(fn=fn, sc=sc, taken=taken):
+                        return fn(*args, W, B, K, nt, t, S, *sc, stream,
+                                  ctypes.byref(taken))
+                else:
+                    def call(fn=fn):
+                        return fn(*args, B, K, nt, t, S, stream)
+                _kernels.check(call(), f"tri_matvec_probe {name}")
+                row[name.split("-")[1]] = time_ms(call, dev, 10)
+            rows.append(row)
+            print(f"{route} {kind} ({row['shape']}): " + " | ".join(
+                f"{k} {v:.4f} ms" for k, v in row.items()
+                if isinstance(v, float)), flush=True)
+            del tri
+    return rows
+
+
 def main(argv: List[str] = None) -> list:
     import torch
 
@@ -143,9 +263,9 @@ def main(argv: List[str] = None) -> list:
     parent = None
     if len(argv) == 2 and argv[0] == "--parent":
         parent = argv[1]
-    elif argv:
+    elif argv and argv != ["--routes"]:
         raise SystemExit("usage: python -m clipper_tpu_torch.bench."
-                         "tri_matvec_probe [--parent DIR]")
+                         "tri_matvec_probe [--parent DIR | --routes]")
     if not torch.cuda.is_available():
         raise SystemExit("tri_matvec_probe needs a CUDA device")
     dev = torch.device("cuda")
@@ -153,6 +273,8 @@ def main(argv: List[str] = None) -> list:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip(), flush=True)
+    if argv == ["--routes"]:
+        return routes_main()
     libs = build_variants(parent)
     names = [*VARIANTS, *(["parent"] if parent else [])]
     t, nt, P = 256, 4, 512

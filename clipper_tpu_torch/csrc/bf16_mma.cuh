@@ -161,11 +161,14 @@ __device__ __forceinline__ void forward_a_bf16(uint32_t (&a)[4],
 
 // Forward: output rows row0..row0+15 of the stage (complete sums over the
 // tile's T columns) against the u block at uc: acc[nk] += A u^T for the
-// candidates 8 nk .. 8 nk + 7.
-template <int T, int NK, int kRows, bool kChain = false>
+// candidates 8 nk .. 8 nk + 7. kMask: only the columns [lo, hi) (multiples
+// of 16) are kept, the others' fragments zeroed (warp-uniform).
+template <int T, int NK, int kRows, bool kChain = false, int kBW = 128,
+          bool kMask = false>
 __device__ __forceinline__ void forward_i8(float (&acc)[NK][4],
                                            uint32_t stage, int row0,
-                                           uint32_t uc, int lane) {
+                                           uint32_t uc, int lane, int lo = 0,
+                                           int hi = T) {
   constexpr int kUPitch = UBlock<T>::kPitch;
   const int g = lane >> 2, tig = lane & 3;
   // u in the permuted k order of forward_a_i8: 4 values a lane, from
@@ -174,7 +177,11 @@ __device__ __forceinline__ void forward_i8(float (&acc)[NK][4],
 #pragma unroll
   for (int kb = 0; kb < T; kb += 32) {
     uint32_t a0[4], a1[4];
-    forward_a_i8<kRows>(a0, a1, stage, row0, kb, lane);
+    forward_a_i8<kRows, kBW>(a0, a1, stage, row0, kb, lane);
+    if constexpr (kMask) {
+      if (kb < lo || kb >= hi) a0[0] = a0[1] = a0[2] = a0[3] = 0u;
+      if (kb + 16 < lo || kb + 16 >= hi) a1[0] = a1[1] = a1[2] = a1[3] = 0u;
+    }
 #pragma unroll
     for (int nk = 0; nk < NK; ++nk) {
       const uint32_t un = ub + 8 * nk * kUPitch + 2 * kb;
@@ -186,14 +193,19 @@ __device__ __forceinline__ void forward_i8(float (&acc)[NK][4],
   }
 }
 
-template <int T, int NK, int kRows, bool kChain = false>
+template <int T, int NK, int kRows, bool kChain = false, int kBW = 128,
+          bool kMask = false>
 __device__ __forceinline__ void forward_bf16(float (&acc)[NK][4],
                                              uint32_t stage, int row0,
-                                             uint32_t uc, int lane) {
+                                             uint32_t uc, int lane,
+                                             int lo = 0, int hi = T) {
 #pragma unroll
   for (int k = 0; k < T; k += 16) {
     uint32_t a[4], b[NK][2];
-    forward_a_bf16<kRows>(a, stage, row0, k, lane);
+    forward_a_bf16<kRows, kBW>(a, stage, row0, k, lane);
+    if constexpr (kMask) {
+      if (k < lo || k >= hi) a[0] = a[1] = a[2] = a[3] = 0u;
+    }
     load_b<T, NK>(b, uc + 2 * k, lane);
 #pragma unroll
     for (int nk = 0; nk < NK; ++nk)

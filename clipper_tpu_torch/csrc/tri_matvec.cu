@@ -68,17 +68,20 @@
 // Routes by tile (the dispatch below, which reports the route it took
 // through `route`; the wrapper counts each route's launches under its own
 // key, and ops/flattri.matvec_route mirrors the rule):
-//   "mma"  int8 / bf16 at t = 128, 256, 384, 512 (a multiple of 128 whose
-//          panels, boxes and ring fit): the kernel above;
-//   "core" int8 / bf16 at every other t >= 1 dividing m:
-//          tri_matvec_core.cuh's CUDA-core kernel (runs of 16 products
-//          summed in f32, the runs in f64).
+//   "mma"   int8 / bf16 at t = 128, 256, 384, 512 (a multiple of 128
+//           whose panels, boxes and ring fit): the kernel above;
+//   "super" int8 / bf16 at every other multiple of 16: the same consumer
+//           at t = 128 over the matrix's 128-row super-tiles, each panel
+//           assembled from (kG rows, 128 bytes) boxes of the stored rows,
+//           kG the largest of 64, 32, 16 dividing t (tri_matvec_mma.cuh:
+//           tri_super_kernel, FlatSuper);
+//   "core"  int8 / bf16 at every other t <= 7680 dividing m:
+//           tri_matvec_core.cuh's CUDA-core kernel (runs of 64 products
+//           summed in f32, the runs in f64).
 // The float / double storage kinds have one route, that CUDA-core kernel
-// at every t (its runs summed in the storage's type, f32 or f64 as the
-// JAX package, the runs in f64), counted under the kernel's own key. On
-// an H100 at m=1024, B=128, K=16 it takes 1.52-2.49 ms where the older
-// thread-a-column kernel with u read through L1 took 2.20-3.05
-// (bench/parent_ab).
+// at every t <= 7680 (f32 products for f32 storage, f64 for f64, the runs
+// in f64, as the JAX package's sums in the storage's type), counted under
+// the kernel's own key. Their times on an H100 are in PERF.md.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -108,10 +111,15 @@ int dispatch(const void* tri, const void* idx, const void* U, void* out,
   if (K < 1 || K > 16 || B < 1 || B > 65535 || nt < 1 || P < 1 || t < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
+  if (super_tile(t)) {  // route "super"
+    *route = kRouteSuper;
+    return launch_super<S, false>(tri, (long long)P * 2 * t, S_cols, idx, U,
+                                  out, B, K, nt, t, scale, st);
+  }
   if (!mma_tile(t)) {  // route "core"
     *route = kRouteCore;
-    return core::launch_core<S, __nv_bfloat16, float>(
-        tri, idx, U, out, B, K, nt, core::Flat{S_cols, t}, scale, st);
+    return core::launch_core<S>(tri, idx, U, out, B, K, nt,
+                                core::Flat{S_cols, t}, scale, st);
   }
   *route = kRouteMma;  // route "mma"
   CUtensorMap map;
@@ -135,8 +143,9 @@ int dispatch(const void* tri, const void* idx, const void* U, void* out,
 extern "C" {
 
 // tri (P, 2t, S) int8 codes in 0..127, idx (B,) int32, U (B, K, m) bf16,
-// out (B, K, 2m) f32; any t >= 1, K <= 16; tri 16-byte aligned (route
-// "mma"); *route set to the route taken (kRouteMma, kRouteCore).
+// out (B, K, 2m) f32; any t >= 1 (t <= 7680 off the tensor cores), K <=
+// 16; tri 16-byte aligned (routes "mma" and "super"); *route set to the
+// route taken (kRouteMma, kRouteSuper, kRouteCore).
 int tri_matvec_int8(const void* tri, const void* idx, const void* U, void* out,
                     int P, int B, int K, int nt, int t, long long S,
                     float scale, void* stream, int* route) {
@@ -154,16 +163,16 @@ int tri_matvec_bf16(const void* tri, const void* idx, const void* U, void* out,
 
 int tri_matvec_f32(const void* tri, const void* idx, const void* U, void* out,
                    int B, int K, int nt, int t, long long S, void* stream) {
-  return core::launch_core<float, float, float>(
-      tri, idx, U, out, B, K, nt, core::Flat{S, t}, 1.f,
-      (cudaStream_t)stream);
+  return core::launch_core<float>(tri, idx, U, out, B, K, nt,
+                                  core::Flat{S, t}, 1.f,
+                                  (cudaStream_t)stream);
 }
 
 int tri_matvec_f64(const void* tri, const void* idx, const void* U, void* out,
                    int B, int K, int nt, int t, long long S, void* stream) {
-  return core::launch_core<double, double, double>(
-      tri, idx, U, out, B, K, nt, core::Flat{S, t}, 1.f,
-      (cudaStream_t)stream);
+  return core::launch_core<double>(tri, idx, U, out, B, K, nt,
+                                   core::Flat{S, t}, 1.f,
+                                   (cudaStream_t)stream);
 }
 
 }  // extern "C"

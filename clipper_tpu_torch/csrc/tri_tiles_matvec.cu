@@ -38,11 +38,15 @@
 // Routes by tile (the dispatch below, which reports the route it took
 // through `route`; the wrapper counts each route's launches under its own
 // key, and ops/flattri.matvec_route mirrors the rule):
-//   "mma"  int8 / bf16 at t = 128, 256, 384, 512: kernel 1's tensor-core
-//          kernel (TileMajor), above;
-//   "core" int8 / bf16 at every other t >= 1 dividing m:
-//          tri_matvec_core.cuh's CUDA-core kernel (TileMajor), kernel 1's
-//          route for those.
+//   "mma"   int8 / bf16 at t = 128, 256, 384, 512: kernel 1's tensor-core
+//           kernel (TileMajor), above;
+//   "super" int8 / bf16 at every other multiple of 16: kernel 1's
+//           super-tile kernel (TileSuper: each 128-row super-tile's panel
+//           from (kG rows, kG elements) boxes of its sub-tiles, kG the
+//           largest of 64, 32, 16 dividing t);
+//   "core"  int8 / bf16 at every other t <= 7680 dividing m:
+//           tri_matvec_core.cuh's CUDA-core kernel (TileMajor), kernel 1's
+//           route for those.
 // The f32 / f64 storage kinds (not on the pool's hot path), counted under
 // the kernel's own key at every t, take by t alone:
 //   t = 128, 256: a warp-row CUDA-core kernel: one block of 8 warps per
@@ -54,11 +58,10 @@
 //     fixed order through shared memory:
 //       block j = forward products of tiles (j, c), c = j..nt-1, in order,
 //           then transposed products of tiles (r, j), r = 0..j-1, in order
-//     (diagonal tiles only forward: their content is complete there). On
-//     an H100 at m=1024, B=128 it takes 0.36-0.74 ms where
-//     tri_matvec_core.cuh's kernel takes 1.31-1.89 (bench/parent_ab).
-//   every other t: tri_matvec_core.cuh's CUDA-core kernel (TileMajor),
-//     kernel 1's float kernel, whose rows it does not need in whole warps.
+//     (diagonal tiles only forward: their content is complete there).
+//   every other t <= 7680: tri_matvec_core.cuh's CUDA-core kernel
+//     (TileMajor), kernel 1's float kernel.
+// Their times on an H100 are in PERF.md.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -71,9 +74,10 @@
 
 namespace {
 
-// int8 / bf16 storage: the tensor map over the (P T 2t, t) view, then
-// kernel 1's kernel at one n8 group (route "mma"), or the CUDA-core
-// kernel (route "core")
+// int8 / bf16 storage: kernel 1's super-tile kernel over sub-tile boxes
+// (route "super"), the CUDA-core kernel (route "core"), or the tensor map
+// over the (P T 2t, t) view and kernel 1's kernel at one n8 group (route
+// "mma")
 template <typename S>
 int dispatch(const void* tri, const void* idx, const void* U, void* out,
              int P, int B, int nt, int t, float scale, void* stream,
@@ -81,13 +85,18 @@ int dispatch(const void* tri, const void* idx, const void* U, void* out,
   if (B < 1 || B > 65535 || nt < 1 || P < 1 || t < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
+  const long long rows = (long long)P * (nt * (nt + 1) / 2) * 2 * t;
+  if (super_tile(t)) {  // route "super"
+    *route = kRouteSuper;
+    return launch_super<S, true>(tri, rows, t, idx, U, out, B, 1, nt, t,
+                                 scale, st);
+  }
   if (!mma_tile(t)) {  // route "core"
     *route = kRouteCore;
-    return core::launch_core<S, __nv_bfloat16, float>(
-        tri, idx, U, out, B, 1, nt, core::TileMajor{t}, scale, st);
+    return core::launch_core<S>(tri, idx, U, out, B, 1, nt,
+                                core::TileMajor{t}, scale, st);
   }
   *route = kRouteMma;  // route "mma": the copies' row coordinate is 32-bit
-  const long long rows = (long long)P * (nt * (nt + 1) / 2) * 2 * t;
   if (rows > INT_MAX) return (int)cudaErrorInvalidValue;
   CUtensorMap map;
   const cudaError_t err = storage_map<S>(&map, tri, rows, t, kPanel);
@@ -223,8 +232,8 @@ int launch_float(const void* tri, const void* idx, const void* Uin, void* out,
     tri_tiles_float_kernel<A, 128><<<grid, 256, 0, st>>>(
         (const A*)tri, (const int*)idx, (const A*)Uin, (A*)out, nt, T);
   } else {
-    return core::launch_core<A, A, A>(tri, idx, Uin, out, B, 1, nt,
-                                      core::TileMajor{t}, 1.f, st);
+    return core::launch_core<A>(tri, idx, Uin, out, B, 1, nt,
+                                core::TileMajor{t}, 1.f, st);
   }
   return (int)cudaGetLastError();
 }
@@ -234,9 +243,9 @@ int launch_float(const void* tri, const void* idx, const void* Uin, void* out,
 extern "C" {
 
 // tri (P, T, 2t, t) int8 codes in 0..127, idx (B,) int32, U (B, m) bf16,
-// out (B, 2m) f32; any t >= 1; tri 16-byte aligned (route "mma": the
-// tensor map's base); *route set to the route taken (kRouteMma,
-// kRouteCore).
+// out (B, 2m) f32; any t >= 1 (t <= 7680 off the tensor cores); tri
+// 16-byte aligned (routes "mma" and "super": the tensor map's base);
+// *route set to the route taken (kRouteMma, kRouteSuper, kRouteCore).
 int tri_tiles_matvec_int8(const void* tri, const void* idx, const void* U,
                           void* out, int P, int B, int nt, int t, float scale,
                           void* stream, int* route) {

@@ -46,8 +46,13 @@ from clipper_tpu_torch.solvers.msrc_flat import _INT8_SCALE
 # candidate rows one kernel launch takes (the mma A-tile height)
 _KERNEL_ROWS = 16
 # the tiles at which kernels 1 and 9 take int8 / bf16 storage on the
-# tensor cores (csrc/tri_matvec_mma.cuh: mma_tile)
+# tensor cores at their own tile (csrc/tri_matvec_mma.cuh: mma_tile); at
+# every other multiple of _SUPER_ALIGN they take it over 128-row
+# super-tiles (super_tile)
 _MMA_TILES = (128, 256, 384, 512)
+_SUPER_ALIGN = 16
+# the largest t of the CUDA-core kernel (csrc/tri_matvec_core.cuh: kMaxT)
+_CORE_MAX_T = 7680
 # the builds' sub-tile: kernels 2 and 8 score pairs of 64-row sub-tiles
 _SUB = 64
 
@@ -151,23 +156,28 @@ def tri_pool_matvec_plain(tri: torch.Tensor, nt: int, idx: torch.Tensor,
 def matvec_route(t: int, dtype: torch.dtype) -> str:
     """The route by which csrc/tri_matvec.cu (kernel 1) and
     csrc/tri_tiles_matvec.cu (kernel 9) take storage of ``dtype`` at tile
-    t, by t alone: ``"mma"`` for int8 / bf16 at t in 128, 256, 384, 512,
-    the tensor-core kernel (csrc/tri_matvec_mma.cuh); ``"core"`` for int8
-    / bf16 at every other t, the CUDA-core kernel
-    (csrc/tri_matvec_core.cuh); ``"float"`` for f32 / f64 at every t.
-    The host's copy of the dispatch's rule, for the shape checks: the
-    wrappers count each launch by the route its C entry reports
-    (``_kernels.call_routed``, ``_kernels.route_key``)."""
+    t, by t alone: for int8 / bf16, ``"mma"`` at t in 128, 256, 384, 512,
+    the tensor-core kernel at the tile (csrc/tri_matvec_mma.cuh);
+    ``"super"`` at every other multiple of 16, the same kernel over
+    128-row super-tiles (tri_super_kernel); ``"core"`` at every
+    other t, the CUDA-core kernel (csrc/tri_matvec_core.cuh); ``"float"``
+    for f32 / f64 at every t (that CUDA-core kernel; kernel 9's warp-row
+    kernel at t = 128 and 256). The host's copy of the dispatch's rule,
+    for the shape checks: the wrappers count each launch by the route its
+    C entry reports (``_kernels.call_routed``, ``_kernels.route_key``)."""
     if dtype in (torch.int8, torch.bfloat16):
-        return "mma" if t in _MMA_TILES else "core"
+        if t in _MMA_TILES:
+            return "mma"
+        return "super" if t % _SUPER_ALIGN == 0 else "core"
     return "float"
 
 
 def check_tri_matvec(tri: torch.Tensor, nt: int, U: torch.Tensor) -> str:
     """The shape and storage check of :func:`tri_pool_matvec_cuda`, before
     any device check: (P, 2t, S) int8 / bf16 / f32 / f64 storage of nt
-    t-tiles a side, any t >= 1, and U (B, K, m). Returns the kernel's
-    route (:func:`matvec_route`)."""
+    t-tiles a side, any t >= 1 (at most _CORE_MAX_T on the CUDA-core
+    routes), and U (B, K, m). Returns the kernel's route
+    (:func:`matvec_route`)."""
     if tri.dtype not in (torch.int8, torch.bfloat16, torch.float32,
                          torch.float64):
         raise NotImplementedError(f"tri matvec kernel takes int8/bf16/f32/"
@@ -179,14 +189,24 @@ def check_tri_matvec(tri: torch.Tensor, nt: int, U: torch.Tensor) -> str:
         raise ValueError(f"tri matvec kernel: storage {tuple(tri.shape)} "
                          f"and U {tuple(U.shape)} are not the flat triangle "
                          f"of nt={nt} tiles and its (B, K, m) rows")
-    return matvec_route(t, tri.dtype)
+    return _checked_route(t, tri.dtype, "tri matvec kernel")
+
+
+def _checked_route(t: int, dtype: torch.dtype, what: str) -> str:
+    """:func:`matvec_route`, refusing the tiles past the CUDA-core
+    kernel's _CORE_MAX_T on its routes."""
+    route = matvec_route(t, dtype)
+    if route in ("core", "float") and t > _CORE_MAX_T:
+        raise ValueError(f"{what}: route {route} takes t <= {_CORE_MAX_T}, "
+                         f"not {t}")
+    return route
 
 
 def tri_pool_matvec_cuda(tri: torch.Tensor, nt: int, idx: torch.Tensor,
                          U: torch.Tensor, out_dtype: torch.dtype):
     """Launch csrc/tri_matvec.cu: U (B, K, m) on the card -> (MU, CU), by
-    the route of :func:`matvec_route` (every t >= 1 dividing m), each
-    launch counted by the route the C entry reports."""
+    the route of :func:`matvec_route` (every t the shape check takes),
+    each launch counted by the route the C entry reports."""
     route = check_tri_matvec(tri, nt, U)
     P, two_t, S = tri.shape
     t = two_t // 2
@@ -197,7 +217,7 @@ def tri_pool_matvec_cuda(tri: torch.Tensor, nt: int, idx: torch.Tensor,
             and tri.is_contiguous()):
         raise ValueError("tri matvec kernel: storage, idx and U must lie on "
                          "the card, the storage contiguous")
-    if route == "mma" and tri.data_ptr() % 16:
+    if route in ("mma", "super") and tri.data_ptr() % 16:
         raise ValueError("tri matvec kernel: the storage must be 16-byte "
                          "aligned (its bulk copies)")
     lib = _kernels.lib("tri_matvec")
@@ -504,8 +524,9 @@ def check_tri_tiles_matvec(tri: torch.Tensor, nt: int,
                            U: torch.Tensor) -> str:
     """The shape and storage check of :func:`tri_tiles_matvec_cuda`, before
     any device check: (P, T, 2t, t) int8 / bf16 / f32 / f64 tile-major
-    storage of nt t-tiles a side, any t >= 1, and U (B, m). Returns the
-    kernel's route (:func:`matvec_route`)."""
+    storage of nt t-tiles a side, any t >= 1 (at most _CORE_MAX_T on the
+    CUDA-core routes), and U (B, m). Returns the kernel's route
+    (:func:`matvec_route`)."""
     if tri.dtype not in (torch.int8, torch.bfloat16, torch.float32,
                          torch.float64):
         raise NotImplementedError(f"tiles matvec kernel takes int8/bf16/f32/"
@@ -516,14 +537,14 @@ def check_tri_tiles_matvec(tri: torch.Tensor, nt: int,
         raise ValueError(f"tiles matvec kernel: storage {tuple(tri.shape)} "
                          f"and U {tuple(U.shape)} are not the tile-major "
                          f"triangle of nt={nt} tiles and its (B, m) rows")
-    return matvec_route(t, tri.dtype)
+    return _checked_route(t, tri.dtype, "tiles matvec kernel")
 
 
 def tri_tiles_matvec_cuda(tri: torch.Tensor, nt: int, idx: torch.Tensor,
                           U: torch.Tensor, out_dtype: torch.dtype):
     """Launch csrc/tri_tiles_matvec.cu: U (B, m) on the card -> (MU, CU),
-    by the route of :func:`matvec_route` (every t >= 1 dividing m), the
-    launch counted by the route the C entry reports."""
+    by the route of :func:`matvec_route` (every t the shape check takes),
+    the launch counted by the route the C entry reports."""
     route = check_tri_tiles_matvec(tri, nt, U)
     P, T, two_t, t = tri.shape
     m = nt * t
@@ -535,7 +556,8 @@ def tri_tiles_matvec_cuda(tri: torch.Tensor, nt: int, idx: torch.Tensor,
                          "on the card, the storage contiguous")
     # int8 / bf16 on the tensor cores: the tensor map's base (16 bytes);
     # f32 / f64: the warp-row kernel's vector loads
-    align = 64 if route == "float" else 16 if route == "mma" else 1
+    align = (64 if route == "float" else 16 if route in ("mma", "super")
+             else 1)
     if tri.data_ptr() % align:
         raise ValueError(f"tiles matvec kernel: the storage must be "
                          f"{align}-byte aligned")

@@ -11,6 +11,7 @@ checks of these kernels are in test_torch_cuda.py (marker ``cuda``).
 """
 
 import re
+from typing import NamedTuple
 
 import numpy as np
 import pytest
@@ -20,6 +21,7 @@ import jax.numpy as jnp
 
 import clipper_tpu as ct
 from clipper_tpu.bench import harness as jharness
+from clipper_tpu.ops import flattri as jflat
 from clipper_tpu.ops import symstore as jsym
 from clipper_tpu.parallel import pool as jpool
 from clipper_tpu.solvers import msrc as jmsrc
@@ -330,7 +332,8 @@ def test_wrapper_shape_checks_take_every_tile(t):
     T = nt * (nt + 1) // 2
     idx = torch.zeros(1, dtype=torch.int32)
     f32 = torch.float32
-    mma = "mma" if t in (384, 512) else "core"
+    mma = ("mma" if t in (384, 512) else "super" if t % 16 == 0
+           else "core")
     for storage in (torch.int8, torch.bfloat16):
         tri = torch.zeros(1, 2 * t, S, dtype=storage)
         assert flattri.check_tri_matvec(tri, nt, torch.zeros(1, 3, m)) == mma
@@ -375,24 +378,64 @@ def test_wrapper_shape_checks_take_every_tile(t):
                                 torch.zeros(1, m + 1, 3), t, torch.int8)
 
 
+@pytest.mark.parametrize("dtype,t", [(torch.int8, 7679), (torch.bfloat16, 7679),
+                                     (torch.float32, 7680),
+                                     (torch.float64, 7680)])
+def test_core_routes_take_t_to_their_limit(dtype, t):
+    """The CUDA-core kernel (routes "core" and "float") takes every t up to
+    flattri._CORE_MAX_T = 7680, where an f64 block fills an SM's shared
+    memory at one candidate (kernel 1's and kernel 9's shape checks, on
+    storage of no size), and refuses the tiles past it; the tensor-core
+    routes have no such limit."""
+    route = "core" if dtype in (torch.int8, torch.bfloat16) else "float"
+    for tt, ok in ((t, True), (t + 2, False)):
+        flat = torch.empty(1, 2 * tt, tt, dtype=dtype, device="meta")
+        tiles = torch.empty(1, 1, 2 * tt, tt, dtype=dtype, device="meta")
+        checks = ((flattri.check_tri_matvec, flat,
+                   torch.empty(1, 16, tt, device="meta")),
+                  (flattri.check_tri_tiles_matvec, tiles,
+                   torch.empty(1, tt, device="meta")))
+        for check, store, U in checks:
+            if ok:
+                assert check(store, 1, U) == route
+            else:
+                with pytest.raises(ValueError, match="takes t <= 7680"):
+                    check(store, 1, U)
+    if route == "core":
+        store = torch.empty(1, 2 * 7696, 7696, dtype=dtype, device="meta")
+        assert flattri.check_tri_matvec(
+            store, 1, torch.empty(1, 16, 7696, device="meta")) == "super"
+
+
 def test_routes_match_the_cuda_dispatch():
     """The tiles of flattri.matvec_route's "mma" route are mma_tile's in
-    csrc/tri_matvec_mma.cuh, which the dispatch of csrc/tri_matvec.cu and
-    csrc/tri_tiles_matvec.cu calls and reports (kRouteMma, kRouteCore:
-    _kernels.ROUTES, the last argument of their int8 / bf16 entries);
-    symstore's unit tile is csrc/sym_tile_mma.cuh's kT; every route has
-    its launch key."""
+    csrc/tri_matvec_mma.cuh and those of its "super" route super_tile's
+    (every other multiple of 16, stripes of super_stripe's rows), which
+    the dispatch of csrc/tri_matvec.cu and csrc/tri_tiles_matvec.cu calls
+    and reports (kRouteMma, kRouteCore, kRouteSuper: _kernels.ROUTES, the
+    last argument of their int8 / bf16 entries); symstore's unit tile is
+    csrc/sym_tile_mma.cuh's kT; every route has its launch key."""
     src = (_kernels.CSRC / "tri_matvec_mma.cuh").read_text()
     body = re.search(r"bool mma_tile\(int t\) \{ return ([^;]+); \}",
                      src).group(1)
     assert tuple(int(x) for x in re.findall(r"t == (\d+)", body)) == \
         flattri._MMA_TILES
+    assert ("bool super_tile(int t) { return t % "
+            f"{flattri._SUPER_ALIGN} == 0 && !mma_tile(t); }}") in src
+    stripe = re.search(r"return (t % 64 == 0 \? 64 : [^;]+);", src).group(1)
+    assert tuple(int(x) for x in re.findall(r"\? (\d+)", stripe)) + (16,) \
+        == SUPER_STRIPES
     for i, route in enumerate(_kernels.ROUTES):
         assert f"constexpr int kRoute{route.capitalize()} = {i};" in src
+    core = (_kernels.CSRC / "tri_matvec_core.cuh").read_text()
+    assert f"constexpr int kMaxT = {flattri._CORE_MAX_T};" in core
     for name in ("tri_matvec", "tri_tiles_matvec"):
         src = (_kernels.CSRC / f"{name}.cu").read_text()
         assert ("if (!mma_tile(t)) {  // route \"core\"\n"
                 "    *route = kRouteCore;") in src
+        assert ("if (super_tile(t)) {  // route \"super\"\n"
+                "    *route = kRouteSuper;") in src
+        assert src.index("super_tile(t)") < src.index("!mma_tile(t)")
         assert "*route = kRouteMma;  // route \"mma\"" in src
         for kind in ("int8", "bf16"):
             assert _kernels._SIGNATURES[f"{name}_{kind}"][-1] is _kernels._IP
@@ -414,7 +457,15 @@ def test_routes_match_the_cuda_dispatch():
         for dt in (torch.int8, torch.bfloat16):
             r = flattri.matvec_route(t, dt)
             assert (r == "mma") == (t in (128, 256, 384, 512))
-            assert _kernels.route_key("tri_matvec", r) in _kernels.LAUNCHES
+            assert (r == "super") == (t % 16 == 0 and r != "mma")
+            if r == "super":
+                assert _super_stripe(t) == max(
+                    g for g in (16, 32, 64) if t % g == 0)
+            for name in ("tri_matvec", "tri_tiles_matvec"):
+                assert _kernels.route_key(name, r) in _kernels.LAUNCHES
+            assert (_kernels.route_key("tri_matvec", r)
+                    == {"core": "tri_matvec_core",
+                        "super": "tri_matvec_super"}.get(r, "tri_matvec"))
             r = symstore.matvec_route(t, dt)
             assert (r == "units") == (t % 16 == 0)
             g = symstore.unit_tile(t)
@@ -423,5 +474,212 @@ def test_routes_match_the_cuda_dispatch():
                 "units" if r == "units" else "core")
         assert symstore.matvec_route(t, torch.float32) == "float"
         assert symstore.plan_kernel(t, torch.float64) == "core"
-    for key in _kernels.CORE_ROUTES.values():
-        assert key in _kernels.LAUNCHES
+    for name, routes in _kernels.ROUTED.items():
+        for r in (*routes, "mma", "units", "float"):
+            assert _kernels.route_key(name, r) in _kernels.LAUNCHES
+
+
+SUPER_TILES = ((16, 13), (32, 9), (48, 5), (64, 5), (96, 3), (144, 3),
+               (48, 16), (16, 41))
+SUPER_TOL = 1e-5   # relative to the largest |output|: f64 walk vs f32 sums
+SUPER_STRIPES = (64, 32, 16)   # csrc/tri_matvec_mma.cuh: super_stripe
+
+
+def _super_stripe(t):
+    """kG: the rows of the stripes of t-tiles that route "super" reads,
+    the largest of 64, 32, 16 dividing t (a stripe never straddles a
+    t-block)."""
+    return next(g for g in SUPER_STRIPES if t % g == 0)
+
+
+class SuperPlan(NamedTuple):
+    """Route "super"'s walk of one problem's half, as tri_super_kernel
+    (csrc/tri_matvec_mma.cuh: FlatSuper, TileSuper) computes it on the
+    card. Super-tile e = (R[e], C[e]), in walk order, is assembled from
+    ``boxes[e]``: rows (row0, col0, x, y) of the stage (its 128 x 128
+    elements) and of the storage's 2-D view (half 0 of problem 0), each
+    ``box`` = (rows, columns) in size; y = -1 marks a box past the view
+    (zeros). ``fwd[e, w]`` = [lo, hi): the columns the forward product of
+    the 16 rows 16 w.. keeps (none where lo >= hi; rows past m have
+    none); ``trn[e, w]``: the transposed product of the 16 columns 16 w..
+    keeps the super-tile's rows [0, trn) (none where <= 0): those of row
+    blocks r < c, and off the diagonal super-tile also r == c, whose
+    mirror lies in the lower super-tile that is not walked."""
+    g: int
+    ns: int
+    box: tuple
+    R: np.ndarray
+    C: np.ndarray
+    boxes: np.ndarray
+    fwd: np.ndarray
+    trn: np.ndarray
+
+
+def _super_plan(nt, t, itemsize, layout):
+    """Route "super" of kernels 1 ("flat", (P, 2t, S) storage of
+    ``itemsize`` bytes an element: 128-byte runs of a row block's stored
+    columns) and 9 ("tiles", (P, T, 2t, t): (kG, kG) sub-tile boxes): the
+    128-row super-tiles (R, C), C >= R, of the m = nt t matrix in
+    row-major order, the boxes that assemble each one's stage, and each
+    16-row block's masks."""
+    g = _super_stripe(t)
+    m = nt * t
+    ns = -(-m // 128)
+    offs = flattri.tri_tile_offsets(nt)
+    if layout == "flat":
+        bw = 128 * itemsize // 128            # 128-byte boxes a stripe
+        box = (g, 128 // itemsize)
+    else:
+        bw = 128 // g
+        box = (g, g)
+    Rs, Cs, boxes, fwd, trn = [], [], [], [], []
+    w16 = np.arange(8) * 16
+    for R in range(ns):
+        for C in range(R, ns):
+            Rs.append(R)
+            Cs.append(C)
+            bx = []
+            for a in range(128 // g):
+                i0 = 128 * R + a * g
+                r = i0 // t
+                for b in range(bw):
+                    x, y = 0, -1
+                    if layout == "flat":
+                        col0 = b * box[1]
+                        if i0 < m and 128 * C + 128 > r * t:
+                            x = offs[r] * t + 128 * C - r * t + col0
+                            y = i0 - r * t
+                    else:
+                        col0 = b * g
+                        j0 = 128 * C + col0
+                        c = j0 // t
+                        if i0 < m and j0 < m and c >= r:
+                            x = j0 - c * t
+                            y = (offs[r] + c - r) * 2 * t + i0 - r * t
+                    bx.append((a * g, col0, x, y))
+            boxes.append(bx)
+            i = 128 * R + w16
+            r = i // t
+            lo = np.maximum(r * t - 128 * C, 0)
+            hi = np.full_like(lo, min(m - 128 * C, 128))
+            lo = np.where(i < m, lo, hi)
+            fwd.append(np.stack([lo, hi], 1))
+            j = 128 * C + w16
+            trn.append(np.where(j < m, (j // t + (C > R)) * t - 128 * R, 0))
+    return SuperPlan(g, ns, box, np.asarray(Rs), np.asarray(Cs),
+                     np.asarray(boxes, np.int64), np.asarray(fwd, np.int64),
+                     np.asarray(trn, np.int64))
+
+
+def _super_walk(store, nt, t, idx, U, layout):
+    """Route "super"'s walk of kernels 1 ("flat") and 9 ("tiles") on the
+    host, from _super_plan alone: each super-tile's stage is
+    assembled from its boxes of the storage's 2-D view (past the view:
+    zeros, as the copies; an absent box, y = -1: NaN, which a kept
+    fragment would carry into the output), u past m is NaN too, and the
+    forward and transposed products keep only the plan's masks. f64 sums
+    of int8 codes and bf16-rounded u; returns (MU, CU) each (B, K, m)."""
+    P = store.shape[0]
+    m = nt * t
+    plan = _super_plan(nt, t, store.element_size(), layout)
+    view = store.double().numpy().reshape(-1, store.shape[-1])
+    rows_q = view.shape[0] // P
+    g, w = plan.box
+    B, K, _ = U.shape
+    n = plan.ns * 128
+    Ub = np.full((B, K, n), np.nan)
+    Ub[:, :, :m] = U.bfloat16().double().numpy()
+    out = np.zeros((B, K, 2, n))
+    for b in range(B):
+        for h in range(2):
+            acc = out[b, :, h]
+            for e in range(len(plan.R)):
+                R, C = int(plan.R[e]), int(plan.C[e])
+                stage = np.zeros((128, 128))
+                for row0, col0, x, y in plan.boxes[e]:
+                    if y < 0:
+                        stage[row0:row0 + g, col0:col0 + w] = np.nan
+                        continue
+                    y0 = int(idx[b]) * rows_q + h * t + y
+                    blk = view[y0:y0 + g, x:x + w]
+                    stage[row0:row0 + g, col0:col0 + blk.shape[1]] = blk
+                uc = Ub[b, :, 128 * C:128 * C + 128]
+                ur = Ub[b, :, 128 * R:128 * R + 128]
+                for v in range(8):
+                    lo, hi = plan.fwd[e, v]
+                    if lo < hi:
+                        acc[:, 128 * R + 16 * v:128 * R + 16 * v + 16] += \
+                            uc[:, lo:hi] @ stage[16 * v:16 * v + 16,
+                                                 lo:hi].T
+                    keep = plan.trn[e, v]
+                    if keep > 0:
+                        acc[:, 128 * C + 16 * v:128 * C + 16 * v + 16] += \
+                            ur[:, :keep] @ stage[:keep, 16 * v:16 * v + 16]
+    out = out[..., :m] / (127.0 if store.dtype == torch.int8 else 1.0)
+    return out[:, :, 0], out[:, :, 1]
+
+
+@pytest.mark.parametrize("layout", ["flat", "tiles"])
+@pytest.mark.parametrize("t,nt", SUPER_TILES)
+def test_super_plan_walk_matches_plain_and_jax(t, nt, layout):
+    """Route "super" of kernels 1 and 9 (t a multiple of 16 outside 128,
+    256, 384, 512) walked on the host from _super_plan: the
+    128-row super-tiles, their boxes (kernel 1's 128-byte runs of a row
+    block's stored columns, left of r t and past m included; kernel 9's
+    sub-tile boxes), the absent boxes and the masks (forward columns from
+    r t to m, transposed rows below c t) give, on seeded random int8
+    content and u, the plain matvec and the JAX package's
+    make_tri_pool_matvec_xla (flat) or make_tri_pool_matvec_tiles_xla
+    (tiles) within SUPER_TOL of the largest output; nt t is not a multiple
+    of 128 in most cases, and no absent box or u past m reaches a kept
+    fragment (they are NaN here)."""
+    rng = np.random.default_rng(t * 100 + nt)
+    P, B = 2, 3
+    K = 3 if layout == "flat" else 1
+    m = nt * t
+    M = np.triu(np.where(rng.random((P, m, m)) > 0.9,
+                         rng.integers(1, 128, (P, m, m)), 0), 1)
+    M = M + M.transpose(0, 2, 1) + np.eye(m, dtype=M.dtype) * 127
+    C = (M > 0) * 127
+    MC = torch.from_numpy(np.concatenate([M, C], 1).astype(np.int8))
+    tri = flattri.repack_stacked(MC, t)
+    U = torch.from_numpy(rng.random((B, K, m)).astype(np.float32))
+    idx = torch.tensor([1, 0, 1], dtype=torch.int32)
+    if layout == "flat":
+        store = tri
+        plain = flattri.tri_pool_matvec_plain(tri, nt, idx, U, torch.float32)
+        jfn = jflat.make_tri_pool_matvec_xla(jnp.asarray(tri.numpy()), nt,
+                                             jnp.float32)
+        jref = jfn(jnp.asarray(idx.numpy()), jnp.asarray(U.numpy()))
+    else:
+        T = nt * (nt + 1) // 2
+        store = tri.view(P, 2 * t, T, t).permute(0, 2, 1, 3).contiguous()
+        plain = flattri.tri_tiles_matvec_plain(store, nt, idx, U[:, 0],
+                                               torch.float32)
+        plain = tuple(x[:, None] for x in plain)
+        jfn = jflat.make_tri_pool_matvec_tiles_xla(
+            jnp.asarray(store.numpy()), nt, jnp.float32)
+        jref = tuple(x[:, None] for x in jfn(jnp.asarray(idx.numpy()),
+                                             jnp.asarray(U[:, 0].numpy())))
+    got = _super_walk(store, nt, t, idx, U, layout)
+    for x, y, z in zip(got, plain, jref):
+        assert np.isfinite(x).all()
+        scale = float(np.abs(x).max())
+        assert np.abs(x - y.double().numpy()).max() <= SUPER_TOL * scale
+        assert np.abs(x - np.asarray(z, np.float64)).max() <= \
+            SUPER_TOL * scale
+    # the plan: every super-tile of the upper triangle once, in row-major
+    # order; kernel 9's boxes read each stored sub-tile of a walked
+    # super-tile once, and nothing else
+    plan = _super_plan(nt, t, 1, layout)
+    ns = -(-m // 128)
+    assert list(zip(plan.R, plan.C)) == [(R, C) for R in range(ns)
+                                          for C in range(R, ns)]
+    if layout == "tiles":
+        g = plan.g
+        at = plan.boxes[plan.boxes[..., 3] >= 0][:, 2:]
+        assert len({tuple(v) for v in at.tolist()}) == len(at)
+        n = m // g
+        assert len(at) == sum(
+            1 for I in range(n) for J in range(n)
+            if J * g // t >= I * g // t and J * g // 128 >= I * g // 128)

@@ -43,12 +43,15 @@ def test_every_source_is_built():
     on_disk = {p.stem for p in _kernels.CSRC.glob("*.cu")}
     assert on_disk == set(_kernels.SOURCES)
     # every source's launches are counted, and the capacity matvecs'
-    # reductions and the matvecs' CUDA-core routes under their own keys
+    # reductions, the matvecs' CUDA-core routes and kernels 1 and 9's
+    # super-tile route under their own keys
     assert set(_kernels.REDUCTIONS) <= set(_kernels.SOURCES)
-    assert set(_kernels.CORE_ROUTES) <= set(_kernels.SOURCES)
+    assert set(_kernels.ROUTED) <= set(_kernels.SOURCES)
     assert set(_kernels.LAUNCHES) == (set(_kernels.SOURCES)
                                       | set(_kernels.REDUCTIONS.values())
-                                      | set(_kernels.CORE_ROUTES.values()))
+                                      | {f"{k}_{r}" for k, rs in
+                                         _kernels.ROUTED.items()
+                                         for r in rs})
     # the build kernels are compiled without FMA contraction
     for name in ("tri_build", "tri_build_fused", "stored_build",
                  "affinity_build", "build_probe"):
@@ -88,6 +91,21 @@ def test_tri_matvec_probe_edits_apply():
     assert src["nocompute"].count("if (false) {") == 2
     for name in ("noforward", "notransposed"):
         assert src[name].count("if (false) {") == 1
+
+
+def test_tri_matvec_route_probe_edits_apply():
+    """The probe's ``--routes`` variants (kernel 1's super-tile and
+    CUDA-core routes) are edits of the current headers: each but ``full``
+    edits one header, which differs from the package's."""
+    from clipper_tpu_torch.bench import tri_matvec_probe
+    src = tri_matvec_probe.route_sources()
+    assert {n.split("-")[0] for n in src} == {"super", "core"}
+    for name, files in src.items():
+        assert len(files) == (0 if name.endswith("-full") else 1)
+        for fname, text in files.items():
+            assert text != (_kernels.CSRC / fname).read_text()
+            assert fname == ("tri_matvec_mma.cuh" if name.startswith("super")
+                             else "tri_matvec_core.cuh")
 
 
 def test_sym_unit_probe_edits_apply():
@@ -685,15 +703,17 @@ def _random_tri(P, t, nt, storage, cuda, seed):
 @pytest.mark.parametrize("t,nt", [(128, 1), (256, 1), (128, 4), (256, 4),
                                   (128, 9), (256, 9), (128, 16),
                                   (256, 16), (16, 8), (64, 4), (100, 5),
-                                  (384, 3), (512, 1), (512, 4)])
+                                  (384, 3), (512, 1), (512, 4), (32, 9),
+                                  (48, 5), (144, 3)])
 def test_tri_matvec_kernel_every_shape(cuda, storage, t, nt):
     """Kernel 1 at every tile and width the pool uses (nt up to 16: m <=
-    2048 at t=128, m <= 4096 at t=256) and at tiles of both its routes
-    past them (16, 64, 100: CUDA cores; 384, 512: tensor cores), K = 1,
-    5, 16 and 17 (two launches): within 1e-4 of its plain version and
-    1.1e-5 of an f64 oracle on the same content and bf16-rounded u; a
-    rerun is bit identical; one launch a 16 candidates, under its route's
-    key."""
+    2048 at t=128, m <= 4096 at t=256) and at tiles of its other routes
+    (16, 32, 48, 64, 144: tensor cores over 128-row super-tiles, m not a
+    multiple of 128 at 32, 48 and 144; 100: CUDA cores; 384, 512: tensor
+    cores at the tile), K = 1, 5, 16 and 17 (two launches): within 1e-4
+    of its plain version and 1.1e-5 of an f64 oracle on the same content
+    and bf16-rounded u; a rerun is bit identical; one launch a 16
+    candidates, under its route's key."""
     P, B = 3, 5
     m = t * nt
     tri = _random_tri(P, t, nt, storage, cuda, seed=nt)
@@ -718,6 +738,129 @@ def test_tri_matvec_kernel_every_shape(cuda, storage, t, nt):
             assert float((x.double() - z * scale).abs().max()) <= 1.1e-5
         again = flattri.tri_pool_matvec_cuda(tri, nt, idx, U, torch.float32)
         assert all(torch.equal(x, y) for x, y in zip(a, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage", [torch.float32, torch.float64])
+@pytest.mark.parametrize("t,nt", [(64, 4), (100, 5)])
+def test_tri_matvecs_float_kinds(cuda, storage, t, nt):
+    """Kernels 1 (K = 1, 5, 16 and 17) and 9 over f32 and f64 storage at
+    t = 64 and 100 (their CUDA-core kernel, route "float"): within 1e-4 of
+    their plain versions (f32; f64: 1e-12) and 1.1e-5 of an f64 oracle on
+    the same content (TF32 off); reruns bit-identical; kernel 9 bit-equal
+    to kernel 1 at K=1; one launch a 16 candidates, under the kernel's
+    own key."""
+    P, B = 3, 5
+    m = t * nt
+    T = nt * (nt + 1) // 2
+    tri = _random_tri(P, t, nt, torch.bfloat16, cuda,
+                      seed=t + nt).to(storage)
+    tiles = tri.view(P, 2 * t, T, t).permute(0, 2, 1, 3).contiguous()
+    tol = 1e-12 if storage == torch.float64 else 1e-4
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    idx = torch.tensor([2, 0, 1, 2, 0], device=cuda, dtype=torch.int32)
+    assert flattri.matvec_route(t, storage) == "float"
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for K in (1, 5, 16, 17):
+            U = torch.rand(B, K, m, generator=gen, device=cuda,
+                           dtype=storage)
+            U /= torch.linalg.vector_norm(U, dim=-1, keepdim=True)
+            before = _kernels.LAUNCHES["tri_matvec"]
+            a = flattri.tri_pool_matvec_cuda(tri, nt, idx, U, storage)
+            assert _kernels.LAUNCHES["tri_matvec"] == before + (K + 15) // 16
+            b = flattri.tri_pool_matvec_plain(tri, nt, idx, U, storage)
+            o = flattri.tri_pool_matvec_plain(tri.double(), nt, idx,
+                                              U.double(), torch.float64)
+            for x, y, z in zip(a, b, o):
+                assert x.shape == (B, K, m) and x.dtype == storage
+                assert float((x - y).abs().max()) <= tol
+                assert float((x.double() - z).abs().max()) <= 1.1e-5
+            again = flattri.tri_pool_matvec_cuda(tri, nt, idx, U, storage)
+            assert all(torch.equal(x, y) for x, y in zip(a, again))
+            if K != 1:
+                continue
+            before = _kernels.LAUNCHES["tri_tiles_matvec"]
+            c = flattri.tri_tiles_matvec_cuda(tiles, nt, idx, U[:, 0],
+                                              storage)
+            assert _kernels.LAUNCHES["tri_tiles_matvec"] == before + 1
+            d = flattri.tri_tiles_matvec_plain(tiles, nt, idx, U[:, 0],
+                                               storage)
+            for x, y, z in zip(c, a, d):
+                assert torch.equal(x, y[:, 0])
+                assert float((x - z).abs().max()) <= tol
+            again = flattri.tri_tiles_matvec_cuda(tiles, nt, idx, U[:, 0],
+                                                  storage)
+            assert all(torch.equal(x, y) for x, y in zip(c, again))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage,t,nt", [(torch.int8, 2500, 2),
+                                          (torch.bfloat16, 2500, 2),
+                                          (torch.float32, 4800, 1),
+                                          (torch.float64, 7680, 1)])
+def test_tri_matvecs_core_past_2048(cuda, storage, t, nt):
+    """The CUDA-core kernel of kernels 1 and 9 past t = 2048 (one candidate
+    a block, the rest of a u block loaded after the products; t = 7680 is
+    its limit, an f64 block filling an SM's shared memory), K = 1 and 16:
+    within 1e-4 of the plain versions (f64: 1e-12) and 1.1e-5 of an f64
+    oracle; reruns bit-identical; kernel 9 bit-equal to kernel 1 at K=1;
+    one launch each, under the route's key."""
+    P, B = 2, 3
+    m = t * nt
+    T = nt * (nt + 1) // 2
+    codes = storage in (torch.int8, torch.bfloat16)
+    tri = _random_tri(P, t, nt, storage if codes else torch.bfloat16, cuda,
+                      seed=t).to(storage)
+    tiles = tri.view(P, 2 * t, T, t).permute(0, 2, 1, 3).contiguous()
+    out = torch.float32 if codes else storage
+    tol = 1e-12 if storage == torch.float64 else 1e-4
+    scale = 1 / 127 if storage == torch.int8 else 1.0
+    route = flattri.matvec_route(t, storage)
+    assert route == ("core" if codes else "float")
+    gen = torch.Generator(device=cuda).manual_seed(13)
+    idx = torch.tensor([1, 0, 1], device=cuda, dtype=torch.int32)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for K in (1, 16):
+            U = torch.rand(B, K, m, generator=gen, device=cuda,
+                           dtype=out)
+            U /= torch.linalg.vector_norm(U, dim=-1, keepdim=True)
+            Uo = (U.bfloat16() if codes else U).double()
+            for name, fn, store, u in (
+                    ("tri_matvec", flattri.tri_pool_matvec_cuda, tri, U),
+                    ("tri_tiles_matvec", flattri.tri_tiles_matvec_cuda,
+                     tiles, U[:, 0])):
+                if name == "tri_tiles_matvec" and K != 1:
+                    continue
+                key = _kernels.route_key(name, route)
+                before = _kernels.LAUNCHES[key]
+                got = fn(store, nt, idx, u, out)
+                assert _kernels.LAUNCHES[key] == before + 1
+                again = fn(store, nt, idx, u, out)
+                assert all(torch.equal(x, y) for x, y in zip(got, again))
+                if name == "tri_matvec":
+                    a = got
+                    b = flattri.tri_pool_matvec_plain(tri, nt, idx, U, out)
+                    o = flattri.tri_pool_matvec_plain(tri.double(), nt, idx,
+                                                      Uo, torch.float64)
+                    for x, y, z in zip(a, b, o):
+                        assert x.shape == (B, K, m) and x.dtype == out
+                        assert float((x - y).abs().max()) <= tol
+                        assert float((x.double() - z * scale).abs().max()) \
+                            <= 1.1e-5
+                else:
+                    d = flattri.tri_tiles_matvec_plain(tiles, nt, idx,
+                                                       U[:, 0], out)
+                    for x, y, z in zip(got, a, d):
+                        assert torch.equal(x, y[:, 0])
+                        assert float((x - z).abs().max()) <= tol
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
 
 
 @pytest.mark.cuda
@@ -759,7 +902,7 @@ def test_tri_builds_bf16_match_plain(cuda, kind):
 @pytest.mark.parametrize("storage", [torch.int8, torch.bfloat16])
 @pytest.mark.parametrize("t,nt", [(128, 4), (256, 4), (128, 9), (256, 9),
                                   (16, 8), (64, 4), (100, 5), (384, 3),
-                                  (512, 2)])
+                                  (512, 2), (32, 9), (48, 5), (144, 3)])
 def test_tri_tiles_kernel_equals_tri_matvec_k1(cuda, storage, t, nt):
     """Kernel 9 runs kernel 1's kernel over the tile-major address map (on
     either route): on the tile-major form of some content its output is
