@@ -194,7 +194,7 @@ Phases, each of which must pass (any failure exits non-zero):
 8. drivers  — each ported bench driver's main() in-process on the card at
               a small setting: grid_tpu (4 trials a cell, the whole 5 x 5
               grid), pool_ab (W=128, all five configurations), tickstats
-              (B=128), gridcell_probe (8 problems at m=2048), mixed_bench
+              (B=32), gridcell_probe (8 problems at m=2048), mixed_bench
               (8 a size, 1 rep), multistart_bench (W=32, K=4, 1 rep),
               symstore_bench (m=8192, --mv-only), symshard_bench
               (m=8192 on a 1-rank NCCL group), sharded_bench (m=4096 on
@@ -297,12 +297,30 @@ Phases, each of which must pass (any failure exits non-zero):
               mask, kernels 3 and 7 launched; s a solve, stage ms), and
               kernels 3 and 7 at t=256 beside their bound and
               torch.matmul; phase 11 (d)'s dry run at m=64, tiles of 16.
+13. user scores — an invariant's own device score inside the build
+              kernels (phase_user_score; bench/user_scores.py's
+              UserEuclidean and PlanarCauchy): both libraries built (nvcc
+              seconds printed; a second lookup runs no nvcc); kernels 2,
+              8, 4 in int8 and bf16 at W=512, t = 256, 64 (m=1024) and
+              100 (m=1000), m_true < m on every 16th problem, and kernel
+              6 in f32 and f64 at m = 1024, 1000, each against its plain
+              version with 0 codes differing, timed beside the built-in
+              Euclidean's, its bound and its plain version; bench.py's
+              tri pool with UserEuclidean and build="auto"
+              (tri_build_user once and no other build, masks equal to
+              the built-in pool's bit for bit, the bench bars),
+              problems/s beside the built-in's in turns and beside
+              build="xla"; the tile-major pool, the stacked pool and the
+              dense facade with it (kernels 8, 4 and 6 once each). Its
+              rows join the kernels' line as *_user.
 
 The line before the last is a JSON object of the kernels' numbers (rows 3
 and 7 also carry reduce_launches, the main path's launches of their
 reduction kernel, and tb_per_s, the bytes their design moves a call over
 the measured ms; rows 1, 2, 3, 7, 8 and 9 carry "tiles", each new tile's
-route, shape, ms and bound from phases 2 and 12); the last line is
+route, shape, ms and bound from phases 2 and 12; phase 13's four *_user
+rows carry the built-in Euclidean kernel's ms as builtin_ms and their
+other shapes under "shapes"); the last line is
 {"ok": true, "device": {...}}.
 
 Usage: python3 chip_smoke.py [--quick] [--profile]
@@ -365,6 +383,11 @@ PN_EDGE = 1000                # the dense build where no tile divides m
 # exp: 4 each), 1 mul, 2 compares, and the masks' 4 compares: 51, each
 # transcendental counted once; 56 with the int8 quantization
 PN_OPS_PER_PAIR = 56
+# f32 operations a pair of bench/user_scores.py's PlanarCauchy: two planar
+# lengths (2 sub, 2 mul, 2 add, sqrt: 7 each), sub, abs, the gate's
+# compare, the tail's mul, div, add and div, the masks' 4 compares: 25;
+# 30 with the int8 quantization, as BUILD_OPS_PER_PAIR counts it
+CAUCHY_OPS_PER_PAIR = 30
 
 
 def fail(msg: str) -> None:
@@ -927,9 +950,10 @@ def first(D1, W):
 
 
 def run_pipeline(inv, data_, dev, W, timings=None, storage=None,
-                 stall_outers=0, mesh=None, tri_tile=0):
+                 stall_outers=0, mesh=None, tri_tile=0, build="auto"):
     """bench.py's tri pool (int8 storage unless ``storage`` says; over a
-    process group with ``mesh``; at ``tri_tile``, 0: the default 256)."""
+    process group with ``mesh``; at ``tri_tile``, 0: the default 256; the
+    build by ``build``)."""
     import torch
     from clipper_tpu_torch.parallel import pool
     from clipper_tpu_torch.types import Params
@@ -939,7 +963,8 @@ def run_pipeline(inv, data_, dev, W, timings=None, storage=None,
                                    power_steps=4, layout="tri",
                                    tri_probes=16, d_scale=0.15,
                                    stall_outers=stall_outers, mesh=mesh,
-                                   tri_tile=tri_tile, device=dev)
+                                   tri_tile=tri_tile, build=build,
+                                   device=dev)
     return pipe(first(D1, W), D2s[:W], As[:W], u0s[:W], timings=timings)
 
 
@@ -3152,6 +3177,284 @@ def phase_tri_variants(inv, main, dev):
     return out["tiles"]
 
 
+def user_invariants(inv):
+    """The two sample device scores of bench/user_scores.py beside the
+    built-in they stand for (None for PlanarCauchy), their endpoints'
+    width and their f32 operations a pair."""
+    from clipper_tpu_torch.bench import user_scores
+    return {"user_euclidean": (user_scores.UserEuclidean(inv.params), inv,
+                               3, BUILD_OPS_PER_PAIR),
+            "planar_cauchy": (user_scores.PlanarCauchy(), None, 2,
+                              CAUCHY_OPS_PER_PAIR)}
+
+
+def user_builds_at(uinv, binv, P1s, P2s, At, mts, t, ops, label, dev):
+    """Kernels 2, 8 and 4 over a device score at one shape, int8 and bf16:
+    kernel 2 against its plain version (C exact, 0 M codes differing),
+    kernel 8 byte-equal to kernel 2, kernel 4 against its plain version
+    (check_stored), one launch each under its user key; then each timed
+    beside the built-in Euclidean kernel on the same inputs (``binv``),
+    its bound and its plain version. Returns {kernel: row} (int8; bf16
+    under "bf16") and the largest |M| difference."""
+    import torch
+    from clipper_tpu_torch import _kernels
+    from clipper_tpu_torch.bench.harness import time_ms
+    from clipper_tpu_torch.ops import affinity_pallas, flattri
+    from clipper_tpu_torch.ops.affinity import stored_from_endpoints
+
+    W, m, d = P1s.shape
+    in_bytes = 2 * W * m * d * 4 + W * m * 2 * 4 + W * 4
+    rows, err = {}, 0.0
+    for storage in (torch.int8, torch.bfloat16):
+        sname = "int8" if storage == torch.int8 else "bf16"
+        kw = dict(t=t, storage_dtype=storage)
+        fns = {"tri_build": lambda i: flattri.build_tri_cuda(
+                   i, P1s, P2s, At, mts, **kw),
+               "tri_build_fused": lambda i: flattri.build_tri_fused_cuda(
+                   i, P1s, P2s, At, mts, **kw),
+               "stored_build": lambda i: affinity_pallas.stored_build_cuda(
+                   i, P1s, P2s, At, mts, storage_dtype=storage)}
+        _kernels.reset_launches()
+        tri = fns["tri_build"](uinv)
+        plain = lambda: flattri.build_tri_plain(uinv, P1s, P2s, At, mts, **kw)
+        err = max(err, check_build(tri, plain(), t, f"user {label} {sname}"))
+        same = bool(torch.equal(fns["tri_build_fused"](uinv), tri))
+        print(f"tri_build_fused_user vs tri_build_user ({label} {sname}): "
+              f"byte-equal={same}", flush=True)
+        require(same, f"tri_build_fused_user differs ({label} {sname})")
+        del tri
+        _, e = check_stored(uinv, P1s, P2s, At, mts, storage,
+                            f"user {label} {sname}")
+        err = max(err, e)
+        launched = {k: v for k, v in _kernels.LAUNCHES.items() if v}
+        require(launched == {f"{k}_user": 1 for k in fns},
+                f"user {label} {sname}: launches {launched}")
+        torch.cuda.empty_cache()
+        plains = {"tri_build": plain, "tri_build_fused": plain,
+                  "stored_build": lambda: stored_from_endpoints(
+                      uinv, P1s, P2s, At, m_true=mts, storage_dtype=storage)}
+        S = flattri.tri_ncols(m // t, t)
+        for k, fn in fns.items():
+            out = (2 * m * m if k == "stored_build" else 2 * t * S)
+            bound_ms, bound_by = build_bound(
+                W * out * storage.itemsize + in_bytes, W, m, ops)
+            r = dict(ms=time_ms(lambda: fn(uinv), dev, 10),
+                     builtin_ms=(time_ms(lambda: fn(binv), dev, 10)
+                                 if binv is not None else None),
+                     plain_ms=time_ms(plains[k], dev, 2), bound_ms=bound_ms,
+                     bound_by=bound_by, library_ms=None)
+            torch.cuda.empty_cache()
+            builtin = (f", the built-in Euclidean {r['builtin_ms']:.4f} ms"
+                       if binv is not None else "")
+            print(f"timing {k}_user {label} {sname}: kernel {r['ms']:.4f} ms"
+                  f"{builtin}, bound {bound_ms:.4f} ms ({bound_by}), plain "
+                  f"{r['plain_ms']:.4f} ms", flush=True)
+            if storage == torch.int8:
+                rows[k] = r
+            else:
+                rows[k]["bf16"] = r
+    return rows, err
+
+
+def user_dense_at(uinv, binv, P1, P2, A, ops, label, dev):
+    """Kernel 6 over a device score on one problem, f32 and f64: against
+    its plain version (check_dense), timed through its wrapper as the
+    facade calls it, beside the built-in Euclidean's, its bound and its
+    plain version. Returns the f32 row (f64 under "f64") and the largest
+    |M| difference."""
+    import torch
+    from clipper_tpu_torch.bench.harness import time_ms
+    from clipper_tpu_torch.ops import affinity_pallas
+    from clipper_tpu_torch.ops.affinity import pairwise_from_endpoints
+
+    m, d = P1.shape
+    row, err = None, 0.0
+    for dtype, peak in ((torch.float32, F32_FLOPS),
+                        (torch.float64, F64_SIMT_FLOPS)):
+        name = "f32" if dtype == torch.float32 else "f64"
+        p1, p2 = P1.to(dtype), P2.to(dtype)
+        err = max(err, check_dense(uinv, p1, p2, A, f"user {label} {name}"))
+        item = dtype.itemsize
+        r = dict(ms=time_ms(lambda: affinity_pallas.affinity_build_cuda(
+                     uinv, p1, p2, A), dev, 10),
+                 builtin_ms=(time_ms(lambda: affinity_pallas.
+                                     affinity_build_cuda(binv, p1, p2, A),
+                                     dev, 10)
+                             if binv is not None else None),
+                 plain_ms=time_ms(lambda: pairwise_from_endpoints(
+                     uinv, p1, p2, A), dev, 2),
+                 **bound_of(2 * m * m * item + 2 * m * d * item + m * 2 * 4,
+                            m * (m - 1) // 2 * ops, peak),
+                 library_ms=None)
+        builtin = (f", the built-in Euclidean {r['builtin_ms']:.4f} ms"
+                   if binv is not None else "")
+        print(f"timing affinity_build_user {label} {name}: kernel "
+              f"{r['ms']:.4f} ms{builtin}, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}), plain {r['plain_ms']:.4f} ms", flush=True)
+        if row is None:
+            row = r
+        else:
+            row["f64"] = r
+    return row, err
+
+
+def phase_user_score(inv, main, dev):
+    """13: an invariant's own device score inside the build kernels
+    (csrc/user_score.cuh; bench/user_scores.py's UserEuclidean, the
+    built-in Euclidean's score with operator() alone, and PlanarCauchy,
+    d = 2 with a screen, a gate and a tail, on the bunny's x, y). (a)
+    Build both libraries (nvcc's seconds printed); a second lookup runs
+    no nvcc. (b) Kernels 2, 8, 4 in int8 and bf16 on the 512 main
+    problems at t = 256, 64 (m_true < m on every 16th problem) and at
+    their first 1000 associations at t = 100 (likewise), and kernel 6 in
+    f32 and f64 on the first problem: each against its plain version with
+    0 codes differing, timed beside the built-in Euclidean's. (c) The tri
+    pool (bench.py's protocol) with UserEuclidean and build="auto":
+    tri_build_user launched and no other build, masks equal to the
+    built-in pool's bit for bit, the bench bars; problems/s beside the
+    built-in's in turns and beside build="xla". (d) The score's other
+    paths, each counted: the tile-major pool (kernel 8), the stacked pool
+    (kernel 4) and the dense facade (kernel 6). Returns the kernels'
+    rows and the launches of the paths."""
+    import torch
+    from clipper_tpu_torch import Clipper, _kernels
+    from clipper_tpu_torch.parallel import pool
+    from clipper_tpu_torch.types import Params
+
+    t_phase = time.perf_counter()
+    invs = user_invariants(inv)
+    scores = [u.cuda_score() for u, _, _, _ in invs.values()]
+    secs = _kernels.build_all(scores=scores)
+    print(f"user scores: built {len(scores)} device score libraries in "
+          f"{secs:.1f} s (nvcc, one a library, in parallel)", flush=True)
+    for s in scores:
+        for line in _kernels.BUILD_LOG.get(_kernels.user_target(s).stem,
+                                           "").splitlines():
+            if "spill" in line and " 0 bytes spill" not in line:
+                print(f"  ptxas {_kernels.user_target(s).stem}: "
+                      f"{line.strip()}", flush=True)
+    _kernels._USER_LIBS.clear()
+    again = [_kernels.build_user(s) for s in scores]
+    t0 = time.perf_counter()
+    for s in scores:
+        _kernels.user_lib(s)
+    runs = sum(a is not None for a in again)
+    print(f"user scores: second lookup ran nvcc {runs} times, loaded from "
+          f"the cache in {(time.perf_counter() - t0) * 1e3:.1f} ms",
+          flush=True)
+    require(all(a is None for a in again), "a device score library was "
+            "built twice")
+
+    D1, D2s, As, Agts, u0s = main
+    rows, errs = {}, {}
+    for label, (uinv, binv, d, ops) in invs.items():
+        for m, t, mt in ((M, 256, M), (M, 64, M - 100),
+                         (M_EDGE, 100, M_EDGE - 100)):
+            P1s, P2s = endpoints(D1[:, :d], D2s[..., :d], As[:, :m], dev)
+            P1s, P2s = P1s.contiguous(), P2s.contiguous()
+            At = torch.as_tensor(As[:, :m], device=dev).contiguous()
+            mts = torch.full((W_MAIN,), m, dtype=torch.int32, device=dev)
+            mts[::16] = mt
+            r, e = user_builds_at(uinv, binv, P1s, P2s, At, mts, t, ops,
+                                  f"{label} W={W_MAIN} m={m} t={t}", dev)
+            for k in r:
+                errs[k] = max(errs.get(k, 0.0), e)
+                r[k].update(W=W_MAIN, m=m, t=t)
+                if label == "user_euclidean" and t == 256:
+                    rows[k] = r[k]
+                else:
+                    rows[k].setdefault("shapes", {})[
+                        f"{label} m={m} t={t}"] = r[k]
+            del P1s, P2s, At
+            torch.cuda.empty_cache()
+        for m in (M, M_EDGE):
+            P1, P2 = endpoints(D1[:, :d], D2s[0, :, :d], As[0, :m], dev)
+            A0 = torch.as_tensor(As[0, :m], device=dev)
+            r, e = user_dense_at(uinv, binv, P1, P2, A0, ops,
+                                 f"{label} m={m}", dev)
+            errs["affinity_build"] = max(errs.get("affinity_build", 0.0), e)
+            r["m"] = m
+            if label == "user_euclidean" and m == M:
+                rows["affinity_build"] = r
+            else:
+                rows["affinity_build"].setdefault("shapes", {})[
+                    f"{label} m={m}"] = r
+
+    # (c) the tri pool over UserEuclidean, the built-in's beside it
+    ue = invs["user_euclidean"][0]
+    require(pool._resolve_build("auto", torch.int8, ue, dev) == "pallas",
+            "build='auto' does not take the kernel for a device score")
+    launches = {}
+    sol_b = run_pipeline(inv, main, dev, W_MAIN)
+    sol_u, got = counted_call(lambda: run_pipeline(ue, main, dev, W_MAIN))
+    launches["tri_build"] = got["tri_build_user"]
+    builds = {k: v for k, v in got.items() if "build" in k and v}
+    print("user score tri pool launches (one call): "
+          f"{dict((k, v) for k, v in got.items() if v)}", flush=True)
+    require(builds == {"tri_build_user": 1} and got["tri_matvec"] > 0,
+            f"user score tri pool: tri_build_user once and no other build "
+            f"expected: {builds}")
+    same = bool(torch.equal(sol_u.mask, sol_b.mask))
+    P, R = check_quality("user score tri pool", As, sol_u, Agts, W_MAIN)
+    print(f"user score tri pool: W={W_MAIN} m={M}: precision={P * 100:.2f}%"
+          f" recall={R * 100:.2f}%; masks equal to the built-in Euclidean "
+          f"pool's bit for bit: {same}", flush=True)
+    require(same, "the UserEuclidean pool's masks differ from the built-in "
+            "Euclidean pool's")
+    walls = {"built-in": [], "user": []}
+    stages = {"built-in": {}, "user": {}, "xla": {}}
+    for who in ("built-in", "user", "user", "built-in") * 2:
+        _, w = timed_calls(lambda: run_pipeline(
+            inv if who == "built-in" else ue, main, dev, W_MAIN,
+            timings=stages[who]), 1)
+        walls[who].append(w)
+    sol_x = run_pipeline(ue, main, dev, W_MAIN, build="xla")
+    _, wx = timed_calls(lambda: run_pipeline(
+        ue, main, dev, W_MAIN, build="xla", timings=stages["xla"]), 2)
+    ms = {k: np.mean(v) * 1e3 for k, v in walls.items()}
+    print(f"user score tri pool (in turns, 4 calls each): "
+          f"{W_MAIN / ms['user'] * 1e3:.1f} problems/s ({ms['user']:.1f} ms "
+          f"a call) beside the built-in Euclidean's "
+          f"{W_MAIN / ms['built-in'] * 1e3:.1f} ({ms['built-in']:.1f} ms); "
+          f"build='xla' with the same invariant {W_MAIN / wx:.1f} "
+          f"({wx * 1e3:.1f} ms, masks equal: "
+          f"{bool(torch.equal(sol_x.mask, sol_u.mask))})", flush=True)
+    print("user score tri pool stage ms (each one's last call, CUDA "
+          "events): " + "; ".join(
+              f"{who} " + ", ".join(f"{k}={v:.3f}" for k, v in t.items())
+              for who, t in stages.items()), flush=True)
+
+    # (d) the score's other paths: kernel 8, 4 and 6 each once a call
+    sol, got = counted_call(lambda: run_tri_variant(ue, main, dev, W_MAIN,
+                                                    "tiles"))
+    launches["tri_build_fused"] = got["tri_build_fused_user"]
+    check_quality("user score tile-major pool", As, sol, Agts, W_MAIN)
+    sol, got = counted_call(lambda: run_stacked(ue, main, dev, W_MAIN))
+    launches["stored_build"] = got["stored_build_user"]
+    check_quality("user score stacked pool", As, sol, Agts, W_MAIN)
+    c = Clipper(ue, Params(), dtype=torch.float32, device=dev)
+
+    def facade():
+        c.score_pairwise_consistency(D1.T, D2s[0].T, As[0])
+        return c.solve(u0=u0s[0])
+
+    sol, got = counted_call(facade)
+    launches["affinity_build"] = got["affinity_build_user"]
+    P, R = precision_recall(As[:1], sol.mask.cpu().numpy()[None], Agts[:1])
+    print(f"user score paths: launches tile-major pool "
+          f"{launches['tri_build_fused']} (tri_build_fused_user), stacked "
+          f"pool {launches['stored_build']} (stored_build_user), dense "
+          f"facade {launches['affinity_build']} (affinity_build_user, "
+          f"P={P[0] * 100:.2f}% R={R[0] * 100:.2f}%)", flush=True)
+    require(P[0] >= 0.995 and R[0] >= 0.85, "user score dense facade: P/R "
+            f"{P[0]:.4f} / {R[0]:.4f} under 0.995 / 0.85")
+    for k in _kernels.USER_KERNELS:
+        require(launches[k] == 1, f"{k}_user launched {launches[k]} times "
+                "on its path, not once")
+        rows[k].update(launches=launches[k], max_abs_err=errs[k])
+    print(f"user scores: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return rows
+
 def phase_parity_pn(inv, pn_inv, check, pn_check, dev):
     """Phase 5's comparisons of this configuration: the point-normal tri
     pool and the tile-major pool at W=16, cuda against cpu, and the
@@ -3518,8 +3821,10 @@ def phase_drivers(dev):
                                                                    cuda]),
                           ("tri_build", "tri_matvec", "stored_build"))
     check_bench_rows("pool_ab", rows)
-    out, _ = driver_call("tickstats B=128", lambda: tickstats.main(
-        ["128", cuda]))
+    # B=32: cut in depth (B=128 took 31 s of the phase's 80) to hold the
+    # script's time as phase 13 joined it
+    out, _ = driver_call("tickstats B=32", lambda: tickstats.main(
+        ["32", cuda]))
     require(int(out["ticks"].min()) > 0, "tickstats: a lane took no tick")
     rows, _ = driver_call("gridcell_probe W=8 m=2048",
                           lambda: gridcell_probe.main(["8", "2048", cuda]),
@@ -4603,6 +4908,7 @@ def main() -> None:
     for name, r in phase_tiles(inv, main_data, cap, cap_mask, dry,
                                dev).items():
         tile_rows[name].update(r)
+    user_rows = phase_user_score(inv, main_data, dev)
     if "--profile" in sys.argv[1:]:
         phase_profile(inv, main_data, cap, dev)
         from clipper_tpu_torch.solvers import sdp
@@ -4626,6 +4932,17 @@ def main() -> None:
                     replaces=where, launches=launches[name],
                     max_abs_err=errs[name], **rows[name])
                for name, where in replaces.items()]
+    # the build kernels over an invariant's own device score (phase 13)
+    templates = {"tri_build": "tri_build.cuh",
+                 "tri_build_fused": "tri_build_fused.cuh",
+                 "stored_build": "stored_pair_build.cuh",
+                 "affinity_build": "affinity_build.cuh"}
+    for name in _kernels.USER_KERNELS:
+        kernels.append(dict(name=f"{name}_user", route="cuda",
+                            source=f"{src}{templates[name]}",
+                            adaptor=f"{src}user_score.cuh",
+                            replaces=replaces[name], **user_rows[name]))
+        launches[f"{name}_user"] = user_rows[name]["launches"]
     # the capacity matvecs' second kernel, the fixed-order reduction
     for k in kernels:
         if k["name"] in _kernels.REDUCTIONS:
@@ -4635,8 +4952,9 @@ def main() -> None:
         if k["name"] in tile_rows:
             k["tiles"] = tile_rows[k["name"]]
     print("main-path launches: " + ", ".join(
-        f"{name} {launches[name]}" for name in (*replaces, *_kernels.
-                                                REDUCTIONS.values())),
+        f"{name} {launches[name]}" for name in (
+            *replaces, *_kernels.REDUCTIONS.values(),
+            *(f"{k}_user" for k in _kernels.USER_KERNELS))),
           flush=True)
     for k in kernels:
         for key in ("ms", "plain_ms", "bound_ms", "library_ms"):

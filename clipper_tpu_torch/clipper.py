@@ -7,13 +7,15 @@ names. ``D1`` is (d, n1) with the data as columns, as in the reference.
 
 Engines: ``"dense"`` builds the (m, m) M and C in the working dtype and
 runs the nested solver (solvers/msrc.py); on the card it builds them for
-the built-in invariants (Euclidean, point-normal) with the dense build
-kernel, ops/affinity_pallas.build_affinity_pallas (csrc/affinity_build.cu),
-which computes the same function as ops/affinity.build_affinity. This is
-a departure in routing only: the JAX facade builds through
-``build_affinity`` everywhere. A user's own PairwiseInvariant subclass
-builds through ``build_affinity`` on every device, as in the JAX facade;
-the kernel does not compute it. ``"triangle"`` keeps the
+any symmetric invariant with a device score (invariants.kernel_builds:
+the built-in Euclidean and point-normal invariants, and a user's own
+``DeviceScore``, whose library is compiled at first use) with the dense
+build kernel, ops/affinity_pallas.build_affinity_pallas
+(csrc/affinity_build.cu), which computes the same function as
+ops/affinity.build_affinity. This is a departure in routing only: the JAX
+facade builds through ``build_affinity`` everywhere. Any other invariant
+builds through ``build_affinity`` on every device, as in the JAX facade.
+``"triangle"`` keeps the
 row-major datasets and solves through the symmetric-triangle capacity
 engine (ops/symstore.solve_single, row-chunked by default, a CUDA kernel
 on the card for either layout); ``"sharded"`` splits that storage over
@@ -131,8 +133,8 @@ class Clipper:
         dense (m, m) is made here: the datasets are kept and :meth:`solve`
         builds triangle storage on the device (under the sharded engine,
         each rank its slice). The dense engine builds on the card through
-        the dense build kernel for the built-in invariants (see the module
-        docstring)."""
+        the dense build kernel for a symmetric invariant with a device
+        score (see the module docstring)."""
         D1 = self._tensor(D1).T     # -> (n1, d) rows
         D2 = self._tensor(D2).T
         if A is not None and np.size(A) == 0:

@@ -14,7 +14,15 @@
 // A score functor takes a row's and a column's endpoints in both sets,
 // (r1, c1) and (r2, c2), each D values, so that one build body serves
 // every invariant: EuclidScore (D = 3) here, PointNormalScore (D = 6) in
-// pointnormal_score.cuh.
+// pointnormal_score.cuh, and an invariant's own score (any D up to
+// user_score.cuh's kMaxUserD) through user_score.cuh's adaptor. A functor
+// has static constexpr int D, using Value = T (float or double), a
+// constructor from const double (&)[4] (its parameters, formed in double
+// on the host), operator()(r1, c1, r2, c2) returning the score s >= +0
+// (no -0, which would read as C's flag) and symmetric bit for bit (s(c, r)
+// = s(r, c)), and, for the pair body (tri_pair_build.cuh), the stages
+// screen / gate / tail below, kExactScreen and kTailAt (where the tail's
+// values lie in a record: tri_pair_build.cuh's Ends).
 
 #pragma once
 
@@ -156,6 +164,7 @@ struct EuclidScore {
   // passes, tail() returns operator()'s value bit for bit; where it
   // fails, operator() returns 0.
   static constexpr bool kExactScreen = sizeof(T) == 8;
+  static constexpr int kTailAt = 0;  // the tail reads v alone
   __device__ __forceinline__ bool screen(const T* r1, const T* c1,
                                          const T* r2, const T* c2,
                                          T& v) const {

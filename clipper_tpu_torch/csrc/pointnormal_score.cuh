@@ -52,6 +52,9 @@ struct PointNormalScore {
   // which it forms only where dn < epsn (elsewhere operator() selects 0
   // too).
   static constexpr bool kExactScreen = sizeof(T) == 8;
+  // the tail reads the normals, kept from value 8 of a record
+  // (tri_pair_build.cuh's split Ends)
+  static constexpr int kTailAt = 8;
   __device__ __forceinline__ bool screen(const T* r1, const T* c1,
                                          const T* r2, const T* c2,
                                          T& v) const {

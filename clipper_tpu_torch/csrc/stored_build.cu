@@ -17,7 +17,9 @@
 // The score is a functor of euclid_score.cuh ((W, m, 3) endpoints) or
 // pointnormal_score.cuh ((W, m, 6)), the arithmetic of tri_build.cu,
 // built with --fmad=false as well: its int8 codes equal the plain
-// build's. Other invariants raise on CUDA, as for tri_build.cu.
+// build's. An invariant's own device score runs the same kernel from the
+// library _kernels builds for it (user_score.cuh); invariants without one
+// raise on CUDA, as for tri_build.cu.
 //
 // What bounds it on this card: at W=512, m=1024 the 1.07 GB of int8
 // output (0.32 ms at 3.35 TB/s) against ~30 f32 operations on each of the
@@ -49,14 +51,13 @@ int dispatch(const void* P1, const void* P2, const void* A,
              const void* m_trues, void* out, int W, int m, int kind,
              double p0, double p1, double p2, double p3, double affeps,
              void* stream) {
-  if (W < 1 || m < 1 || W > 65535) return (int)cudaErrorInvalidValue;
   const double p[4] = {p0, p1, p2, p3};
   if (kind == 0)
-    return launch_stored<T>(EuclidScore<float>(p), P1, P2, A, m_trues, out,
-                            W, m, (float)affeps, (cudaStream_t)stream);
+    return stored_build_run<T, EuclidScore<float>>(
+        p, P1, P2, A, m_trues, out, W, m, affeps, (cudaStream_t)stream);
   if (kind == 1)
-    return launch_stored<T>(PointNormalScore<float>(p), P1, P2, A, m_trues,
-                            out, W, m, (float)affeps, (cudaStream_t)stream);
+    return stored_build_run<T, PointNormalScore<float>>(
+        p, P1, P2, A, m_trues, out, W, m, affeps, (cudaStream_t)stream);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -1,6 +1,8 @@
 // The stacked [M; C] build kernel, int8 or bf16: the (2m, m) storage of
 // W problems, rows 0..m-1 M and m..2m-1 C, both triangles. The stacked
-// build (stored_build.cu, kernel 4) runs it with the built-in scores; the
+// build (kernel 4) runs it with the built-in scores (stored_build.cu) and
+// with an invariant's own device score (user_score.cuh, through
+// stored_build_run in the library _kernels builds for it); the
 // build-anatomy probe (build_probe.cu, kernel 10) runs it with its
 // ablated scores and with NoScore, the write floor, so that the probe
 // times this kernel and no other (its `full` is kernel 4 by
@@ -176,6 +178,18 @@ int launch_stored(const Score& score, const void* P1, const void* P2,
       score, (const float*)P1, (const float*)P2, (const int*)A,
       (const int*)m_trues, (T*)out, m, n, affeps, vec);
   return (int)cudaGetLastError();
+}
+
+// The build of W problems with the score Score(p), after the entries'
+// argument checks (kernel 4's entries, stored_build.cu and a device
+// score's library).
+template <typename T, typename Score>
+int stored_build_run(const double (&p)[4], const void* P1, const void* P2,
+                     const void* A, const void* m_trues, void* out, int W,
+                     int m, double affeps, cudaStream_t stream) {
+  if (W < 1 || m < 1 || W > 65535) return (int)cudaErrorInvalidValue;
+  return launch_stored<T>(Score(p), P1, P2, A, m_trues, out, W, m,
+                          (float)affeps, stream);
 }
 
 }  // namespace

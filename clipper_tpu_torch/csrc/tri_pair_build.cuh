@@ -9,7 +9,8 @@
 // k t (k its index in storage order), rows 0..t-1 of M, t..2t-1 of C.
 // Numerics follow the JAX build step by step, because they decide the
 // +-1 int8 codes and the 0/127 C codes: the score functor's value s
-// (euclid_score.cuh, pointnormal_score.cuh), then
+// (euclid_score.cuh, pointnormal_score.cuh, or a user's score through
+// user_score.cuh), then
 //   keep = distinct & off-diagonal & row, col < m_true & s > (V)affeps;
 // then store_put.cuh's step for the storage type: int8 M = clip(rint(127
 // s), 0, 127) (round half to even, as torch.round) and C = 127, or bf16
@@ -36,8 +37,8 @@
 // The exact score runs only where it can be non-zero. A unit of 128
 // threads (kernels 2 and 8; 512 in kernel 6, 8 rows each) scores a pair of
 // sub-tiles, each thread one column and 32 rows, four a step, reading each
-// row's endpoints and associations as two broadcast 16-byte loads in f32
-// (four in f64; Ends). A first pass tests the cheap masks (distinct, i < j
+// row's endpoints and associations as broadcast 16-byte loads (two in
+// f32 and four in f64 for the built-in scores; Ends). A first pass tests the cheap masks (distinct, i < j
 // on a diagonal sub-tile, < m_true) and the functor's screen of its gate,
 // false only where the gate fails for certain: in f32 from the two squared
 // lengths alone (no square root; euclid_score.cuh, screen_sq), in f64 the
@@ -101,15 +102,31 @@ __device__ __forceinline__ SubPair sub_pair(int k, int n, int q, int t,
   return p;
 }
 
-// How a build keeps endpoints in shared memory: one record of kVals
-// values (f32 or f64) a row, 16-byte aligned, [x1 y1 z1 x2 y2 z2 a0 a1]
-// (set 1's point at 0, set 2's at 3, the association's two ids at 6 as
-// int bits), and for point-normal scores (D = 6) [n1 n2 0 0] after it
-// (set 1's normal at 8, set 2's at 11).
-template <int D>
+// How a build keeps endpoints in shared memory: one record a row, of
+// kVals values of the score's type V (f32 or f64), 16-byte aligned. A
+// score of D values a set has [set 1's D values, set 2's D values, the
+// association's two ids as int bits], zeros to the next 16 bytes:
+// [x1 y1 z1 x2 y2 z2 a0 a1] for the Euclidean score (D = 3). A pass loads
+// kLoad values of a record and hands the screen and the gate set 1's at 0
+// and set 2's at kSet2. The score's kTailAt says what its tail reads: 0
+// nothing but the gate's value (Euclidean), -1 the pair's records as the
+// gate read them (user_score.cuh), 8 a split record: the point-normal
+// score (D = 6) keeps its points and ids as the Euclidean's, [x1 y1 z1 x2
+// y2 z2 a0 a1], and its normals in a second half the tail alone loads,
+// [n1 n2 0 0] (set 1's normal at 8, set 2's at 11).
+template <typename Score>
 struct Ends {
-  static constexpr int kVals = D == 3 ? 8 : 16;
-  static constexpr int kNormal = D == 3 ? 0 : 8;  // 0: no normals
+  using V = typename Score::Value;
+  static constexpr int D = Score::D;
+  static constexpr bool kSplit = Score::kTailAt > 0;
+  static constexpr int kQuad = 16 / (int)sizeof(V);  // values a 16-byte load
+  static constexpr int kLoad =
+      kSplit ? Score::kTailAt : (2 * D + 2 + kQuad - 1) / kQuad * kQuad;
+  static constexpr int kVals = kSplit ? kLoad + 8 : kLoad;
+  static constexpr int kSet2 = kSplit ? 3 : D;
+  static constexpr int kIds = kSplit ? 6 : 2 * D;
+  static_assert(!kSplit || (D == 6 && kLoad == 8),
+                "the split record is the point-normal score's");
 };
 
 // an association id in a record's slot, as int bits, and back
@@ -125,30 +142,41 @@ __device__ __forceinline__ int id_of(double x) {
 }
 
 // Copy rows [g0, g0 + n) of a problem's endpoints (D values each, in
-// p1 and p2) and associations (a) into records at e, one row a thread
-// (tid of nthreads).
-template <int D, typename V>
+// p1 and p2) and associations (a) into Ends<Score> records at e, one row
+// a thread (tid of nthreads).
+template <typename Score, typename V>
 __device__ __forceinline__ void stage_ends(const V* p1, const V* p2,
                                            const int* a, int g0, int n,
                                            V* e, int tid, int nthreads) {
-  constexpr int R = Ends<D>::kVals;
+  using E = Ends<Score>;
+  constexpr int D = E::D, R = E::kVals;
   for (int q = tid; q < n; q += nthreads) {
     const size_t g = (size_t)(g0 + q);
     V* r = e + q * R;
+    if constexpr (E::kSplit) {
 #pragma unroll
-    for (int k = 0; k < 3; ++k) {
-      r[k] = p1[g * D + k];
-      r[3 + k] = p2[g * D + k];
-    }
-    r[6] = id_slot(a[g * 2], V());
-    r[7] = id_slot(a[g * 2 + 1], V());
-    if constexpr (D == 6) {
+      for (int k = 0; k < 3; ++k) {
+        r[k] = p1[g * D + k];
+        r[3 + k] = p2[g * D + k];
+      }
+      r[6] = id_slot(a[g * 2], V());
+      r[7] = id_slot(a[g * 2 + 1], V());
 #pragma unroll
       for (int k = 0; k < 3; ++k) {
         r[8 + k] = p1[g * D + 3 + k];
         r[11 + k] = p2[g * D + 3 + k];
       }
       r[14] = r[15] = V(0);
+    } else {
+#pragma unroll
+      for (int k = 0; k < D; ++k) {
+        r[k] = p1[g * D + k];
+        r[D + k] = p2[g * D + k];
+      }
+      r[2 * D] = id_slot(a[g * 2], V());
+      r[2 * D + 1] = id_slot(a[g * 2 + 1], V());
+#pragma unroll
+      for (int k = 2 * D + 2; k < R; ++k) r[k] = V(0);
     }
   }
 }
@@ -190,15 +218,20 @@ __device__ __forceinline__ void unit_sync(int id) {
   asm volatile("bar.sync %0, %1;" ::"r"(id), "n"(kN) : "memory");
 }
 
-// eight values of a record from shared memory at e into registers at r,
-// as 16-byte loads: two in f32, four in f64
-__device__ __forceinline__ void load_quads(float* r, const float* e) {
-  reinterpret_cast<float4*>(r)[0] = reinterpret_cast<const float4*>(e)[0];
-  reinterpret_cast<float4*>(r)[1] = reinterpret_cast<const float4*>(e)[1];
-}
-__device__ __forceinline__ void load_quads(double* r, const double* e) {
+// N values of a record from shared memory at e into registers at r, as
+// 16-byte loads: N / 4 in f32, N / 2 in f64
+template <int N>
+__device__ __forceinline__ void load_rec(float* r, const float* e) {
+  static_assert(N % 4 == 0, "whole 16-byte loads");
 #pragma unroll
-  for (int k = 0; k < 4; ++k)
+  for (int k = 0; k < N / 4; ++k)
+    reinterpret_cast<float4*>(r)[k] = reinterpret_cast<const float4*>(e)[k];
+}
+template <int N>
+__device__ __forceinline__ void load_rec(double* r, const double* e) {
+  static_assert(N % 2 == 0, "whole 16-byte loads");
+#pragma unroll
+  for (int k = 0; k < N / 2; ++k)
     reinterpret_cast<double2*>(r)[k] = reinterpret_cast<const double2*>(e)[k];
 }
 
@@ -217,7 +250,8 @@ __device__ __forceinline__ int nth_bit(uint32_t x, int r) {
   return at;
 }
 
-// Score, stage and write sub-tile pair p. rows, cols: the Ends records of
+// Score, stage and write sub-tile pair p. rows, cols: the Ends<Score>
+// records of
 // its rows and of its columns, in shared memory, kTile records readable
 // from each (only the first p.rows and p.cols are read for their values);
 // M, C: the problem's M and C halves, rows ld values apart (p.at and
@@ -236,8 +270,12 @@ __device__ __forceinline__ void build_sub_pair(
   using V = typename Score::Value;
   using St = Staged<T>;
   using Bits = typename St::Bits;
-  constexpr int R = Ends<Score::D>::kVals;
-  constexpr int kNormal = Ends<Score::D>::kNormal;
+  using E = Ends<Score>;
+  constexpr int R = E::kVals, L = E::kLoad, S2 = E::kSet2, I2 = E::kIds;
+  // an exact screen's value waits in the pair's stage cell, where a code
+  // is as wide as the value (the dense build); elsewhere the gate runs
+  // again in the second pass
+  constexpr bool kExact = Score::kExactScreen && sizeof(T) == sizeof(V);
   constexpr int kRows = kTile * kTile / kN;  // a thread's rows
   static_assert(kRows <= 32 && kRows % kStep == 0,
                 "a thread's rows take a bit each of a word, kStep a step");
@@ -249,16 +287,13 @@ __device__ __forceinline__ void build_sub_pair(
   // the rows below it are live: in the sub-tile, below m_true, and on a
   // diagonal sub-tile above the diagonal (i < j)
   const int row_lim = min(min(p.rows, lim - p.gr0), p.diag ? j : kTile);
-  // the column's points and ids (its record's first eight values)
-  V c1[3] = {V(0), V(0), V(0)}, c2[3] = {V(0), V(0), V(0)};
-  int ca0 = 0, ca1 = 0;
-  if (j < p.cols) {
-    V c[8];
-    load_quads(c, cols + j * R);
-    c1[0] = c[0], c1[1] = c[1], c1[2] = c[2];
-    c2[0] = c[3], c2[1] = c[4], c2[2] = c[5];
-    ca0 = id_of(c[6]), ca1 = id_of(c[7]);
-  }
+  // the column's record as a pass loads it (its points, or all its
+  // values, and its ids), zero past the sub-tile
+  V c[L];
+#pragma unroll
+  for (int k = 0; k < L; ++k) c[k] = V(0);
+  if (j < p.cols) load_rec<L>(c, cols + j * R);
+  const int ca0 = id_of(c[I2]), ca1 = id_of(c[I2 + 1]);
   // the code of a pair the masks keep whose score is 0: put(keep = 0 >
   // affeps, 0) gives M = 0 and C's code alone
   const Bits zero = V(0) > affeps ? St::kFlag : Bits(0);
@@ -274,16 +309,15 @@ __device__ __forceinline__ void build_sub_pair(
     for (int k = 0; k < kStep; ++k) {
       const int i = i0 + e0 + k;
       // (rows past p.rows hold stale records, which live rules out)
-      V r[8];
-      load_quads(r, rows + i * R);
+      V r[L];
+      load_rec<L>(r, rows + i * R);
       const bool live = col_live && i < row_lim &&
-                        !(id_of(r[6]) == ca0 || id_of(r[7]) == ca1);
-      const V r1[3] = {r[0], r[1], r[2]}, r2[3] = {r[3], r[4], r[5]};
+                        !(id_of(r[I2]) == ca0 || id_of(r[I2 + 1]) == ca1);
       V v;
-      const bool pass = live && score.screen(r1, c1, r2, c2, v);
+      const bool pass = live && score.screen(r, c, r + S2, c + S2, v);
       passed |= (uint32_t)pass << (e0 + k);
       // an exact screen's v waits in the pair's own cell for the tail
-      if constexpr (Score::kExactScreen)
+      if constexpr (kExact)
         if (pass) reinterpret_cast<V*>(here + i * St::kPitch)[j] = v;
       if (zero && live && !pass) {
         T pv;
@@ -298,7 +332,7 @@ __device__ __forceinline__ void build_sub_pair(
   // the second pass: the warp's marked pairs in order (lane by lane, row
   // by row), 32 at a time; lane x takes number b0 + x, whose owner is the
   // last lane with at most b0 + x marked pairs before it
-  if constexpr (Score::kExactScreen) __syncwarp();  // the owners' v
+  if constexpr (kExact) __syncwarp();  // the owners' v
   const int mine = __popc(passed);
   int upto = mine;  // the marked pairs of the lanes up to this one
 #pragma unroll
@@ -320,27 +354,30 @@ __device__ __forceinline__ void build_sub_pair(
     const int from = __shfl_sync(0xffffffffu, before, owner);
     if (g >= total) continue;
     const int i = i0 + nth_bit(bits, g - from), jj = j0 + owner;
-    // the quads of the pair's records that the score reads, as 16-byte
-    // loads: points first, normals where the gate passes; after an exact
+    // the pair's records as a pass loads them, as 16-byte loads, and a
+    // split record's second half where the gate passes; after an exact
     // screen the gate has passed, and v is the pair's staged value
-    V ri[8], cj[8];
+    V ri[L], cj[L];
     V v, s = V(0);
     bool gated;
-    if constexpr (Score::kExactScreen) {
-      static_assert(sizeof(T) == sizeof(V), "v is staged in a code's cell");
+    if constexpr (kExact) {
       v = reinterpret_cast<const V*>(here + i * St::kPitch)[jj];
       gated = true;
+      if constexpr (Score::kTailAt < 0) {  // the tail reads the records
+        load_rec<L>(ri, rows + i * R);
+        load_rec<L>(cj, cols + jj * R);
+      }
     } else {
-      load_quads(ri, rows + i * R);
-      load_quads(cj, cols + jj * R);
-      gated = score.gate(ri, cj, ri + 3, cj + 3, v);
+      load_rec<L>(ri, rows + i * R);
+      load_rec<L>(cj, cols + jj * R);
+      gated = score.gate(ri, cj, ri + S2, cj + S2, v);
     }
     if (gated) {
-      if constexpr (kNormal != 0) {
-        load_quads(ri, rows + i * R + kNormal);
-        load_quads(cj, cols + jj * R + kNormal);
+      if constexpr (E::kSplit) {
+        load_rec<8>(ri, rows + i * R + Score::kTailAt);
+        load_rec<8>(cj, cols + jj * R + Score::kTailAt);
       }
-      s = score.tail(ri, cj, ri + 3, cj + 3, v);
+      s = score.tail(ri, cj, ri + S2, cj + S2, v);
     }
     const bool keep = s > affeps;
     T mv, cv;

@@ -5,9 +5,12 @@ examples/matlab/ex4_bunny.m and examples/python/ex4_bunny.ipynb): m=1000
 putative associations on bun10k with 90% outliers; solve, report
 precision/recall, and recover the SE(3) transform from the selected
 inliers. Also a user-defined invariant written in torch: a
-PairwiseInvariant subclass of the user's own builds through the plain
-dense build on every device (the build kernel computes the built-in
-invariants only), and gives the same answer.
+PairwiseInvariant subclass of the user's own with no device score
+(``cuda_score()`` gives None) builds through the plain dense build on
+every device, and gives the same answer. One whose ``cuda_score()``
+gives an ``invariants.DeviceScore`` (its score as C++, csrc/
+user_score.cuh; bench/user_scores.py has two) builds on the card through
+the build kernels, compiled for it at first use.
 
 Run: python -m clipper_tpu_torch.examples.ex4_bunny [--device=cuda|cpu]
 """

@@ -20,7 +20,7 @@ import dataclasses
 
 import torch
 
-from clipper_tpu_torch.invariants.base import PairwiseInvariant
+from clipper_tpu_torch.invariants.base import BuiltinScore, PairwiseInvariant
 from clipper_tpu_torch.ops.pairwise import (cross_distance_matrix,
                                             pairwise_distance_matrix)
 
@@ -37,6 +37,12 @@ class EuclideanDistance(PairwiseInvariant):
 
     def __init__(self, params: EuclideanDistanceParams = EuclideanDistanceParams()):
         self.params = params
+
+    def cuda_score(self) -> BuiltinScore:
+        """Kind 0 (csrc/euclid_score.cuh): (sigma^2, epsilon, mindist, 0)."""
+        p = self.params
+        return BuiltinScore(0, 3, (p.sigma * p.sigma, p.epsilon, p.mindist,
+                                   0.0))
 
     def _score_from_lengths(self, l1, l2):
         p = self.params

@@ -25,7 +25,7 @@ import dataclasses
 
 import torch
 
-from clipper_tpu_torch.invariants.base import PairwiseInvariant
+from clipper_tpu_torch.invariants.base import BuiltinScore, PairwiseInvariant
 from clipper_tpu_torch.ops.pairwise import (cross_distance_matrix,
                                             cross_distance_rt,
                                             cross_inner_matrix,
@@ -50,6 +50,13 @@ class PointNormalDistance(PairwiseInvariant):
 
     def __init__(self, params: PointNormalDistanceParams = PointNormalDistanceParams()):
         self.params = params
+
+    def cuda_score(self) -> BuiltinScore:
+        """Kind 1 (csrc/pointnormal_score.cuh): (sigp^2, epsp, sign^2,
+        epsn)."""
+        p = self.params
+        return BuiltinScore(1, 6, (p.sigp * p.sigp, p.epsp, p.sign * p.sign,
+                                   p.epsn))
 
     def _score(self, l1, l2, a1, a2):
         p = self.params

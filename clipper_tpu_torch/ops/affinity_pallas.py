@@ -16,8 +16,12 @@ Counterpart of ``clipper_tpu/ops/affinity_pallas.py``:
 
 Both apply the distinctness, diagonal and epsilon masks (reference:
 src/clipper.cpp:35-64), the stored build also ``m_true``. The kernels
-compute the two built-in invariants (invariants.kernel_score); tensors on
-the card launch them, CPU tensors take the plain versions. The JAX
+compute any symmetric invariant with a device score
+(invariants.device_score): the two built-ins, and a user's own
+``DeviceScore`` through its library, compiled at first use
+(``_kernels.user_lib``; launches counted under ``stored_build_user`` and
+``affinity_build_user``); tensors on the card launch them, CPU tensors
+take the plain versions, which take any invariant. The JAX
 functions' ``tile`` was a Mosaic tiling knob: the kernels bounds-check
 their edge tiles instead of padding. A failed build or launch raises.
 """
@@ -30,7 +34,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from clipper_tpu_torch import _kernels
-from clipper_tpu_torch.invariants import kernel_score
+from clipper_tpu_torch.invariants import device_score, kernel_score
 from clipper_tpu_torch.invariants.base import PairwiseInvariant
 from clipper_tpu_torch.ops.affinity import (gather_endpoints,
                                             pairwise_from_endpoints,
@@ -42,9 +46,9 @@ _TILE = 64      # rows and columns of the build kernels' tiles
 def affinity_build_cuda(invariant: PairwiseInvariant, P1, P2, A, *,
                         affinityeps: float = 1e-4
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch csrc/affinity_build.cu: P1/P2 (m, d) gathered endpoints in
-    f32 or f64 and A (m, 2) on the card -> (M, C), each (m, m) in the
-    endpoints' dtype."""
+    """Launch csrc/affinity_build.cu (or the invariant's device score
+    library's entry): P1/P2 (m, d) gathered endpoints in f32 or f64 and A
+    (m, 2) on the card -> (M, C), each (m, m) in the endpoints' dtype."""
     kind, d, params = kernel_score(invariant)
     if not (P1.is_cuda and P2.is_cuda and A.is_cuda):
         raise ValueError("affinity build kernel: inputs must lie on the card")
@@ -60,14 +64,14 @@ def affinity_build_cuda(invariant: PairwiseInvariant, P1, P2, A, *,
     Ac = A.to(torch.int32).contiguous()
     M = torch.empty(m, m, dtype=P1.dtype, device=P1.device)
     C = torch.empty_like(M)
-    lib = _kernels.lib("affinity_build")
-    fn = (lib.affinity_build_f32 if P1.dtype == torch.float32
-          else lib.affinity_build_f64)
+    fn, key = _kernels.score_entry(
+        "affinity_build", "f32" if P1.dtype == torch.float32 else "f64",
+        device_score(invariant))
     code = fn(P1c.data_ptr(), P2c.data_ptr(), Ac.data_ptr(), M.data_ptr(),
               C.data_ptr(), m, kind, *params, float(affinityeps),
               _kernels.stream_ptr(P1.device))
-    _kernels.check(code, "affinity_build")
-    _kernels.LAUNCHES["affinity_build"] += 1
+    _kernels.check(code, key)
+    _kernels.LAUNCHES[key] += 1
     return M, C
 
 
@@ -77,7 +81,7 @@ def build_affinity_pallas(invariant: PairwiseInvariant, P1, P2, A, *,
     """Dense symmetric (M, C) of one problem from gathered endpoints P1/P2
     (m, d) (P1[k] = D1[A[k, 0]], ...) and A (m, 2): (m, m) M with a zero
     diagonal and its 0/1 pattern C, in the endpoints' dtype. The kernel
-    for CUDA inputs (the built-in invariants), the plain version
+    for CUDA inputs (an invariant with a device score), the plain version
     (``ops.affinity.pairwise_from_endpoints``) for CPU inputs."""
     if P1.is_cuda:
         return affinity_build_cuda(invariant, P1, P2, A,
@@ -137,8 +141,9 @@ def dense_tile_pair(k: int, m: int) -> SubPair:
 def stored_build_cuda(invariant: PairwiseInvariant, P1s, P2s, As, m_trues,
                       *, affinityeps: float = 1e-4,
                       storage_dtype=torch.int8) -> torch.Tensor:
-    """Launch csrc/stored_build.cu: P1s/P2s (W, m, d) f32 gathered
-    endpoints (d = 3 Euclidean, 6 point-normal), As (W, m, 2), m_trues
+    """Launch csrc/stored_build.cu (or the invariant's device score
+    library's entry): P1s/P2s (W, m, d) f32 gathered endpoints (d = 3
+    Euclidean, 6 point-normal, a device score's d), As (W, m, 2), m_trues
     (W,) on the card -> (W, 2m, m) storage in int8 or bf16."""
     kind, d, params = kernel_score(invariant)
     if storage_dtype not in (torch.int8, torch.bfloat16):
@@ -159,14 +164,14 @@ def stored_build_cuda(invariant: PairwiseInvariant, P1s, P2s, As, m_trues,
     mts = torch.as_tensor(m_trues, device=P1s.device).to(
         torch.int32).expand(W).contiguous()
     out = torch.empty(W, 2 * m, m, dtype=storage_dtype, device=P1s.device)
-    lib = _kernels.lib("stored_build")
-    fn = (lib.stored_build_int8 if storage_dtype == torch.int8
-          else lib.stored_build_bf16)
+    fn, key = _kernels.score_entry(
+        "stored_build", "int8" if storage_dtype == torch.int8 else "bf16",
+        device_score(invariant))
     code = fn(P1c.data_ptr(), P2c.data_ptr(), Ac.data_ptr(), mts.data_ptr(),
               out.data_ptr(), W, m, kind, *params, float(affinityeps),
               _kernels.stream_ptr(P1s.device))
-    _kernels.check(code, "stored_build")
-    _kernels.LAUNCHES["stored_build"] += 1
+    _kernels.check(code, key)
+    _kernels.LAUNCHES[key] += 1
     return out
 
 

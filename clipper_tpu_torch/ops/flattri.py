@@ -23,8 +23,12 @@ a plain PyTorch version beside it:
   single-probe matvec over tile-major storage.
 
 A wrapper launches its kernel for CUDA tensors and takes the plain version
-only for CPU tensors; a failed build or launch raises. The builds compute
-the two built-in invariants (invariants.kernel_score) on the card.
+only for CPU tensors; a failed build or launch raises. On the card the
+builds compute any symmetric invariant with a device score
+(invariants.device_score): the two built-ins, and a user's own
+``DeviceScore``, whose library is compiled at first use
+(``_kernels.user_lib``; its launches counted under ``tri_build_user`` and
+``tri_build_fused_user``); an invariant without one raises there.
 """
 
 from __future__ import annotations
@@ -35,7 +39,7 @@ import numpy as np
 import torch
 
 from clipper_tpu_torch import _kernels
-from clipper_tpu_torch.invariants import kernel_score
+from clipper_tpu_torch.invariants import device_score, kernel_score
 from clipper_tpu_torch.invariants.base import PairwiseInvariant
 from clipper_tpu_torch.ops.affinity_pallas import (SubPair,
                                                    stored_tile_pair)
@@ -341,11 +345,12 @@ def tri_build_fused_whole(m: int, invariant: PairwiseInvariant,
                           storage_dtype=torch.int8) -> bool:
     """True where kernel 8 (csrc/tri_build_fused.cu) stages a problem's
     m endpoints whole in shared memory on the current card, False where
-    each of its units stages the two sub-tiles of every pair it takes.
-    Asks the card (the limit is the device's)."""
-    kind, _, _ = kernel_score(invariant)
+    each of its units stages the two sub-tiles of every pair it takes:
+    the invariant's record bytes (``_kernels.record_bytes``) decide. Asks
+    the card (the limit is the device's)."""
     code = _kernels.lib("tri_build_fused").tri_build_fused_whole(
-        m, kind, int(storage_dtype == torch.bfloat16))
+        m, _kernels.record_bytes(device_score(invariant)),
+        int(storage_dtype == torch.bfloat16))
     if code < 0:
         raise RuntimeError("tri_build_fused_whole: the device cannot be "
                            "asked")
@@ -355,10 +360,11 @@ def tri_build_fused_whole(m: int, invariant: PairwiseInvariant,
 def check_tri_build(invariant: PairwiseInvariant, P1s, P2s, t: int,
                     storage_dtype) -> Tuple[int, tuple, str]:
     """The input check of kernels 2 and 8 (:func:`build_tri_cuda`,
-    :func:`build_tri_fused_cuda`), before any device check: a built-in
-    invariant, int8 or bf16 storage, (W, m, d) f32 endpoints and any tile
-    t >= 1 dividing m. Returns the score's (kind, params) and the storage
-    suffix of the C entry points."""
+    :func:`build_tri_fused_cuda`), before any device check: an invariant
+    with a device score (a built-in or its own), int8 or bf16 storage,
+    (W, m, d) f32 endpoints and any tile t >= 1 dividing m. Returns the
+    score's (kind, params) and the storage suffix of the C entry
+    points."""
     kind, d, params = kernel_score(invariant)
     suffix = {torch.int8: "int8", torch.bfloat16: "bf16"}.get(storage_dtype)
     if suffix is None:
@@ -378,8 +384,9 @@ def check_tri_build(invariant: PairwiseInvariant, P1s, P2s, t: int,
 def _launch_tri_build(kernel: str, invariant: PairwiseInvariant, P1s, P2s,
                       As, m_trues, t: int, affinityeps: float,
                       storage_dtype) -> torch.Tensor:
-    """Launch csrc/<kernel>.cu: (W, 2t, S) int8 or bf16 storage on the
-    card, at any tile t >= 1 dividing m."""
+    """Launch csrc/<kernel>.cu, or the invariant's device score library's
+    entry: (W, 2t, S) int8 or bf16 storage on the card, at any tile t >= 1
+    dividing m."""
     kind, params, suffix = check_tri_build(invariant, P1s, P2s, t,
                                            storage_dtype)
     if not (P1s.is_cuda and P2s.is_cuda and As.is_cuda):
@@ -394,21 +401,21 @@ def _launch_tri_build(kernel: str, invariant: PairwiseInvariant, P1s, P2s,
     mts = torch.as_tensor(m_trues, device=P1s.device).to(
         torch.int32).expand(W).contiguous()
     out = torch.empty(W, 2 * t, S, dtype=storage_dtype, device=P1s.device)
-    fn = getattr(_kernels.lib(kernel), f"{kernel}_{suffix}")
+    fn, key = _kernels.score_entry(kernel, suffix, device_score(invariant))
     code = fn(P1c.data_ptr(), P2c.data_ptr(), Ac.data_ptr(), mts.data_ptr(),
               out.data_ptr(), W, m, t, S, kind, *params, float(affinityeps),
               _kernels.stream_ptr(P1s.device))
-    _kernels.check(code, kernel)
-    _kernels.LAUNCHES[kernel] += 1
+    _kernels.check(code, key)
+    _kernels.LAUNCHES[key] += 1
     return out
 
 
 def build_tri_cuda(invariant: PairwiseInvariant, P1s, P2s, As, m_trues, *,
                    t: int = 256, affinityeps: float = 1e-4,
                    storage_dtype=torch.int8):
-    """Launch csrc/tri_build.cu (one kernel block per upper tile):
-    (W, 2t, S) int8 or bf16 storage on the card, for the built-in
-    invariants."""
+    """Launch csrc/tri_build.cu (one kernel block per sub-tile pair):
+    (W, 2t, S) int8 or bf16 storage on the card, for any invariant with a
+    device score."""
     return _launch_tri_build("tri_build", invariant, P1s, P2s, As, m_trues,
                              t, affinityeps, storage_dtype)
 

@@ -17,8 +17,9 @@ problem's dense (2m, m) [M; C] (any m; the build kernel
 csrc/stored_build.cu on the card), and ``"tri"`` its flat upper triangle
 (m divisible by 128; the kernels csrc/tri_build.cu and csrc/tri_matvec.cu).
 :func:`solve_pool_tri` also solves over the triangle's tile-major form
-(csrc/tri_tiles_matvec.cu). The build kernels compute the Euclidean and
-the point-normal invariants.
+(csrc/tri_tiles_matvec.cu). The build kernels compute any symmetric
+invariant with a device score: the Euclidean and the point-normal
+invariants, and a user's own (invariants.DeviceScore).
 :func:`make_pool_multistart_pipeline` runs K restarts of each problem as
 extra lanes over the stacked storage. ``mesh=`` splits the W problems
 over a ``torch.distributed`` group, a compaction loop a rank.
@@ -291,11 +292,12 @@ def _polish_batch(invariant: PairwiseInvariant, P1s, P2s, As, U,
 def _resolve_build(build: str, storage_dtype, invariant,
                    dev: torch.device) -> str:
     """'auto' -> 'pallas' (the build kernel) on the card for int8 or bf16
-    storage and a built-in symmetric invariant (Euclidean or
-    point-normal, the ones the kernels compute), else 'xla' (the plain
-    build), mirroring the JAX package's pool.py:346-370, which takes its
-    kernel for any invariant with ``score_block_t``. 'pallas' takes the
-    kernel on the card and its plain version on the CPU."""
+    storage and a symmetric invariant with a device score (the built-ins,
+    or a user's own ``DeviceScore``: invariants.kernel_builds), else 'xla'
+    (the plain build), mirroring the JAX package's pool.py:346-370, which
+    takes its kernel for any symmetric invariant with ``score_block_t``.
+    'pallas' takes the kernel on the card, which raises for an invariant
+    without a device score, and its plain version on the CPU."""
     if build not in ("auto", "pallas", "xla"):
         raise ValueError(f"unknown build {build!r}")
     if build == "pallas" and storage_dtype is None:
@@ -427,7 +429,9 @@ def make_pool_pipeline(invariant: PairwiseInvariant,
     | 'pallas' | 'xla' (see :func:`_resolve_build`): 'auto' takes the
     build kernel on the card (csrc/tri_build.cu for int8 or bf16
     triangles, csrc/stored_build.cu for int8 or bf16 stacked storage) for
-    the Euclidean and point-normal invariants.
+    any symmetric invariant with a device score: the Euclidean and
+    point-normal invariants, and a user's own ``DeviceScore``, whose
+    library is compiled at first use.
 
     Shapes: D1 (n1, d) shared by all problems or (W, n1, d), D2s
     (W, n2, d), As (W, m, 2), u0s (W, m); numpy arrays or tensors. The

@@ -1082,9 +1082,12 @@ def test_tri_build_probe_edits_apply():
         assert src[name].count("{") == src[name].count("}")
     assert "__shfl_sync" not in src["firstpass"]
     assert "write_staged<T, kStream>(here" not in src["nowrite"]
-    for cu in ("tri_build.cu", "tri_build_fused.cu"):
+    for cu in ("tri_build", "tri_build_fused"):
+        # the entries include their launch template, which runs the body
+        assert f'#include "{cu}.cuh"' in (_kernels.CSRC
+                                          / f"{cu}.cu").read_text()
         assert '#include "tri_pair_build.cuh"' in (_kernels.CSRC
-                                                   / cu).read_text()
+                                                   / f"{cu}.cuh").read_text()
 
 
 def test_dense_build_probe_edits_apply():
@@ -1094,7 +1097,9 @@ def test_dense_build_probe_edits_apply():
     files = tri_build_probe.dense_variant_files()
     assert set(files) == set(tri_build_probe.VARIANTS)
     cu = (_kernels.CSRC / "affinity_build.cu").read_text()
-    assert '#include "tri_pair_build.cuh"' in cu
+    assert '#include "affinity_build.cuh"' in cu
+    assert '#include "tri_pair_build.cuh"' in (
+        _kernels.CSRC / "affinity_build.cuh").read_text()
     body = (_kernels.CSRC / "tri_pair_build.cuh").read_text()
     assert files["full"] == {"tri_pair_build.cuh": body}
     for name in ("firstpass", "nowrite"):
@@ -1326,3 +1331,200 @@ def test_sharded_engine_one_rank_nccl(nccl_rank):
     a = sol.mask.cpu().numpy()
     for other in (chunked.mask.cpu().numpy(), cpu.mask.numpy()):
         assert (a & other).sum() / max(1, (a | other).sum()) >= 0.95
+
+
+# ---------------------------------------------------------------------------
+# an invariant's own device score in kernels 2, 8, 4 and 6 (user_score.cuh)
+# ---------------------------------------------------------------------------
+
+# the sample scores at d = 2 (PlanarCauchy: screen, gate and tail), 3 and
+# 5 (UserEuclidean: operator() alone), whose plain versions sum lengths in
+# coordinate order as their C++ does
+USER_SCORES = [("cauchy", 2), ("euclid", 3), ("euclid", 5)]
+
+
+def _user_invariant(name, d):
+    from clipper_tpu_torch.bench import user_scores
+    if name == "cauchy":
+        return user_scores.PlanarCauchy()
+    return user_scores.UserEuclidean(harness.default_invariant().params, d)
+
+
+def _user_endpoints(d, W, m, seed, cuda, dtype=torch.float32):
+    """(P1, P2, A) on the card: W bunny problems at rho=0.9 in d values a
+    point: the x, y projection (d = 2), the points (3), or the points and
+    d - 3 more coordinates drawn a point and shared by its noisy copy."""
+    pcd0, D2s, As, _ = _problems(W, m, seed)
+    extra = np.random.default_rng(seed).random(
+        (pcd0.shape[0], max(0, d - 3))).astype(np.float32) * 0.2
+    D1 = np.concatenate([pcd0, extra], -1)[:, :d]
+    D2s = np.concatenate([D2s, np.broadcast_to(extra, D2s.shape[:2]
+                                               + extra.shape[1:])], -1)
+    A = torch.from_numpy(As).to(cuda)
+    P1, P2 = gather_endpoints(torch.from_numpy(D1).to(cuda, dtype),
+                              torch.from_numpy(D2s[..., :d]).to(cuda, dtype),
+                              A)
+    return P1.contiguous(), P2.contiguous(), A
+
+
+def _user_counts(before, kernel, n):
+    """kernel's launches moved by n under its user key, and no other."""
+    moved = {k: _kernels.LAUNCHES[k] - before[k] for k in before
+             if _kernels.LAUNCHES[k] != before[k]}
+    assert moved == {_kernels.route_key(kernel, "user"): n}, moved
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage", [torch.int8, torch.bfloat16])
+@pytest.mark.parametrize("name,d", USER_SCORES)
+@pytest.mark.parametrize("t,nt", [(64, 4), (100, 3), (256, 2)])
+def test_user_score_tri_builds_match_plain(cuda, name, d, storage, t, nt):
+    """Kernels 2 and 8 over a device score: one launch each under their
+    user keys, C exact and 0 M codes differing from the plain build,
+    byte-equal to each other, m_true < m on two problems."""
+    inv = _user_invariant(name, d)
+    W, m = 3, t * nt
+    P1, P2, A = _user_endpoints(d, W, m, t + d, cuda)
+    mts = torch.tensor([m, m - 37, m - 100], device=cuda)
+    before = dict(_kernels.LAUNCHES)
+    tk = flattri.build_tri(inv, P1, P2, A, mts, t=t, storage_dtype=storage)
+    _user_counts(before, "tri_build", 1)
+    before = dict(_kernels.LAUNCHES)
+    tf = flattri.build_tri_pallas_fused(inv, P1, P2, A, mts, t=t,
+                                        storage_dtype=storage)
+    _user_counts(before, "tri_build_fused", 1)
+    tp = flattri.build_tri_plain(inv, P1, P2, A, mts, t=t,
+                                 storage_dtype=storage)
+    assert tk.dtype == storage and tk.shape == tp.shape
+    assert bool(tp[:, t:].any()) and torch.equal(tk[:, t:], tp[:, t:])
+    assert int((tk[:, :t] != tp[:, :t]).sum()) == 0
+    assert torch.equal(tk, tf)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage", [torch.int8, torch.bfloat16])
+@pytest.mark.parametrize("name,d", USER_SCORES)
+@pytest.mark.parametrize("m", [200, 256])
+def test_user_score_stored_build_matches_plain(cuda, name, d, storage, m):
+    """Kernel 4 over a device score, m_true < m on one problem: byte-equal
+    to the plain stacked build, one launch under stored_build_user."""
+    inv = _user_invariant(name, d)
+    P1, P2, A = _user_endpoints(d, 2, m, m + d, cuda)
+    mts = torch.tensor([m, m - 50], device=cuda)
+    before = dict(_kernels.LAUNCHES)
+    got = affinity_pallas.stored_build(inv, P1, P2, A, mts,
+                                       storage_dtype=storage)
+    _user_counts(before, "stored_build", 1)
+    ref = affinity_pallas.stored_from_endpoints(
+        inv, P1, P2, A, m_true=mts, storage_dtype=storage)
+    assert bool(ref[:, m:].any()) and torch.equal(got, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("name,d", USER_SCORES)
+@pytest.mark.parametrize("m", [65, 203])
+def test_user_score_dense_build_matches_plain(cuda, name, d, dtype, m):
+    """Kernel 6 over a device score, f32 and f64 (the f64 PlanarCauchy
+    takes its exact screen), affinityeps 1e-4, 0 and -1: M and C
+    byte-equal to the plain dense build, one launch a call under
+    affinity_build_user."""
+    inv = _user_invariant(name, d)
+    P1, P2, A = _user_endpoints(d, 1, m, m + d, cuda, dtype)
+    for affeps in (1e-4, 0.0, -1.0):
+        before = dict(_kernels.LAUNCHES)
+        M, C = affinity_pallas.build_affinity_pallas(
+            inv, P1[0], P2[0], A[0], affinityeps=affeps)
+        _user_counts(before, "affinity_build", 1)
+        Mp, Cp = affinity_pallas.pairwise_from_endpoints(
+            inv, P1[0], P2[0], A[0], affinityeps=affeps)
+        assert M.dtype == dtype and bool(Cp.any())
+        assert torch.equal(_bits(M), _bits(Mp))
+        assert torch.equal(_bits(C), _bits(Cp))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage", [torch.int8, torch.bfloat16])
+def test_user_euclidean_equals_the_builtin_kernels(cuda, storage):
+    """UserEuclidean's kernels 2, 8, 4 and 6 write the built-in
+    Euclidean kernels' bytes (its plain arithmetic is the built-in's)."""
+    from clipper_tpu_torch.bench import user_scores
+    eu = harness.default_invariant()
+    ue = user_scores.UserEuclidean(eu.params)
+    P1, P2, A = _user_endpoints(3, 2, 512, 4, cuda)
+    mts = torch.tensor([512, 450], device=cuda)
+    for fn in (flattri.build_tri, flattri.build_tri_pallas_fused):
+        assert torch.equal(fn(ue, P1, P2, A, mts, t=256,
+                              storage_dtype=storage),
+                           fn(eu, P1, P2, A, mts, t=256,
+                              storage_dtype=storage))
+    assert torch.equal(
+        affinity_pallas.stored_build(ue, P1, P2, A, mts,
+                                     storage_dtype=storage),
+        affinity_pallas.stored_build(eu, P1, P2, A, mts,
+                                     storage_dtype=storage))
+    for dtype in (torch.float32, torch.float64):
+        a, b = (affinity_pallas.build_affinity_pallas(
+            inv, P1[0].to(dtype), P2[0].to(dtype), A[0]) for inv in (ue, eu))
+        assert torch.equal(_bits(a[0]), _bits(b[0]))
+
+
+@pytest.mark.cuda
+def test_user_score_library_is_cached(cuda):
+    """A device score's library is built once: a second lookup, in this
+    process or from disk, runs no nvcc."""
+    from clipper_tpu_torch.bench import user_scores
+    score = user_scores.PlanarCauchy().cuda_score()
+    lib = _kernels.user_lib(score)
+    assert _kernels.user_target(score).is_file()
+    assert _kernels.build_user(score) is None
+    assert _kernels.user_lib(score) is lib
+    _kernels._USER_LIBS.clear()
+    assert _kernels.build_user(score) is None
+    assert hasattr(_kernels.user_lib(score), "user_tri_build_int8")
+
+
+@pytest.mark.cuda
+def test_user_score_build_error_raises_with_its_log(cuda, monkeypatch,
+                                                    tmp_path):
+    """A device score whose source does not compile raises with nvcc's
+    log on the card; no plain build runs in its place."""
+    from clipper_tpu_torch.bench import user_scores
+    from clipper_tpu_torch.invariants import DeviceScore
+
+    class Broken(user_scores.PlanarCauchy):
+        def cuda_score(self):
+            return DeviceScore("template <typename T> struct Score "
+                               "{ this is not C++ };", 2, (1.0, 1.0))
+
+    monkeypatch.setattr(_kernels, "BUILD_DIR", tmp_path)
+    P1, P2, A = _user_endpoints(2, 1, 128, 3, cuda)
+    before = dict(_kernels.LAUNCHES)
+    with pytest.raises(RuntimeError, match="(?s)nvcc exit .*error"):
+        flattri.build_tri(Broken(), P1, P2, A, torch.tensor([128]), t=64)
+    assert _kernels.LAUNCHES == before
+
+
+@pytest.mark.cuda
+def test_user_score_at_the_cap_and_the_tile_branch(cuda):
+    """d = MAX_USER_D (80-byte records) in kernel 8's sub-tile branch in
+    bf16, where its shared memory is fullest, byte-equal to kernel 2; and
+    d = 5 at the first m past its whole-problem staging, against the
+    plain build."""
+    from clipper_tpu_torch.invariants import MAX_USER_D
+    for d, storage in ((MAX_USER_D, torch.bfloat16), (5, torch.int8)):
+        inv = _user_invariant("euclid", d)
+        m = 256
+        while flattri.tri_build_fused_whole(m, inv, storage):
+            m += 256
+        P1, P2, A = _user_endpoints(d, 2, m, d, cuda)
+        mts = torch.tensor([m, m - 200], device=cuda)
+        tk = flattri.build_tri(inv, P1, P2, A, mts, t=256,
+                               storage_dtype=storage)
+        tf = flattri.build_tri_pallas_fused(inv, P1, P2, A, mts, t=256,
+                                            storage_dtype=storage)
+        assert bool(tk[:, 256:].any()) and torch.equal(tk, tf)
+        if d <= 8:   # the plain lengths sum in coordinate order to d = 8
+            tp = flattri.build_tri_plain(inv, P1, P2, A, mts, t=256,
+                                         storage_dtype=storage)
+            assert torch.equal(tk, tp)
