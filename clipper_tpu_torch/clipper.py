@@ -66,6 +66,7 @@ from clipper_tpu_torch.ops.affinity import (build_affinity, create_all_to_all,
 from clipper_tpu_torch.solvers import dsd, maxclique, msrc, msrc_flat, sdp
 from clipper_tpu_torch.types import (Params, Rounding, Solution,
                                      as_association, resolve_device)
+from clipper_tpu_torch.utils import profiling
 
 _CAPACITY_M = 8192      # 'auto' switches to the triangle engine at this m
 _DENSIFY_CAP = 16384    # largest m the capacity path densifies on demand
@@ -106,6 +107,7 @@ class Clipper:
         self.engine_opts = dict(engine_opts or {})
         self.device = resolve_device(device)
         self._nsolves = 0
+        self._request: Optional[int] = None   # the tracer's request id
         self._A: Optional[torch.Tensor] = None   # (m, 2) associations
         self._M: Optional[torch.Tensor] = None   # (m, m) zero-diag symmetric
         self._C: Optional[torch.Tensor] = None   # (m, m) zero-diag 0/1
@@ -134,7 +136,16 @@ class Clipper:
         builds triangle storage on the device (under the sharded engine,
         each rank its slice). The dense engine builds on the card through
         the dense build kernel for a symmetric invariant with a device
-        score (see the module docstring)."""
+        score (see the module docstring).
+
+        Each call opens a new request of the tracer (utils/profiling): its
+        span ``facade.score`` and the spans of the solves that follow share
+        its id."""
+        self._request = profiling.new_request()
+        with profiling.annotate("facade.score", self._request):
+            self._score(D1, D2, A)
+
+    def _score(self, D1, D2, A) -> None:
         D1 = self._tensor(D1).T     # -> (n1, d) rows
         D2 = self._tensor(D2).T
         if A is not None and np.size(A) == 0:
@@ -193,7 +204,15 @@ class Clipper:
 
         Matrices injected sparse (``set_sparse_matrix_data`` with scipy
         input at low tile occupancy) are solved over their occupied-tile
-        storage; no dense (m, m) is made."""
+        storage; no dense (m, m) is made.
+
+        The whole call, to the mask on the host, is the tracer's span
+        ``facade.solve`` of the last build's request (utils/profiling)."""
+        with profiling.annotate("facade.solve", self._request):
+            return self._solve(u0, generator, multistart)
+
+    def _solve(self, u0, generator: Optional[torch.Generator],
+               multistart: int) -> Solution:
         self._require_matrices()
         if multistart > 1 and u0 is not None:
             raise ValueError(

@@ -11,11 +11,13 @@ that read each loop condition from the device. Working dtypes are explicit
 
 from __future__ import annotations
 
+import time
 from typing import Callable, NamedTuple, Tuple
 
 import torch
 
 from clipper_tpu_torch.types import Params, Rounding, Solution
+from clipper_tpu_torch.utils import profiling
 
 
 def _masked_mean(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -67,18 +69,20 @@ def round_solution(u: torch.Tensor, F: torch.Tensor,
     NONZERO (reference: src/clipper.cpp:290-292) and DSD_HEU
     (reference: src/clipper.cpp:302-309): the round(F) largest entries of
     u, ranked by a STABLE descending sort so ties (zeros) at the omega
-    boundary select the same vertices as the JAX package.
+    boundary select the same vertices as the JAX package. The tracer's
+    span ``facade.round`` (utils/profiling).
     """
-    if rounding == Rounding.NONZERO:
-        return u > 0.0
-    if rounding == Rounding.DSD_HEU:
-        omega = torch.floor(F + 0.5).to(torch.int32)
-        m = u.shape[-1]
-        order = torch.argsort(-u, dim=-1, stable=True)
-        ar = torch.arange(m, dtype=torch.int32, device=u.device)
-        ranks = torch.empty_like(order, dtype=torch.int32).scatter_(
-            -1, order, ar.expand_as(order).contiguous())
-        return ranks < omega[..., None]
+    with profiling.annotate("facade.round"):
+        if rounding == Rounding.NONZERO:
+            return u > 0.0
+        if rounding == Rounding.DSD_HEU:
+            omega = torch.floor(F + 0.5).to(torch.int32)
+            m = u.shape[-1]
+            order = torch.argsort(-u, dim=-1, stable=True)
+            ar = torch.arange(m, dtype=torch.int32, device=u.device)
+            ranks = torch.empty_like(order, dtype=torch.int32).scatter_(
+                -1, order, ar.expand_as(order).contiguous())
+            return ranks < omega[..., None]
     raise ValueError(f"rounding {rounding} not supported in the pipelines; "
                      "DSD rounding needs the host solver")
 
@@ -129,10 +133,36 @@ def run_pga(ops: PGAOperators, u0: torch.Tensor, params: Params, *,
             dtype=None) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The PGA + homotopy loop over abstract matvec operators
     (reference: src/clipper.cpp:193-281). Each loop condition is one host
-    read; the arithmetic is the JAX package's, step for step."""
-    dtype = dtype or u0.dtype
+    read; the arithmetic is the JAX package's, step for step.
+
+    While a profiler runs, the loop records the tracer's spans ``pga``,
+    ``pga.outer`` (a pass of the outer loop), ``pga.inner`` (an inner
+    step) and ``pga.line_search``, and publishes its counts once a solve:
+    ``pga.host_reads`` (the loop-condition reads), ``pga.linesearch_steps``
+    (trials, one (M + d C) u product each), ``pga.inner_steps``,
+    ``pga.outer_steps`` and ``pga.read_wait_ns`` (the host's time blocked
+    in those reads). See utils/profiling."""
+    with profiling.annotate("pga"):
+        return _run_pga(ops, u0, params, dtype or u0.dtype)
+
+
+def _run_pga(ops: PGAOperators, u0: torch.Tensor, params: Params, dtype
+             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     u0 = u0.to(dtype)
     eps = params.eps
+    on = profiling.tracing()
+    reads = ls_steps = inner_steps = outer_steps = wait_ns = 0
+
+    def read(flag: torch.Tensor) -> bool:
+        # one loop condition on the host, timed only while tracing
+        nonlocal reads, wait_ns
+        reads += 1
+        if not on:
+            return bool(flag)
+        t0 = time.perf_counter_ns()
+        value = bool(flag)
+        wait_ns += time.perf_counter_ns() - t0
+        return value
 
     def grad_fn(u, d, mv_Md):
         return (1.0 + d) * u - d * u.sum() + mv_Md(u)
@@ -156,16 +186,18 @@ def run_pga(ops: PGAOperators, u0: torch.Tensor, params: Params, *,
 
     # ---- line search (reference: src/clipper.cpp:234-252) ----
     def line_search(u, gradF, F, d, mv_Md):
+        nonlocal ls_steps
         alpha = torch.ones((), dtype=dtype, device=u.device)
         unew, gradFnew, Fnew = u, gradF, F
         deltaF = torch.zeros((), dtype=dtype, device=u.device)
         for _ in range(params.maxlsiters):
+            ls_steps += 1
             unew = torch.clamp(u + alpha * gradF, min=0.0)
             unew = unew / norm(unew)
             gradFnew = grad_fn(unew, d, mv_Md)
             Fnew = torch.dot(unew, gradFnew)
             deltaF = Fnew - F
-            if not bool(deltaF < -_eps_like(eps, torch.abs(F), dtype)):
+            if not read(deltaF < -_eps_like(eps, torch.abs(F), dtype)):
                 break
             alpha = alpha * params.beta
         return unew, gradFnew, Fnew, deltaF
@@ -174,19 +206,24 @@ def run_pga(ops: PGAOperators, u0: torch.Tensor, params: Params, *,
     tol_u = _eps_like(params.tol_u, 1.0, dtype)        # ||u|| = 1
 
     def inner_loop(u, gradF, F, d, mv_Md):
+        nonlocal inner_steps
         u_in = u
         j = 0
         while j < params.maxiniters:
-            unew, gradF, Fnew, deltaF = line_search(u, gradF, F, d, mv_Md)
-            deltau = norm(unew - u)
-            tol_F = _eps_like(params.tol_F, torch.abs(Fnew), dtype)
-            u, F = unew, Fnew
-            j += 1
-            if bool((deltau < tol_u) | (torch.abs(deltaF) < tol_F)):
-                break
+            with profiling.annotate("pga.inner"):
+                inner_steps += 1
+                with profiling.annotate("pga.line_search"):
+                    unew, gradF, Fnew, deltaF = line_search(u, gradF, F, d,
+                                                            mv_Md)
+                deltau = norm(unew - u)
+                tol_F = _eps_like(params.tol_F, torch.abs(Fnew), dtype)
+                u, F = unew, Fnew
+                j += 1
+                if read((deltau < tol_u) | (torch.abs(deltaF) < tol_F)):
+                    break
         # frozen: converged on the very first step without moving u (the
         # stalled-homotopy signature, see _STALL_OUTERS)
-        frozen = j <= 1 and bool(norm(u - u_in) < tol_u)
+        frozen = j <= 1 and read(norm(u - u_in) < tol_u)
         return u, F, frozen
 
     # ---- outer homotopy loop (reference: src/clipper.cpp:218-281) ----
@@ -194,21 +231,29 @@ def run_pga(ops: PGAOperators, u0: torch.Tensor, params: Params, *,
     i, stall = 0, 0
     F = torch.zeros((), dtype=dtype, device=u.device)
     while i < params.maxoliters:
-        mv_Md = ops.make_mv_Md(d)
-        gradF = grad_fn(u, d, mv_Md)
-        F = torch.dot(u, gradF)
-        u, F, frozen = inner_loop(u, gradF, F, d, mv_Md)
-        idxD, ratio = compute_d_terms(u)
-        active = bool(idxD.any())
-        # ifinal: the reference's `break` leaves i at the index of the
-        # terminating iteration (reference: src/clipper.cpp:278-280,318)
-        if active:
-            d = d + _masked_mean(torch.abs(ratio), idxD)
-            i += 1
-        stall = stall + 1 if frozen else 0
+        with profiling.annotate("pga.outer"):
+            outer_steps += 1
+            mv_Md = ops.make_mv_Md(d)
+            gradF = grad_fn(u, d, mv_Md)
+            F = torch.dot(u, gradF)
+            u, F, frozen = inner_loop(u, gradF, F, d, mv_Md)
+            idxD, ratio = compute_d_terms(u)
+            active = read(idxD.any())
+            # ifinal: the reference's `break` leaves i at the index of the
+            # terminating iteration (reference: src/clipper.cpp:278-280,318)
+            if active:
+                d = d + _masked_mean(torch.abs(ratio), idxD)
+                i += 1
+            stall = stall + 1 if frozen else 0
         if not active or (stall_guard and stall >= _STALL_OUTERS):
             break
     ifinal = torch.tensor(i, dtype=torch.int32, device=u.device)
+    if on:
+        profiling.count({"pga.host_reads": reads,
+                         "pga.linesearch_steps": ls_steps,
+                         "pga.inner_steps": inner_steps,
+                         "pga.outer_steps": outer_steps,
+                         "pga.read_wait_ns": wait_ns})
     return u, F, ifinal
 
 

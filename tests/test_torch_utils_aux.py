@@ -67,6 +67,25 @@ def test_stage_timer():
     assert rep["total"] >= rep["a"]
 
 
+def test_stage_timer_opens_a_span():
+    """Each stage is a span of its name while a profiler runs."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from clipper_tpu_torch.utils import profiling
+    profiling.reset()
+    st = StageTimer()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with st.stage("a"):
+            torch.ones(8) + 1
+        with st.stage("a"):
+            pass
+    spans = profiling.totals()["spans"]
+    profiling.reset()
+    assert spans["a"]["count"] == 2
+    assert spans["a"]["ms"] <= st.report()["a"] * 1e3
+    assert sum(e.name == "a" for e in prof.events()) == 2
+
+
 def test_named_timer():
     t = Timer("x")
     t.start()
