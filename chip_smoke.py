@@ -313,6 +313,14 @@ Phases, each of which must pass (any failure exits non-zero):
               build="xla"; the tile-major pool, the stacked pool and the
               dense facade with it (kernels 8, 4 and 6 once each). Its
               rows join the kernels' line as *_user.
+14. pga     — the dense PGA kernel (csrc/pga_dense.cu, phase_pga_dense)
+              on 4 bunny problems at m=2048, rho=0.9, f32 and f64: each
+              msrc.find_dense_clique solve against the host loop
+              (run_pga over dense_operators) on the same CUDA tensors, at
+              tests/test_torch_pga_device.py's tolerances; Clipper.solve
+              launches pga_dense once and no other kernel; each solve
+              timed beside the host loop and its bound (the trials' Md
+              at the L2 read rate measured there, and all at 3.35 TB/s).
 
 The line before the last is a JSON object of the kernels' numbers (rows 3
 and 7 also carry reduce_launches, the main path's launches of their
@@ -320,7 +328,8 @@ reduction kernel, and tb_per_s, the bytes their design moves a call over
 the measured ms; rows 1, 2, 3, 7, 8 and 9 carry "tiles", each new tile's
 route, shape, ms and bound from phases 2 and 12; phase 13's four *_user
 rows carry the built-in Euclidean kernel's ms as builtin_ms and their
-other shapes under "shapes"); the last line is
+other shapes under "shapes"; phase 14's pga_dense row carries f32's
+medians, f64's under "f64" and each problem's numbers); the last line is
 {"ok": true, "device": {...}}.
 
 Usage: python3 chip_smoke.py [--quick] [--profile]
@@ -3298,6 +3307,207 @@ def user_dense_at(uinv, binv, P1, P2, A, ops, label, dev):
     return row, err
 
 
+PGA_M, PGA_W = 2048, 4        # the dense PGA kernel: the benchmark's m
+PGA_F64_TOL = 1e-10           # f64: u and F (relative) against the host loop
+PGA_F32_TOL = 1e-4            # f32: F (relative) against the host loop
+
+
+def pga_reversed_operators(M, C):
+    """dense_operators with each product summed in reverse column order:
+    the host loop with its sums in another order."""
+    from clipper_tpu_torch.solvers import msrc
+
+    def mv(A):
+        return lambda u: (A * u).flip(-1).sum(-1)
+
+    return msrc.PGAOperators(mv_M=mv(M), mv_C=mv(C),
+                             make_mv_Md=lambda d: mv(M + d * C))
+
+
+def pga_traced(fn):
+    """fn()'s result and the PGA's published (trials, inner steps, outer
+    passes), fn run under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    from clipper_tpu_torch.utils import profiling
+    profiling.reset()
+    with profile(activities=[ProfilerActivity.CPU]):
+        out = fn()
+    c = profiling.totals()["counters"]
+    profiling.reset()
+    return out, (c["pga.linesearch_steps"], c["pga.inner_steps"],
+                 c["pga.outer_steps"])
+
+
+def check_pga(M, C, u0, params, kern, host):
+    """The kernel's solve against the host loop's on the same tensors, at
+    tests/test_torch_pga_device.py's tolerances. f64: the host loop's
+    ifinal, mask, inner steps and outer passes, F within PGA_F64_TOL, and
+    its trials and u within PGA_F64_TOL, or, where the host loop's own
+    run moves when its sums are reversed, no farther from it than twice
+    the reversed run. f32: F within PGA_F32_TOL and the host loop's mask,
+    or one that differs by no more vertices than the reversal moves the
+    host loop's. Returns max |u - u_host|."""
+    import torch
+    from clipper_tpu_torch.solvers import msrc
+    (u, F, i), counts = kern
+    (uh, Fh, ih), counts_h = host
+    du = float((u - uh).abs().max())
+    rel = abs(float(F) - float(Fh)) / abs(float(Fh))
+    mask, mask_h = msrc.round_solution(u, F), msrc.round_solution(uh, Fh)
+    rev = None
+    if M.dtype == torch.float64:
+        require(int(i) == int(ih) and counts[1:] == counts_h[1:]
+                and torch.equal(mask, mask_h) and rel <= PGA_F64_TOL,
+                f"pga_dense f64: ifinal {int(i)} / {int(ih)}, counts "
+                f"{counts} / {counts_h}, F {rel:.2e} apart, masks equal "
+                f"{torch.equal(mask, mask_h)}")
+        if counts[0] != counts_h[0] or du > PGA_F64_TOL:
+            (ur, _, _), counts_r = rev = pga_traced(lambda: msrc.run_pga(
+                pga_reversed_operators(M, C), u0, params, dtype=M.dtype))
+            dr = float((ur - uh).abs().max())
+            require(du <= 2 * dr and abs(counts[0] - counts_h[0])
+                    <= 2 * abs(counts_r[0] - counts_h[0]),
+                    f"pga_dense f64: u {du:.2e} and {counts[0]} trials "
+                    f"against the host loop's {counts_h[0]}, which moves "
+                    f"{dr:.2e} and to {counts_r[0]} reversed")
+    else:
+        require(rel <= PGA_F32_TOL, f"pga_dense f32: F {rel:.2e} apart")
+        if not torch.equal(mask, mask_h):
+            (ur, Fr, _), _ = rev = pga_traced(lambda: msrc.run_pga(
+                pga_reversed_operators(M, C), u0, params, dtype=M.dtype))
+            moved = int((msrc.round_solution(ur, Fr) ^ mask_h).sum())
+            require(int((mask ^ mask_h).sum()) <= moved,
+                    f"pga_dense f32: the mask moves "
+                    f"{int((mask ^ mask_h).sum())} vertices, the host "
+                    f"loop's reversed {moved}")
+    return du, rev is not None
+
+
+def l2_read_rate(n_bytes, dtype, dev, reps=50):
+    """Bytes a second of an L2-resident read of n_bytes: the faster of
+    torch.mv over, and a sum of, one (m, m) matrix of that size, ``reps``
+    calls back to back captured in one CUDA graph, so that the host's
+    launches do not pace them (CUDA events over the graph's replays)."""
+    import torch
+    from clipper_tpu_torch.bench.harness import time_ms
+    m = int(round((n_bytes / torch.empty((), dtype=dtype).element_size())
+                  ** 0.5))
+    A = torch.rand(m, m, dtype=dtype, device=dev)
+    x = torch.rand(m, dtype=dtype, device=dev)
+    best = float("inf")
+    for op in (lambda: torch.mv(A, x), lambda: A.sum()):
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            for _ in range(3):
+                op()
+        torch.cuda.current_stream(dev).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(reps):
+                op()
+        best = min(best, time_ms(graph.replay, dev, 5) / reps)
+        del graph
+    del A
+    return n_bytes / (best * 1e-3)
+
+
+def pga_bound(m, itemsize, trials, outer, l2_rate):
+    """(bound_ms, bound_hbm_ms) of one solve: its matrix passes' bytes,
+    the rescale's M, M and C for the first d, each outer pass's
+    formation of Md (M, C read, Md written) and d terms (M, C) at
+    HBM_BYTES_PER_S, and one Md a line-search trial at the faster of
+    l2_rate and HBM_BYTES_PER_S (bound_ms) or at HBM_BYTES_PER_S
+    (bound_hbm_ms)."""
+    pass_bytes = m * m * itemsize
+    hbm_s = (3 + 5 * outer) * pass_bytes / HBM_BYTES_PER_S
+    trial_bytes = trials * pass_bytes
+    trial_rate = max(l2_rate, HBM_BYTES_PER_S)
+    return ((hbm_s + trial_bytes / trial_rate) * 1e3,
+            (hbm_s + trial_bytes / HBM_BYTES_PER_S) * 1e3)
+
+
+def phase_pga_dense(inv, dev):
+    """14: the dense PGA kernel (csrc/pga_dense.cu) on PGA_W bunny
+    problems at m = PGA_M, rho = RHO, in f32 and f64, M and C from the
+    facade's build on the card: each msrc.find_dense_clique solve held
+    against the host loop (run_pga over dense_operators) on the same CUDA
+    tensors (check_pga); the main path's run, Clipper.solve on the first
+    f32 problem under the profiler with the launch counts set to 0 just
+    before it, launches pga_dense once and no other kernel; each solve
+    timed (CUDA events, 20 solves) beside the host loop (2) and its bound
+    (pga_bound from its own counts, the trials' Md at the L2 read rate
+    measured here, l2_read_rate). Returns (the kernels' row: f32 medians, f64 under
+    "f64", each problem under "problems"; launches; max |u - u_host|)."""
+    import statistics
+    import torch
+    from clipper_tpu_torch import Clipper, _kernels
+    from clipper_tpu_torch.bench.harness import time_ms
+    from clipper_tpu_torch.solvers import msrc
+    from clipper_tpu_torch.types import Params
+
+    params = Params()
+    out, err, launches = {}, 0.0, None
+    for dtype in (torch.float32, torch.float64):
+        kind = str(dtype).split(".")[-1]
+        itemsize = torch.empty((), dtype=dtype).element_size()
+        l2 = l2_read_rate(PGA_M * PGA_M * itemsize, dtype, dev)
+        probs = []
+        for seed in range(PGA_W):
+            pcd0, pcd1, A, _, u0 = one_problem(PGA_M, RHO, seed)
+            c = Clipper(inv, params, dtype=dtype, device=dev)
+            c.score_pairwise_consistency(pcd0.T, pcd1.T, A)
+            M, C = c._M, c._C
+            u0 = torch.as_tensor(u0, dtype=dtype, device=dev)
+            if launches is None:
+                c.solve(u0)                     # the library and its grid
+                torch.cuda.synchronize()
+                _kernels.reset_launches()
+                soln, _ = pga_traced(lambda: c.solve(u0))
+                torch.cuda.synchronize()
+                launches = dict(_kernels.LAUNCHES)
+                require(launches["pga_dense"] == 1 and not any(
+                    n for k, n in launches.items() if k != "pga_dense"),
+                    f"Clipper.solve's launches {launches}")
+            kern = pga_traced(lambda: msrc.find_dense_clique(M, C, u0,
+                                                             params))
+            host = pga_traced(lambda: msrc.run_pga(
+                msrc.dense_operators(M, C), u0, params, dtype=dtype))
+            if dtype == torch.float32 and seed == 0:
+                require(torch.equal(soln.mask, msrc.round_solution(
+                    *kern[0][:2])), "Clipper.solve's mask is not "
+                    "find_dense_clique's")
+            du, reversed_ = check_pga(M, C, u0, params, kern, host)
+            err = max(err, du)
+            trials, inner, outer = kern[1]
+            bound_ms, bound_hbm_ms = pga_bound(PGA_M, itemsize, trials,
+                                               outer, l2)
+            probs.append(dict(
+                problem=seed, trials=trials, inner=inner, outer=outer,
+                host_trials=host[1][0], ifinal=int(kern[0][2]),
+                ms=time_ms(lambda: msrc.find_dense_clique(M, C, u0, params),
+                           dev, 20),
+                plain_ms=time_ms(lambda: msrc.run_pga(
+                    msrc.dense_operators(M, C), u0, params, dtype=dtype),
+                    dev, 2),
+                bound_ms=bound_ms, bound_hbm_ms=bound_hbm_ms, max_abs_err=du,
+                reversed_checked=reversed_))
+            del c, M, C
+        med = {k: float(statistics.median(p[k] for p in probs))
+               for k in ("ms", "plain_ms", "bound_ms", "bound_hbm_ms")}
+        out[kind] = dict(med, l2_bytes_per_s=l2, problems=probs)
+        print(f"timing pga_dense m={PGA_M} {kind}: kernel {med['ms']:.4f} "
+              f"ms, bound {med['bound_ms']:.4f} ms (trials' Md at "
+              f"{l2 / 1e12:.2f} TB/s measured; all at 3.35 TB/s "
+              f"{med['bound_hbm_ms']:.4f}), plain (the host loop) "
+              f"{med['plain_ms']:.4f} ms; trials "
+              f"{[p['trials'] for p in probs]}", flush=True)
+        torch.cuda.empty_cache()
+    row = dict(out["float32"], bound_by="bytes", library_ms=None,
+               f64=out["float64"])
+    return row, launches["pga_dense"], err
+
+
 def phase_user_score(inv, main, dev):
     """13: an invariant's own device score inside the build kernels
     (csrc/user_score.cuh; bench/user_scores.py's UserEuclidean, the
@@ -4909,6 +5119,8 @@ def main() -> None:
                                dev).items():
         tile_rows[name].update(r)
     user_rows = phase_user_score(inv, main_data, dev)
+    rows["pga_dense"], launches["pga_dense"], errs["pga_dense"] = \
+        phase_pga_dense(inv, dev)
     if "--profile" in sys.argv[1:]:
         phase_profile(inv, main_data, cap, dev)
         from clipper_tpu_torch.solvers import sdp
@@ -4927,6 +5139,7 @@ def main() -> None:
         "tri_build_fused": "clipper_tpu/ops/flattri.py:567",
         "tri_tiles_matvec": "clipper_tpu/ops/flattri.py:283",
         "build_probe": "clipper_tpu/bench/build_probe.py:135",
+        "pga_dense": "clipper_tpu/solvers/msrc.py:236",
     }
     kernels = [dict(name=name, route="cuda", source=f"{src}{name}.cu",
                     replaces=where, launches=launches[name],

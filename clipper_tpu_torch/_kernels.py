@@ -37,7 +37,9 @@ _ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 _COMMON = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
            "-Xptxas", "-v"]
 # per-source extra flags: the build kernels must not contract a*b+c into
-# FMAs, which would change the roundings that decide their int8 codes
+# FMAs, which would change the roundings that decide their int8 codes;
+# nor the dense PGA kernel, whose elementwise steps round as the host
+# loop's separate operations do
 SOURCES: Dict[str, list] = {
     "tri_matvec": [],
     "tri_build": ["--fmad=false"],
@@ -49,6 +51,7 @@ SOURCES: Dict[str, list] = {
     "tri_build_fused": ["--fmad=false"],
     "tri_tiles_matvec": [],
     "build_probe": ["--fmad=false"],
+    "pga_dense": ["--fmad=false"],
 }
 
 _P = ctypes.c_void_p
@@ -111,6 +114,12 @@ _SIGNATURES = {
     "pattern_matvec_f32": [_P, _P, _P, _P, _I, _I, _I, _P],
     "pattern_matvec_bf16": [_P, _P, _P, _P, _I, _I, _I, _P],
     "build_probe_int8": [_I, _P, _P, _P, _P, _P, _I, _I, _D, _D, _D, _P],
+    # M, C, u0, Md, vec, part, u, F, ints; m, grid, maxoliters,
+    # maxiniters, maxlsiters; beta, eps, tol_u, tol_F, the two floors;
+    # rescale_u0, fuse_md, stall_outers; the stream
+    **{f"pga_dense_{n}": [*[_P] * 9, *[_I] * 5, *[_D] * 6, _I, _I, _I, _P]
+       for n in ("f32", "f64")},
+    "pga_dense_grid": [_I, _I, _IP, _IP],
 }
 # a device score's library: the entries of the build kernels it takes,
 # each with the built-in entry's arguments

@@ -4,18 +4,24 @@ Counterpart of ``clipper_tpu/solvers/msrc.py`` (reference:
 src/clipper.cpp:172-323): thresholds, stall guard, rounding and the nested
 solver (:func:`run_pga`, the reference-shaped triple loop of outer
 homotopy, inner ascent and backtracking line search). The JAX package runs
-the three loops as nested ``lax.while_loop``s; here they are host loops
-that read each loop condition from the device. Working dtypes are explicit
-``torch.dtype``s.
+the three loops as nested ``lax.while_loop``s. Here :func:`run_pga` runs
+them as host loops that read each loop condition from the device, the
+plain version; on the card, the dense solve (:func:`find_dense_clique`)
+runs them on the device as one persistent kernel (csrc/pga_dense.cu,
+:func:`pga_dense_cuda`). Working dtypes are explicit ``torch.dtype``s.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import time
-from typing import Callable, NamedTuple, Tuple
+from typing import Callable, Dict, NamedTuple, Tuple
 
+import numpy as np
 import torch
 
+from clipper_tpu_torch import _kernels
 from clipper_tpu_torch.types import Params, Rounding, Solution
 from clipper_tpu_torch.utils import profiling
 
@@ -33,6 +39,7 @@ _EPS_FACTOR = 100.0
 _ACTIVITY_FACTOR = 2000.0
 
 
+@functools.lru_cache(maxsize=None)
 def _floor(factor: float, dtype: torch.dtype) -> float:
     # the product is formed in the working dtype, as numpy/JAX do
     return float(torch.tensor(factor, dtype=dtype)
@@ -124,9 +131,141 @@ def find_dense_clique(M: torch.Tensor, C: torch.Tensor, u0: torch.Tensor,
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Graduated projected gradient ascent on dense (m, m) M and C (zero
     diagonals, implicit identity) from u0 (m,). fuse_md precomputes
-    Md = M + d C once per outer iteration. Returns (u, F, ifinal)."""
+    Md = M + d C once per outer iteration. Returns (u, F, ifinal).
+
+    Where M, C and u0 lie on the card and M and C are f32 or f64
+    (:func:`takes_kernel`), the whole solve is one persistent kernel
+    (:func:`pga_dense_cuda`) with no host read; CPU tensors, CUDA tensors
+    of another dtype and an empty problem take the host loop
+    (:func:`run_pga` over :func:`dense_operators`), the plain version."""
+    if takes_kernel(M, C, u0):
+        return pga_dense_cuda(M, C, u0, params, fuse_md=fuse_md)
     return run_pga(dense_operators(M, C, fuse_md), u0, params,
                    dtype=M.dtype)
+
+
+def takes_kernel(M: torch.Tensor, C: torch.Tensor, u0: torch.Tensor
+                 ) -> bool:
+    """Whether :func:`find_dense_clique` launches the dense PGA kernel: M,
+    C and u0 on the card, M and C of one dtype, f32 or f64, m > 0."""
+    return (M.is_cuda and C.is_cuda and u0.is_cuda
+            and M.dtype in (torch.float32, torch.float64)
+            and C.dtype == M.dtype and M.shape[0] > 0)
+
+
+class PGAArgs(NamedTuple):
+    """The dense PGA kernel's scalar arguments for a Params and a working
+    dtype: the values the host loop (:func:`_run_pga`) compares in that
+    dtype, each exact in it."""
+
+    maxoliters: int
+    maxiniters: int
+    maxlsiters: int
+    beta: float
+    eps: float
+    tol_u: float          # _eps_like(tol_u, 1.0): |u| = 1
+    tol_F: float
+    floor_eps: float      # _floor(_EPS_FACTOR)
+    floor_act: float      # _floor(_ACTIVITY_FACTOR)
+    rescale_u0: int
+    stall_outers: int     # 0: no stall guard
+
+
+_NP = {torch.float32: np.float32, torch.float64: np.float64}
+
+
+def pga_dense_args(params: Params, dtype: torch.dtype) -> PGAArgs:
+    """:class:`PGAArgs` of ``params`` in ``dtype`` (f32 or f64)."""
+    val = _NP[dtype]
+    floor_eps = _floor(_EPS_FACTOR, dtype)
+    return PGAArgs(
+        maxoliters=int(params.maxoliters), maxiniters=int(params.maxiniters),
+        maxlsiters=int(params.maxlsiters), beta=float(val(params.beta)),
+        eps=float(val(params.eps)),
+        tol_u=max(float(val(params.tol_u)), floor_eps),
+        tol_F=float(val(params.tol_F)), floor_eps=floor_eps,
+        floor_act=_floor(_ACTIVITY_FACTOR, dtype),
+        rescale_u0=int(bool(params.rescale_u0)),
+        stall_outers=_STALL_OUTERS if _stall_guard_enabled(dtype) else 0)
+
+
+_GRID: Dict[tuple, Tuple[int, int]] = {}
+
+
+def _pga_grid(device: torch.device, dtype: torch.dtype) -> Tuple[int, int]:
+    """(co-resident blocks, scalar slots a bank) of the kernel in dtype on
+    device, asked once a process."""
+    index = torch.cuda.current_device() if device.index is None \
+        else device.index
+    key = (index, dtype)
+    if key not in _GRID:
+        grid, slots = ctypes.c_int(0), ctypes.c_int(0)
+        _kernels.check(_kernels.lib("pga_dense").pga_dense_grid(
+            int(dtype == torch.float64), index, ctypes.byref(grid),
+            ctypes.byref(slots)), "pga_dense_grid")
+        _GRID[key] = (grid.value, slots.value)
+    return _GRID[key]
+
+
+def pga_dense_cuda(M: torch.Tensor, C: torch.Tensor, u0: torch.Tensor,
+                   params: Params = Params(), *, fuse_md: bool = True
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The dense solve of :func:`find_dense_clique` as one cooperative
+    launch of csrc/pga_dense.cu: M, C (m, m) f32 or f64 and u0 (m,) on the
+    card -> (u, F, ifinal), the host loop's algorithm step for step in the
+    working dtype (its sums in another order). It makes no host read and
+    no synchronisation, except while a profiler runs: then it reads the
+    kernel's counts once and publishes them as the host loop does
+    (``pga.host_reads`` 1, ``pga.linesearch_steps``, ``pga.inner_steps``,
+    ``pga.outer_steps``, ``pga.read_wait_ns``) with ``pga.device_loops``
+    1, inside the span ``pga`` (utils/profiling)."""
+    m, dtype = M.shape[0], M.dtype
+    if not (M.is_cuda and C.is_cuda and u0.is_cuda):
+        raise ValueError("dense PGA kernel: inputs must lie on the card")
+    if (dtype not in _NP or C.dtype != dtype or m < 1
+            or tuple(M.shape) != (m, m) or tuple(C.shape) != (m, m)
+            or tuple(u0.shape) != (m,)):
+        raise ValueError("dense PGA kernel takes (m, m) f32 or f64 M and C "
+                         "of one dtype and u0 (m,), m > 0")
+    with profiling.annotate("pga"):
+        # held in locals until the launch (see _kernels)
+        Mc, Cc = M.contiguous(), C.contiguous()
+        u0c = u0.to(dtype).contiguous()
+        grid, slots = _pga_grid(M.device, dtype)
+        grid = min(grid, m)
+        dev = M.device
+        # one scratch: Md (fuse_md), then u, g, the row products' spare,
+        # the trial's u and gradient, then the two banks of partial sums
+        md = m * m if fuse_md else 0
+        work = torch.empty(md + 5 * m + 2 * slots * grid, dtype=dtype,
+                           device=dev)
+        u = torch.empty(m, dtype=dtype, device=dev)
+        F = torch.empty((), dtype=dtype, device=dev)
+        ints = torch.empty(4, dtype=torch.int32, device=dev)
+        a = pga_dense_args(params, dtype)
+        fn = getattr(_kernels.lib("pga_dense"),
+                     "pga_dense_f64" if dtype == torch.float64
+                     else "pga_dense_f32")
+        base, size = work.data_ptr(), work.element_size()
+        _kernels.check(fn(
+            Mc.data_ptr(), Cc.data_ptr(), u0c.data_ptr(), base,
+            base + md * size, base + (md + 5 * m) * size, u.data_ptr(),
+            F.data_ptr(), ints.data_ptr(), m, grid, a.maxoliters,
+            a.maxiniters, a.maxlsiters, a.beta, a.eps, a.tol_u, a.tol_F,
+            a.floor_eps, a.floor_act, a.rescale_u0, int(fuse_md),
+            a.stall_outers, _kernels.stream_ptr(dev)), "pga_dense")
+        _kernels.LAUNCHES["pga_dense"] += 1
+        if profiling.tracing():
+            t0 = time.perf_counter_ns()
+            trials, inner, outer = ints[1:].tolist()
+            wait_ns = time.perf_counter_ns() - t0
+            profiling.count({"pga.host_reads": 1,
+                             "pga.linesearch_steps": trials,
+                             "pga.inner_steps": inner,
+                             "pga.outer_steps": outer,
+                             "pga.read_wait_ns": wait_ns,
+                             "pga.device_loops": 1})
+    return u, F, ints[0]
 
 
 def run_pga(ops: PGAOperators, u0: torch.Tensor, params: Params, *,

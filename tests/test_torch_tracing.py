@@ -221,3 +221,57 @@ def test_same_solution_and_reads_with_and_without_a_profiler(seed, dtype,
     for name in ("u", "score", "mask", "ifinal"):
         a, b = getattr(off, name), getattr(on, name)
         assert a.dtype == b.dtype and torch.equal(a, b), name
+
+
+# ---- the kernel route (csrc/pga_dense.cu) on the card ----
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_kernel_route_publishes_one_read_a_solve(cuda, dtype):
+    D1, D2, A, u0 = problem(0)
+    c = Clipper(EuclideanDistance(), Params(), dtype=dtype, device=cuda)
+    with profile(activities=[ProfilerActivity.CPU]):
+        c.score_pairwise_consistency(D1, D2, A)
+        for _ in range(3):
+            c.solve(u0)
+    got = profiling.totals()
+    counters, spans = got["counters"], got["spans"]
+    assert set(counters) == set(COUNTERS) | {"pga.device_loops"}
+    assert counters["pga.device_loops"] == counters["pga.host_reads"] == 3
+    # the pga span around each launch; the loop's own spans stay on the
+    # host loop
+    assert spans["pga"]["count"] == 3
+    assert not {"pga.outer", "pga.inner", "pga.line_search"} & set(spans)
+    assert 0 <= counters["pga.read_wait_ns"] <= spans["pga"]["ms"] * 1e6
+
+
+@pytest.mark.cuda
+def test_kernel_route_counts_are_the_host_loops_f64(cuda):
+    """In f64 the kernel takes the host loop's trials, inner steps and
+    outer passes, one for one. (At two inner steps a pass the truncated
+    loop is chaotic at the ulp even in f64: on the CPU the host loop's
+    counts move when its sums are merely reversed, so those cases are not
+    compared.)"""
+    for seed in (0, 1):
+        D1, D2, A, u0 = problem(seed)
+        c = Clipper(EuclideanDistance(), Params(), dtype=torch.float64,
+                    device=cuda)
+        c.score_pairwise_consistency(D1, D2, A)
+        u0 = torch.as_tensor(u0, dtype=torch.float64, device=cuda)
+        counts = []
+        for run in (lambda: msrc.find_dense_clique(c._M, c._C, u0, c.params),
+                    lambda: msrc.run_pga(msrc.dense_operators(c._M, c._C),
+                                         u0, c.params)):
+            profiling.reset()
+            with profile(activities=[ProfilerActivity.CPU]):
+                run()
+            counters = profiling.totals()["counters"]
+            counts.append([counters[n] for n in COUNTERS[1:4]])
+        assert counts[0] == counts[1] and counts[0][0] > 0, seed
