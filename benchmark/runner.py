@@ -14,6 +14,11 @@ that ends ``seconds`` or more after it opened; its length is the time to
 that end. With ``--trace 1`` the window lasts the traffic's
 ``trace_seconds`` (at most ``seconds``) under ``torch.profiler``, and the
 line carries the per-layer metrics instead of the end-to-end ones.
+
+A cell on one card runs in this process. A cell on N > 1 cards runs as N
+rank processes, one a card, in one ``torch.distributed`` group
+(``ranks.py``); :func:`run_cell` then takes the rank's
+:class:`ranks.Ranks`, and rank 0 keeps the clock and prints the line.
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ import importlib.util
 import json
 import math
 import os
+import re
 import sys
 import time
 from pathlib import Path
@@ -32,6 +38,9 @@ from typing import Dict, Optional
 
 ROOT = Path(__file__).resolve().parent.parent
 BENCH_DIR = Path(__file__).resolve().parent
+# entry kinds that come as files: <kind>.py, with its class ``Entry``
+KINDS_DIR = BENCH_DIR / "kinds"
+NAME = re.compile(r"[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}")
 # top-level modules that must not be loaded once the window has closed
 FORBIDDEN = ("jax", "jaxlib", "flax", "clipper_tpu")
 
@@ -76,12 +85,39 @@ def cell_metrics(bench: dict, cell: str, group: str):
 def read_layer(name: str, record: dict) -> Optional[float]:
     """The reader ``metrics/<name>.py``'s value over a traced run's
     record, or None where it finds nothing to read."""
-    path = BENCH_DIR / "metrics" / f"{name}.py"
-    spec = importlib.util.spec_from_file_location(
-        f"benchmark_metric_{name.replace('.', '_')}", path)
+    return load_file(BENCH_DIR / "metrics" / f"{name}.py",
+                     f"benchmark_metric_{name.replace('.', '_')}").read(record)
+
+
+def load_file(path: Path, module: str):
+    """The module that the file ``path`` holds, loaded as ``module``."""
+    spec = importlib.util.spec_from_file_location(module, path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.read(record)
+    return mod
+
+
+def entry_kind(name: str, kinds=(KINDS_DIR,)):
+    """The class of a traffic's ``entry``: ``entries.ENTRIES[name]``, or
+    else the class ``Entry`` of the first ``<dir>/<name>.py`` of
+    ``kinds``. It keeps the facade's interface: built from ``(config,
+    traffic, seed, dev, trace, workers)``, then ``request(k)``,
+    ``clear()``, ``layer``, ``end_to_end(window_s, n)`` and
+    ``judge(device, limit)``."""
+    from benchmark import entries
+    if name in entries.ENTRIES:
+        return entries.ENTRIES[name]
+    if not NAME.fullmatch(name):
+        raise ValueError(f"entry kind {name!r} is not a name")
+    looked = []
+    for d in kinds:
+        path = Path(d) / f"{name}.py"
+        if path.is_file():
+            return load_file(
+                path, f"benchmark_kind_{name.replace('.', '_')}").Entry
+        looked.append(str(path))
+    raise LookupError(f"no entry kind {name!r}: not in entries.ENTRIES, "
+                      f"and no file {' or '.join(looked)}")
 
 
 def forbidden_modules():
@@ -91,19 +127,23 @@ def forbidden_modules():
 def run_cell(bench: dict, cell: dict, config: dict, traffic: dict,
              limits: dict, seed: int, seconds: float, trace: bool,
              device: str = "cuda", t_start: Optional[float] = None,
-             workers: int = 8) -> dict:
-    """One run of a cell: the result's dict, with ``checks`` last."""
+             workers: int = 8, kinds=(KINDS_DIR,), ranks=None) -> dict:
+    """One run of a cell: the result's dict, with ``checks`` last.
+    ``ranks``, a :class:`ranks.Ranks` where the cell runs on several
+    cards: every rank calls this alike, and rank 0's dict is the run's."""
     import torch
     from benchmark import entries
 
     t_start = time.perf_counter() if t_start is None else t_start
     dev = torch.device(device)
-    entry = entries.ENTRIES[traffic["entry"]](config, traffic, seed, dev,
-                                              trace, workers)
+    entry = entry_kind(traffic["entry"], kinds)(config, traffic, seed, dev,
+                                                trace, workers)
     for k in range(traffic["warm_requests"]):
         entry.request(k)
     entry.clear()
     entries.sync(dev)
+    if ranks is not None:
+        ranks.barrier()         # the window opens on every card together
     # what the set-up made stays out of the collector's sweeps in the
     # window, so that a sweep over it does not land in one run and not in
     # another
@@ -125,22 +165,30 @@ def run_cell(bench: dict, cell: dict, config: dict, traffic: dict,
         t_open = time.perf_counter()
         while True:
             attempted += 1
+            lost = False
             try:
                 entry.request(attempted - 1)
             except Exception as exc:      # counted, and the run is wrong
-                failed += 1
+                lost = True
                 errors.append(repr(exc))
-            if time.perf_counter() - t_open >= window:
+            close = time.perf_counter() - t_open >= window
+            if ranks is not None:
+                # rank 0's clock closes the window; a request lost on any
+                # rank is lost
+                close, lost = ranks.step(close, lost)
+            failed += lost
+            if close:
                 break
         window_s = time.perf_counter() - t_open
     gc.unfreeze()
     done = attempted - failed
+    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
     device_info = {"platform": "gpu" if dev.type == "cuda" else dev.type,
                    "kind": (torch.cuda.get_device_name(dev)
                             if dev.type == "cuda" else "cpu"),
                    "count": cell["chips"],
-                   "memory_peak_bytes": (torch.cuda.max_memory_allocated(dev)
-                                         if dev.type == "cuda" else 0)}
+                   "memory_peak_bytes": (peak if ranks is None
+                                         else ranks.max_int(peak))}
     found = forbidden_modules()
     if found:
         raise RuntimeError("loaded once the window closed: "
@@ -151,9 +199,16 @@ def run_cell(bench: dict, cell: dict, config: dict, traffic: dict,
         from benchmark import trace as trace_mod
         summary = trace_mod.summarize(prof)
         del prof
-        device_info.update(busy_s=summary.busy_s, window_s=window_s)
         record = dict(entry.layer, summary=summary, window_s=window_s,
                       requests=done)
+        if ranks is None:
+            device_info.update(busy_s=summary.busy_s, window_s=window_s)
+        else:
+            record["ranks"] = ranks.gather({"summary": summary,
+                                            "layer": entry.layer})
+            busy = [r["summary"].busy_s for r in record["ranks"]]
+            device_info.update(busy_s=sum(busy) / len(busy),
+                               window_s=window_s, busy_s_ranks=busy)
         for m in cell_metrics(bench, cell["name"], "per_layer"):
             value = read_layer(m["name"], record)
             if value is not None:
@@ -226,6 +281,12 @@ def main(argv, t_start: float) -> int:
         print(f"{cell['name']} needs {cell['chips']} cards; "
               f"{torch.cuda.device_count()} found", file=sys.stderr)
         return 2
+    if cell["chips"] > 1:
+        from benchmark import ranks
+        return ranks.launch(ranks.job(bench, cell, config, traffic, limits,
+                                      args.seed, args.seconds,
+                                      bool(args.trace), "cuda", t_start),
+                            cell["chips"])
     # one host thread for PyTorch's own CPU work: the program's host path
     # is one Python thread, and idle workers spinning beside it add noise
     torch.set_num_threads(1)
@@ -236,6 +297,13 @@ def main(argv, t_start: float) -> int:
     if found:
         print("loaded in this process: " + ", ".join(found), file=sys.stderr)
         return 3
+    report(out)
+    return 0
+
+
+def report(out: dict) -> None:
+    """Prints a run's result: its failed requests, the judge's time and
+    each check on standard error, then the line on standard output."""
     for err in out["errors"]:
         print(f"request failed: {err}", file=sys.stderr)
     print(f"judged in {out.pop('judge_s'):.1f} s", file=sys.stderr)
@@ -247,4 +315,3 @@ def main(argv, t_start: float) -> int:
         print(f"check {name}: {c['value']!r} (limit {c['limit']!r}, "
               f"worst of {c['answers']} answers)", file=sys.stderr)
     print(json.dumps(out), flush=True)
-    return 0
