@@ -28,6 +28,15 @@ plain XLA in the JAX package (no Pallas kernel there). The invariant's
 score_block must be symmetric in its pair arguments (both built-ins are:
 their differences and products are summed coordinate by coordinate), as
 each rank scores both triangles of its block.
+
+Under a profiler (``utils/profiling``) the engine records the spans
+``sharded.build`` (the block build), ``sharded.solve`` (init and solve),
+``sharded.polish``, ``sharded.matvec`` (one block matvec: the local
+product and its collectives) and ``sharded.collective`` (each
+collective call), and the counters ``sharded.matvecs``,
+``sharded.collective_calls``, ``sharded.collective_bytes`` (the bytes
+this rank hands to ``all_reduce``) and ``sharded.polish_exact``; with no
+profiler it records nothing.
 """
 
 from __future__ import annotations
@@ -47,6 +56,7 @@ from clipper_tpu_torch.parallel.pool import (StageClock, _divisor_at_most,
 from clipper_tpu_torch.solvers import msrc, msrc_flat
 from clipper_tpu_torch.types import (Params, Rounding, Solution,
                                      as_association, resolve_device)
+from clipper_tpu_torch.utils import profiling
 
 
 class Mesh:
@@ -165,13 +175,24 @@ def pad_problem(P1, P2, u0, m_pad: int):
 # the two collectives
 # ----------------------------------------------------------------------
 
+def _collective(nbytes: int):
+    """One collective call of the engine: a ``sharded.collective`` span,
+    and under a profiler the counters ``sharded.collective_calls`` and
+    ``sharded.collective_bytes`` (the bytes this rank hands to it)."""
+    if profiling.tracing():
+        profiling.count({"sharded.collective_calls": 1,
+                         "sharded.collective_bytes": nbytes})
+    return profiling.annotate("sharded.collective")
+
+
 def _reduce_c(mesh: Mesh, part: torch.Tensor) -> torch.Tensor:
     """The sum of the column group's partial products: in f64, the same
     bits on every rank; the partial itself when C = 1."""
     if mesh.col_group is None:
         return part
     acc = part.to(torch.float64)
-    dist.all_reduce(acc, group=mesh.col_group)
+    with _collective(acc.numel() * acc.element_size()):
+        dist.all_reduce(acc, group=mesh.col_group)
     return acc
 
 
@@ -182,8 +203,9 @@ def _gather_r(mesh: Mesh, y: torch.Tensor, m: int) -> torch.Tensor:
     if mesh.row_group is None:
         return y
     mr = y.shape[0]
-    return gather_rows(y, slice(mesh.ri * mr, (mesh.ri + 1) * mr), m,
-                       mesh.row_group)
+    with _collective(m * (y.numel() // mr) * y.element_size()):
+        return gather_rows(y, slice(mesh.ri * mr, (mesh.ri + 1) * mr), m,
+                           mesh.row_group)
 
 
 # ----------------------------------------------------------------------
@@ -255,6 +277,15 @@ def _block_quadform(invariant: PairwiseInvariant, P1, P2, A, u,
 # the operators
 # ----------------------------------------------------------------------
 
+def _matvec():
+    """One block matvec (the local product and its collectives): a
+    ``sharded.matvec`` span, counted (``sharded.matvecs``) under a
+    profiler."""
+    if profiling.tracing():
+        profiling.count({"sharded.matvecs": 1})
+    return profiling.annotate("sharded.matvec")
+
+
 def _check_tf32(blk: torch.Tensor, what: str) -> None:
     if (blk.is_cuda and blk.dtype == torch.float32
             and torch.backends.cuda.matmul.allow_tf32):
@@ -272,8 +303,9 @@ def sharded_operators(M_blk: torch.Tensor, C_blk: torch.Tensor, mc: int,
     c0 = mesh.ci * mc
 
     def block_mv(blk, u):
-        part = blk @ u[c0:c0 + mc]
-        return _gather_r(mesh, _reduce_c(mesh, part).to(u.dtype), m)
+        with _matvec():
+            part = blk @ u[c0:c0 + mc]
+            return _gather_r(mesh, _reduce_c(mesh, part).to(u.dtype), m)
 
     def make_mv_Md(d):
         Md_blk = M_blk + d * C_blk        # local, no communication
@@ -312,9 +344,10 @@ def sharded_dual_matvec(MC_store: torch.Tensor, mr: int, mc: int, out_dtype,
 
     def mv(u):
         U = u[:, None] if u.dim() == 1 else u
-        y = _reduce_c(mesh, local(U[c0:c0 + mc]))
-        y = msrc_flat.finish_stacked(y, MC_store.dtype, out_dtype)
-        MC = _gather_r(mesh, y.reshape(2, mr, -1).transpose(0, 1), m)
+        with _matvec():
+            y = _reduce_c(mesh, local(U[c0:c0 + mc]))
+            y = msrc_flat.finish_stacked(y, MC_store.dtype, out_dtype)
+            MC = _gather_r(mesh, y.reshape(2, mr, -1).transpose(0, 1), m)
         if u.dim() == 1:
             return MC[:, 0, 0], MC[:, 1, 0]
         return MC[:, 0], MC[:, 1]
@@ -325,6 +358,36 @@ def sharded_dual_matvec(MC_store: torch.Tensor, mr: int, mc: int, out_dtype,
 # ----------------------------------------------------------------------
 # the pipeline
 # ----------------------------------------------------------------------
+
+def _polish(info: dict, invariant: PairwiseInvariant, P1, P2, A, u,
+            m_true: int, mr: int, mc: int, affinityeps: float, ri: int,
+            ci: int, build_chunk: int, mesh: Mesh, k: int) -> torch.Tensor:
+    """F = u'(M + I)u in full precision from reduced storage: omega =
+    round(F) needs F well within 0.5 of the exact value (reference:
+    src/clipper.cpp:305). The top-k polish is exact only for supports of
+    at most k; a wider support takes the exact chunked block quadform,
+    its f64 partials summed over the mesh. The branch is a host ``if`` on
+    the replicated u, so every rank takes the same one; it is written to
+    ``info["polish_branch"]`` and, under a profiler, counted
+    (``sharded.polish_exact``: 1 for the exact branch, else 0)."""
+    exact = int((u > 0).sum()) > k
+    info["polish_branch"] = "exact" if exact else "support"
+    if profiling.tracing():
+        profiling.count({"sharded.polish_exact": int(exact)})
+    if not exact:
+        F = support_objective(invariant, P1, P2, A, u,
+                              affinityeps=affinityeps, k=k)
+    else:
+        part = _block_quadform(invariant, P1, P2, A, u, m_true, mr, mc,
+                               affinityeps, ri, ci, build_chunk)
+        if mesh.size > 1:
+            with _collective(part.numel() * part.element_size()):
+                dist.all_reduce(part, group=mesh.group)
+        acc = torch.promote_types(u.dtype, torch.float32)
+        uu = u.to(acc)
+        F = part.to(acc) + torch.dot(uu, uu)
+    return F.to(P1.dtype)
+
 
 def build_sharded_pipeline(invariant: PairwiseInvariant, mesh: Mesh,
                            params: Params = Params(),
@@ -355,7 +418,9 @@ def build_sharded_pipeline(invariant: PairwiseInvariant, mesh: Mesh,
         same one.
     probes (flat only): the K-wide line search (msrc_flat
         flat_solve_single_multiprobe's ticks).
-    matvec_chunk: see :func:`sharded_dual_matvec`.
+    matvec_chunk: see :func:`sharded_dual_matvec`; set it whenever the
+        storage is reduced and the block is large (the sizing is in
+        :func:`solve_sharded`).
     Rounding.DSD rounds NONZERO (the facade reruns DSD on the host).
 
     stats: optional dict filled with stage milliseconds (build, init,
@@ -386,12 +451,14 @@ def build_sharded_pipeline(invariant: PairwiseInvariant, mesh: Mesh,
         clock.mark("start")
         info = dict(mesh=[R, C], polish_branch=None)
         if solver == "nested":
-            M_blk, C_blk = _affinity_block(invariant, P1, P2, A, m_true, mr,
-                                           mc, affinityeps, ri, ci)
+            with profiling.annotate("sharded.build"):
+                M_blk, C_blk = _affinity_block(invariant, P1, P2, A, m_true,
+                                               mr, mc, affinityeps, ri, ci)
             clock.mark("build")
-            u, F, ifinal = msrc.run_pga(sharded_operators(M_blk, C_blk, mc,
-                                                          mesh),
-                                        u0, params, dtype=P1.dtype)
+            with profiling.annotate("sharded.solve"):
+                u, F, ifinal = msrc.run_pga(
+                    sharded_operators(M_blk, C_blk, mc, mesh), u0, params,
+                    dtype=P1.dtype)
             clock.mark("solve")
             clock.finish()
             if stats is not None:
@@ -399,40 +466,29 @@ def build_sharded_pipeline(invariant: PairwiseInvariant, mesh: Mesh,
                              * M_blk.element_size())
             return u, F, ifinal, msrc.round_solution(u, F, rounding)
 
-        if storage_dtype is None:
-            M_blk, C_blk = _affinity_block(invariant, P1, P2, A, m_true, mr,
-                                           mc, affinityeps, ri, ci)
-            store = torch.cat([M_blk, C_blk])
-            del M_blk, C_blk
-        else:
-            store = _affinity_block_stored(invariant, P1, P2, A, m_true, mr,
-                                           mc, affinityeps, storage_dtype,
-                                           ri, ci, build_chunk)
+        with profiling.annotate("sharded.build"):
+            if storage_dtype is None:
+                M_blk, C_blk = _affinity_block(invariant, P1, P2, A, m_true,
+                                               mr, mc, affinityeps, ri, ci)
+                store = torch.cat([M_blk, C_blk])
+                del M_blk, C_blk
+            else:
+                store = _affinity_block_stored(invariant, P1, P2, A, m_true,
+                                               mr, mc, affinityeps,
+                                               storage_dtype, ri, ci,
+                                               build_chunk)
         mv = sharded_dual_matvec(store, mr, mc, P1.dtype, mesh,
                                  matvec_chunk=matvec_chunk)
         clock.mark("build")
-        s = _solve_flat(mv, u0.to(P1.dtype), params, probes, power_steps,
-                        1.0, clock)
+        with profiling.annotate("sharded.solve"):
+            s = _solve_flat(mv, u0.to(P1.dtype), params, probes, power_steps,
+                            1.0, clock)
         u, F = s.u, s.F
         if storage_dtype is not None:
-            # omega = round(F) needs F well within 0.5 of the exact value
-            # (reference: src/clipper.cpp:305); the top-k polish is exact
-            # only for supports of at most k
-            k = min(support, m_pad)
-            if int((u > 0).sum()) <= k:
-                info["polish_branch"] = "support"
-                F = support_objective(invariant, P1, P2, A, u,
-                                      affinityeps=affinityeps, k=k)
-            else:
-                info["polish_branch"] = "exact"
-                part = _block_quadform(invariant, P1, P2, A, u, m_true, mr,
-                                       mc, affinityeps, ri, ci, build_chunk)
-                if mesh.size > 1:
-                    dist.all_reduce(part, group=mesh.group)
-                acc = torch.promote_types(u.dtype, torch.float32)
-                uu = u.to(acc)
-                F = part.to(acc) + torch.dot(uu, uu)
-            F = F.to(P1.dtype)
+            with profiling.annotate("sharded.polish"):
+                F = _polish(info, invariant, P1, P2, A, u, m_true, mr, mc,
+                            affinityeps, ri, ci, build_chunk, mesh,
+                            min(support, m_pad))
         clock.mark("polish")
         clock.finish()
         if stats is not None:
@@ -459,7 +515,17 @@ def solve_sharded(invariant: PairwiseInvariant, D1, D2, A, u0,
     the squarest over the default group, or one rank without a group).
     The working dtype is D1's, as in the JAX package. Runs on
     ``device`` ("cuda" by default: this process's current card; raises
-    if missing). See :func:`build_sharded_pipeline` for the options."""
+    if missing). See :func:`build_sharded_pipeline` for the options.
+
+    Sizing int8 storage at large m: a rank stores 2 (m/R)(m/C) bytes,
+    34.4 GB at m = 262,144 on a 2 x 2 mesh. Without ``matvec_chunk`` every
+    matvec casts the whole block to f32 (four times the storage), so
+    give a chunk of rows whose f32 copy fits beside it: matvec_chunk
+    rows take 4 matvec_chunk (m/C) bytes (8,192 rows: 4.3 GB at that m).
+    ``support`` is the widest u the cheap polish takes: give it at least
+    the cluster's size with a margin (8,192 for a cluster of ~5,300), or
+    a wider u takes the exact polish, which builds the whole block a
+    second time. ``stats["polish_branch"]`` says which one ran."""
     dev = resolve_device(device)
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
